@@ -11,22 +11,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. identity  - the card's name and power limit, as nvidia-smi reports them;
 3. kernels   - each kernel against its plain PyTorch version on the card,
                on the cases of tests/test_paged_kernel.py and
-               tests/test_attention.py, max abs error beside the tolerance;
-4. serve     - the main path: transformer_lm("base") in bf16 with weights
-               from --seed, a paged InferenceEngine (page 16, 8 slots) and a
-               Scheduler (harvest_lag 4) answering 16 greedy requests
-               (prompts 64-1024 tokens, half sharing a 256-token prefix, 32
-               new tokens each), with kernel launch counts taken over it;
+               tests/test_attention.py (K1, K2, K3 also at the training
+               shape), max abs error beside the tolerance;
+4. serve     - the serving path: transformer_lm("base") in bf16 with
+               weights from --seed, a paged InferenceEngine (page 16, 8
+               slots) and a Scheduler (harvest_lag 4) answering 16 greedy
+               requests (prompts 64-1024 tokens, half sharing a 256-token
+               prefix, 32 new tokens each), with kernel launch counts taken
+               over it;
 5. crosscheck - at base width and 2 layers in f32, the same requests
                through a kernel engine and a paged_kernel=False engine
                (identical greedy tokens), then one finished request scored
                by the cacheless forward (flash kernel), its logits held
                against the engine's prefill logits;
-6. timing    - each kernel, its plain version and one library call at the
-               main path's shapes, with CUDA events.
+6. train     - the training path: transformer_lm("base", max_seq=4096),
+               bf16 compute with f32 parameters, init_state(..., adamw(3e-4))
+               and make_lm_train_step(), batches of 8 x 4096 synthetic
+               Markov tokens (vocab 32000) through the DataLoader: 3
+               warm-up and 10 timed steps, with kernel launch counts taken
+               over the timed steps (K1, K2, K3 each once per layer and
+               step), finite and falling loss, tokens/s and analytic MFU;
+7. traincheck - one step at base width, 2 layers, batch 2 x 512, sgd(0.1),
+               attn_impl='flash' (K1, K2, K3) against attn_impl='dense'
+               (plain autograd) from the same weights and batch: loss,
+               every gradient and every updated parameter, in f32 and bf16;
+8. timing    - each kernel, its plain version and one library call at the
+               main paths' shapes, with CUDA events.
 
-``--phases profile`` (not in the default set) adds a serving run under
-torch.profiler and host timers: where the main path's time goes.
+``--phases profile`` (not in the default set) adds a serving run and two
+training steps under torch.profiler (and host timers for serving): where
+the main paths' time goes.  ``--phases train,traincheck`` drives the
+training path alone.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or without
@@ -46,7 +61,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "timing")
+PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "train",
+          "traincheck", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -57,6 +73,25 @@ DEV = "cuda"   # every phase runs on the card
 TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = 2e-4
 CROSS_LOGIT_TOL = 2e-3     # f32 engine prefill vs cacheless forward logits
+# the backward kernels against their plain versions on the same residuals,
+# |got - want| <= atol + share·median|want| + rtol·|want|, per tensor, as
+# (atol, share, rtol): f32 differs by summation order over up to 4096 keys.
+# bf16 also rounds ds and p to bf16 before their products, where a score
+# that differs in its last f32 bits can round the other way, and rounds the
+# outputs to bf16 (one ulp is at most 2^-7 of the value).  The gradients'
+# scale falls with the row (median |dq| ~0.025 at S = 4096), so a fixed
+# atol of that size would pass a kernel that wrote zeros there: the bf16
+# absolute term is a share of each tensor's median |want|, about 4 ulps
+BWD_TOL = {"float32": (1e-4, 0.0, 1e-4), "bfloat16": (0.0, 2**-5, 2e-2)}
+# traincheck, flash (K1-K3) vs dense (plain autograd) step: the loss within
+# an absolute bound; each gradient, and each parameter's update, within a
+# share of that tensor's largest dense value.  f32: summation order only;
+# bf16: the two attentions round at different places (normalized weights
+# vs unnormalized p and a normalized output), ~2^-8 relative per rounding,
+# compounded over two layers and the tied head
+TRAINCHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-4),
+                  "bfloat16": dict(loss=2e-2, grad=5e-2)}
+TRAINCHECK_LR = 0.1
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
@@ -228,9 +263,10 @@ def check_paged(torch, results):
 def check_flash(torch, results):
     from dtdl_tpu_torch.ops.attention import (flash_attention_reference,
                                               flash_fwd)
-    from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
     gen = torch.Generator(device=DEV).manual_seed(2)
     cases = [
+        ("train 8x4x4096 hd128 causal rope bf16", 8, 4, 4096, 4096, 128,
+         torch.bfloat16, True, "rope"),
         ("self 2048 hd128 causal rope bf16", 2, 4, 2048, 2048, 128,
          torch.bfloat16, True, "rope"),
         ("self 2048 hd128 non-causal rope bf16", 2, 4, 2048, 2048, 128,
@@ -265,20 +301,7 @@ def check_flash(torch, results):
         k = torch.randn(b, h, sk, d, generator=gen, device=DEV).to(dtype)
         v = torch.randn(b, h, sk, d, generator=gen, device=DEV).to(dtype)
         scale = 1.0 / math.sqrt(d)
-        tabs = positions = ropet = None
-        if rope is not None:
-            cos, sin = rope_frequencies(d, 4096, device=DEV)
-            ropet = (cos, sin)
-            if rope == "positions":
-                pos_q = torch.randperm(4096, generator=gen,
-                                       device=DEV)[:sq].sort().values
-                pos_k = pos_q.clone()
-                positions = (pos_q, pos_k)
-            else:
-                pos_k = torch.arange(sk, device=DEV)
-                pos_q = (torch.arange(sq, device=DEV) + sk - sq).clamp(
-                    min=0)
-            tabs = rope_rows(cos, sin, pos_q) + rope_rows(cos, sin, pos_k)
+        ropet, positions, tabs = rope_tables(torch, gen, d, sq, sk, rope)
         o, lse = flash_fwd(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d),
                            v.reshape(b * h, sk, d), tabs, scale=scale,
                            causal=causal)
@@ -296,6 +319,119 @@ def check_flash(torch, results):
         if not ok:
             raise AssertionError(f"K1 {name} disagrees with its plain version")
         results[name] = err
+
+
+def rope_tables(torch, gen, d, sq, sk, rope):
+    """(rope=(cos, sin), rope_positions, the kernels' rope rows) for a
+    case: default positions (keys from 0, queries bottom-aligned) or
+    sorted random explicit ones."""
+    from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
+    if rope is None:
+        return None, None, None
+    cos, sin = rope_frequencies(d, 4096, device=DEV)
+    positions = None
+    if rope == "positions":
+        pos_q = torch.randperm(4096, generator=gen, device=DEV)[:sq].sort().values
+        pos_k = torch.randperm(4096, generator=gen, device=DEV)[:sk].sort().values
+        positions = (pos_q, pos_k)
+    else:
+        pos_k = torch.arange(sk, device=DEV)
+        pos_q = (torch.arange(sq, device=DEV) + sk - sq).clamp(min=0)
+    return (cos, sin), positions, rope_rows(cos, sin, pos_q) + rope_rows(
+        cos, sin, pos_k)
+
+
+# (name, b, h, sq, sk, head_dim, dtype, causal, rope) of the K2/K3 checks:
+# the training shape, f32 at S = 1024, cross 160/320, ragged 200, explicit
+# rope positions, rows that see no key (causal, sq > sk), head dims 16-64
+BWD_CASES = [
+    ("train 8x4x4096 hd128 causal rope bf16", 8, 4, 4096, 4096, 128, "bf16",
+     True, "rope"),
+    ("self 8x4x4096 hd128 non-causal rope bf16", 8, 4, 4096, 4096, 128,
+     "bf16", False, "rope"),
+    ("self 8x4x1024 hd128 causal rope f32", 8, 4, 1024, 1024, 128, "f32",
+     True, "rope"),
+    ("self 8x4x1024 hd128 non-causal rope f32", 8, 4, 1024, 1024, 128, "f32",
+     False, "rope"),
+    ("cross 160/320 causal f32", 2, 2, 160, 320, 64, "f32", True, None),
+    ("cross 160/320 non-causal f32", 2, 2, 160, 320, 64, "f32", False, None),
+    ("cross 160/320 causal bf16", 2, 2, 160, 320, 64, "bf16", True, None),
+    ("cross 160/320 non-causal rope bf16", 2, 2, 160, 320, 128, "bf16",
+     False, "rope"),
+    ("ragged 200 causal f32", 2, 2, 200, 200, 64, "f32", True, None),
+    ("ragged 200 causal rope bf16", 2, 2, 200, 200, 128, "bf16", True,
+     "rope"),
+    ("ragged 200 non-causal rope bf16", 2, 2, 200, 200, 128, "bf16", False,
+     "rope"),
+    ("explicit rope positions causal f32", 2, 2, 256, 256, 128, "f32", True,
+     "positions"),
+    ("explicit rope positions causal bf16", 2, 2, 256, 256, 128, "bf16",
+     True, "positions"),
+    ("causal sq>sk 320/160 f32 (rows that see no key)", 2, 2, 320, 160, 64,
+     "f32", True, None),
+    ("causal sq>sk 320/160 bf16 (rows that see no key)", 2, 2, 320, 160, 64,
+     "bf16", True, None),
+] + [case for dd in (16, 32, 64) for case in (
+    (f"self 96 hd{dd} causal rope f32", 2, 4, 96, 96, dd, "f32", True,
+     "rope"),
+    (f"self 200 hd{dd} causal rope bf16", 2, 4, 200, 200, dd, "bf16", True,
+     "rope"))]
+
+
+def check_flash_bwd(torch, results):
+    """K2 and K3 against their plain versions on the same residuals: the
+    plain forward's o and lse, delta = rowsum(dO∘O)."""
+    from dtdl_tpu_torch.ops.attention import (flash_attention_reference,
+                                              flash_bwd_dkv,
+                                              flash_bwd_dkv_reference,
+                                              flash_bwd_dq,
+                                              flash_bwd_dq_reference)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for name, b, h, sq, sk, d, dtype, causal, rope in BWD_CASES:
+        dtype = dtypes[dtype]
+        q, do = (torch.randn(b, h, sq, d, generator=gen, device=DEV).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, sk, d, generator=gen, device=DEV).to(dtype)
+                for _ in range(2))
+        scale = 1.0 / math.sqrt(d)
+        ropet, positions, tabs = rope_tables(torch, gen, d, sq, sk, rope)
+        with torch.no_grad():
+            o, lse = flash_attention_reference(q, k, v, causal=causal,
+                                               scale=scale, rope=ropet,
+                                               rope_positions=positions)
+        flat = [x.reshape(b * h, x.shape[2], d) for x in (q, k, v, do)]
+        lse = lse.reshape(b * h, sq)
+        delta = (do.float() * o.float()).sum(-1).reshape(b * h, sq)
+        args = (*flat, lse, delta, tabs)
+        kw = dict(scale=scale, causal=causal)
+        got = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
+        sync(torch)
+        want = (flash_bwd_dq_reference(*args, **kw),)
+        want += flash_bwd_dkv_reference(*args, **kw)
+        sync(torch)
+        atol0, share, rtol = BWD_TOL[str(dtype).split(".")[1]]
+        errs, parts, ok = [], [], True
+        for label, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.float()
+            diff = (g.float() - w).abs()
+            med = float(w.abs().median())
+            atol = atol0 + share * med
+            # the worst element's share of its tolerance
+            used = float((diff / (atol + rtol * w.abs()).clamp(
+                min=1e-30)).max())
+            ok &= used <= 1.0 and bool(torch.isfinite(g).all())
+            errs.append(float(diff.max()))
+            parts.append(f"{label}={errs[-1]:.3e} (median |want| {med:.3e}, "
+                         f"atol {atol:.2e}, worst {used:.3f} of tol)")
+        del got, want
+        log(f"K2/K3 flash_bwd {name}: max_abs_err " + " ".join(parts)
+            + f" tol=atol {atol0:.0e} + {share:.4g}·median|want| + rtol "
+            f"{rtol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2/K3 {name} disagree with their plain "
+                                 f"versions")
+        results["bwd " + name] = errs
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +545,187 @@ def phase_crosscheck(torch, seed, traffic):
     return flash_launches, len(prompt) + len(req.tokens) - 1
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 4096
+
+
+def train_setup(torch, seed, n_batches, batch, seq):
+    """The training path's pieces, as a user builds them: synthetic Markov
+    tokens (vocab 32000) through the DataLoader, transformer_lm("base",
+    max_seq=seq) with bf16 compute and f32 weights from ``seed``, an
+    adamw(3e-4) state and the step."""
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.data.sharding import ShardedSampler
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.train.optim import adamw
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    tokens, _ = synthetic_lm(n_train=batch * n_batches, n_test=batch,
+                             seq_len=seq, vocab_size=32000, seed=seed)
+    loader = DataLoader({"tokens": tokens}, batch,
+                        sampler=ShardedSampler(len(tokens), seed=seed),
+                        device=DEV)
+    model = transformer_lm("base", max_seq=seq, seed=None, device=DEV)
+    state = init_state(model, seed, adamw(3e-4), device=DEV)
+    return state, make_lm_train_step(), iter(loader)
+
+
+def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.obs.goodput import lm_train_flops, peak_flops_per_chip
+    state, step, batches = train_setup(torch, seed, warmup + steps,
+                                       TRAIN_BATCH, TRAIN_SEQ)
+    cfg = state.model.cfg
+    losses = []
+    for _ in range(warmup):
+        state, metrics = step(state, next(batches))
+        losses.append(metrics["loss"])
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step(state, next(batches))
+        losses.append(metrics["loss"])
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(x) for x in losses]
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    flops = lm_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    peak = peak_flops_per_chip()
+    step_ms = 1e3 * wall / steps
+    tokens_per_s = TRAIN_BATCH * (TRAIN_SEQ - 1) * steps / wall
+    mfu = flops * steps / wall / peak if peak else None
+    log(f"train base bf16 (f32 weights) adamw(3e-4) batch {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: steps={steps} (after {warmup} warm-up) wall_s="
+        f"{wall:.4f} step_ms={step_ms:.2f} tokens_per_s={tokens_per_s:.1f} "
+        f"flops_per_step={flops:.4e} mfu={mfu if mfu is None else round(mfu, 5)} "
+        f"peak_mem_gib={peak_mem:.2f} loss_first={losses[0]:.5f} "
+        f"loss_last={losses[-1]:.5f} launches={launches}")
+    log("train losses: " + " ".join(f"{x:.5f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    want = cfg.n_layers * steps
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} steps, want {want} (one per layer "
+                                 f"and step)")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=step_ms, tokens_per_s=tokens_per_s,
+                          mfu=mfu)
+
+
+def phase_traincheck(torch, seed):
+    """One make_lm_train_step step through the flash kernels and one
+    through dense attention (plain autograd), same weights and batch."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.data.synthetic import markov_tokens
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    tokens = markov_tokens(2, 512, 32000, seed=seed + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = TRAINCHECK_TOL[name]
+        out = {}
+        for impl in ("flash", "dense"):
+            model = transformer_lm("base", n_layers=2, max_seq=512,
+                                   dtype=dtype, attn_impl=impl, seed=None,
+                                   device=DEV)
+            state = init_state(model, seed, sgd(TRAINCHECK_LR), device=DEV)
+            kernels.reset_launches()
+            state, metrics = make_lm_train_step()(state, {"tokens": tokens})
+            sync(torch)
+            out[impl] = (float(metrics["loss"]), dict(kernels.LAUNCHES),
+                         {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()},
+                         {n: p.detach().clone()
+                          for n, p in model.named_parameters()})
+            del state, model
+        (lf, launches, gf, pf), (ld, launches_d, gd, pd) = (out["flash"],
+                                                            out["dense"])
+        # sgd is linear in the gradient: an updated parameter may differ by
+        # the gradient tolerance times the learning rate, plus the f32
+        # rounding of p - lr·g itself (two units in the last place)
+        eps = torch.finfo(torch.float32).eps
+        grad_err = upd_err = 0.0
+        for n in gd:
+            gmax = float(gd[n].abs().max())
+            grad_err = max(grad_err, float((gf[n] - gd[n]).abs().max())
+                           / max(gmax, 1e-30))
+            bound = (TRAINCHECK_LR * tol["grad"] * gmax
+                     + 2 * eps * float(pd[n].abs().max()))
+            upd_err = max(upd_err, float((pf[n] - pd[n]).abs().max())
+                          / max(bound, 1e-30))
+        ok = (abs(lf - ld) <= tol["loss"] and grad_err <= tol["grad"]
+              and upd_err <= 1.0 and math.isfinite(lf))
+        kernels_ran = all(launches[k] == 2 for k in
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        dense_plain = launches_d["flash_fwd"] == 0 == launches_d[
+            "flash_bwd_dq"]
+        log(f"traincheck base 2-layer {name} flash (K1-K3) vs dense step: "
+            f"loss {lf:.6f} vs {ld:.6f} (|d|={abs(lf - ld):.3e} tol "
+            f"{tol['loss']:.0e}); worst gradient err {grad_err:.3e} of the "
+            f"tensor's max (tol {tol['grad']:.0e}); worst updated-parameter "
+            f"err {upd_err:.3f} of its bound; {len(gd)} tensors; flash launches "
+            f"{launches} {'ok' if ok and kernels_ran else 'FAIL'}")
+        if not (ok and kernels_ran and dense_plain):
+            raise AssertionError(f"traincheck {name}: the flash step disagrees "
+                                 f"with the dense step")
+
+
+def phase_profile_train(torch, seed, steps: int = 2):
+    """Device time of training steps by kernel (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    state, step, batches = train_setup(torch, seed, steps + 2, TRAIN_BATCH,
+                                       TRAIN_SEQ)
+    for _ in range(2):
+        state, _ = step(state, next(batches))
+    sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, metrics = step(state, next(batches))
+        sync(torch)
+    wall = time.perf_counter() - t0
+    kernel_rows = [e for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type)]
+    dev_total = sum(e.self_device_time_total for e in kernel_rows) / 1e3
+    log(f"profile train {steps} steps: wall {wall:.4f}s (traced), device "
+        f"kernel time {dev_total / steps:.2f} ms per step")
+    # the step's parts, by kernel name
+    groups = {"K1 flash_fwd": ("flash_fwd",), "K2 bwd_dq": ("bwd_dq",),
+              "K3 bwd_dkv": ("bwd_dkv",),
+              "GEMM (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass"),
+              "optimizer": ("multi_tensor",)}
+    spent = dict.fromkeys([*groups, "other (elementwise, reductions, "
+                           "copies)"], 0.0)
+    for e in kernel_rows:
+        name = next((g for g, keys in groups.items()
+                     if any(k in e.key for k in keys)),
+                    "other (elementwise, reductions, copies)")
+        spent[name] += e.self_device_time_total / 1e3
+    for name, ms in spent.items():
+        log(f"  {ms / steps:9.2f} ms/step  {100 * ms / dev_total:5.1f}%  "
+            f"{name}")
+    for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / steps:9.2f} ms/step "
+            f"{e.count // steps:5d}x/step  {e.key[:70]}")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+
 def phase_profile(torch, seed):
     """Where a serving run's time goes: host seconds inside prefill,
     decode dispatch and the harvest wait (wrapped timers), and device
@@ -519,7 +836,7 @@ def time_flash(torch, *, b, h, s, d, dtype, causal=True):
     gen = torch.Generator(device=DEV).manual_seed(4)
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device=DEV).to(dtype)
                for _ in range(3))
-    cos, sin = rope_frequencies(d, 2048, device=DEV)
+    cos, sin = rope_frequencies(d, s, device=DEV)
     rows = rope_rows(cos, sin, torch.arange(s, device=DEV))
     flat = [x.reshape(b * h, s, d) for x in (q, k, v)]
     with torch.no_grad():
@@ -540,6 +857,66 @@ def time_flash(torch, *, b, h, s, d, dtype, causal=True):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms, bytes=nbytes, ops=ops)
+
+
+def time_flash_bwd(torch):
+    """K2 and K3 at the training path's shape (bf16, causal, fused rope,
+    8 x 4 heads x 4096 x 128): each kernel, its plain version, the bound,
+    and torch.autograd.grad through SDPA (pre-roped inputs), one figure
+    for the pair."""
+    import torch.nn.functional as F
+    from dtdl_tpu_torch.ops.attention import (flash_bwd_dkv,
+                                              flash_bwd_dkv_reference,
+                                              flash_bwd_dq,
+                                              flash_bwd_dq_reference,
+                                              flash_fwd)
+    from dtdl_tpu_torch.ops.rope import (apply_rope, rope_frequencies,
+                                         rope_rows)
+    b, h, s, d = TRAIN_BATCH, 4, TRAIN_SEQ, 128
+    bh = b * h
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device=DEV).to(
+        torch.bfloat16) for _ in range(4))
+    cos, sin = rope_frequencies(d, s, device=DEV)
+    rows = rope_rows(cos, sin, torch.arange(s, device=DEV))
+    tabs = rows + rows
+    scale = 1 / math.sqrt(d)
+    flat = [x.reshape(bh, s, d) for x in (q, k, v, do)]
+    out = {}
+    with torch.no_grad():
+        o, lse = flash_fwd(*flat[:3], tabs, scale=scale, causal=True)
+        delta = (flat[3].float() * o.float()).sum(-1)
+        args = (*flat, lse, delta, tabs)
+        kw = dict(scale=scale, causal=True)
+        runs = {
+            "K2": (lambda: flash_bwd_dq(*args, **kw),
+                   lambda: flash_bwd_dq_reference(*args, **kw)),
+            "K3": (lambda: flash_bwd_dkv(*args, **kw),
+                   lambda: flash_bwd_dkv_reference(*args, **kw)),
+        }
+        for name, (run, plain) in runs.items():
+            out[name] = dict(ms=cuda_ms(torch, run),
+                             plain_ms=cuda_ms(torch, plain, iters=3,
+                                              warmup=1))
+    qr, kr, vr = (x.detach().requires_grad_()
+                  for x in (apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                            v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+    pair_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), do, retain_graph=True))
+    out["K2"]["library_ms"] = out["K3"]["library_ms"] = pair_ms
+    el, half = 2, bh * s * s * d // 2
+    tensor, rowf, tab = bh * s * d * el, bh * s * 4, 4 * s * d * 4
+    # K2 reads q, k, v, dO, lse, delta and writes dq; K3 writes dk and dv
+    work = {"K2": (5 * tensor + 2 * rowf + tab, 6 * half),
+            "K3": (6 * tensor + 2 * rowf + tab, 8 * half)}
+    for name, (nbytes, ops) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+        out[name].update(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else
+                         "operations", bytes=nbytes, ops=ops)
+    return out
 
 
 def fmt_timing(name, t):
@@ -606,8 +983,10 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         check_paged(torch, errors)
         check_flash(torch, errors)
+        check_flash_bwd(torch, errors)
 
-    k4_launches = k1_launches = None
+    k4_launches = None
+    train_launches = {}
     traffic = None
     scoring_len = 1024
     if "serve" in phases:
@@ -616,11 +995,15 @@ def main(argv=None) -> int:
     if "crosscheck" in phases:
         if traffic is None:
             traffic = make_traffic(args.seed, 32000)
-        k1_launches, scoring_len = phase_crosscheck(torch, args.seed,
-                                                    traffic)
+        _, scoring_len = phase_crosscheck(torch, args.seed, traffic)
+    if "train" in phases:
+        train_launches, _ = phase_train(torch, args.seed)
+    if "traincheck" in phases:
+        phase_traincheck(torch, args.seed)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)
+        phase_profile_train(torch, args.seed)
     if "timing" in phases:
         # K4 at the main path's decode shape: 8 slots, pool of the engine
         # (page 16, 128 pages per slot), positions spread as the traffic's
@@ -635,14 +1018,35 @@ def main(argv=None) -> int:
         log(fmt_timing(f"time K1 causal S={scoring_len} f32", k1))
         k1b = time_flash(torch, b=2, h=4, s=2048, d=128, dtype=torch.bfloat16)
         log(fmt_timing("time K1 causal S=2048 B=2 bf16", k1b))
+        # K1, K2, K3 at the training path's shape
+        tr = time_flash_bwd(torch)
+        tr["K1"] = time_flash(torch, b=TRAIN_BATCH, h=4, s=TRAIN_SEQ, d=128,
+                              dtype=torch.bfloat16)
+        for name in ("K1", "K2", "K3"):
+            log(fmt_timing(f"time {name} train shape 8x4x4096 hd128 causal "
+                           f"rope bf16", tr[name]))
+        main_case = "train 8x4x4096 hd128 causal rope bf16"
+        bwd_errs = errors.get("bwd " + main_case)
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         line = {"kernels": [
             {"name": "flash_fwd", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/flash_fwd.cu",
              "replaces": "dtdl_tpu/ops/attention.py:271",
-             "launches": k1_launches,
-             "max_abs_err": errors.get("self 2048 hd128 causal rope f32"),
-             **{k: k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}},
+             "launches": train_launches.get("flash_fwd"),
+             "max_abs_err": errors.get(main_case),
+             **{k: tr["K1"][k] for k in keys}},
+            {"name": "flash_bwd_dq", "route": "cuda",
+             "source": "dtdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "dtdl_tpu/ops/attention.py:408",
+             "launches": train_launches.get("flash_bwd_dq"),
+             "max_abs_err": bwd_errs and bwd_errs[0],
+             **{k: tr["K2"][k] for k in keys}},
+            {"name": "flash_bwd_dkv", "route": "cuda",
+             "source": "dtdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "dtdl_tpu/ops/attention.py:475",
+             "launches": train_launches.get("flash_bwd_dkv"),
+             "max_abs_err": bwd_errs and max(bwd_errs[1:]),
+             **{k: tr["K3"][k] for k in keys}},
             {"name": "paged_attention", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/paged_attention.cu",
              "replaces": "dtdl_tpu/ops/paged_attention.py:88",

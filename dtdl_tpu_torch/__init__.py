@@ -1,16 +1,19 @@
 """dtdl_tpu_torch: the PyTorch/CUDA port of dtdl_tpu for one NVIDIA H100.
 
 The JAX package ``dtdl_tpu`` stays the reference; this package mirrors
-its module names (``ops/``, ``models/``, ``serve/``, ``metrics/``,
-``obs/``) and imports only torch, numpy and the standard library.  Every
+its module names (``ops/``, ``models/``, ``train/``, ``data/``,
+``serve/``, ``metrics/``, ``obs/``) and imports only torch, numpy and the
+standard library.  Every
 Pallas kernel on a ported path is a hand-written Hopper kernel under
 ``csrc/``, built by :mod:`dtdl_tpu_torch.kernels`; each has a plain
 PyTorch version beside it that CPU tensors take.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
-with no CUDA device they raise :class:`NoCudaDeviceError`.  This slice
-serves the LM: :func:`transformer_lm`, :mod:`dtdl_tpu_torch.bridge`,
-:class:`InferenceEngine` and :class:`Scheduler`.
+with no CUDA device they raise :class:`NoCudaDeviceError`.  The ported
+slices train and serve the LM: :func:`transformer_lm`,
+:mod:`dtdl_tpu_torch.bridge`, ``train.state.init_state`` and
+``train.step.make_lm_train_step`` over ``data.loader.DataLoader``, and
+:class:`InferenceEngine` with :class:`Scheduler`.
 """
 
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device

@@ -1,4 +1,5 @@
-// Shared pieces of the two attention kernels (flash_fwd.cu, paged_attention.cu).
+// Shared pieces of the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// paged_attention.cu).
 //
 // Both kernels hold a tile of QT query rows in shared memory and stream key
 // chunks of KC rows past it: scores, an online softmax (running max m, sum l
@@ -256,6 +257,89 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ float load_scalar(const void* base, size_t e, int kind) {
   return kind == kBF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[e])
                        : static_cast<const float*>(base)[e];
+}
+
+// ---- fused rope on load (flash_fwd.cu, flash_bwd.cu) ------------------------
+//
+// The tables are per-position rows (c, s) of width D, the half-width
+// cos/sin tables repeated twice (ops/rope.py rope_rows), so a rotated row is
+// x·c + rot_half(x)·s with rot_half([x1, x2]) = [-x2, x1].
+
+// Rotate `n` rows of the f32 buffer `buf` (stride `ld`) in place, the rows
+// of positions row0.. (only the first `nvalid` are real): f32 without fused
+// multiply-adds (the reference computes two products and a sum), rounded
+// to T.  NT threads take part.
+template <typename T, int D, int NT = 128>
+__device__ void rope_rows(float* buf, int ld, int n, int row0, int nvalid, const float* c,
+                          const float* s) {
+  constexpr int H2 = D / 2;
+  for (int e = threadIdx.x; e < n * H2; e += NT) {
+    const int r = e / H2, d = e - r * H2;
+    if (r >= nvalid) continue;
+    float* x = buf + r * ld;
+    const float* cr = c + size_t(row0 + r) * D;
+    const float* sr = s + size_t(row0 + r) * D;
+    const float x1 = x[d], x2 = x[d + H2];
+    x[d] = round_to<T>(__fadd_rn(__fmul_rn(x1, cr[d]), __fmul_rn(-x2, sr[d])));
+    x[d + H2] = round_to<T>(__fadd_rn(__fmul_rn(x2, cr[d + H2]), __fmul_rn(x1, sr[d + H2])));
+  }
+}
+
+// Stage `n` rows of a [.., D] bf16 slab (rows from `row0`, `nvalid` of them
+// real, the rest zero) into shared memory rows of stride `ld`, roped when
+// tables are given.  Thread e takes 8 dimensions d..d+7 of the first half
+// of one row and the matching 8 of the second half (rope pairs d with
+// d + D/2), one 16-byte load and store each.
+template <int D, int NT = 128>
+__device__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
+                           int n, int nvalid, const float* c, const float* s) {
+  constexpr int H2 = D / 2, G = H2 / 8;
+  for (int e = threadIdx.x; e < n * G; e += NT) {
+    const int r = e / G, d = (e - r * G) * 8;
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if (r < nvalid) {
+      const __nv_bfloat16* x = src + size_t(row0 + r) * D + d;
+      lo = *reinterpret_cast<const uint4*>(x);
+      hi = *reinterpret_cast<const uint4*>(x + H2);
+      if (c != nullptr) {
+        const float* cr = c + size_t(row0 + r) * D + d;
+        const float* sr = s + size_t(row0 + r) * D + d;
+        __nv_bfloat16* l16 = reinterpret_cast<__nv_bfloat16*>(&lo);
+        __nv_bfloat16* h16 = reinterpret_cast<__nv_bfloat16*>(&hi);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x1 = __bfloat162float(l16[i]), x2 = __bfloat162float(h16[i]);
+          l16[i] = __float2bfloat16(__fadd_rn(__fmul_rn(x1, cr[i]), __fmul_rn(-x2, sr[i])));
+          h16[i] = __float2bfloat16(
+              __fadd_rn(__fmul_rn(x2, cr[i + H2]), __fmul_rn(x1, sr[i + H2])));
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + d) = lo;
+    *reinterpret_cast<uint4*>(dst + r * ld + d + H2) = hi;
+  }
+}
+
+// The inverse rotation of one f32 gradient pair (g1 at dimension d, g2 at
+// d + D/2), g·c − rot_half(g)·s: rope is orthogonal per row, so its VJP is
+// the rotation with the angle negated (attention.py _unrotate_f32).
+__device__ __forceinline__ void unrotate_pair(float& g1, float& g2, float c1, float s1, float c2,
+                                              float s2) {
+  const float a = __fsub_rn(__fmul_rn(g1, c1), __fmul_rn(-g2, s1));
+  const float b = __fsub_rn(__fmul_rn(g2, c2), __fmul_rn(g1, s2));
+  g1 = a;
+  g2 = b;
+}
+
+// B operand (k = row of the slab, n = 8 dimensions) of m16n8k16 from a
+// row-major bf16 slab in shared memory: a transposing matrix load.  `row`
+// is the shared address of the row this lane addresses (lanes 0-15 give
+// rows 0..15 of the 16-row k step), `byte_off` the column offset.
+__device__ __forceinline__ void ldmatrix_trans_x2(uint32_t& b0, uint32_t& b1, uint32_t row,
+                                                  uint32_t byte_off) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(row + byte_off));
 }
 
 }  // namespace dtdl

@@ -41,7 +41,9 @@ namespace {
 using dtdl::ld32;
 using dtdl::mma_16816;
 using dtdl::pack_bf16;
+using dtdl::rope_rows;
 using dtdl::smem_addr;
+using dtdl::stage_rows;
 using dtdl::Tile;
 
 constexpr int kThreads = 128;
@@ -61,25 +63,6 @@ struct FlashArgs {
   int BH, Sq, Sk, causal, kind;
   float scale;
 };
-
-// Rotate `n` rows of `buf` (stride `ld`) in place: x·c + rot_half(x)·s with
-// rot_half([x1, x2]) = [-x2, x1], f32 without fused multiply-adds (the
-// reference computes two products and a sum), rounded to T.
-template <typename T, int D>
-__device__ void rope_rows(float* buf, int ld, int n, int row0, int nvalid, const float* c,
-                          const float* s) {
-  constexpr int H2 = D / 2;
-  for (int e = threadIdx.x; e < n * H2; e += kThreads) {
-    const int r = e / H2, d = e - r * H2;
-    if (r >= nvalid) continue;
-    float* x = buf + r * ld;
-    const float* cr = c + size_t(row0 + r) * D;
-    const float* sr = s + size_t(row0 + r) * D;
-    const float x1 = x[d], x2 = x[d + H2];
-    x[d] = dtdl::round_to<T>(__fadd_rn(__fmul_rn(x1, cr[d]), __fmul_rn(-x2, sr[d])));
-    x[d + H2] = dtdl::round_to<T>(__fadd_rn(__fmul_rn(x2, cr[d + H2]), __fmul_rn(x1, sr[d + H2])));
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -172,41 +155,6 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 constexpr int kMmaRows = 64;   // query rows per block, 16 per warp
 constexpr int kMmaKeys = 64;   // keys per chunk
 constexpr int kPad = 8;        // bf16 pad per shared row: conflict-free fragment loads
-
-// Stage `n` rows of a [.., D] bf16 slab (rows from `row0`, `nvalid` of them
-// real, the rest zero) into shared memory rows of stride `ld`, roped when
-// tables are given.  Thread e takes 8 dimensions d..d+7 of the first half
-// of one row and the matching 8 of the second half (rope pairs d with
-// d + D/2), one 16-byte load and store each.
-template <int D>
-__device__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
-                           int n, int nvalid, const float* c, const float* s) {
-  constexpr int H2 = D / 2, G = H2 / 8;
-  for (int e = threadIdx.x; e < n * G; e += kThreads) {
-    const int r = e / G, d = (e - r * G) * 8;
-    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
-    if (r < nvalid) {
-      const __nv_bfloat16* x = src + size_t(row0 + r) * D + d;
-      lo = *reinterpret_cast<const uint4*>(x);
-      hi = *reinterpret_cast<const uint4*>(x + H2);
-      if (c != nullptr) {
-        const float* cr = c + size_t(row0 + r) * D + d;
-        const float* sr = s + size_t(row0 + r) * D + d;
-        __nv_bfloat16* l16 = reinterpret_cast<__nv_bfloat16*>(&lo);
-        __nv_bfloat16* h16 = reinterpret_cast<__nv_bfloat16*>(&hi);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x1 = __bfloat162float(l16[i]), x2 = __bfloat162float(h16[i]);
-          l16[i] = __float2bfloat16(__fadd_rn(__fmul_rn(x1, cr[i]), __fmul_rn(-x2, sr[i])));
-          h16[i] = __float2bfloat16(
-              __fadd_rn(__fmul_rn(x2, cr[i + H2]), __fmul_rn(x1, sr[i + H2])));
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + d) = lo;
-    *reinterpret_cast<uint4*>(dst + r * ld + d + H2) = hi;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

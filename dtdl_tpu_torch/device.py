@@ -10,6 +10,7 @@ do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,3 +40,15 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"the port runs on 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def upload(array, device, dtype=None) -> torch.Tensor:
+    """Host numpy -> ``device`` without waiting for the card: a pinned
+    staging copy and a non-blocking transfer (a plain ``.to`` from
+    pageable memory would synchronize the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else, so a run can show that its path went through
 # the kernels (reset with reset_launches()).
-LAUNCHES = {"flash_fwd": 0, "paged_attention": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_attention": 0}
 
 # Element codes of the C interface (csrc/attn_common.cuh ElemKind).
 F32, BF16, INT8, FP8_E4M3 = 0, 1, 2, 3
@@ -144,6 +145,10 @@ def lib() -> ctypes.CDLL:
             handle.dtdl_paged_attention.restype = _I
             handle.dtdl_flash_fwd.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
             handle.dtdl_flash_fwd.restype = _I
+            handle.dtdl_flash_bwd_dq.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+            handle.dtdl_flash_bwd_dq.restype = _I
+            handle.dtdl_flash_bwd_dkv.argtypes = [_P] * 12 + [_I] * 6 + [_F, _P]
+            handle.dtdl_flash_bwd_dkv.restype = _I
             handle.dtdl_error_string.argtypes = [_I]
             handle.dtdl_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -13,21 +13,29 @@ tree straight across:
   [d_ff, d_model] (flax Dense);
 * ``embed`` [vocab, d_model]; ``ln_attn``/``ln_mlp``/``ln_f`` ``scale``.
 
-Matmul weights and the embedding are held in the model's compute dtype
-(flax keeps f32 params and casts them at each use, which gives the same
-products); norm scales stay f32, as flax multiplies them in f32.
+Parameters are held in f32, as flax holds them (``param_dtype`` f32), and
+every use casts to the compute dtype ``cfg.dtype`` where flax's ``dtype=``
+casts: the matmul kernels at each product, the embedding after the row
+gather and in the tied head.  Training therefore updates f32 master
+weights with f32 optimizer state.  Norm scales stay f32, as flax
+multiplies them in f32.  A server takes :meth:`TransformerLM.compute_copy`
+once, a frozen copy whose weights are already in the compute dtype, so a
+decode step pays no per-step cast of every weight.
 
 Two forwards:
 
-* the cacheless forward (``pos=None``): full causal attention through
+* the cacheless forward (``pos=None``, the training and scoring path):
+  full causal attention, ``attn_impl='flash'`` through
   :func:`~dtdl_tpu_torch.ops.attention.flash_attention` with fused rope
-  (kernel K1 on the card);
+  (kernel K1 forward, K2 and K3 backward on the card) or ``'dense'``
+  (``apply_rope`` then :func:`mha_reference`, plain autograd); with
+  ``remat`` each block is checkpointed (recomputed in the backward);
 * the paged decode forward (``pos`` given): the engine's paged arena,
   :meth:`Attention.paged_attend` (the port of ``_paged_attend_slots``),
   which ends in :func:`~dtdl_tpu_torch.ops.paged_attention.paged_attention`
   (kernel K4 on the card) or, for ``paged_kernel=False``, its plain version.
 
-Not in this slice (they raise ``NotImplementedError`` naming their ROADMAP
+Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
 item): mixture-of-experts blocks, quantized layers and KV pools, LoRA, and
 the dense (unpaged) decode cache.
 """
@@ -40,12 +48,13 @@ from dataclasses import dataclass, fields
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dtdl_tpu_torch.device import resolve_device
-from dtdl_tpu_torch.ops.attention import flash_attention
+from dtdl_tpu_torch.ops.attention import flash_attention, mha_reference
 from dtdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
-from dtdl_tpu_torch.ops.rope import rope_frequencies, rotate
+from dtdl_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate
 
 
 class _Kernel(nn.Module):
@@ -73,35 +82,42 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """q/k/v/out projections around the cacheless flash attention or the
-    paged decode attend."""
+    """q/k/v/out projections around the cacheless attention (flash or
+    dense) or the paged decode attend."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, dtype,
-                 device):
+                 param_dtype, attn_impl: str, device):
         super().__init__()
+        if attn_impl not in ("flash", "dense"):
+            raise ValueError(f"attn_impl must be 'flash' or 'dense', got "
+                             f"{attn_impl!r}")
         self.n_heads, self.head_dim = n_heads, head_dim
-        self.dtype = dtype
+        self.dtype, self.attn_impl = dtype, attn_impl
         for name in ("q", "k", "v"):
             setattr(self, name, _Kernel(d_model, n_heads, head_dim,
-                                        dtype=dtype, device=device))
-        self.out = _Kernel(n_heads, head_dim, d_model, dtype=dtype,
+                                        dtype=param_dtype, device=device))
+        self.out = _Kernel(n_heads, head_dim, d_model, dtype=param_dtype,
                            device=device)
 
     def _proj(self, x, w):
         b, s, _ = x.shape
-        y = torch.matmul(x, w.kernel.reshape(w.kernel.shape[0], -1))
+        kernel = w.kernel.reshape(w.kernel.shape[0], -1).to(self.dtype)
+        y = torch.matmul(x, kernel)
         return y.reshape(b, s, self.n_heads, self.head_dim).transpose(1, 2)
 
     def forward(self, x, cos, sin, pools=None, step=None):
         q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
         if step is not None:
             o = self.paged_attend(q, k, v, pools, step)
-        else:
+        elif self.attn_impl == "flash":
             o = flash_attention(q, k, v, causal=True, rope=(cos, sin))
+        else:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            o = mha_reference(q, k, v, causal=True).to(self.dtype)
         b, _, s, _ = o.shape
         o = o.transpose(1, 2).reshape(b, s, -1)
-        return torch.matmul(o, self.out.kernel.reshape(-1,
-                                                       self.out.kernel.shape[-1]))
+        out = self.out.kernel.reshape(-1, self.out.kernel.shape[-1])
+        return torch.matmul(o, out.to(self.dtype))
 
     def paged_attend(self, q, k, v, pools, step: "PagedStep"):
         """Attend ``s_new`` new rows per slot against the block-paged
@@ -129,27 +145,32 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, *, dtype, device):
+    def __init__(self, d_model: int, d_ff: int, *, dtype, param_dtype,
+                 device):
         super().__init__()
-        self.wi = _Kernel(d_model, d_ff, dtype=dtype, device=device)
-        self.wg = _Kernel(d_model, d_ff, dtype=dtype, device=device)
-        self.wo = _Kernel(d_ff, d_model, dtype=dtype, device=device)
+        self.dtype = dtype
+        self.wi = _Kernel(d_model, d_ff, dtype=param_dtype, device=device)
+        self.wg = _Kernel(d_model, d_ff, dtype=param_dtype, device=device)
+        self.wo = _Kernel(d_ff, d_model, dtype=param_dtype, device=device)
 
     def forward(self, x):
-        h = F.silu(torch.matmul(x, self.wg.kernel)) \
-            * torch.matmul(x, self.wi.kernel)
-        return torch.matmul(h, self.wo.kernel)
+        dt = self.dtype
+        h = F.silu(torch.matmul(x, self.wg.kernel.to(dt))) \
+            * torch.matmul(x, self.wi.kernel.to(dt))
+        return torch.matmul(h, self.wo.kernel.to(dt))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: "LMConfig", *, device):
+    def __init__(self, cfg: "LMConfig", *, param_dtype, device):
         super().__init__()
         dt = cfg.dtype
         self.ln_attn = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.head_dim,
-                              dtype=dt, device=device)
+                              dtype=dt, param_dtype=param_dtype,
+                              attn_impl=cfg.attn_impl, device=device)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt,
+                          param_dtype=param_dtype, device=device)
 
     def forward(self, x, cos, sin, pools=None, step=None):
         x = x + self.attn(self.ln_attn(x), cos, sin, pools, step)
@@ -165,6 +186,8 @@ class LMConfig:
     d_ff: int = 1408
     max_seq: int = 2048
     n_experts: int = 0
+    attn_impl: str = "flash"      # 'flash' | 'dense'
+    remat: bool = False           # checkpoint every block when training
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -210,20 +233,25 @@ class PagedStep:
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM: int tokens [batch, seq] -> f32 logits."""
+    """Decoder-only LM: int tokens [batch, seq] -> f32 logits.  Matmul
+    weights and the embedding are held in ``param_dtype`` (f32, as flax
+    holds them; :meth:`compute_copy` builds the serving twin)."""
 
-    def __init__(self, cfg: LMConfig, device=None):
+    def __init__(self, cfg: LMConfig, device=None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 "mixture-of-experts blocks are ROADMAP queue A3 (MoE "
-                "sub-step), not in the serving slice")
+                "sub-step), not ported yet")
         self.cfg = cfg
+        self.param_dtype = param_dtype
         dev = resolve_device(device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                              dtype=cfg.dtype, device=dev))
+                                              dtype=param_dtype, device=dev))
         for i in range(cfg.n_layers):
-            self.add_module(f"block_{i}", Block(cfg, device=dev))
+            self.add_module(f"block_{i}", Block(cfg, param_dtype=param_dtype,
+                                                device=dev))
         self.ln_f = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev)
         cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -236,6 +264,19 @@ class TransformerLM(nn.Module):
     @property
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.n_layers)]
+
+    def compute_copy(self) -> "TransformerLM":
+        """A frozen twin for serving whose matmul weights and embedding
+        are held in the compute dtype (norm scales stay f32), copied once
+        so that the eager decode step does not cast every weight per call.
+        The model itself when its weights are in the compute dtype
+        already (an f32 model)."""
+        if self.param_dtype == self.cfg.dtype:
+            return self
+        twin = TransformerLM(self.cfg, device=self.device,
+                             param_dtype=self.cfg.dtype)
+        twin.load_state_dict(self.state_dict())
+        return twin.requires_grad_(False)
 
     def init_weights(self, seed: int = 0) -> "TransformerLM":
         """Random weights from ``seed`` (torch.Generator on the CPU, so
@@ -285,7 +326,13 @@ class TransformerLM(nn.Module):
                 page=pool.shape[2], n_heads=self.cfg.n_heads,
                 rope_cos=self.rope_cos, rope_sin=self.rope_sin,
                 kernel=paged_kernel)
+        # remat is a training-time memory/FLOPs trade: never under decode
+        remat = self.cfg.remat and step is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
+            if remat:
+                x = checkpoint(block, x, self.rope_cos, self.rope_sin,
+                               use_reentrant=False)
+                continue
             pools = None
             if step is not None:
                 layer = cache[f"block_{i}"]["attn"]
@@ -344,7 +391,7 @@ _PRESETS = {
     "base": dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=4,
                  d_ff=1408, max_seq=2048),
     "large": dict(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8,
-                  d_ff=2816, max_seq=2048),
+                  d_ff=2816, max_seq=2048, remat=True),
 }
 _PRESETS["base-moe8"] = dict(_PRESETS["base"], n_experts=8)
 _PRESETS["small-hd128"] = _PRESETS["small"]
@@ -357,17 +404,17 @@ def transformer_lm(size: str = "tiny", *, device=None, seed: int | None = 0,
     """The JAX package's named configs, built on ``device`` (the card
     unless ``device="cpu"``) with random weights from ``seed`` (``None``
     leaves them uninitialized, for a bridge load).  ``overrides`` set
-    :class:`LMConfig` fields; the JAX-only fields ``remat``,
-    ``moe_every``, ``moe_dispatch``, ``capacity_factor``, ``moe_top_k``,
-    ``moe_group_size`` and ``quantize`` are refused by name."""
+    :class:`LMConfig` fields (``attn_impl``, ``remat``, ``dtype``, ...);
+    the JAX fields of layers not ported yet, ``moe_every``,
+    ``moe_dispatch``, ``capacity_factor``, ``moe_top_k``,
+    ``moe_group_size`` and ``quantize``, are refused by name."""
     if size not in _PRESETS:
         raise ValueError(f"unknown size {size!r}; one of {sorted(_PRESETS)}")
     unknown = set(overrides) - _FIELDS
     if unknown:
         raise NotImplementedError(
-            f"{sorted(unknown)} are not part of the serving slice (MoE and "
-            f"quantized layers are ROADMAP queue A3/A7, remat comes with the "
-            f"training slice A4)")
+            f"{sorted(unknown)} are not ported yet (MoE and quantized layers "
+            f"are ROADMAP queue A3/A7)")
     model = TransformerLM(LMConfig(**{**_PRESETS[size], **overrides}),
                           device=device)
     if seed is not None:

@@ -20,6 +20,9 @@ vectors of earlier steps.  Host-side per-call inputs (tokens, page tables,
 masks) go up through pinned buffers with non-blocking copies, so a step
 never waits for the card.
 
+The engine serves :meth:`TransformerLM.compute_copy` of the model given
+to it: the weights in the compute dtype, taken once at construction.
+
 Every paged attend ends in kernel K4 on the card (``paged_kernel='auto'``
 resolves to the kernel on CUDA and to the plain version on the CPU;
 ``False`` asks for the plain version on any device).  The dense arena,
@@ -33,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dtdl_tpu_torch.device import resolve_device
+from dtdl_tpu_torch.device import resolve_device, upload
 from dtdl_tpu_torch.serve.sampling import SampleParams, sample
 
 
@@ -49,18 +52,6 @@ def default_buckets(max_seq: int, start: int = 16) -> tuple[int, ...]:
         b *= 2
     out.append(max_seq)
     return tuple(out)
-
-
-def upload(array, device, dtype=None) -> torch.Tensor:
-    """Host numpy -> ``device`` without waiting for the card: a pinned
-    staging copy and a non-blocking transfer (a plain ``.to`` from
-    pageable memory would synchronize the stream)."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if dtype is not None:
-        t = t.to(dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _resolve_paged_kernel(flag, device) -> bool:
@@ -109,7 +100,10 @@ class InferenceEngine:
         if page_size < 0 or model.cfg.max_seq % page_size:
             raise ValueError(f"page_size={page_size} must divide "
                              f"max_seq={model.cfg.max_seq}")
-        self.model = model
+        # the compute-dtype twin, taken once: the eager decode step must not
+        # cast every f32 weight per call (the engine serves a snapshot, as
+        # the JAX engine serves the params it was given)
+        self.model = model.compute_copy()
         self.n_slots = n_slots
         self.max_seq = model.cfg.max_seq
         self.buckets = (tuple(sorted(set(buckets))) if buckets

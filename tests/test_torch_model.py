@@ -84,9 +84,12 @@ def test_presets_match_jax():
         jcfg = jtr.transformer_lm(size)
         tcfg = transformer_lm(size, device="cpu", seed=None).cfg
         for f in ("vocab_size", "d_model", "n_layers", "n_heads", "d_ff",
-                  "max_seq"):
+                  "max_seq", "remat", "attn_impl"):
             assert getattr(tcfg, f) == getattr(jcfg, f), (size, f)
         assert tcfg.head_dim == jcfg.head_dim
+    assert transformer_lm("large", device="cpu", seed=None).cfg.remat
+    with pytest.raises(NotImplementedError, match="A3"):
+        transformer_lm("tiny", device="cpu", moe_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer_lm("base-moe8", device="cpu", seed=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -95,10 +98,15 @@ def test_presets_match_jax():
 
 @pytest.mark.parametrize("attn_impl", ["flash", "dense"])
 def test_full_forward_logits_match_jax(pair, attn_impl):
-    """The port's cacheless forward (flash_attention, whose CPU path is the
-    kernel's plain version) against the JAX model with its Pallas flash
-    kernel (interpreter) and with its dense attention."""
+    """The port's cacheless forward against the JAX model: flash (the
+    port's CPU path is the kernel's plain version, JAX's its Pallas flash
+    kernel in the interpreter) and dense attention on both sides."""
     jm, params, tm = pair
+    if attn_impl == "dense":
+        tm = transformer_lm("tiny", device="cpu", seed=None,
+                            dtype=torch.float32, max_seq=MAX_SEQ,
+                            attn_impl="dense")
+        bridge.load_flax_params(tm, params, device="cpu")
     tokens = np.random.default_rng(0).integers(0, 256, (2, 24))
     want = np.asarray(jm.clone(attn_impl=attn_impl).apply(
         {"params": params}, jnp.asarray(tokens)))
@@ -144,3 +152,34 @@ def test_paged_decode_logits_match_jax_engine(pair):
         assert int(tl[0]) == int(np.asarray(jl)[0])
     assert int(ta["index"][0]) == len(prompt) + 6
     assert int(ta["index"][1]) == 0           # inactive slots stay put
+
+
+def test_f32_weights_under_bf16_compute_and_the_serving_copy(pair):
+    """A bf16 model holds f32 weights, as flax does (the bridge loads f32
+    into f32 exactly); the engine serves a compute-dtype copy taken once,
+    so a decode step casts no weight."""
+    _, params, _ = pair
+    tm = transformer_lm("tiny", device="cpu", seed=None, max_seq=MAX_SEQ)
+    assert tm.cfg.dtype == torch.bfloat16
+    bridge.load_flax_params(tm, params, device="cpu")
+    assert {p.dtype for p in tm.parameters()} == {torch.float32}
+    flat = bridge.flatten(params)
+    for name, p in tm.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      flat[name.replace(".", "/")])
+    eng = InferenceEngine(tm, n_slots=2, buckets=(8, 16), page_size=8,
+                          device="cpu")
+    twin = eng.model
+    assert twin is not tm and not any(p.requires_grad
+                                      for p in twin.parameters())
+    for name, p in twin.named_parameters():
+        want = torch.float32 if name.endswith(".scale") else torch.bfloat16
+        assert p.dtype == want, name
+        ref = dict(tm.named_parameters())[name].detach().to(want)
+        assert torch.equal(p, ref), name
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, 256,
+                                                               (1, 12)))
+    with torch.no_grad():
+        torch.testing.assert_close(twin(tokens), tm(tokens), rtol=0, atol=0)
+    f32 = transformer_lm("tiny", device="cpu", dtype=torch.float32)
+    assert f32.compute_copy() is f32

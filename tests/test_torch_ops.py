@@ -7,10 +7,14 @@ tests pin the arithmetic the CUDA kernels are in turn held to on the card
 as the JAX package's own tests do.
 
 Tolerances: f32 atol 2e-6 for rope and attention (the JAX kernel tests'
-own bound: summation order and online vs one-shot softmax); sampling
-keep-sets exactly equal, kept values rtol 1e-6.
+own bound: summation order and online vs one-shot softmax); attention
+gradients f32 atol 5e-5 + rtol 1e-4 (the JAX gradient tests' own) and
+bf16 within 1% of each gradient's largest magnitude (BF16_GRAD_SHARE);
+sampling keep-sets
+exactly equal, kept values rtol 1e-6.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,11 +166,122 @@ def test_flash_fwd_lse_matches_jax_forward():
                                atol=ATOL)
 
 
-def test_flash_backward_waits_for_training_slice():
-    q = torch.randn(1, 1, 8, 16, requires_grad=True)
-    o = tattn.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        o.sum().backward()
+# (name, sq, sk, causal, rope, jax blocks): self, cross 160/320 and ragged
+# 200 over 128-row JAX tiles (as tests/test_attention.py runs them), fused
+# rope at default and explicit positions, and causal with sq > sk, whose
+# first rows see no key (JAX then computes them in one tile, as the plain
+# version does: lse = -1e30 and p = 1 against every masked key)
+GRAD_CASES = [
+    ("self-causal", 64, 64, True, None, None),
+    ("self", 64, 64, False, None, None),
+    ("cross-causal", 160, 320, True, None, 128),
+    ("cross", 160, 320, False, None, 128),
+    ("ragged-causal", 200, 200, True, None, 128),
+    ("ragged", 200, 200, False, None, 128),
+    ("rope-causal", 48, 48, True, "default", None),
+    ("rope-cross", 20, 44, False, "default", None),
+    ("rope-positions", 32, 32, True, "explicit", None),
+    ("sq>sk-causal", 72, 40, True, None, None),
+]
+GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-4          # the JAX gradient tests' own
+# bf16: within 1% of the gradient's largest magnitude, about 2.5 bf16 units
+# in the last place there: the grads are rounded to bf16, and ds/p are
+# rounded to bf16 before their products, where f32 scores that differ in
+# the last bits (summation order) can round the other way; where a sum of
+# such terms cancels, the difference is of the size of the terms, not of
+# the result (the sq > sk rows sum p = 1 over every key)
+BF16_GRAD_SHARE = 1e-2
+
+
+def _grads_both(name, sq, sk, causal, rope, blocks, *, dtype=np.float32,
+                d=16):
+    """dq, dk, dv with cotangent dO from the JAX flash_attention (Pallas
+    K2/K3 under the interpreter) and from the port's flash_attention (the
+    plain backward on the CPU), same numpy inputs."""
+    q, k, v = _qkv(7, 1, 2, sq, sk, d)
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    jkw, tkw = {}, {}
+    if blocks is not None:
+        jkw.update(block_q=blocks, block_k=blocks)
+    if rope is not None:
+        jc, js = jrope.rope_frequencies(d, 128)
+        tc, ts = trope.rope_frequencies(d, 128)
+        jkw["rope"], tkw["rope"] = (jc, js), (tc, ts)
+        if rope == "explicit":
+            rng = np.random.default_rng(9)
+            pq = np.sort(rng.permutation(128)[:sq]).astype(np.int32)
+            pk = np.sort(rng.permutation(128)[:sk]).astype(np.int32)
+            jkw["rope_positions"] = (jnp.asarray(pq), jnp.asarray(pk))
+            tkw["rope_positions"] = (_t(pq).long(), _t(pk).long())
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jargs = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    jdo = jnp.asarray(do, jdt)
+
+    def loss(q, k, v):
+        o = jattn.flash_attention(q, k, v, causal=causal, **jkw)
+        return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
+    want = [np.asarray(g.astype(jnp.float32))
+            for g in jax.grad(loss, (0, 1, 2))(*jargs)]
+    targs = [_t(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    o = tattn.flash_attention(*targs, causal=causal, **tkw)
+    got = torch.autograd.grad(o, targs, _t(do).to(tdt))
+    assert all(g.dtype == tdt for g in got)
+    return [g.float().numpy() for g in got], want
+
+
+@pytest.mark.parametrize("name,sq,sk,causal,rope,blocks", GRAD_CASES,
+                         ids=[c[0] for c in GRAD_CASES])
+def test_flash_grads_match_jax_kernels(name, sq, sk, causal, rope, blocks):
+    """f32: the port's backward (K2/K3's plain versions) against jax.grad
+    through the JAX flash_attention, whose backward runs _bwd_dq_kernel
+    and _bwd_dkv_kernel in the Pallas interpreter."""
+    got, want = _grads_both(name, sq, sk, causal, rope, blocks)
+    for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=f"{name} {which}")
+
+
+@pytest.mark.parametrize("name,sq,sk,causal,rope,blocks",
+                         [GRAD_CASES[0], GRAD_CASES[4], GRAD_CASES[6],
+                          GRAD_CASES[9]],
+                         ids=["self-causal", "ragged-causal", "rope-causal",
+                              "sq>sk-causal"])
+def test_flash_grads_bf16_match_jax_kernels(name, sq, sk, causal, rope,
+                                            blocks):
+    """bf16 inputs, bf16 gradients, against the JAX kernels in bf16."""
+    got, want = _grads_both(name, sq, sk, causal, rope, blocks,
+                            dtype="bf16", d=32)
+    for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(
+            g, w, atol=BF16_GRAD_SHARE * float(np.abs(w).max()), rtol=0,
+            err_msg=f"{name} {which}")
+
+
+def test_flash_bwd_reference_is_the_kernels_arithmetic():
+    """flash_bwd_reference equals flash_bwd's two kernel wrappers (on the
+    CPU, their per-kernel plain versions), and the rope rows get no
+    gradient."""
+    q, k, v = (_t(x).reshape(2, -1, 16) for x in _qkv(10, 1, 2, 24, 24, 16))
+    do = torch.randn_like(q)
+    tc, ts = trope.rope_frequencies(16, 64)
+    tabs = trope.rope_rows(tc, ts, torch.arange(24)) * 2
+    o, lse = tattn.flash_fwd(q, k, v, tabs, scale=0.25, causal=True)
+    delta = (do * o).sum(-1)
+    kw = dict(scale=0.25, causal=True)
+    dq, dk, dv = tattn.flash_bwd_reference(q, k, v, do, lse, delta, tabs,
+                                           **kw)
+    torch.testing.assert_close(
+        dq, tattn.flash_bwd_dq(q, k, v, do, lse, delta, tabs, **kw),
+        rtol=0, atol=0)
+    for a, b in zip((dk, dv), tattn.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  tabs, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cos = tc.clone().requires_grad_()
+    qg = q.reshape(1, 2, 24, 16).clone().requires_grad_()
+    o = tattn.flash_attention(qg, qg, qg, rope=(cos, ts))
+    o.sum().backward()
+    assert qg.grad is not None and cos.grad is None
 
 
 # ---------------------------------------------------------------------------
