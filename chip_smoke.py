@@ -12,7 +12,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels   - each kernel against its plain PyTorch version on the card,
                on the cases of tests/test_paged_kernel.py and
                tests/test_attention.py (K1, K2, K3 also at the training
-               shape), max abs error beside the tolerance;
+               shape, and the bf16 bodies at the edges of their tiles),
+               max abs error beside the tolerance; the rope pre-pass
+               bitwise, K3 bitwise from run to run;
 4. serve     - the serving path: transformer_lm("base") in bf16 with
                weights from --seed, a paged InferenceEngine (page 16, 8
                slots) and a Scheduler (harvest_lag 4) answering 16 greedy
@@ -35,8 +37,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                attn_impl='flash' (K1, K2, K3) against attn_impl='dense'
                (plain autograd) from the same weights and batch: loss,
                every gradient and every updated parameter, in f32 and bf16;
-8. timing    - each kernel, its plain version and one library call at the
-               main paths' shapes, with CUDA events.
+8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
+               first), its plain version and one library call at the main
+               paths' shapes, with CUDA events.
 
 ``--phases profile`` (not in the default set) adds a serving run and two
 training steps under torch.profiler (and host timers for serving): where
@@ -260,6 +263,46 @@ def check_paged(torch, results):
         results[name] = err
 
 
+# the edges of the bf16 bodies' tiles (K1: 128 q rows x 128 keys; K3: 128
+# keys x 64 q rows) at every head dim, with and without rope, causal and
+# not: exact multiples (128, 256), ragged (200), cross (160/320) and rows
+# that see no key (causal 320/160)
+EDGE_CASES = [(sq, sk, d, causal, rope)
+              for sq, sk in ((128, 128), (256, 256), (200, 200), (160, 320),
+                             (320, 160))
+              for d in (16, 32, 64, 128) for causal in (True, False)
+              for rope in (None, "rope")]
+
+
+def check_rope(torch, results):
+    """The rope pre-pass of K1 and K3 against its plain version (_rotate):
+    bitwise, at the training shape and at default and explicit positions."""
+    from dtdl_tpu_torch.ops.attention import _rotate, rope_rotate
+    from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    cases = [("train 32x4096 hd128 bf16", 32, 4096, 128, torch.bfloat16,
+              False)]
+    cases += [(f"200 hd{d} {str(dt).split('.')[1]} "
+               f"{'explicit' if ex else 'default'} positions", 4, 200, d, dt,
+               ex) for d in (16, 32, 64, 128)
+              for dt in (torch.bfloat16, torch.float32) for ex in (False, True)]
+    for name, bh, s, d, dtype, explicit in cases:
+        x = torch.randn(bh, s, d, generator=gen, device=DEV).to(dtype)
+        cos, sin = rope_frequencies(d, 4096, device=DEV)
+        pos = (torch.randperm(4096, generator=gen, device=DEV)[:s].sort().values
+               if explicit else torch.arange(s, device=DEV))
+        c, sn = rope_rows(cos, sin, pos)
+        got, want = rope_rotate(x, c, sn), _rotate(x, c, sn)
+        sync(torch)
+        same = bool(torch.equal(got, want))
+        err = max_err(got, want)
+        log(f"rope pre-pass {name}: bitwise_equal={same} max_abs_err="
+            f"{err:.3e} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"rope pre-pass {name} differs from _rotate")
+        results["rope " + name] = err
+
+
 def check_flash(torch, results):
     from dtdl_tpu_torch.ops.attention import (flash_attention_reference,
                                               flash_fwd)
@@ -295,7 +338,9 @@ def check_flash(torch, results):
          torch.bfloat16, True, None),
         ("ragged 200 hd64 non-causal rope bf16", 2, 2, 200, 200, 64,
          torch.bfloat16, False, "rope"),
-    ]
+    ] + [(f"edge {sq}/{sk} hd{d} {'causal' if causal else 'non-causal'}"
+          f"{' rope' if rope else ''} bf16", 1, 2, sq, sk, d, torch.bfloat16,
+          causal, rope) for sq, sk, d, causal, rope in EDGE_CASES]
     for name, b, h, sq, sk, d, dtype, causal, rope in cases:
         q = torch.randn(b, h, sq, d, generator=gen, device=DEV).to(dtype)
         k = torch.randn(b, h, sk, d, generator=gen, device=DEV).to(dtype)
@@ -375,7 +420,10 @@ BWD_CASES = [
     (f"self 96 hd{dd} causal rope f32", 2, 4, 96, 96, dd, "f32", True,
      "rope"),
     (f"self 200 hd{dd} causal rope bf16", 2, 4, 200, 200, dd, "bf16", True,
-     "rope"))]
+     "rope"))] + [
+    (f"edge {sq}/{sk} hd{d} {'causal' if causal else 'non-causal'}"
+     f"{' rope' if rope else ''} bf16", 1, 2, sq, sk, d, "bf16", causal, rope)
+    for sq, sk, d, causal, rope in EDGE_CASES]
 
 
 def check_flash_bwd(torch, results):
@@ -406,7 +454,11 @@ def check_flash_bwd(torch, results):
         args = (*flat, lse, delta, tabs)
         kw = dict(scale=scale, causal=causal)
         got = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
+        again = flash_bwd_dkv(*args, **kw)
         sync(torch)
+        # no atomics: K3 gives the same bits from run to run
+        repro = all(bool(torch.equal(x, y)) for x, y in zip(got[1:], again))
+        del again
         want = (flash_bwd_dq_reference(*args, **kw),)
         want += flash_bwd_dkv_reference(*args, **kw)
         sync(torch)
@@ -420,14 +472,15 @@ def check_flash_bwd(torch, results):
             # the worst element's share of its tolerance
             used = float((diff / (atol + rtol * w.abs()).clamp(
                 min=1e-30)).max())
-            ok &= used <= 1.0 and bool(torch.isfinite(g).all())
+            ok &= used <= 1.0 and bool(torch.isfinite(g).all()) and repro
             errs.append(float(diff.max()))
             parts.append(f"{label}={errs[-1]:.3e} (median |want| {med:.3e}, "
                          f"atol {atol:.2e}, worst {used:.3f} of tol)")
         del got, want
         log(f"K2/K3 flash_bwd {name}: max_abs_err " + " ".join(parts)
             + f" tol=atol {atol0:.0e} + {share:.4g}·median|want| + rtol "
-            f"{rtol:.0e} {'ok' if ok else 'FAIL'}")
+            f"{rtol:.0e} K3_bitwise_repeatable={repro} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2/K3 {name} disagree with their plain "
                                  f"versions")
@@ -618,6 +671,10 @@ def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} steps, want {want} (one per layer "
                                  f"and step)")
+    # the rope pre-pass rotates q and k for K1 and again for K3
+    if launches["rope_rows"] != 4 * want:
+        raise AssertionError(f"rope_rows launched {launches['rope_rows']} "
+                             f"times in {steps} steps, want {4 * want}")
     del state, step, batches
     torch.cuda.empty_cache()
     return launches, dict(step_ms=step_ms, tokens_per_s=tokens_per_s,
@@ -706,7 +763,7 @@ def phase_profile_train(torch, seed, steps: int = 2):
         f"kernel time {dev_total / steps:.2f} ms per step")
     # the step's parts, by kernel name
     groups = {"K1 flash_fwd": ("flash_fwd",), "K2 bwd_dq": ("bwd_dq",),
-              "K3 bwd_dkv": ("bwd_dkv",),
+              "K3 bwd_dkv": ("bwd_dkv",), "rope pre-pass": ("rope_rows",),
               "GEMM (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass"),
               "optimizer": ("multi_tensor",)}
     spent = dict.fromkeys([*groups, "other (elementwise, reductions, "
@@ -919,6 +976,28 @@ def time_flash_bwd(torch):
     return out
 
 
+def time_rope(torch):
+    """The rope pre-pass at the training shape (q or k of one layer, bf16
+    8 x 4 heads x 4096 x 128): kernel, plain version, bound.  No single
+    PyTorch call computes it."""
+    from dtdl_tpu_torch.ops.attention import _rotate, rope_rotate
+    from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
+    bh, s, d = TRAIN_BATCH * 4, TRAIN_SEQ, 128
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    x = torch.randn(bh, s, d, generator=gen, device=DEV).to(torch.bfloat16)
+    cos, sin = rope_frequencies(d, s, device=DEV)
+    c, sn = rope_rows(cos, sin, torch.arange(s, device=DEV))
+    ms = cuda_ms(torch, lambda: rope_rotate(x, c, sn))
+    plain_ms = cuda_ms(torch, lambda: _rotate(x, c, sn), iters=5)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * s * d * 4
+    ops = 3 * x.numel()          # two products and a sum per element
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, bytes=nbytes, ops=ops)
+
+
 def fmt_timing(name, t):
     return (f"{name}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} "
@@ -981,6 +1060,7 @@ def main(argv=None) -> int:
 
     errors = {}
     if "kernels" in phases:
+        check_rope(torch, errors)
         check_paged(torch, errors)
         check_flash(torch, errors)
         check_flash_bwd(torch, errors)
@@ -1025,6 +1105,9 @@ def main(argv=None) -> int:
         for name in ("K1", "K2", "K3"):
             log(fmt_timing(f"time {name} train shape 8x4x4096 hd128 causal "
                            f"rope bf16", tr[name]))
+        rope_t = time_rope(torch)
+        log(fmt_timing("time rope pre-pass train shape 32x4096 hd128 bf16 "
+                       "(one of q, k; K1 and K3 each run two)", rope_t))
         main_case = "train 8x4x4096 hd128 causal rope bf16"
         bwd_errs = errors.get("bwd " + main_case)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1047,6 +1130,12 @@ def main(argv=None) -> int:
              "launches": train_launches.get("flash_bwd_dkv"),
              "max_abs_err": bwd_errs and max(bwd_errs[1:]),
              **{k: tr["K3"][k] for k in keys}},
+            {"name": "rope_rows", "route": "cuda",
+             "source": "dtdl_tpu_torch/csrc/rope_rows.cu",
+             "replaces": "dtdl_tpu/ops/attention.py:118",
+             "launches": train_launches.get("rope_rows"),
+             "max_abs_err": errors.get("rope train 32x4096 hd128 bf16"),
+             **{k: rope_t[k] for k in keys}},
             {"name": "paged_attention", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/paged_attention.cu",
              "replaces": "dtdl_tpu/ops/paged_attention.py:88",

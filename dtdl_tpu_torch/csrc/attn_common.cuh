@@ -185,6 +185,10 @@ struct Tile {
 // base pointer is 16-byte aligned.
 enum ElemKind : int { kF32 = 0, kBF16 = 1, kInt8 = 2, kFp8E4M3 = 3 };
 
+template <typename T> __device__ __forceinline__ constexpr int kind_of();
+template <> __device__ __forceinline__ constexpr int kind_of<float>() { return kF32; }
+template <> __device__ __forceinline__ constexpr int kind_of<__nv_bfloat16>() { return kBF16; }
+
 __device__ __forceinline__ void load8(const void* base, size_t e, int kind, float* out) {
   switch (kind) {
     case kF32: {

@@ -28,26 +28,28 @@
 // from the first one that reaches its keys (the TPU's sequential grid axis
 // becomes the loop).  Both recompute s and dp, so the pair does 14·S²·D
 // flops per head where FlashAttention-2's atomic dq does 10.  The S x S
-// matrices never leave the block.  Two bodies:
-//  * bf16: mma.sync m16n8k16 on the tensor cores (bf16 in, f32 accumulate),
-//    16 rows per warp, the score accumulators reused as the A operand of
-//    the next product (ds or p packed to bf16), the B operands of ds·k,
-//    pᵀ·dO and dsᵀ·q read straight from row-major shared tiles by
-//    transposing ldmatrix loads.  K3 works in the transposed frame (rows
-//    are keys, columns q rows: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ), so no operand is
-//    re-laid out in registers.  K3 keeps dk and dv for its 64 keys in
-//    registers (16 keys per warp) and walks q in chunks of 32 rows, which
-//    keeps the transposed score tiles at 32 registers a thread;
-//  * f32: FMA on the CUDA cores (16 rows per block), as flash_fwd.cu's f32
-//    body.
+// matrices never leave the block.  The bodies:
+//  * K2, bf16: mma.sync m16n8k16 on the tensor cores (bf16 in, f32
+//    accumulate), 16 rows per warp, the score accumulators reused as the A
+//    operand of ds·k, whose B operand is read from the row-major key tile
+//    by transposing ldmatrix loads; q and k rotated on load;
+//  * K3, bf16: warp-specialised wgmma on TMA tiles (the section below),
+//    128 keys per block, in the transposed frame (rows are keys, columns q
+//    rows: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ), so no operand is re-laid out in
+//    registers.  It takes q and k already rotated by the rope pre-pass
+//    (rope_rows.cu, run by ops/attention.py flash_bwd_dkv); the tables
+//    serve the inverse rotation of dk only;
+//  * f32, both: FMA on the CUDA cores (16 rows per block), as
+//    flash_fwd.cu's f32 body.
 // Rows that see no key at all (causal with Sq > Sk) have lse = -1e30, so
 // p = 1 against every masked key, as in the plain version; a tile holding
 // such a row walks every key (K2), and K3 then starts at the first q chunk.
-// wgmma tiles fed by TMA are the next step.
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+namespace hopper = dtdl::hopper;
 using dtdl::kMaskFill;
 using dtdl::ld32;
 using dtdl::ldmatrix_trans_x2;
@@ -106,9 +108,8 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const BwdArgs& a, cudaStream_t
 
 // ---- bf16 on the tensor cores ---------------------------------------------
 
-constexpr int kRows = 64;    // K2: q rows per block; K3: keys per block (16 per warp)
+constexpr int kRows = 64;    // K2: q rows per block (16 per warp)
 constexpr int kKeys = 64;    // K2: keys per chunk
-constexpr int kQ = 32;       // K3: q rows per chunk
 constexpr int kPad = 8;      // bf16 pad per shared row: conflict-free fragment loads
 
 // The A fragment (16 rows from `row0`, k step ks) of a row-major shared tile.
@@ -260,104 +261,254 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_mma_kernel(const BwdArgs a) {
                 a.qs);
 }
 
-// K3: one block per (64 keys, b·h), 16 keys per warp, in the transposed
-// frame: score tiles are [keys, q rows].
+// K3, bf16: wgmma on TMA tiles, warp-specialised.  One block per (128 keys,
+// b·h), the first (causal: heaviest) first, in the transposed frame: score
+// tiles are [keys, q rows].  Warpgroups 0 and 1 are consumers of 64 keys
+// each and hold dk and dv for them in registers; warpgroup 2 is the
+// producer.  Its first thread loads the K and V tiles once and then streams
+// 64-row chunks of the rotated q and of dO by TMA through a two-stage
+// mbarrier ring; its second warp writes each chunk's lse·log2(e) and delta
+// into shared memory beside them and arrives on the same full barrier.  A
+// consumer computes sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ with wgmma (all operands
+// K-major in shared memory), pᵀ = exp2(sᵀ·scale·log2(e) − lse·log2(e)) and
+// dsᵀ = pᵀ∘(dpᵀ − delta)·scale in registers, then dv += pᵀ·dO and
+// dk += dsᵀ·Q with wgmma, pᵀ and dsᵀ rounded to bf16 as the register A
+// operand and dO and Q read MN-major.  Masks are computed only on chunks
+// that cross the causal diagonal or a ragged end.  dk gets the inverse rope
+// at the store, once per key row.
+constexpr int kBK = 128;                 // keys per block
+constexpr int kBQ = 64;                  // q rows per chunk
+constexpr int kQStages = 2;              // q/dO ring depth
+constexpr int kWG = 128;                 // threads of a warpgroup
+constexpr int kWsThreads = 3 * kWG;      // consumers 0, 1; producer 2
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_mma_kernel(const BwdArgs a) {
-  constexpr int LD = D + kPad, KS = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char dkv_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(dkv_smem);  // [64][LD] roped key tile
-  bf16* Vs = Ks + kRows * LD;                     // [64][LD] value tile
-  bf16* Qs = Vs + kRows * LD;                     // [32][LD] roped q chunk
-  bf16* Ds = Qs + kQ * LD;                        // [32][LD] dO chunk
-  float* Ls = reinterpret_cast<float*>(Ds + kQ * LD);   // [32] lse of the chunk's rows
-  float* Dl = Ls + kQ;                                  // [32] delta
+struct DkvSmem {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kTileBytes = kBK * D * 2, kChunkBytes = kBQ * D * 2;
+  static constexpr int kK = 0, kV = kTileBytes, kQ = 2 * kTileBytes;
+  static constexpr int kDO = kQ + kQStages * kChunkBytes;
+  static constexpr int kStats = kDO + kQStages * kChunkBytes;   // [stage][lse2 | delta][kBQ] f32
+  static constexpr int kBars = kStats + kQStages * 2 * kBQ * 4;  // kv_full, full[s], empty[s]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kQStages) + 1024;   // + alignment slack
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, c0 = blockIdx.x * kRows;   // the first (causal: heaviest) first
-  const int keys = min(kRows, a.Sk - c0);
+// Inverse rope on a warpgroup's flat f32 accumulator (the wgmma layout:
+// rows row_a and row_a + 8, columns 8j + 2·tig (+1) in d[4j..4j+3]) and the
+// bf16 store of its rows below n; dimension d and d + D/2 sit in blocks j
+// and j + D/16 of one thread.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* out, float (&acc)[D / 2], int row_a, int n,
+                                          int tig, const float* c, const float* s) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= n) continue;
+    if (c != nullptr) {
+      const float* cr = c + size_t(row) * D;
+      const float* sr = s + size_t(row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = j * 8 + tig * 2 + e;
+          unrotate_pair(acc[4 * j + 2 * r + e], acc[4 * (j + D / 16) + 2 * r + e], cr[d], sr[d],
+                        cr[d + D / 2], sr[d + D / 2]);
+        }
+    }
+    bf16* orow = out + size_t(row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo, const BwdArgs a) {
+  using C = hopper::Cols<D>;
+  using L = DkvSmem<D>;
+  constexpr int RB = C::kRowBytes;
+  extern __shared__ unsigned char dkv_smem[];
+  const uint32_t raw = hopper::saddr(dkv_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* stats = reinterpret_cast<float*>(dkv_smem + (base - raw) + L::kStats);
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + kQStages);
+
+  const int bh = blockIdx.y, c0 = blockIdx.x * kBK;
   const int off = a.Sk - a.Sq;
-  const bf16* qb = static_cast<const bf16*>(a.q) + size_t(bh) * a.Sq * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) + size_t(bh) * a.Sk * D;
-  const bf16* vb = static_cast<const bf16*>(a.v) + size_t(bh) * a.Sk * D;
-  const bf16* db = static_cast<const bf16*>(a.dO) + size_t(bh) * a.Sq * D;
-  const float* lb = a.lse + size_t(bh) * a.Sq;
-  const float* deb = a.delta + size_t(bh) * a.Sq;
-  stage_rows<D>(Ks, LD, kb, c0, kRows, keys, a.kc, a.ks);
-  stage_rows<D>(Vs, LD, vb, c0, kRows, keys, nullptr, nullptr);
-
-  const int wr = warp * 16;
-  const int key_a = c0 + wr + g;   // keys of c0/c1; c2/c3 are key_a + 8
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[nd][j] = dv[nd][j] = 0.f;
-
   // leading q chunks whose rows all sit above this tile's first key are
   // skipped; rows that see no key at all (off < 0) take part everywhere
-  int qstart = 0;
-  if (a.causal && off >= 0) qstart = max(0, c0 - off) / kQ * kQ;
-  for (int q0 = qstart; q0 < a.Sq; q0 += kQ) {
-    const int nq = min(kQ, a.Sq - q0);
-    __syncthreads();   // the previous chunk's reads are done
-    stage_rows<D>(Qs, LD, qb, q0, kQ, nq, a.qc, a.qs);
-    stage_rows<D>(Ds, LD, db, q0, kQ, nq, nullptr, nullptr);
-    for (int i = threadIdx.x; i < kQ; i += kThreads) {
-      Ls[i] = i < nq ? lb[q0 + i] : 0.f;
-      Dl[i] = i < nq ? deb[q0 + i] : 0.f;
-    }
-    __syncthreads();
+  const int qstart = (a.causal && off >= 0) ? max(0, c0 - off) / kBQ * kBQ : 0;
+  const int n_chunks = (a.Sq - qstart + kBQ - 1) / kBQ;
 
-    float st[kQ / 8][4], dpt[kQ / 8][4];   // sᵀ and dpᵀ: [16 keys, 32 q rows] per warp
-#pragma unroll
-    for (int nt = 0; nt < kQ / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[nt][j] = dpt[nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, Ks, wr, ks, g, tig);
-      load_a<LD>(va, Vs, wr, ks, g, tig);
-#pragma unroll
-      for (int nt = 0; nt < kQ / 8; ++nt) {
-        const bf16* q0p = Qs + (nt * 8 + g) * LD + ks * 16 + tig * 2;
-        const bf16* d0p = Ds + (nt * 8 + g) * LD + ks * 16 + tig * 2;
-        mma_16816(st[nt], ka, ld32(q0p), ld32(q0p + 8));
-        mma_16816(dpt[nt], va, ld32(d0p), ld32(d0p + 8));
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kQStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1 + 32);   // the TMA thread and the stats warp
+      hopper::mbar_init(empty0 + 8 * s, 8);       // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---- producer ----
+    hopper::regs_dealloc<24>();
+    const int pw = (threadIdx.x / 32) % 4;
+    if (pw == 0 && lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * L::kTileBytes);
+      for (int cb = 0; cb < C::kBlocks; ++cb) {
+        hopper::tma_load(base + L::kK + cb * kBK * RB, &tk, kv_full, cb * C::kBox, c0, bh);
+        hopper::tma_load(base + L::kV + cb * kBK * RB, &tv, kv_full, cb * C::kBox, c0, bh);
+      }
+      for (int t = 0; t < n_chunks; ++t) {
+        const int s = t % kQStages, q0 = qstart + t * kBQ;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kQStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full0 + 8 * s, 2 * L::kChunkBytes);
+        const uint32_t qt = base + L::kQ + s * L::kChunkBytes;
+        const uint32_t dt = base + L::kDO + s * L::kChunkBytes;
+        for (int cb = 0; cb < C::kBlocks; ++cb) {
+          hopper::tma_load(qt + cb * kBQ * RB, &tq, full0 + 8 * s, cb * C::kBox, q0, bh);
+          hopper::tma_load(dt + cb * kBQ * RB, &tdo, full0 + 8 * s, cb * C::kBox, q0, bh);
+        }
+      }
+    } else if (pw == 1) {
+      const float* lb = a.lse + size_t(bh) * a.Sq;
+      const float* db = a.delta + size_t(bh) * a.Sq;
+      for (int t = 0; t < n_chunks; ++t) {
+        const int s = t % kQStages, q0 = qstart + t * kBQ;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kQStages) & 1) ^ 1);
+        float* st = stats + s * 2 * kBQ;
+        for (int i = lane; i < kBQ; i += 32) {
+          const bool live = q0 + i < a.Sq;
+          st[i] = live ? __fmul_rn(lb[q0 + i], kLog2e) : 0.f;
+          st[kBQ + i] = live ? db[q0 + i] : 0.f;
+        }
+        hopper::mbar_arrive(full0 + 8 * s);
       }
     }
-    // pᵀ in place of sᵀ, dsᵀ in place of dpᵀ: c0/c1 belong to key_a,
-    // c2/c3 to key_a + 8; the columns are q rows
+  } else {
+    // ---- consumers: 64 keys per warpgroup ----
+    hopper::regs_alloc<240>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int g = lane / 4, tig = lane % 4;
+    const int wk0 = c0 + wg * 64;              // this warpgroup's first key
+    const int key_a = wk0 + warp * 16 + g;     // keys of regs 4j, 4j+1; +8 for 4j+2, 4j+3
+    const float sl2 = a.scale * kLog2e;
+    const float fill2 = __fmul_rn(kMaskFill, kLog2e);   // == lse·log2(e) of a row that sees no key
+    float dk[D / 2], dv[D / 2], st[kBQ / 2], dpt[kBQ / 2];
 #pragma unroll
-    for (int nt = 0; nt < kQ / 8; ++nt)
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = nt * 8 + tig * 2 + (j & 1);
-        const int key = key_a + 8 * (j >> 1);
-        const bool live = qi < nq && key < a.Sk;
-        const bool visible = !a.causal || key <= q0 + qi + off;
-        const float p = prob(st[nt][j], live, visible, a.scale, Ls[qi]);
-        st[nt][j] = p;
-        dpt[nt][j] = dscore(p, dpt[nt][j], Dl[qi], a.scale);
+    for (int i = 0; i < kBQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    const uint32_t ka = base + L::kK + wg * 64 * RB, va = base + L::kV + wg * 64 * RB;
+    hopper::mbar_wait(kv_full, 0);
+
+    for (int t = 0; t < n_chunks; ++t) {
+      const int s = t % kQStages, q0 = qstart + t * kBQ;
+      const uint32_t qt = base + L::kQ + s * L::kChunkBytes;
+      const uint32_t dt = base + L::kDO + s * L::kChunkBytes;
+      const float* ls = stats + s * 2 * kBQ;   // lse·log2(e) of the chunk's rows, then delta
+      hopper::mbar_wait(full0 + 8 * s, (t / kQStages) & 1);
+
+      // sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ over D in k steps of 16
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int cb = ks / C::kSteps, kin = (ks % C::kSteps) * 32;
+        hopper::wgmma_ss<kBQ>(st, hopper::make_desc(ka + cb * kBK * RB + kin, 16, 8 * RB, RB),
+                              hopper::make_desc(qt + cb * kBQ * RB + kin, 16, 8 * RB, RB),
+                              ks > 0);
+        hopper::wgmma_ss<kBQ>(dpt, hopper::make_desc(va + cb * kBK * RB + kin, 16, 8 * RB, RB),
+                              hopper::make_desc(dt + cb * kBQ * RB + kin, 16, 8 * RB, RB),
+                              ks > 0);
       }
-    acc_product<D, kQ / 16, LD>(dv, st, Ds, lane);    // dv += pᵀ·dO
-    acc_product<D, kQ / 16, LD>(dk, dpt, Qs, lane);   // dk += dsᵀ·q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // pᵀ in place of sᵀ, dsᵀ in place of dpᵀ; the columns are q rows
+      const bool edge = q0 + kBQ > a.Sq || wk0 + 64 > a.Sk ||
+                        (a.causal && wk0 + 63 > q0 + off);
+#pragma unroll
+      for (int j = 0; j < kBQ / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = j * 8 + tig * 2 + (i & 1);
+          const float lse2 = ls[qi];
+          float p;
+          if (edge) {
+            const int key = key_a + 8 * (i >> 1);
+            const bool live = q0 + qi < a.Sq && key < a.Sk;
+            const bool visible = !a.causal || key <= q0 + qi + off;
+            p = live ? exp2f((visible ? st[4 * j + i] * sl2 : fill2) - lse2) : 0.f;
+          } else {
+            p = exp2f(st[4 * j + i] * sl2 - lse2);
+          }
+          st[4 * j + i] = p;
+          dpt[4 * j + i] = __fmul_rn(__fmul_rn(p, dpt[4 * j + i] - ls[kBQ + qi]), a.scale);
+        }
+      // dv += pᵀ·dO and dk += dsᵀ·Q: q rows 16kk..16kk+15 are one k step.
+      // Every A fragment is packed before the fence, so no register the
+      // products read is written while they run
+      uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          pa[kk][f] = pack_bf16(st[8 * kk + 2 * f], st[8 * kk + 2 * f + 1]);
+          da[kk][f] = pack_bf16(dpt[8 * kk + 2 * f], dpt[8 * kk + 2 * f + 1]);
+        }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint64_t bo = hopper::make_desc(dt + kk * 16 * RB, kBQ * RB, 8 * RB, RB);
+        const uint64_t bq = hopper::make_desc(qt + kk * 16 * RB, kBQ * RB, 8 * RB, RB);
+        hopper::wgmma_rs<D>(dv, pa[kk], bo, 1);
+        hopper::wgmma_rs<D>(dk, da[kk], bq, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      if (lane == 0) hopper::mbar_arrive(empty0 + 8 * s);
+    }
+    store_acc<D>(static_cast<bf16*>(a.dk) + size_t(bh) * a.Sk * D, dk, key_a, a.Sk, tig, a.kc,
+                 a.ks);
+    store_acc<D>(static_cast<bf16*>(a.dv) + size_t(bh) * a.Sk * D, dv, key_a, a.Sk, tig,
+                 nullptr, nullptr);
   }
-  store_rows<D>(static_cast<bf16*>(a.dk) + size_t(bh) * a.Sk * D, dk, key_a, a.Sk, tig, a.kc,
-                a.ks);
-  store_rows<D>(static_cast<bf16*>(a.dv) + size_t(bh) * a.Sk * D, dv, key_a, a.Sk, tig,
-                nullptr, nullptr);
+}
+
+template <int D>
+int launch_dkv_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  using C = hopper::Cols<D>;
+  CUtensorMap tk, tv, tq, tdo;
+  int err = hopper::encode_rows(&tk, a.k, a.BH, a.Sk, D, kBK, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tv, a.v, a.BH, a.Sk, D, kBK, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tq, a.q, a.BH, a.Sq, D, kBQ, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tdo, a.dO, a.BH, a.Sq, D, kBQ, C::kBox);
+  if (err != 0) return err;
+  const int smem = DkvSmem<D>::kBytes;
+  auto kernel = bwd_dkv_wgmma_kernel<D>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid((a.Sk + kBK - 1) / kBK, a.BH);
+  kernel<<<grid, kWsThreads, smem, stream>>>(tk, tv, tq, tdo, a);
+  return int(cudaGetLastError());
 }
 
 template <int D>
 size_t dq_mma_smem() { return sizeof(bf16) * size_t(2 * kRows + 2 * kKeys) * (D + kPad); }
-
-template <int D>
-size_t dkv_mma_smem() {
-  return sizeof(bf16) * size_t(2 * kRows + 2 * kQ) * (D + kPad) + sizeof(float) * 2 * kQ;
-}
 
 // ---- f32 on the CUDA cores --------------------------------------------------
 
@@ -589,9 +740,7 @@ int launch_dq(const BwdArgs& a, bool bf16_in, cudaStream_t stream) {
 
 template <int D>
 int launch_dkv(const BwdArgs& a, bool bf16_in, cudaStream_t stream) {
-  if (bf16_in)
-    return launch(bwd_dkv_mma_kernel<D>, dim3((a.Sk + kRows - 1) / kRows, a.BH),
-                  dkv_mma_smem<D>(), a, stream);
+  if (bf16_in) return launch_dkv_wgmma<D>(a, stream);
   return launch(bwd_dkv_f32_kernel<D>, dim3((a.Sk + kF32Rows - 1) / kF32Rows, a.BH),
                 dkv_f32_smem<D>(), a, stream);
 }
@@ -650,7 +799,8 @@ extern "C" int dtdl_flash_bwd_dq(const void* q, const void* k, const void* v, co
   return launch_dim<true>(a, D, kind == dtdl::kBF16, static_cast<cudaStream_t>(stream));
 }
 
-// K3, same arguments with dk and dv for dq.
+// K3, same arguments with dk and dv for dq; for bf16, q and k come already
+// rotated and the tables serve the inverse rotation of dk.
 extern "C" int dtdl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, const void* qc,
                                   const void* qs, const void* kc, const void* ks, void* dk,

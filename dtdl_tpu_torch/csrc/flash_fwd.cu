@@ -7,12 +7,12 @@
 // What it computes, per (b·h, query row i): softmax(q_i·K^T · scale) · V over
 // the keys j < Sk, causal when asked with the diagonal bottom-aligned
 // (row i sees j <= i + Sk - Sq).  With rope tables, q and k rows are rotated
-// on load (f32 arithmetic, rounded back to the input type, as
-// ops/rope.py:apply_rope).  Scores and the running m, l, acc are f32; the
-// weights are rounded to the input type before P·V, as the JAX kernel casts
-// p before its second matmul.  It also writes lse = m + log(l) per row (f32,
-// [B·H, Sq]) for the backward kernels of the training slice; rows with
-// l == 0 give o = 0.
+// (f32 arithmetic, rounded back to the input type, as
+// ops/rope.py:apply_rope): on load in the f32 body, beforehand by the
+// pre-pass for the bf16 body.  Scores and the running m, l, acc are f32;
+// the weights are rounded to the input type before P·V, as the JAX kernel
+// casts p before its second matmul.  It also writes lse = m + log(l) per
+// row (f32, [B·H, Sq]) for the backward kernels.
 //
 // What bounds it on an H100: operations at long sequence.  4·Sq·Sk·D flops per
 // head (halved when causal) against 2·(Sq + 2·Sk)·D input bytes: at 2048 x
@@ -21,29 +21,30 @@
 //
 // What the design does about it: the S x S score matrix never leaves the
 // block: one block per (q tile, b·h) keeps a tile of query rows resident and
-// loops over key chunks of 64 rows inside the block (the TPU's sequential
-// grid axis becomes this loop), so each K/V element is read once per q tile
-// and reused by every row of the tile from shared memory; causal chunks
-// entirely above the diagonal are never loaded; ragged tails are
-// bounds-checked loads, zero filled.  Two bodies:
-//  * bf16: the two products run on the tensor cores with mma.sync
-//    m16n8k16 (bf16 in, f32 accumulate), 64 query rows per block, 16 per
-//    warp; S stays in registers and its accumulator layout is reused as
-//    the A operand of P·V (the FlashAttention-2 arrangement); V's B
-//    operand comes through transposing ldmatrix loads.  wgmma tiles fed by
-//    TMA, with loads overlapping the products, are the next step;
-//  * f32: FMA on the CUDA cores, 16 query rows per block (the tensor cores
-//    have no f32 path that keeps f32 accuracy).
+// loops over key tiles inside the block (the TPU's sequential grid axis
+// becomes this loop), so each K/V element is read once per q tile and reused
+// by every row of the tile from shared memory; causal tiles entirely above
+// the diagonal are never loaded.  Two bodies:
+//  * bf16 (the training path): warp-specialised, 128 query rows per block.
+//    A producer warpgroup streams 128-key K and V tiles by TMA through a
+//    two-stage mbarrier ring while two consumer warpgroups run both
+//    products as wgmma (S = Q·Kᵀ from shared memory, O += P·V with P from
+//    registers), the online softmax in f32 with exp2f between them; see the
+//    section below.  Rope is applied once per row beforehand by the
+//    pre-pass in rope_rows.cu (ops/attention.py flash_fwd), not per tile;
+//  * f32 (the scoring check): FMA on the CUDA cores, 16 query rows per
+//    block, rope fused into the loads, ragged tails zero filled by
+//    bounds-checked loads (the tensor cores have no f32 path that keeps
+//    f32 accuracy).
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using dtdl::ld32;
-using dtdl::mma_16816;
+namespace hopper = dtdl::hopper;
+using dtdl::kMaskFill;
 using dtdl::pack_bf16;
 using dtdl::rope_rows;
-using dtdl::smem_addr;
-using dtdl::stage_rows;
 using dtdl::Tile;
 
 constexpr int kThreads = 128;
@@ -150,174 +151,246 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16: wgmma on TMA tiles, warp-specialised ------------------------------
+//
+// One block per (128 query rows, b·h), the heaviest causal tiles first.
+// Warpgroups 0 and 1 are consumers of 64 query rows each; warpgroup 2 is the
+// producer, one thread of which issues every TMA load: the Q tile once, then
+// the K and V tiles of 128 keys through a ring of kStages stages (full
+// barrier: the tile has landed; empty barrier: all 8 consumer warps are done
+// with it).  A consumer computes S = Q·Kᵀ with wgmma (both operands K-major
+// in shared memory), the online softmax in registers in the log2 domain
+// (scores scaled by scale·log2(e), exp2f), and O += P·V with wgmma, P from
+// registers (the S accumulator rounded to bf16) and V read MN-major.  Masks
+// are computed only on tiles that cross the causal diagonal or the ragged
+// end.  q and k arrive already rotated (the rope pre-pass, rope_rows.cu).
 
-constexpr int kMmaRows = 64;   // query rows per block, 16 per warp
-constexpr int kMmaKeys = 64;   // keys per chunk
-constexpr int kPad = 8;        // bf16 pad per shared row: conflict-free fragment loads
+constexpr int kBM = 128;                       // query rows per block
+constexpr int kBN = 128;                       // keys per tile
+constexpr int kStages = 2;                     // K/V ring depth
+constexpr int kWG = 128;                       // threads of a warpgroup
+constexpr int kWsThreads = 3 * kWG;            // consumers 0, 1; producer 2
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const FlashArgs a) {
-  constexpr int LDQ = D + kPad;
-  constexpr int KS = D / 16;   // k-steps of Q·K^T
-  constexpr int ND = D / 8;    // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);   // [64][LDQ]
-  __nv_bfloat16* Ks = Qs + kMmaRows * LDQ;                           // [64][LDQ]
-  __nv_bfloat16* Vs = Ks + kMmaKeys * LDQ;                           // [64][LDQ]
+struct FwdSmem {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kQBytes = kBM * D * 2, kTileBytes = kBN * D * 2;
+  static constexpr int kQ = 0, kK = kQBytes, kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;   // q_full, full[s], empty[s]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;   // + alignment slack
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  // the last (causal: heaviest) query tiles are scheduled first
-  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
-  const int rows = min(kMmaRows, a.Sq - r0);
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const FlashArgs a) {
+  using C = hopper::Cols<D>;
+  using L = FwdSmem<D>;
+  constexpr int RB = C::kRowBytes;
+  extern __shared__ unsigned char fwd_smem[];
+  const uint32_t base = (hopper::saddr(fwd_smem) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + kStages);
+
+  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * kBM;
+  const int rows = min(kBM, a.Sq - r0);
   const int off = a.Sk - a.Sq;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) + size_t(bh) * a.Sq * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) + size_t(bh) * a.Sk * D;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) + size_t(bh) * a.Sk * D;
+  // keys past kend sit above the diagonal for every row of the tile, unless
+  // a row of it sees no key at all: that row weights every key alike, as
+  // the plain version does, so the tile walks them all
+  const int kend = (a.causal && r0 + off >= 0) ? min(a.Sk, r0 + rows + off) : a.Sk;
+  const int n_tiles = (kend + kBN - 1) / kBN;
 
-  stage_rows<D>(Qs, LDQ, qb, r0, kMmaRows, rows, a.qc, a.qs);
-  __syncthreads();
-  const int wr = warp * 16;    // this warp's 16 rows of the tile
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* q0 = Qs + (wr + g) * LDQ + ks * 16 + tig * 2;
-    qf[ks][0] = ld32(q0);
-    qf[ks][1] = ld32(q0 + 8 * LDQ);
-    qf[ks][2] = ld32(q0 + 8);
-    qf[ks][3] = ld32(q0 + 8 * LDQ + 8);
-  }
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m_r[2] = {dtdl::kMaskFill, dtdl::kMaskFill};
-  float l_r[2] = {0.f, 0.f};   // this thread's share of the row sums
-  const int row_a = r0 + wr + g;   // global q rows of c0/c1 and c2/c3
-
-  const int kend = a.causal ? min(a.Sk, r0 + rows + off) : a.Sk;
-  for (int c0 = 0; c0 < kend; c0 += kMmaKeys) {
-    const int nk = min(kMmaKeys, kend - c0);
-    __syncthreads();   // the previous chunk's fragment loads are done
-    stage_rows<D>(Ks, LDQ, kb, c0, kMmaKeys, nk, a.kc, a.ks);
-    stage_rows<D>(Vs, LDQ, vb, c0, kMmaKeys, nk, nullptr, nullptr);
-    __syncthreads();
-
-    float sc[kMmaKeys / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kMmaKeys / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const __nv_bfloat16* k0 = Ks + (nt * 8 + g) * LDQ + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) mma_16816(sc[nt], qf[ks], ld32(k0 + ks * 16), ld32(k0 + ks * 16 + 8));
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, 8);   // one arrival per consumer warp
     }
-    // scale and mask: c0/c1 belong to row_a, c2/c3 to row_a + 8
-#pragma unroll
-    for (int nt = 0; nt < kMmaKeys / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + nt * 8 + tig * 2 + (j & 1);
-        const int row = row_a + (j >> 1) * 8;
-        const bool visible = col < a.Sk && (!a.causal || col <= row + off);
-        sc[nt][j] = visible ? sc[nt][j] * a.scale : dtdl::kMaskFill;
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    hopper::regs_dealloc<40>();
+    if (threadIdx.x == 2 * kWG) {
+      hopper::mbar_expect_tx(q_full, L::kQBytes);
+      for (int cb = 0; cb < C::kBlocks; ++cb)
+        hopper::tma_load(base + L::kQ + cb * kBM * RB, &tq, q_full, cb * C::kBox, r0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full0 + 8 * s, 2 * L::kTileBytes);
+        const uint32_t kt = base + L::kK + s * L::kTileBytes;
+        const uint32_t vt = base + L::kV + s * L::kTileBytes;
+        for (int cb = 0; cb < C::kBlocks; ++cb) {
+          hopper::tma_load(kt + cb * kBN * RB, &tk, full0 + 8 * s, cb * C::kBox, t * kBN, bh);
+          hopper::tma_load(vt + cb * kBN * RB, &tv, full0 + 8 * s, cb * C::kBox, t * kBN, bh);
+        }
       }
-    // online softmax, two rows per thread, each row spread over 4 lanes
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    hopper::regs_alloc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, tig = lane % 4;
+    const int wr0 = r0 + wg * 64;            // this warpgroup's first row
+    const int row_a = wr0 + warp * 16 + g;   // rows of regs 4j, 4j+1; +8 for 4j+2, 4j+3
+    const float sl2 = a.scale * kLog2e;
+    float o[D / 2], sc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    float m_r[2] = {kMaskFill, kMaskFill};
+    float l_r[2] = {0.f, 0.f};   // this thread's share of the row sums
+    const uint32_t qa = base + L::kQ + wg * 64 * RB;
+    hopper::mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, c0 = t * kBN;
+      const uint32_t kt = base + L::kK + s * L::kTileBytes;
+      const uint32_t vt = base + L::kV + s * L::kTileBytes;
+      hopper::mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+
+      // S = Q·Kᵀ over D in k steps of 16: column block ks / kSteps, 32 bytes a step
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int cb = ks / C::kSteps, kin = (ks % C::kSteps) * 32;
+        const uint64_t da = hopper::make_desc(qa + cb * kBM * RB + kin, 16, 8 * RB, RB);
+        const uint64_t db = hopper::make_desc(kt + cb * kBN * RB + kin, 16, 8 * RB, RB);
+        hopper::wgmma_ss<kBN>(sc, da, db, ks > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // scale to the log2 domain; mask only a tile that crosses the diagonal
+      // (for this warpgroup's rows) or the ragged end of the keys
+      const bool edge = c0 + kBN > a.Sk || (a.causal && c0 + kBN - 1 > wr0 + off);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = c0 + j * 8 + tig * 2 + (i & 1);
+            const int row = row_a + (i >> 1) * 8;
+            float x = sc[4 * j + i] * sl2;
+            if (a.causal && col > row + off) x = kMaskFill;
+            if (col >= a.Sk) x = -INFINITY;   // zero-filled keys weigh nothing
+            sc[4 * j + i] = x;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] *= sl2;
+      }
+      // online softmax: two rows per thread, each spread over 4 lanes
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[r];
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2f(m_r[r] - mx);
+        m_r[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sc[4 * j + 2 * r + e] - mx);
+            sc[4 * j + 2 * r + e] = p;
+            sum += p;
+          }
+        l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 2 * r] *= alpha;
+          o[4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+      // O += P·V: the S accumulator of keys 16kk..16kk+15 is the A fragment
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t db = hopper::make_desc(vt + kk * 16 * RB, kBN * RB, 8 * RB, RB);
+        hopper::wgmma_rs<D>(o, pa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(empty0 + 8 * s);
+    }
+
+    // finalize: the row sums over the row's 4 lanes, o = acc / l, lse
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = dtdl::kMaskFill;
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float l_safe = l == 0.f ? 1.f : l;
+      const int row = row_a + 8 * r;
+      if (row >= a.Sq) continue;
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.o) + (size_t(bh) * a.Sq + row) * D;
 #pragma unroll
-      for (int nt = 0; nt < kMmaKeys / 8; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float alpha = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kMmaKeys / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float p = expf(sc[nt][2 * r + j] - m_new);
-          sc[nt][2 * r + j] = p;
-          sum += p;
-        }
-      l_r[r] = l_r[r] * alpha + sum;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        o[nd][2 * r] *= alpha;
-        o[nd][2 * r + 1] *= alpha;
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / l_safe, o[4 * j + 2 * r + 1] / l_safe);
+      // a row that saw no key keeps the mask fill as its lse, as the plain
+      // version's logsumexp over -1e30 scores does
+      if (tig == 0)
+        a.lse[size_t(bh) * a.Sq + row] =
+            m_r[r] == kMaskFill ? kMaskFill : (m_r[r] + log2f(l_safe)) * kLn2;
     }
-    // P·V: the score accumulators of key tiles 2kk, 2kk+1 are the A operand
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      // B operand (k = key, n = dim) straight from row-major V: a
-      // transposing matrix load, lanes 0-15 addressing keys kk*16 + 0..15
-      const uint32_t vrow = smem_addr(Vs + (kk * 16 + lane % 16) * LDQ);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1)
-                     : "r"(vrow + nd * 8 * 2));
-        mma_16816(o[nd], pa, b0, b1);
-      }
-    }
-  }
-  // finalize: the row sums over the row's 4 lanes, o = acc / l, lse
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = l == 0.f ? 1.f : l;
-    const int row = row_a + 8 * r;
-    if (row >= a.Sq) continue;
-    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.o) + (size_t(bh) * a.Sq + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const __nv_bfloat162 v =
-          __floats2bfloat162_rn(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + tig * 2) = v;
-    }
-    if (tig == 0) a.lse[size_t(bh) * a.Sq + row] = m_r[r] + logf(l_safe);
   }
 }
 
 template <int D>
-int launch_mma(const FlashArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * size_t(kMmaRows + 2 * kMmaKeys) * (D + kPad);
-  auto kernel = flash_fwd_mma_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  const dim3 grid((a.Sq + kMmaRows - 1) / kMmaRows, a.BH);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+int launch_wgmma(const FlashArgs& a, cudaStream_t stream) {
+  // q and k come rotated from the rope pre-pass: this body takes no tables
+  if (a.qc != nullptr) return int(cudaErrorInvalidValue);
+  using C = hopper::Cols<D>;
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_rows(&tq, a.q, a.BH, a.Sq, D, kBM, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tk, a.k, a.BH, a.Sk, D, kBN, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tv, a.v, a.BH, a.Sk, D, kBN, C::kBox);
+  if (err != 0) return err;
+  const int smem = FwdSmem<D>::kBytes;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid((a.Sq + kBM - 1) / kBM, a.BH);
+  kernel<<<grid, kWsThreads, smem, stream>>>(tq, tk, tv, a);
   return int(cudaGetLastError());
 }
 
 int launch_dim(const FlashArgs& a, int D, cudaStream_t stream) {
   const bool bf16 = a.kind == dtdl::kBF16;
   switch (D) {
-    case 16: return bf16 ? launch_mma<16>(a, stream) : launch<float, 16>(a, stream);
-    case 32: return bf16 ? launch_mma<32>(a, stream) : launch<float, 32>(a, stream);
-    case 64: return bf16 ? launch_mma<64>(a, stream) : launch<float, 64>(a, stream);
-    case 128: return bf16 ? launch_mma<128>(a, stream) : launch<float, 128>(a, stream);
+    case 16: return bf16 ? launch_wgmma<16>(a, stream) : launch<float, 16>(a, stream);
+    case 32: return bf16 ? launch_wgmma<32>(a, stream) : launch<float, 32>(a, stream);
+    case 64: return bf16 ? launch_wgmma<64>(a, stream) : launch<float, 64>(a, stream);
+    case 128: return bf16 ? launch_wgmma<128>(a, stream) : launch<float, 128>(a, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// kind: 0 f32, 1 bf16.  Rope tables are all null or all set.  Returns a
-// cudaError_t.
+// kind: 0 f32, 1 bf16.  Rope tables are all null or all set; the bf16 body
+// takes q and k already rotated and no tables.  Returns a cudaError_t.
 extern "C" int dtdl_flash_fwd(const void* q, const void* k, const void* v, const void* qc,
                               const void* qs, const void* kc, const void* ks, void* o, void* lse,
                               int BH, int Sq, int Sk, int D, int kind, int causal, float scale,

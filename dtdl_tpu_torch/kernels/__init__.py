@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel, and nowhere else, so a run can show that its path went through
 # the kernels (reset with reset_launches()).
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_attention": 0}
+            "rope_rows": 0, "paged_attention": 0}
 
 # Element codes of the C interface (csrc/attn_common.cuh ElemKind).
 F32, BF16, INT8, FP8_E4M3 = 0, 1, 2, 3
@@ -116,7 +116,7 @@ def build(verbose: bool = False) -> Path:
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
     link = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-         *(str(o) for _, o, _ in jobs), "-o", str(tmp)],
+         *(str(o) for _, o, _ in jobs), "-ldl", "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
@@ -149,6 +149,8 @@ def lib() -> ctypes.CDLL:
             handle.dtdl_flash_bwd_dq.restype = _I
             handle.dtdl_flash_bwd_dkv.argtypes = [_P] * 12 + [_I] * 6 + [_F, _P]
             handle.dtdl_flash_bwd_dkv.restype = _I
+            handle.dtdl_rope_rows.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+            handle.dtdl_rope_rows.restype = _I
             handle.dtdl_error_string.argtypes = [_I]
             handle.dtdl_error_string.restype = ctypes.c_char_p
             _lib = handle

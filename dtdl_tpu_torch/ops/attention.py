@@ -7,7 +7,10 @@ differentiable.  On CUDA tensors the forward runs the hand-written kernel
 ``csrc/flash_fwd.cu`` (kernel K1, the port of ``_fwd_kernel``) through
 :func:`flash_fwd`, and the backward runs ``csrc/flash_bwd.cu`` through
 :func:`flash_bwd`: kernel K2 (dq, the port of ``_bwd_dq_kernel``) then
-kernel K3 (dk and dv, the port of ``_bwd_dkv_kernel``).  On CPU tensors
+kernel K3 (dk and dv, the port of ``_bwd_dkv_kernel``).  In bf16, K1 and
+K3 take q and k already rotated: their wrappers first run the rope
+pre-pass :func:`rope_rotate` (``csrc/rope_rows.cu``), once per row and
+call, where the JAX kernels rotate every tile they load.  On CPU tensors
 each wrapper runs its kernel's plain PyTorch version: the forward is
 rope-then-:func:`mha_reference` arithmetic, the backward the same
 recompute from the saved lse as the kernels (:func:`flash_bwd_reference`).
@@ -106,6 +109,49 @@ def _unrotate(g, c, s):
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
+def rope_rotate(x, c, s):
+    """The rope pre-pass on [B·H, S, D] rows: ``x·c + rot_half(x)·s`` with
+    the [S, D] f32 rope rows ``c``, ``s`` (:func:`rope_rows`), computed in
+    f32 and rounded to x's dtype.  CPU tensors take the plain version
+    :func:`_rotate`; CUDA tensors launch ``csrc/rope_rows.cu``, whose
+    output is bitwise the plain version's, or raise."""
+    if x.device.type == "cpu":
+        return _rotate(x, c, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"rope_rotate runs on cuda or cpu, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rope_rotate takes f32 or bf16, got {x.dtype}")
+    bh, sq, d = x.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"rope_rotate head_dim must be one of {_HEAD_DIMS}, "
+                         f"got {d}")
+    x = x.contiguous()
+    c, s = c.contiguous().float(), s.contiguous().float()
+    if c.shape != (sq, d) or s.shape != (sq, d):
+        raise ValueError(f"rope rows must be [{sq}, {d}], got "
+                         f"{tuple(c.shape)} and {tuple(s.shape)}")
+    if any(t.device != x.device or t.data_ptr() % 16 for t in (x, c, s)):
+        raise ValueError("rope_rotate inputs must be 16-byte aligned "
+                         "tensors on one device")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = kernels.lib().dtdl_rope_rows(
+        x.data_ptr(), c.data_ptr(), s.data_ptr(), y.data_ptr(), bh, sq, d,
+        _kind(x), stream)
+    kernels.check("rope_rows", code)
+    kernels.LAUNCHES["rope_rows"] += 1
+    return y
+
+
+def _prerotate(q, k, tabs):
+    """The pre-pass of K1's and K3's bf16 bodies, which take q and k
+    already rotated (their f32 bodies rotate on load)."""
+    if tabs is None:
+        return q, k
+    qc, qs, kc, ks = tabs
+    return rope_rotate(q, qc, qs), rope_rotate(k, kc, ks)
+
+
 def _kind(x) -> int:
     return kernels.BF16 if x.dtype == torch.bfloat16 else kernels.F32
 
@@ -148,13 +194,15 @@ def flash_fwd(q, k, v, tabs, *, scale: float, causal: bool):
     """Kernel K1 on [B·H, S, D] tensors: returns (o, lse [B·H, Sq] f32).
     ``tabs`` is None or the rope rows (qc, qs, kc, ks) of
     :func:`~dtdl_tpu_torch.ops.rope.rope_rows`.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise.  In bf16 (and
+    on the CPU) the rope pre-pass rotates q and k first."""
     if q.device.type == "cpu":
-        if tabs is not None:
-            qc, qs, kc, ks = tabs
-            q, k = _rotate(q, qc, qs), _rotate(k, kc, ks)
+        q, k = _prerotate(q, k, tabs)
         return _attend(q, k, v, causal=causal, scale=scale)
     q, k, v, _, ptrs, tabs = _check_launch("flash_fwd", q, k, v, tabs)
+    if q.dtype == torch.bfloat16:
+        q, k = _prerotate(q, k, tabs)
+        ptrs = [None] * 4
     bh, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
@@ -259,12 +307,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, tabs, *, scale: float,
 def flash_bwd_dkv(q, k, v, do, lse, delta, tabs, *, scale: float,
                   causal: bool):
     """Kernel K3, the same arguments as :func:`flash_bwd_dq`: returns
-    (dk, dv)."""
+    (dk, dv).  In bf16 the rope pre-pass rotates q and k first."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs,
                                        scale=scale, causal=causal)
     q, k, v, (do, lse, delta), ptrs, tabs = _check_bwd(
         "flash_bwd_dkv", q, k, v, do, lse, delta, tabs)
+    if q.dtype == torch.bfloat16:   # the tables then serve dk's inverse only
+        q, k = _prerotate(q, k, tabs)
     bh, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream

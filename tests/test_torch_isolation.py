@@ -22,7 +22,7 @@ import dtdl_tpu_torch
 from dtdl_tpu_torch import bridge, kernels
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device
 from dtdl_tpu_torch.models.transformer import transformer_lm
-from dtdl_tpu_torch.ops.attention import flash_bwd, flash_fwd
+from dtdl_tpu_torch.ops.attention import flash_bwd, flash_fwd, rope_rotate
 from dtdl_tpu_torch.ops.paged_attention import kv_splits, paged_attention
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Scheduler
@@ -101,8 +101,10 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
     x = torch.randn(2, 8, 16)
     _, lse = flash_fwd(x, x, x, None, scale=0.25, causal=True)
     flash_bwd(x, x, x, x, lse, lse, None, scale=0.25, causal=True)
+    rope_rotate(x, x[0], x[0])
     assert kernels.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                "flash_bwd_dkv": 0, "paged_attention": 0}
+                                "flash_bwd_dkv": 0, "rope_rows": 0,
+                                "paged_attention": 0}
 
 
 def test_other_devices_raise():
@@ -115,6 +117,8 @@ def test_other_devices_raise():
     lse = torch.empty(2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_bwd(x, x, x, x, lse, lse, None, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rope_rotate(x, x[0], x[0])
 
 
 def test_build_without_nvcc_raises_by_name(monkeypatch, tmp_path):
@@ -136,7 +140,7 @@ def test_build_digest_tracks_the_sources(monkeypatch, tmp_path):
         f.write("\n// changed\n")
     assert kernels.source_digest() != before
     assert {p.name for p in tmp_path.glob("*.cu")} == {
-        "flash_bwd.cu", "flash_fwd.cu", "paged_attention.cu"}
+        "flash_bwd.cu", "flash_fwd.cu", "paged_attention.cu", "rope_rows.cu"}
     assert np.all([n in kernels.NVCC_FLAGS for n in
                    ("arch=compute_90a,code=sm_90a", "-O3")])
 

@@ -27,9 +27,10 @@ import torch
 
 from dtdl_tpu_torch import kernels
 from dtdl_tpu_torch.models.transformer import transformer_lm
-from dtdl_tpu_torch.ops.attention import (flash_attention_reference,
+from dtdl_tpu_torch.ops.attention import (_rotate, flash_attention_reference,
                                           flash_bwd_dkv, flash_bwd_dq,
-                                          flash_bwd_reference, flash_fwd)
+                                          flash_bwd_reference, flash_fwd,
+                                          rope_rotate)
 from dtdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
 from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
@@ -148,6 +149,95 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, rope, sq, sk, d):
         median = float(ref.float().abs().median())
         torch.testing.assert_close(got, ref, atol=atol + share * median,
                                    rtol=rtol)
+
+
+# the edges of the bf16 bodies' tiles (K1: 128 q rows x 128 keys; K3: 128
+# keys x 64 q rows): exact multiples, ragged, cross, rows that see no key
+EDGE_SHAPES = [(128, 128), (256, 256), (200, 200), (160, 320), (320, 160)]
+
+
+def _rope_case(cuda, d, sq, sk):
+    cos, sin = rope_frequencies(d, 512, device=cuda)
+    pos_q = (torch.arange(sq, device=cuda) + sk - sq).clamp(min=0)
+    tabs = rope_rows(cos, sin, pos_q) + rope_rows(
+        cos, sin, torch.arange(sk, device=cuda))
+    return (cos, sin), tabs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("sq,sk", EDGE_SHAPES)
+def test_flash_bf16_kernel_tile_edges(cuda, d, causal, rope, sq, sk):
+    """K1's wgmma body against its plain version at every head dim."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(2, 2, s, d, generator=gen, device=cuda)
+               .to(torch.bfloat16) for s in (sq, sk, sk))
+    ropet, tabs = _rope_case(cuda, d, sq, sk) if rope else (None, None)
+    kernels.reset_launches()
+    o, lse = flash_fwd(q.reshape(4, sq, d), k.reshape(4, sk, d),
+                       v.reshape(4, sk, d), tabs, scale=1 / math.sqrt(d),
+                       causal=causal)
+    assert kernels.LAUNCHES["flash_fwd"] == 1
+    assert kernels.LAUNCHES["rope_rows"] == (2 if rope else 0)
+    want_o, want_lse = flash_attention_reference(q, k, v, causal=causal,
+                                                 rope=ropet)
+    torch.testing.assert_close(o.reshape(2, 2, sq, d), want_o,
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse.reshape(2, 2, sq), want_lse, atol=2e-4,
+                               rtol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("sq,sk", EDGE_SHAPES)
+def test_flash_bwd_bf16_kernels_tile_edges(cuda, d, causal, rope, sq, sk):
+    """K3's wgmma body (and K2 beside it) against the plain versions, and
+    K3 bitwise equal to itself from run to run."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, do = (torch.randn(4, s, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for s in (sq, sk, sk, sq))
+    scale = 1 / math.sqrt(d)
+    tabs = _rope_case(cuda, d, sq, sk)[1] if rope else None
+    o, lse = flash_fwd(q.cpu(), k.cpu(), v.cpu(),
+                       None if tabs is None else tuple(t.cpu() for t in tabs),
+                       scale=scale, causal=causal)
+    o, lse = o.to(cuda), lse.to(cuda)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, tabs)
+    got = (flash_bwd_dq(*args, scale=scale, causal=causal),
+           *flash_bwd_dkv(*args, scale=scale, causal=causal))
+    again = flash_bwd_dkv(*args, scale=scale, causal=causal)
+    want = flash_bwd_reference(*args, scale=scale, causal=causal)
+    atol, share, rtol = BWD_TOL[torch.bfloat16]
+    for g, ref in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        median = float(ref.float().abs().median())
+        torch.testing.assert_close(g, ref, atol=atol + share * median,
+                                   rtol=rtol)
+    assert torch.equal(got[1], again[0]) and torch.equal(got[2], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("positions", ["default", "explicit"])
+def test_rope_prepass_bitwise(cuda, dtype, d, positions):
+    """The rope pre-pass is bitwise the plain _rotate."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    s = 200
+    x = torch.randn(6, s, d, generator=gen, device=cuda).to(dtype)
+    cos, sin = rope_frequencies(d, 4096, device=cuda)
+    pos = (torch.arange(s, device=cuda) if positions == "default" else
+           torch.randperm(4096, generator=gen, device=cuda)[:s].sort().values)
+    c, sn = rope_rows(cos, sin, pos)
+    kernels.reset_launches()
+    got = rope_rotate(x, c, sn)
+    assert kernels.LAUNCHES["rope_rows"] == 1
+    assert torch.equal(got, _rotate(x, c, sn))
 
 
 @pytest.mark.cuda

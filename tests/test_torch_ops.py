@@ -97,6 +97,33 @@ def test_apply_rope_per_row_positions():
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("positions", ["default", "explicit"])
+def test_rope_prepass_matches_jax_apply_rope(dtype, positions):
+    """The rope pre-pass of K1 and K3 (rope_rotate on [B·H, S, D] rows with
+    the table rows) against the JAX package's apply_rope.  f32: atol 2e-6
+    (the same products and sum); bf16: one bf16 unit in the last place
+    (rtol 2^-7), as XLA may fold the rotate-then-cast chain differently."""
+    b, h, s, d = 2, 3, 40, 32
+    x = np.random.default_rng(11).normal(size=(b, h, s, d)).astype(
+        np.float32)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jc, js = jrope.rope_frequencies(d, 128)
+    tc, ts = trope.rope_frequencies(d, 128)
+    pos = (np.arange(s) if positions == "default" else np.sort(
+        np.random.default_rng(12).permutation(128)[:s])).astype(np.int32)
+    want = jrope.apply_rope(jnp.asarray(x, jdt), jc, js,
+                            positions=jnp.asarray(pos))
+    c, sn = trope.rope_rows(tc, ts, _t(pos).long())
+    got = tattn.rope_rotate(_t(x).to(tdt).reshape(b * h, s, d), c, sn)
+    assert got.dtype == tdt
+    tol = dict(atol=1e-6, rtol=2**-7) if dtype == "bf16" else dict(
+        atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.float().reshape(b, h, s, d).numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
 # ---------------------------------------------------------------------------
 # dense and flash attention
 # ---------------------------------------------------------------------------
@@ -204,8 +231,9 @@ def _grads_both(name, sq, sk, causal, rope, blocks, *, dtype=np.float32,
     if blocks is not None:
         jkw.update(block_q=blocks, block_k=blocks)
     if rope is not None:
-        jc, js = jrope.rope_frequencies(d, 128)
-        tc, ts = trope.rope_frequencies(d, 128)
+        n = max(128, sq, sk)      # table rows up to the longest sequence
+        jc, js = jrope.rope_frequencies(d, n)
+        tc, ts = trope.rope_frequencies(d, n)
         jkw["rope"], tkw["rope"] = (jc, js), (tc, ts)
         if rope == "explicit":
             rng = np.random.default_rng(9)
@@ -256,6 +284,44 @@ def test_flash_grads_bf16_match_jax_kernels(name, sq, sk, causal, rope,
         np.testing.assert_allclose(
             g, w, atol=BF16_GRAD_SHARE * float(np.abs(w).max()), rtol=0,
             err_msg=f"{name} {which}")
+
+
+# the edges of the card's bf16 tiles (K1: 128 q rows x 128 keys; K3: 128
+# keys x 64 q rows), over 128-row JAX tiles: an exact multiple, ragged,
+# cross with fused rope, and rows that see no key.  Those rows weight every
+# key alike in the plain version and on the card; the JAX kernel does so
+# only when one tile holds them all (over 128-row tiles it skips a q tile
+# that sits wholly above the diagonal and leaves its rows at zero), so that
+# case runs in one 512-row JAX tile
+EDGE_GRAD_CASES = [
+    ("edge-128-rope-causal", 128, 128, True, "default", 128),
+    ("edge-200-rope", 200, 200, False, "default", 128),
+    ("edge-160/320-rope-causal", 160, 320, True, "default", 128),
+    ("edge-320/160-causal", 320, 160, True, None, 512),
+]
+
+
+@pytest.mark.parametrize("name,sq,sk,causal,rope,blocks", EDGE_GRAD_CASES,
+                         ids=[c[0] for c in EDGE_GRAD_CASES])
+def test_flash_forward_and_grads_tile_edges(name, sq, sk, causal, rope,
+                                            blocks):
+    """flash_attention's output and its gradients (the autograd function's
+    residuals through K2's and K3's plain versions) at the new tiles'
+    edges, against the JAX kernels in the Pallas interpreter, f32."""
+    d = 32
+    q, k, v = _qkv(7, 1, 2, sq, sk, d)
+    jkw, tkw = dict(block_q=blocks, block_k=blocks), {}
+    if rope is not None:
+        jkw["rope"] = jrope.rope_frequencies(d, max(sq, sk))
+        tkw["rope"] = trope.rope_frequencies(d, max(sq, sk))
+    want = np.asarray(jattn.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, **jkw))
+    got = tattn.flash_attention(*map(_t, (q, k, v)), causal=causal, **tkw)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    got_g, want_g = _grads_both(name, sq, sk, causal, rope, blocks, d=d)
+    for g, w, which in zip(got_g, want_g, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=f"{name} {which}")
 
 
 def test_flash_bwd_reference_is_the_kernels_arithmetic():
