@@ -12,9 +12,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels   - each kernel against its plain PyTorch version on the card,
                on the cases of tests/test_paged_kernel.py and
                tests/test_attention.py (K1, K2, K3 also at the training
-               shape, and the bf16 bodies at the edges of their tiles),
-               max abs error beside the tolerance; the rope pre-pass
-               bitwise, K3 bitwise from run to run;
+               shape, and the bf16 bodies at the edges of their tiles; K1's
+               f32 body on rows that see no key), max abs error beside the
+               tolerance; the rope pre-pass bitwise, K2 and K3 bitwise from
+               run to run; K4's split-KV decode called three times in a row,
+               bitwise equal each time, with splits of which many are empty
+               and with one split;
 4. serve     - the serving path: transformer_lm("base") in bf16 with
                weights from --seed, a paged InferenceEngine (page 16, 8
                slots) and a Scheduler (harvest_lag 4) answering 16 greedy
@@ -261,17 +264,74 @@ def check_paged(torch, results):
         if not ok:
             raise AssertionError(f"K4 {name} disagrees with its plain version")
         results[name] = err
+    check_paged_splits(torch, results)
 
 
-# the edges of the bf16 bodies' tiles (K1: 128 q rows x 128 keys; K3: 128
-# keys x 64 q rows) at every head dim, with and without rope, causal and
-# not: exact multiples (128, 256), ragged (200), cross (160/320) and rows
-# that see no key (causal 320/160)
+def check_paged_splits(torch, results):
+    """K4's bf16 decode with its split-KV merge inside the launch: a
+    geometry with n_splits > 1 called three times in a row (the arrival
+    counters come back to zero: bitwise equal each time), one where most
+    splits are empty (small positions, many splits), and one with
+    n_splits == 1 (enough rows to fill the card), each held to the plain
+    version."""
+    from dtdl_tpu_torch.ops.paged_attention import (_sm_count, kv_splits,
+                                                    paged_attention,
+                                                    paged_attention_reference)
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    h, d, page = 4, 128, 16
+    sms = _sm_count(torch.device(DEV)) if DEV == "cuda" else 132
+    cases = [
+        ("split decode S=1 repeated", 8, 128, 1,
+         [100, 250, 400, 550, 700, 850, 1000, 1050], "many"),
+        ("split decode S=1 empty splits", 8, 128, 1,
+         [0, 1, 2, 3, 5, 8, 15, 16], "many"),
+        ("split verify S=5 empty splits", 8, 128, 5,
+         [0, 1, 2, 30, 50, 80, 150, 160], "many"),
+        ("split decode S=1 one split", 80, 64, 1, list(range(0, 1000, 12)),
+         "one"),
+    ]
+    for name, b, n_ptab, s_new, pos, want_splits in cases:
+        q, pk, pv, _, _, table, pos_t, active, _ = paged_case(
+            torch, gen, b=b, h=h, s_new=s_new, d=d, page=page, n_ptab=n_ptab,
+            dtype=torch.bfloat16, pos=pos[:b])
+        n_splits = kv_splits(b, h, s_new, n_ptab, sms)
+        if (n_splits == 1) != (want_splits == "one"):
+            raise AssertionError(f"K4 {name}: {n_splits} splits")
+        scale = 1.0 / math.sqrt(d)
+        outs = [paged_attention(q, pk, pv, table, pos_t, active, scale=scale)
+                for _ in range(3)]
+        want = paged_attention_reference(q, pk, pv, table, pos_t, active,
+                                         scale=scale)
+        sync(torch)
+        err = max_err(outs[0], want)
+        close, tol = within(outs[0], want, q.dtype)
+        repeat = all(bool(torch.equal(outs[0], o)) for o in outs[1:])
+        ok = close and repeat and bool(torch.isfinite(outs[0]).all())
+        log(f"K4 paged_attention {name}: n_splits={n_splits} "
+            f"max_abs_err={err:.3e} {tol} bitwise_over_3_calls={repeat} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K4 {name} disagrees with its plain version "
+                                 f"or with itself")
+        results[name] = err
+
+
+# the edges of the bf16 bodies' tiles (K1: 128 q rows x 128 keys; K2: 128
+# q rows x 128 keys; K3: 128 keys x 64 q rows) at every head dim, with and
+# without rope, causal and not: exact multiples (128, 256), ragged (200),
+# cross (160/320) and rows that see no key (causal 320/160)
 EDGE_CASES = [(sq, sk, d, causal, rope)
               for sq, sk in ((128, 128), (256, 256), (200, 200), (160, 320),
                              (320, 160))
               for d in (16, 32, 64, 128) for causal in (True, False)
               for rope in (None, "rope")]
+# K2's own edges: ragged rows and keys (130/70), one 128-row tile holding
+# rows that see no key beside rows that do (causal 200/100), few rows over
+# many keys (64/192)
+DQ_EDGE_CASES = [(sq, sk, d, causal, rope)
+                 for sq, sk in ((130, 70), (200, 100), (64, 192))
+                 for d in (16, 32, 64, 128) for causal in (True, False)
+                 for rope in (None, "rope")]
 
 
 def check_rope(torch, results):
@@ -320,6 +380,10 @@ def check_flash(torch, results):
          True, None),
         ("cross 160/320 non-causal f32", 2, 2, 160, 320, 64, torch.float32,
          False, None),
+        ("causal sq>sk 100/40 f32 (rows that see no key)", 2, 2, 100, 40, 64,
+         torch.float32, True, None),
+        ("causal sq>sk 320/160 hd128 rope f32 (rows that see no key)", 2, 2,
+         320, 160, 128, torch.float32, True, "rope"),
         ("ragged 200 causal f32", 2, 2, 200, 200, 64, torch.float32, True,
          None),
         ("ragged 200 non-causal rope bf16", 2, 2, 200, 200, 128,
@@ -423,14 +487,16 @@ BWD_CASES = [
      "rope"))] + [
     (f"edge {sq}/{sk} hd{d} {'causal' if causal else 'non-causal'}"
      f"{' rope' if rope else ''} bf16", 1, 2, sq, sk, d, "bf16", causal, rope)
-    for sq, sk, d, causal, rope in EDGE_CASES]
+    for sq, sk, d, causal, rope in EDGE_CASES + DQ_EDGE_CASES]
 
 
 def check_flash_bwd(torch, results):
-    """K2 and K3 against their plain versions on the same residuals: the
-    plain forward's o and lse, delta = rowsum(dO∘O)."""
+    """K2 and K3 (through flash_bwd, one rope pre-pass for the pair)
+    against their plain versions on the same residuals: the plain
+    forward's o and lse, delta = rowsum(dO∘O); each again on its own,
+    bitwise equal."""
     from dtdl_tpu_torch.ops.attention import (flash_attention_reference,
-                                              flash_bwd_dkv,
+                                              flash_bwd, flash_bwd_dkv,
                                               flash_bwd_dkv_reference,
                                               flash_bwd_dq,
                                               flash_bwd_dq_reference)
@@ -442,6 +508,12 @@ def check_flash_bwd(torch, results):
                  for _ in range(2))
         k, v = (torch.randn(b, h, sk, d, generator=gen, device=DEV).to(dtype)
                 for _ in range(2))
+        if dtype == torch.bfloat16 and causal and sq > sk:
+            # rows that see no key weight every key with p = 1, so their ds
+            # is of dp's size; dO and v on a grid of 1/8 make dp = dO·vᵀ
+            # exact in the kernels and the plain versions alike, so no
+            # one-ulp bf16 flip of ds, from dp's last f32 bit, decides
+            do, v = (((x.float() * 8).round() / 8).to(dtype) for x in (do, v))
         scale = 1.0 / math.sqrt(d)
         ropet, positions, tabs = rope_tables(torch, gen, d, sq, sk, rope)
         with torch.no_grad():
@@ -453,11 +525,11 @@ def check_flash_bwd(torch, results):
         delta = (do.float() * o.float()).sum(-1).reshape(b * h, sq)
         args = (*flat, lse, delta, tabs)
         kw = dict(scale=scale, causal=causal)
-        got = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
-        again = flash_bwd_dkv(*args, **kw)
+        got = flash_bwd(*args, **kw)
+        again = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
         sync(torch)
-        # no atomics: K3 gives the same bits from run to run
-        repro = all(bool(torch.equal(x, y)) for x, y in zip(got[1:], again))
+        # no atomics: K2 and K3 give the same bits from run to run
+        repro = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
         del again
         want = (flash_bwd_dq_reference(*args, **kw),)
         want += flash_bwd_dkv_reference(*args, **kw)
@@ -479,7 +551,7 @@ def check_flash_bwd(torch, results):
         del got, want
         log(f"K2/K3 flash_bwd {name}: max_abs_err " + " ".join(parts)
             + f" tol=atol {atol0:.0e} + {share:.4g}·median|want| + rtol "
-            f"{rtol:.0e} K3_bitwise_repeatable={repro} "
+            f"{rtol:.0e} K2_K3_bitwise_repeatable={repro} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K2/K3 {name} disagree with their plain "
@@ -671,7 +743,8 @@ def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} steps, want {want} (one per layer "
                                  f"and step)")
-    # the rope pre-pass rotates q and k for K1 and again for K3
+    # the rope pre-pass rotates q and k for K1, and once more for the K2/K3
+    # pair
     if launches["rope_rows"] != 4 * want:
         raise AssertionError(f"rope_rows launched {launches['rope_rows']} "
                              f"times in {steps} steps, want {4 * want}")
@@ -920,9 +993,10 @@ def time_flash_bwd(torch):
     """K2 and K3 at the training path's shape (bf16, causal, fused rope,
     8 x 4 heads x 4096 x 128): each kernel, its plain version, the bound,
     and torch.autograd.grad through SDPA (pre-roped inputs), one figure
-    for the pair."""
+    for the pair; and the pair as the training step runs it (flash_bwd:
+    one rope pre-pass, K2, K3)."""
     import torch.nn.functional as F
-    from dtdl_tpu_torch.ops.attention import (flash_bwd_dkv,
+    from dtdl_tpu_torch.ops.attention import (flash_bwd, flash_bwd_dkv,
                                               flash_bwd_dkv_reference,
                                               flash_bwd_dq,
                                               flash_bwd_dq_reference,
@@ -955,6 +1029,7 @@ def time_flash_bwd(torch):
             out[name] = dict(ms=cuda_ms(torch, run),
                              plain_ms=cuda_ms(torch, plain, iters=3,
                                               warmup=1))
+        out["pair_ms"] = cuda_ms(torch, lambda: flash_bwd(*args, **kw))
     qr, kr, vr = (x.detach().requires_grad_()
                   for x in (apply_rope(q, cos, sin), apply_rope(k, cos, sin),
                             v))
@@ -1044,10 +1119,14 @@ def main(argv=None) -> int:
         lines = "\n".join(kernels.BUILD_LOG).splitlines()
         regs = [int(m[1]) for m in (re.search(r"Used (\d+) registers", x)
                                     for x in lines) if m]
-        spills = [x.strip() for x in lines
-                  if (m := re.search(r"(\d+) bytes spill stores, (\d+) "
-                                     r"bytes spill loads", x))
-                  and (int(m[1]) or int(m[2]))]
+        spills, entry = [], "?"
+        for x in lines:   # each spill line under its kernel's entry line
+            if m := re.search(r"entry function '(\w+)'", x):
+                entry = m[1]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", x)
+            if m and (int(m[1]) or int(m[2])):
+                spills.append(f"{entry[:90]}: {x.strip()}")
         log(f"build: {len(regs)} kernels in {time.perf_counter() - t0:.1f}s, "
             f"registers max {max(regs) if regs else 'n/a'}, spilling "
             f"entries {len(spills)} (log {log_path})")
@@ -1105,9 +1184,13 @@ def main(argv=None) -> int:
         for name in ("K1", "K2", "K3"):
             log(fmt_timing(f"time {name} train shape 8x4x4096 hd128 causal "
                            f"rope bf16", tr[name]))
+        log(f"time K2+K3 pair as the step runs it (flash_bwd: one rope "
+            f"pre-pass, K2, K3): ms={tr['pair_ms']:.4f} library_ms="
+            f"{tr['K2']['library_ms']:.4f}")
         rope_t = time_rope(torch)
         log(fmt_timing("time rope pre-pass train shape 32x4096 hd128 bf16 "
-                       "(one of q, k; K1 and K3 each run two)", rope_t))
+                       "(one of q, k; K1 and the K2/K3 pair each run two)",
+                       rope_t))
         main_case = "train 8x4x4096 hd128 causal rope bf16"
         bwd_errs = errors.get("bwd " + main_case)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -254,10 +254,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float load_scalar(const void* base, size_t e, int kind) {
   return kind == kBF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[e])
                        : static_cast<const float*>(base)[e];
@@ -286,41 +282,6 @@ __device__ void rope_rows(float* buf, int ld, int n, int row0, int nvalid, const
     const float x1 = x[d], x2 = x[d + H2];
     x[d] = round_to<T>(__fadd_rn(__fmul_rn(x1, cr[d]), __fmul_rn(-x2, sr[d])));
     x[d + H2] = round_to<T>(__fadd_rn(__fmul_rn(x2, cr[d + H2]), __fmul_rn(x1, sr[d + H2])));
-  }
-}
-
-// Stage `n` rows of a [.., D] bf16 slab (rows from `row0`, `nvalid` of them
-// real, the rest zero) into shared memory rows of stride `ld`, roped when
-// tables are given.  Thread e takes 8 dimensions d..d+7 of the first half
-// of one row and the matching 8 of the second half (rope pairs d with
-// d + D/2), one 16-byte load and store each.
-template <int D, int NT = 128>
-__device__ void stage_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src, int row0,
-                           int n, int nvalid, const float* c, const float* s) {
-  constexpr int H2 = D / 2, G = H2 / 8;
-  for (int e = threadIdx.x; e < n * G; e += NT) {
-    const int r = e / G, d = (e - r * G) * 8;
-    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
-    if (r < nvalid) {
-      const __nv_bfloat16* x = src + size_t(row0 + r) * D + d;
-      lo = *reinterpret_cast<const uint4*>(x);
-      hi = *reinterpret_cast<const uint4*>(x + H2);
-      if (c != nullptr) {
-        const float* cr = c + size_t(row0 + r) * D + d;
-        const float* sr = s + size_t(row0 + r) * D + d;
-        __nv_bfloat16* l16 = reinterpret_cast<__nv_bfloat16*>(&lo);
-        __nv_bfloat16* h16 = reinterpret_cast<__nv_bfloat16*>(&hi);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x1 = __bfloat162float(l16[i]), x2 = __bfloat162float(h16[i]);
-          l16[i] = __float2bfloat16(__fadd_rn(__fmul_rn(x1, cr[i]), __fmul_rn(-x2, sr[i])));
-          h16[i] = __float2bfloat16(
-              __fadd_rn(__fmul_rn(x2, cr[i + H2]), __fmul_rn(x1, sr[i + H2])));
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + d) = lo;
-    *reinterpret_cast<uint4*>(dst + r * ld + d + H2) = hi;
   }
 }
 

@@ -4,15 +4,15 @@
 // (K3), both launched by _bwd, the Pallas TPU backward of flash_attention
 // (the causal-LM training step: one K2 and one K3 launch per layer).
 //
-// What they compute, per b·h, from the forward's residuals q, k (unrotated),
-// v, its lse [B·H, Sq] f32 and delta = rowsum(dO∘O) [B·H, Sq] f32 (computed
-// outside, as attention.py:554 does):
+// What they compute, per b·h, from the forward's residuals q, k, v, its lse
+// [B·H, Sq] f32 and delta = rowsum(dO∘O) [B·H, Sq] f32 (computed outside, as
+// attention.py:554 does):
 //   s = q·kᵀ·scale (masked to -1e30 above the bottom-aligned causal diagonal,
 //   off = Sk - Sq), p = exp(s - lse), dp = dO·vᵀ, ds = p∘(dp - delta)·scale;
 //   K2: dq = ds·k;  K3: dk = dsᵀ·q, dv = pᵀ·dO.
 // ds and p are rounded to the input type before their products, as the JAX
 // kernels cast them; products accumulate in f32.  With rope tables, q and k
-// rows are rotated on load (f32, rounded back, as flash_fwd.cu) and dq / dk,
+// are the rotated rows (f32, rounded back, as flash_fwd.cu) and dq / dk,
 // which are gradients of the rotated rows, get the inverse rotation on the
 // f32 accumulator before the store.
 //
@@ -23,24 +23,26 @@
 //
 // What the design does about it: JAX's split into two kernels is kept, with
 // no atomics, so the gradients are bitwise reproducible from run to run.
-// K2 runs one block per (q tile, b·h) that loops over key chunks up to the
+// K2 runs one block per (q tile, b·h) that loops over key tiles up to the
 // causal diagonal; K3 one block per (key tile, b·h) that loops over q chunks
 // from the first one that reaches its keys (the TPU's sequential grid axis
 // becomes the loop).  Both recompute s and dp, so the pair does 14·S²·D
 // flops per head where FlashAttention-2's atomic dq does 10.  The S x S
 // matrices never leave the block.  The bodies:
-//  * K2, bf16: mma.sync m16n8k16 on the tensor cores (bf16 in, f32
-//    accumulate), 16 rows per warp, the score accumulators reused as the A
-//    operand of ds·k, whose B operand is read from the row-major key tile
-//    by transposing ldmatrix loads; q and k rotated on load;
-//  * K3, bf16: warp-specialised wgmma on TMA tiles (the section below),
-//    128 keys per block, in the transposed frame (rows are keys, columns q
-//    rows: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ), so no operand is re-laid out in
-//    registers.  It takes q and k already rotated by the rope pre-pass
-//    (rope_rows.cu, run by ops/attention.py flash_bwd_dkv); the tables
-//    serve the inverse rotation of dk only;
-//  * f32, both: FMA on the CUDA cores (16 rows per block), as
-//    flash_fwd.cu's f32 body.
+//  * bf16, both: warp-specialised wgmma on TMA tiles (the sections below).
+//    A producer warpgroup streams tiles through a two-stage full/empty
+//    mbarrier ring while two consumer warpgroups run all products as wgmma,
+//    with the scores and the probabilities kept in registers and rounded to
+//    bf16 as the register A operand of the second products; masks only on
+//    tiles that cross the causal diagonal or a ragged end.  K2 holds 128 q
+//    rows and dq in registers and streams the keys; K3 holds 128 keys and
+//    dk, dv and streams the q rows, in the transposed frame (rows are keys,
+//    columns q rows: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ), so no operand is re-laid out
+//    in registers.  Both take q and k already rotated by the rope pre-pass
+//    (rope_rows.cu, run once for the pair by ops/attention.py flash_bwd);
+//    the tables serve the inverse rotation of dq and dk only;
+//  * f32, both: FMA on the CUDA cores (16 rows per block), rotating q and k
+//    on load, as flash_fwd.cu's f32 body.
 // Rows that see no key at all (causal with Sq > Sk) have lse = -1e30, so
 // p = 1 against every masked key, as in the plain version; a tile holding
 // such a row walks every key (K2), and K3 then starts at the first q chunk.
@@ -51,21 +53,16 @@ namespace {
 
 namespace hopper = dtdl::hopper;
 using dtdl::kMaskFill;
-using dtdl::ld32;
-using dtdl::ldmatrix_trans_x2;
-using dtdl::mma_16816;
 using dtdl::pack_bf16;
 using dtdl::rope_rows;
-using dtdl::smem_addr;
-using dtdl::stage_rows;
 using dtdl::unrotate_pair;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;
 
 struct BwdArgs {
-  const void* q;     // [BH, Sq, D] T, unrotated
-  const void* k;     // [BH, Sk, D] T, unrotated
+  const void* q;     // [BH, Sq, D] T: f32 unrotated, bf16 rotated
+  const void* k;     // [BH, Sk, D] T: likewise
   const void* v;     // [BH, Sk, D] T
   const void* dO;    // [BH, Sq, D] T
   const float* lse;  // [BH, Sq]
@@ -106,192 +103,12 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const BwdArgs& a, cudaStream_t
   return int(cudaGetLastError());
 }
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16: wgmma on TMA tiles, warp-specialised ---------------------------
 
-constexpr int kRows = 64;    // K2: q rows per block (16 per warp)
-constexpr int kKeys = 64;    // K2: keys per chunk
-constexpr int kPad = 8;      // bf16 pad per shared row: conflict-free fragment loads
-
-// The A fragment (16 rows from `row0`, k step ks) of a row-major shared tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile, int row0, int ks,
-                                       int g, int tig) {
-  const bf16* p = tile + (row0 + g) * LD + ks * 16 + tig * 2;
-  f[0] = ld32(p);
-  f[1] = ld32(p + 8 * LD);
-  f[2] = ld32(p + 8);
-  f[3] = ld32(p + 8 * LD + 8);
-}
-
-// acc (16 x D per warp) += A (16 x 16·NK, packed from NK pairs of score
-// tiles) · the NK·16 rows of `tile` from `row0`, read through transposing
-// matrix loads.
-template <int D, int NK, int LD>
-__device__ __forceinline__ void acc_product(float (&acc)[D / 8][4], const float (&sc)[2 * NK][4],
-                                            const bf16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                            pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                            pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                            pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-    const uint32_t row = smem_addr(tile + (kk * 16 + lane % 16) * LD);
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      uint32_t b0, b1;
-      ldmatrix_trans_x2(b0, b1, row, nd * 8 * 2);
-      mma_16816(acc[nd], pa, b0, b1);
-    }
-  }
-}
-
-// Inverse rope on a warp's f32 accumulator and the bf16 store of its 16
-// rows: rows row_a and row_a + 8 (global rows of [.., n, D]); dimension d
-// and d + D/2 of a row sit in tiles nd and nd + D/16 of one thread.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, float (&acc)[D / 8][4], int row_a, int n,
-                                           int tig, const float* c, const float* s) {
-  constexpr int ND = D / 8;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= n) continue;
-    if (c != nullptr) {
-      const float* cr = c + size_t(row) * D;
-      const float* sr = s + size_t(row) * D;
-#pragma unroll
-      for (int nd = 0; nd < ND / 2; ++nd)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int d = nd * 8 + tig * 2 + j;
-          unrotate_pair(acc[nd][2 * r + j], acc[nd + ND / 2][2 * r + j], cr[d], sr[d],
-                        cr[d + D / 2], sr[d + D / 2]);
-        }
-    }
-    bf16* orow = out + size_t(row) * D;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + tig * 2) =
-          __floats2bfloat162_rn(acc[nd][2 * r], acc[nd][2 * r + 1]);
-  }
-}
-
-// K2: one block per (64 q rows, b·h), 16 rows per warp.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_mma_kernel(const BwdArgs a) {
-  constexpr int LD = D + kPad, KS = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char dq_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(dq_smem);   // [64][LD] roped q tile
-  bf16* Ds = Qs + kRows * LD;                     // [64][LD] dO tile
-  bf16* Ks = Ds + kRows * LD;                     // [64][LD] roped key chunk
-  bf16* Vs = Ks + kKeys * LD;                     // [64][LD] value chunk
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  // the last (causal: heaviest) q tiles are scheduled first
-  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int rows = min(kRows, a.Sq - r0);
-  const int off = a.Sk - a.Sq;
-  const bf16* qb = static_cast<const bf16*>(a.q) + size_t(bh) * a.Sq * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) + size_t(bh) * a.Sk * D;
-  const bf16* vb = static_cast<const bf16*>(a.v) + size_t(bh) * a.Sk * D;
-  const bf16* db = static_cast<const bf16*>(a.dO) + size_t(bh) * a.Sq * D;
-  stage_rows<D>(Qs, LD, qb, r0, kRows, rows, a.qc, a.qs);
-  stage_rows<D>(Ds, LD, db, r0, kRows, rows, nullptr, nullptr);
-
-  const int wr = warp * 16;
-  const int row_a = r0 + wr + g;   // global q rows of c0/c1; c2/c3 are row_a + 8
-  float lse_r[2], delta_r[2];
-  bool live_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    live_r[r] = row < a.Sq;
-    lse_r[r] = live_r[r] ? a.lse[size_t(bh) * a.Sq + row] : 0.f;
-    delta_r[r] = live_r[r] ? a.delta[size_t(bh) * a.Sq + row] : 0.f;
-  }
-  float dq[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-
-  // keys past this bound sit above the diagonal for every row of the tile,
-  // unless a row of the tile sees no key at all (then it walks every key)
-  const int kend = (a.causal && r0 + off >= 0) ? min(a.Sk, r0 + rows + off) : a.Sk;
-  for (int c0 = 0; c0 < kend; c0 += kKeys) {
-    const int nk = min(kKeys, kend - c0);
-    __syncthreads();   // the previous chunk's fragment loads are done
-    stage_rows<D>(Ks, LD, kb, c0, kKeys, nk, a.kc, a.ks);
-    stage_rows<D>(Vs, LD, vb, c0, kKeys, nk, nullptr, nullptr);
-    __syncthreads();
-
-    float sc[kKeys / 8][4], dp[kKeys / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qs, wr, ks, g, tig);
-      load_a<LD>(da, Ds, wr, ks, g, tig);
-#pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt) {
-        const bf16* k0 = Ks + (nt * 8 + g) * LD + ks * 16 + tig * 2;
-        const bf16* v0 = Vs + (nt * 8 + g) * LD + ks * 16 + tig * 2;
-        mma_16816(sc[nt], qa, ld32(k0), ld32(k0 + 8));
-        mma_16816(dp[nt], da, ld32(v0), ld32(v0 + 8));
-      }
-    }
-    // ds in place of the scores: c0/c1 belong to row_a, c2/c3 to row_a + 8
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1;
-        const int col = c0 + nt * 8 + tig * 2 + (j & 1);
-        const int row = row_a + 8 * r;
-        const bool live = live_r[r] && col < a.Sk;
-        const bool visible = !a.causal || col <= row + off;
-        const float p = prob(sc[nt][j], live, visible, a.scale, lse_r[r]);
-        sc[nt][j] = dscore(p, dp[nt][j], delta_r[r], a.scale);
-      }
-    acc_product<D, kKeys / 16, LD>(dq, sc, Ks, lane);   // dq += ds·k
-  }
-  store_rows<D>(static_cast<bf16*>(a.dq) + size_t(bh) * a.Sq * D, dq, row_a, a.Sq, tig, a.qc,
-                a.qs);
-}
-
-// K3, bf16: wgmma on TMA tiles, warp-specialised.  One block per (128 keys,
-// b·h), the first (causal: heaviest) first, in the transposed frame: score
-// tiles are [keys, q rows].  Warpgroups 0 and 1 are consumers of 64 keys
-// each and hold dk and dv for them in registers; warpgroup 2 is the
-// producer.  Its first thread loads the K and V tiles once and then streams
-// 64-row chunks of the rotated q and of dO by TMA through a two-stage
-// mbarrier ring; its second warp writes each chunk's lse·log2(e) and delta
-// into shared memory beside them and arrives on the same full barrier.  A
-// consumer computes sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ with wgmma (all operands
-// K-major in shared memory), pᵀ = exp2(sᵀ·scale·log2(e) − lse·log2(e)) and
-// dsᵀ = pᵀ∘(dpᵀ − delta)·scale in registers, then dv += pᵀ·dO and
-// dk += dsᵀ·Q with wgmma, pᵀ and dsᵀ rounded to bf16 as the register A
-// operand and dO and Q read MN-major.  Masks are computed only on chunks
-// that cross the causal diagonal or a ragged end.  dk gets the inverse rope
-// at the store, once per key row.
-constexpr int kBK = 128;                 // keys per block
-constexpr int kBQ = 64;                  // q rows per chunk
-constexpr int kQStages = 2;              // q/dO ring depth
 constexpr int kWG = 128;                 // threads of a warpgroup
 constexpr int kWsThreads = 3 * kWG;      // consumers 0, 1; producer 2
+constexpr int kStages = 2;               // depth of the streamed-tile ring
 constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct DkvSmem {   // byte offsets from a 1024-byte aligned base
-  static constexpr int kTileBytes = kBK * D * 2, kChunkBytes = kBQ * D * 2;
-  static constexpr int kK = 0, kV = kTileBytes, kQ = 2 * kTileBytes;
-  static constexpr int kDO = kQ + kQStages * kChunkBytes;
-  static constexpr int kStats = kDO + kQStages * kChunkBytes;   // [stage][lse2 | delta][kBQ] f32
-  static constexpr int kBars = kStats + kQStages * 2 * kBQ * 4;  // kv_full, full[s], empty[s]
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kQStages) + 1024;   // + alignment slack
-};
 
 // Inverse rope on a warpgroup's flat f32 accumulator (the wgmma layout:
 // rows row_a and row_a + 8, columns 8j + 2·tig (+1) in d[4j..4j+3]) and the
@@ -324,6 +141,218 @@ __device__ __forceinline__ void store_acc(bf16* out, float (&acc)[D / 2], int ro
   }
 }
 
+// K2, bf16.  One block per (128 q rows, b·h), the last (causal: heaviest)
+// first.  Warpgroups 0 and 1 are consumers of 64 q rows each and hold dq for
+// them in registers; warpgroup 2 is the producer.  Its first thread loads the
+// block's Q and dO tiles once by TMA and then streams the K and V tiles of BN
+// keys through the ring (K3's scheme with the roles of q and k swapped).
+// Each consumer thread reads the lse·log2(e) and delta of its two rows once,
+// into registers.  A consumer computes s = Q·Kᵀ and dp = dO·Vᵀ with wgmma
+// (all operands K-major in shared memory), p = exp2(s·scale·log2(e) −
+// lse·log2(e)) and ds = p∘(dp − delta)·scale in registers, then dq += ds·K
+// with wgmma, ds rounded to bf16 as the register A operand and K read
+// MN-major from the same tile, as K1 reads V.  Keys past Sk get p = 0.  dq
+// gets the inverse rope at the store, once per row.
+constexpr int kDqRows = 128;             // q rows per block
+constexpr int kDqKeys = 128;             // keys per streamed tile
+
+template <int D, int BN>
+struct DqSmem {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kQBytes = kDqRows * D * 2, kTileBytes = BN * D * 2;
+  static constexpr int kQ = 0, kDO = kQBytes, kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;   // q_full, full[s], empty[s]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;   // + alignment slack
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(kWsThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const BwdArgs a) {
+  using C = hopper::Cols<D>;
+  using L = DqSmem<D, BN>;
+  constexpr int RB = C::kRowBytes;
+  extern __shared__ unsigned char dq_smem[];
+  const uint32_t base = (hopper::saddr(dq_smem) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + kStages);
+
+  const int bh = blockIdx.y, r0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;
+  const int rows = min(kDqRows, a.Sq - r0);
+  const int off = a.Sk - a.Sq;
+  // keys past kend sit above the diagonal for every row of the tile, unless
+  // a row of it sees no key at all: then the tile walks every key
+  const int kend = (a.causal && r0 + off >= 0) ? min(a.Sk, r0 + rows + off) : a.Sk;
+  const int n_tiles = (kend + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, 8);   // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG, lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 2 * kWG) {
+      hopper::mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int cb = 0; cb < C::kBlocks; ++cb) {
+        hopper::tma_load(base + L::kQ + cb * kDqRows * RB, &tq, q_full, cb * C::kBox, r0, bh);
+        hopper::tma_load(base + L::kDO + cb * kDqRows * RB, &tdo, q_full, cb * C::kBox, r0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full0 + 8 * s, 2 * L::kTileBytes);
+        const uint32_t kt = base + L::kK + s * L::kTileBytes;
+        const uint32_t vt = base + L::kV + s * L::kTileBytes;
+        for (int cb = 0; cb < C::kBlocks; ++cb) {
+          hopper::tma_load(kt + cb * BN * RB, &tk, full0 + 8 * s, cb * C::kBox, t * BN, bh);
+          hopper::tma_load(vt + cb * BN * RB, &tv, full0 + 8 * s, cb * C::kBox, t * BN, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    hopper::regs_alloc<240>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int g = lane / 4, tig = lane % 4;
+    const int wr0 = r0 + wg * 64;            // this warpgroup's first row
+    const int row_a = wr0 + warp * 16 + g;   // rows of regs 4j, 4j+1; +8 for 4j+2, 4j+3
+    const float sl2 = a.scale * kLog2e;
+    const float fill2 = __fmul_rn(kMaskFill, kLog2e);   // == lse·log2(e) of a row that sees no key
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {   // rows past Sq: q and dO are zero-filled, so ds = 0
+      const int row = row_a + 8 * r;
+      const bool live = row < a.Sq;
+      lse2[r] = live ? __fmul_rn(a.lse[size_t(bh) * a.Sq + row], kLog2e) : 0.f;
+      dlt[r] = live ? a.delta[size_t(bh) * a.Sq + row] : 0.f;
+    }
+    float dq[D / 2], sc[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+    const uint32_t qa = base + L::kQ + wg * 64 * RB, oa = base + L::kDO + wg * 64 * RB;
+    hopper::mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, c0 = t * BN;
+      const uint32_t kt = base + L::kK + s * L::kTileBytes;
+      const uint32_t vt = base + L::kV + s * L::kTileBytes;
+      hopper::mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+
+      // s = Q·Kᵀ and dp = dO·Vᵀ over D in k steps of 16
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int cb = ks / C::kSteps, kin = (ks % C::kSteps) * 32;
+        hopper::wgmma_ss<BN>(sc, hopper::make_desc(qa + cb * kDqRows * RB + kin, 16, 8 * RB, RB),
+                             hopper::make_desc(kt + cb * BN * RB + kin, 16, 8 * RB, RB), ks > 0);
+        hopper::wgmma_ss<BN>(dp, hopper::make_desc(oa + cb * kDqRows * RB + kin, 16, 8 * RB, RB),
+                             hopper::make_desc(vt + cb * BN * RB + kin, 16, 8 * RB, RB), ks > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // ds in place of s; the mask only on a tile that crosses the diagonal
+      // (for this warpgroup's rows) or the ragged end of the keys
+      const bool edge = c0 + BN > a.Sk || (a.causal && c0 + BN - 1 > wr0 + off);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          float p;
+          if (edge) {
+            const int col = c0 + j * 8 + tig * 2 + (i & 1);
+            const bool visible = !a.causal || col <= row_a + 8 * r + off;
+            p = col < a.Sk ? exp2f((visible ? sc[4 * j + i] * sl2 : fill2) - lse2[r]) : 0.f;
+          } else {
+            p = exp2f(sc[4 * j + i] * sl2 - lse2[r]);
+          }
+          sc[4 * j + i] = __fmul_rn(__fmul_rn(p, dp[4 * j + i] - dlt[r]), a.scale);
+        }
+      // dq += ds·K: keys 16kk..16kk+15 are one k step; every A fragment is
+      // packed before the fence, so no register the products read is
+      // written while they run
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) da[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        hopper::wgmma_rs<D>(dq, da[kk], hopper::make_desc(kt + kk * 16 * RB, BN * RB, 8 * RB, RB),
+                            1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      if (lane == 0) hopper::mbar_arrive(empty0 + 8 * s);
+    }
+    store_acc<D>(static_cast<bf16*>(a.dq) + size_t(bh) * a.Sq * D, dq, row_a, a.Sq, tig, a.qc,
+                 a.qs);
+  }
+}
+
+template <int D, int BN>
+int launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  using C = hopper::Cols<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = hopper::encode_rows(&tq, a.q, a.BH, a.Sq, D, kDqRows, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tdo, a.dO, a.BH, a.Sq, D, kDqRows, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tk, a.k, a.BH, a.Sk, D, BN, C::kBox);
+  if (err == 0) err = hopper::encode_rows(&tv, a.v, a.BH, a.Sk, D, BN, C::kBox);
+  if (err != 0) return err;
+  const int smem = DqSmem<D, BN>::kBytes;
+  auto kernel = bwd_dq_wgmma_kernel<D, BN>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return int(attr);
+  const dim3 grid((a.Sq + kDqRows - 1) / kDqRows, a.BH);
+  kernel<<<grid, kWsThreads, smem, stream>>>(tq, tdo, tk, tv, a);
+  return int(cudaGetLastError());
+}
+
+// K3, bf16: wgmma on TMA tiles, warp-specialised.  One block per (128 keys,
+// b·h), the first (causal: heaviest) first, in the transposed frame: score
+// tiles are [keys, q rows].  Warpgroups 0 and 1 are consumers of 64 keys
+// each and hold dk and dv for them in registers; warpgroup 2 is the
+// producer.  Its first thread loads the K and V tiles once and then streams
+// 64-row chunks of the rotated q and of dO by TMA through a two-stage
+// mbarrier ring; its second warp writes each chunk's lse·log2(e) and delta
+// into shared memory beside them and arrives on the same full barrier.  A
+// consumer computes sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ with wgmma (all operands
+// K-major in shared memory), pᵀ = exp2(sᵀ·scale·log2(e) − lse·log2(e)) and
+// dsᵀ = pᵀ∘(dpᵀ − delta)·scale in registers, then dv += pᵀ·dO and
+// dk += dsᵀ·Q with wgmma, pᵀ and dsᵀ rounded to bf16 as the register A
+// operand and dO and Q read MN-major.  Masks are computed only on chunks
+// that cross the causal diagonal or a ragged end.  dk gets the inverse rope
+// at the store, once per key row.
+constexpr int kBK = 128;                 // keys per block
+constexpr int kBQ = 64;                  // q rows per chunk
+
+template <int D>
+struct DkvSmem {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kTileBytes = kBK * D * 2, kChunkBytes = kBQ * D * 2;
+  static constexpr int kK = 0, kV = kTileBytes, kQ = 2 * kTileBytes;
+  static constexpr int kDO = kQ + kStages * kChunkBytes;
+  static constexpr int kStats = kDO + kStages * kChunkBytes;   // [stage][lse2 | delta][kBQ] f32
+  static constexpr int kBars = kStats + kStages * 2 * kBQ * 4;  // kv_full, full[s], empty[s]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;   // + alignment slack
+};
+
 template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
@@ -338,7 +367,7 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
   const uint32_t base = (raw + 1023) & ~1023u;
   float* stats = reinterpret_cast<float*>(dkv_smem + (base - raw) + L::kStats);
   const uint32_t kv_full = base + L::kBars;
-  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + kQStages);
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + kStages);
 
   const int bh = blockIdx.y, c0 = blockIdx.x * kBK;
   const int off = a.Sk - a.Sq;
@@ -349,7 +378,7 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
-    for (int s = 0; s < kQStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(full0 + 8 * s, 1 + 32);   // the TMA thread and the stats warp
       hopper::mbar_init(empty0 + 8 * s, 8);       // one arrival per consumer warp
     }
@@ -369,8 +398,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
         hopper::tma_load(base + L::kV + cb * kBK * RB, &tv, kv_full, cb * C::kBox, c0, bh);
       }
       for (int t = 0; t < n_chunks; ++t) {
-        const int s = t % kQStages, q0 = qstart + t * kBQ;
-        hopper::mbar_wait(empty0 + 8 * s, ((t / kQStages) & 1) ^ 1);
+        const int s = t % kStages, q0 = qstart + t * kBQ;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
         hopper::mbar_expect_tx(full0 + 8 * s, 2 * L::kChunkBytes);
         const uint32_t qt = base + L::kQ + s * L::kChunkBytes;
         const uint32_t dt = base + L::kDO + s * L::kChunkBytes;
@@ -383,8 +412,8 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
       const float* lb = a.lse + size_t(bh) * a.Sq;
       const float* db = a.delta + size_t(bh) * a.Sq;
       for (int t = 0; t < n_chunks; ++t) {
-        const int s = t % kQStages, q0 = qstart + t * kBQ;
-        hopper::mbar_wait(empty0 + 8 * s, ((t / kQStages) & 1) ^ 1);
+        const int s = t % kStages, q0 = qstart + t * kBQ;
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
         float* st = stats + s * 2 * kBQ;
         for (int i = lane; i < kBQ; i += 32) {
           const bool live = q0 + i < a.Sq;
@@ -412,11 +441,11 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
     hopper::mbar_wait(kv_full, 0);
 
     for (int t = 0; t < n_chunks; ++t) {
-      const int s = t % kQStages, q0 = qstart + t * kBQ;
+      const int s = t % kStages, q0 = qstart + t * kBQ;
       const uint32_t qt = base + L::kQ + s * L::kChunkBytes;
       const uint32_t dt = base + L::kDO + s * L::kChunkBytes;
       const float* ls = stats + s * 2 * kBQ;   // lse·log2(e) of the chunk's rows, then delta
-      hopper::mbar_wait(full0 + 8 * s, (t / kQStages) & 1);
+      hopper::mbar_wait(full0 + 8 * s, (t / kStages) & 1);
 
       // sᵀ = K·Qᵀ and dpᵀ = V·dOᵀ over D in k steps of 16
       hopper::wgmma_fence();
@@ -506,9 +535,6 @@ int launch_dkv_wgmma(const BwdArgs& a, cudaStream_t stream) {
   kernel<<<grid, kWsThreads, smem, stream>>>(tk, tv, tq, tdo, a);
   return int(cudaGetLastError());
 }
-
-template <int D>
-size_t dq_mma_smem() { return sizeof(bf16) * size_t(2 * kRows + 2 * kKeys) * (D + kPad); }
 
 // ---- f32 on the CUDA cores --------------------------------------------------
 
@@ -731,9 +757,7 @@ size_t dkv_f32_smem() {
 
 template <int D>
 int launch_dq(const BwdArgs& a, bool bf16_in, cudaStream_t stream) {
-  if (bf16_in)
-    return launch(bwd_dq_mma_kernel<D>, dim3((a.Sq + kRows - 1) / kRows, a.BH), dq_mma_smem<D>(),
-                  a, stream);
+  if (bf16_in) return launch_dq_wgmma<D, kDqKeys>(a, stream);
   return launch(bwd_dq_f32_kernel<D>, dim3((a.Sq + kF32Rows - 1) / kF32Rows, a.BH),
                 dq_f32_smem<D>(), a, stream);
 }
@@ -786,8 +810,9 @@ bool bad_geometry(int BH, int Sq, int Sk) {
 
 }  // namespace
 
-// K2.  kind: 0 f32, 1 bf16.  Rope tables are all null or all set.  Returns
-// a cudaError_t.
+// K2.  kind: 0 f32, 1 bf16.  Rope tables are all null or all set; for f32
+// they rotate q and k on load, for bf16 q and k come already rotated and the
+// tables serve the inverse rotation of dq.  Returns a cudaError_t.
 extern "C" int dtdl_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, const void* qc,
                                  const void* qs, const void* kc, const void* ks, void* dq,
@@ -799,8 +824,8 @@ extern "C" int dtdl_flash_bwd_dq(const void* q, const void* k, const void* v, co
   return launch_dim<true>(a, D, kind == dtdl::kBF16, static_cast<cudaStream_t>(stream));
 }
 
-// K3, same arguments with dk and dv for dq; for bf16, q and k come already
-// rotated and the tables serve the inverse rotation of dk.
+// K3, the same arguments with dk and dv for dq (for bf16 the tables serve
+// the inverse rotation of dk).
 extern "C" int dtdl_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, const void* qc,
                                   const void* qs, const void* kc, const void* ks, void* dk,
@@ -812,3 +837,4 @@ extern "C" int dtdl_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   a.dv = dv;
   return launch_dim<false>(a, D, kind == dtdl::kBF16, static_cast<cudaStream_t>(stream));
 }
+

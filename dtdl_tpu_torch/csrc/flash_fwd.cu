@@ -89,8 +89,10 @@ flash_fwd_kernel(const FlashArgs a) {
     rope_rows<T, D>(tile.Qs, D, kRows, r0, rows, a.qc, a.qs);
   }
 
-  // keys past this bound sit above the diagonal for every row of the tile
-  const int kend = a.causal ? min(a.Sk, r0 + rows + off) : a.Sk;
+  // keys past this bound sit above the diagonal for every row of the tile,
+  // unless a row of it sees no key at all: that row weights every key
+  // alike, as the plain version does, so the tile walks them all
+  const int kend = (a.causal && r0 + off >= 0) ? min(a.Sk, r0 + rows + off) : a.Sk;
   const T* kb = static_cast<const T*>(a.k) + size_t(bh) * a.Sk * D;
   const T* vb = static_cast<const T*>(a.v) + size_t(bh) * a.Sk * D;
   for (int c0 = 0; c0 < kend; c0 += kChunk) {
@@ -121,8 +123,8 @@ flash_fwd_kernel(const FlashArgs a) {
     const int i0 = r0 + off;
     tile.scores(kChunk, rows, [&](int r, int k, float dot) {
       const int col = c0 + k;
-      const bool visible = col < a.Sk && (!a.causal || col <= i0 + r);
-      return visible ? dot * a.scale : dtdl::kMaskFill;
+      if (col >= a.Sk) return -INFINITY;   // zero-filled keys weigh nothing
+      return (!a.causal || col <= i0 + r) ? dot * a.scale : dtdl::kMaskFill;
     });
     __syncthreads();
     tile.template softmax<T>(kChunk, rows, false);

@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 flash kernels (flash_fwd.cu K1,
-// flash_bwd.cu K3): TMA tensor maps and loads, mbarriers, wgmma shared-memory
-// descriptors and products, warpgroup register rebalancing.  Raw PTX for
-// sm_90a, so the build stays one plain nvcc call per source.
+// flash_bwd.cu K2 and K3) and of the paged page stream (paged_attention.cu
+// K4): TMA tensor maps and loads, plain bulk copies, mbarriers, wgmma
+// shared-memory descriptors and products, warpgroup register rebalancing.
+// Raw PTX for sm_90a, so the build stays one plain nvcc call per source.
 //
 // Tiles in shared memory are what TMA writes for a box of `rows` x `cols`
 // bf16 elements with the swizzle of its row width: 16 columns (32 bytes) take
@@ -116,6 +117,23 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
       : "memory");
+}
+
+// `bytes` of contiguous global memory at `src` into shared memory at `dst`,
+// completing on `bar`: a bulk copy without a tensor map.  `bytes` is a
+// multiple of 16 and both addresses are 16-byte aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Order this thread's earlier generic accesses to shared memory before its
+// later bulk copies into it (a stage read by the threads is refilled).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- device: wgmma ------------------------------------------------------------

@@ -1,9 +1,10 @@
 // Rope pre-pass of the bf16 flash kernels: rotate every q or k row once per
-// call, before K1 (flash_fwd.cu) and K3 (flash_bwd.cu) stream the rows
-// through their tiles.
+// call, before K1 (flash_fwd.cu) or the K2/K3 pair (flash_bwd.cu, one
+// pre-pass for both) stream the rows through their tiles.
 //
-// Replaces: the rotation that dtdl_tpu/ops/attention.py:_fwd_kernel and
-// _bwd_dkv_kernel fuse into their tile loads (_rotate, attention.py:118).
+// Replaces: the rotation that dtdl_tpu/ops/attention.py:_fwd_kernel,
+// _bwd_dq_kernel and _bwd_dkv_kernel fuse into their tile loads (_rotate,
+// attention.py:118).
 // The TPU kernels can afford to rotate a tile each time they load it; on
 // this card the rotation inside the inner loop re-read 1 KB of f32 tables
 // per 256-byte row, once per tile pair, so it moves out of the loop.
@@ -12,7 +13,7 @@
 // tables c, s of ops/rope.py rope_rows): y = x·c + rot_half(x)·s with
 // rot_half([x1, x2]) = [-x2, x1], in f32 products and a sum without fused
 // multiply-adds, rounded to the input type: bitwise ops/attention.py
-// _rotate, and the arithmetic of attn_common.cuh stage_rows.
+// _rotate, and the arithmetic of attn_common.cuh rope_rows.
 //
 // What bounds it on an H100: bytes.  It reads x and the tables and writes y,
 // a few flops per element.  Each thread takes 8 dimensions of the first

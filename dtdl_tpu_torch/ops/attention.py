@@ -7,10 +7,11 @@ differentiable.  On CUDA tensors the forward runs the hand-written kernel
 ``csrc/flash_fwd.cu`` (kernel K1, the port of ``_fwd_kernel``) through
 :func:`flash_fwd`, and the backward runs ``csrc/flash_bwd.cu`` through
 :func:`flash_bwd`: kernel K2 (dq, the port of ``_bwd_dq_kernel``) then
-kernel K3 (dk and dv, the port of ``_bwd_dkv_kernel``).  In bf16, K1 and
-K3 take q and k already rotated: their wrappers first run the rope
+kernel K3 (dk and dv, the port of ``_bwd_dkv_kernel``).  In bf16, all
+three take q and k already rotated: their wrappers first run the rope
 pre-pass :func:`rope_rotate` (``csrc/rope_rows.cu``), once per row and
-call, where the JAX kernels rotate every tile they load.  On CPU tensors
+call (once for the K2/K3 pair in :func:`flash_bwd`), where the JAX kernels
+rotate every tile they load.  On CPU tensors
 each wrapper runs its kernel's plain PyTorch version: the forward is
 rope-then-:func:`mha_reference` arithmetic, the backward the same
 recompute from the saved lse as the kernels (:func:`flash_bwd_reference`).
@@ -144,8 +145,8 @@ def rope_rotate(x, c, s):
 
 
 def _prerotate(q, k, tabs):
-    """The pre-pass of K1's and K3's bf16 bodies, which take q and k
-    already rotated (their f32 bodies rotate on load)."""
+    """The pre-pass of the bf16 bodies of K1, K2 and K3, which take q and k
+    already rotated (the f32 bodies rotate on load)."""
     if tabs is None:
         return q, k
     qc, qs, kc, ks = tabs
@@ -220,11 +221,12 @@ def flash_fwd(q, k, v, tabs, *, scale: float, causal: bool):
 # backward: kernels K2 (dq) and K3 (dk, dv) and their plain versions
 # ---------------------------------------------------------------------------
 
-def _bwd_recompute(q, k, v, do, lse, delta, tabs, scale, causal):
+def _bwd_recompute(q, k, v, do, lse, delta, tabs, scale, causal, rotated):
     """What K2 and K3 both recompute from the residuals: the rotated q/k
-    rows (input dtype), ``p = exp(s - lse)`` and ``ds = p∘(dp - delta)·
-    scale`` in f32, with ``s`` masked to -1e30 above the diagonal."""
-    if tabs is not None:
+    rows (input dtype; ``rotated`` says q and k come rotated already),
+    ``p = exp(s - lse)`` and ``ds = p∘(dp - delta)·scale`` in f32, with
+    ``s`` masked to -1e30 above the diagonal."""
+    if tabs is not None and not rotated:
         qc, qs, kc, ks = tabs
         q, k = _rotate(q, qc, qs), _rotate(k, kc, ks)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -238,11 +240,13 @@ def _bwd_recompute(q, k, v, do, lse, delta, tabs, scale, causal):
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, tabs, *, scale: float,
-                           causal: bool):
+                           causal: bool, rotated: bool = False):
     """Plain version of K2: ``dq = ds·k`` (ds cast to the input dtype,
-    f32 accumulation), inverse-rotated with rope, cast to q's dtype."""
+    f32 accumulation), inverse-rotated with rope, cast to q's dtype.
+    ``rotated=True`` takes q and k already rotated (the bf16 kernels'
+    inputs): the tables then serve dq's inverse rotation only."""
     _, kr, _, ds = _bwd_recompute(q, k, v, do, lse, delta, tabs, scale,
-                                  causal)
+                                  causal, rotated)
     dq = torch.matmul(ds.to(q.dtype).float(), kr.float())
     if tabs is not None:
         dq = _unrotate(dq, tabs[0], tabs[1])
@@ -250,11 +254,12 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, tabs, *, scale: float,
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs, *, scale: float,
-                            causal: bool):
+                            causal: bool, rotated: bool = False):
     """Plain version of K3: ``dk = dsᵀ·q`` (inverse-rotated with rope)
-    and ``dv = pᵀ·dO``, ds and p cast to the input dtype first."""
+    and ``dv = pᵀ·dO``, ds and p cast to the input dtype first;
+    ``rotated`` as in :func:`flash_bwd_dq_reference`."""
     qr, _, p, ds = _bwd_recompute(q, k, v, do, lse, delta, tabs, scale,
-                                  causal)
+                                  causal, rotated)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qr.float())
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     if tabs is not None:
@@ -263,14 +268,19 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs, *, scale: float,
 
 
 def flash_bwd_reference(q, k, v, do, lse, delta, tabs, *, scale: float,
-                        causal: bool):
+                        causal: bool, rotated: bool = False):
     """Plain version of :func:`flash_bwd`: (dq, dk, dv)."""
-    kw = dict(scale=scale, causal=causal)
+    kw = dict(scale=scale, causal=causal, rotated=rotated)
     return (flash_bwd_dq_reference(q, k, v, do, lse, delta, tabs, **kw),
             *flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs, **kw))
 
 
-def _check_bwd(name, q, k, v, do, lse, delta, tabs):
+def _bwd_inputs(name, q, k, v, do, lse, delta, tabs):
+    """The checked, contiguous inputs of K2 and K3 on the card: (q, k, v,
+    dO, lse, delta, the four rope-row pointers) and the tables, which must
+    outlive the launches.  In bf16 the rope pre-pass rotates q and k here,
+    once for both kernels, and the tables then serve the inverse rotation
+    of dq and dk only; the f32 bodies rotate on load."""
     bh, sq, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: dO must match q, got {tuple(do.shape)} "
@@ -279,19 +289,15 @@ def _check_bwd(name, q, k, v, do, lse, delta, tabs):
         if t.shape != (bh, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name}: lse and delta must be [{bh}, {sq}] "
                              f"f32, got {tuple(t.shape)} {t.dtype}")
-    return _check_launch(name, q, k, v, tabs, (do, lse, delta))
+    q, k, v, (do, lse, delta), ptrs, tabs = _check_launch(
+        name, q, k, v, tabs, (do, lse, delta))
+    if q.dtype == torch.bfloat16:
+        q, k = _prerotate(q, k, tabs)
+    return (q, k, v, do, lse, delta, ptrs), tabs
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, tabs, *, scale: float,
-                 causal: bool):
-    """Kernel K2 on [B·H, S, D] tensors (q, k unrotated; lse and delta
-    [B·H, Sq] f32): returns dq.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, tabs,
-                                      scale=scale, causal=causal)
-    q, k, v, (do, lse, delta), ptrs, tabs = _check_bwd(
-        "flash_bwd_dq", q, k, v, do, lse, delta, tabs)
+def _launch_dq(args, *, scale, causal):
+    q, k, v, do, lse, delta, ptrs = args
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -304,17 +310,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, tabs, *, scale: float,
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, tabs, *, scale: float,
-                  causal: bool):
-    """Kernel K3, the same arguments as :func:`flash_bwd_dq`: returns
-    (dk, dv).  In bf16 the rope pre-pass rotates q and k first."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs,
-                                       scale=scale, causal=causal)
-    q, k, v, (do, lse, delta), ptrs, tabs = _check_bwd(
-        "flash_bwd_dkv", q, k, v, do, lse, delta, tabs)
-    if q.dtype == torch.bfloat16:   # the tables then serve dk's inverse only
-        q, k = _prerotate(q, k, tabs)
+def _launch_dkv(args, *, scale, causal):
+    q, k, v, do, lse, delta, ptrs = args
     bh, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -328,20 +325,49 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, tabs, *, scale: float,
     return dk, dv
 
 
+def flash_bwd_dq(q, k, v, do, lse, delta, tabs, *, scale: float,
+                 causal: bool):
+    """Kernel K2 on [B·H, S, D] tensors (q, k unrotated; lse and delta
+    [B·H, Sq] f32): returns dq.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise.  In bf16 the rope pre-pass rotates
+    q and k first."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, tabs,
+                                      scale=scale, causal=causal)
+    args, _tabs = _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, delta, tabs)
+    return _launch_dq(args, scale=scale, causal=causal)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, tabs, *, scale: float,
+                  causal: bool):
+    """Kernel K3, the same arguments as :func:`flash_bwd_dq`: returns
+    (dk, dv)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, tabs,
+                                       scale=scale, causal=causal)
+    args, _tabs = _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, delta, tabs)
+    return _launch_dkv(args, scale=scale, causal=causal)
+
+
 def flash_bwd(q, k, v, do, lse, delta, tabs, *, scale: float, causal: bool):
     """The flash backward on [B·H, S, D] tensors: (dq, dk, dv) from the
     unrotated q/k, v, the output gradient ``do``, the forward's ``lse``
-    and ``delta = rowsum(dO∘O)`` (both [B·H, Sq] f32): K2 then K3."""
+    and ``delta = rowsum(dO∘O)`` (both [B·H, Sq] f32): K2 then K3, on the
+    card from one set of checked inputs and (bf16) one rope pre-pass."""
     kw = dict(scale=scale, causal=causal)
-    return (flash_bwd_dq(q, k, v, do, lse, delta, tabs, **kw),
-            *flash_bwd_dkv(q, k, v, do, lse, delta, tabs, **kw))
+    if q.device.type == "cpu":
+        return (flash_bwd_dq(q, k, v, do, lse, delta, tabs, **kw),
+                *flash_bwd_dkv(q, k, v, do, lse, delta, tabs, **kw))
+    args, _tabs = _bwd_inputs("flash_bwd", q, k, v, do, lse, delta, tabs)
+    return _launch_dq(args, **kw), *_launch_dkv(args, **kw)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through :func:`flash_fwd`, backward through
     :func:`flash_bwd`.  The residuals are the unrotated q/k, v, o, lse and
-    the rope rows, as the JAX custom VJP keeps them: the kernels rotate
-    again on load.  The rope rows get no gradient (JAX defines their
+    the rope rows, as the JAX custom VJP keeps them: the backward rotates
+    them again (in bf16 once for K2 and K3 together, in f32 on load).
+    The rope rows get no gradient (JAX defines their
     cotangents as zero)."""
 
     @staticmethod

@@ -7,8 +7,10 @@ int8/float8_e4m3fn with ``key_scale``/``value_scale`` [n_pages, H, page]),
 ``active`` [B]; returns [B, H, S, D] in q's dtype with inactive rows zero.
 
 On a CUDA tensor it launches the hand-written kernel
-``csrc/paged_attention.cu`` (kernel K4, the port of ``_kernel``), which walks
-each row's page table and reads only pages 0..last.  On a CPU tensor it
+``csrc/paged_attention.cu`` (kernel K4, the port of ``_kernel``) once per
+call, which walks each row's page table and reads only pages 0..last
+(a bf16 query streams them by bulk copies) and merges its split-KV
+partials in the same launch.  On a CPU tensor it
 runs :func:`paged_attention_reference`, the engine's gather path
 (dtdl_tpu/models/transformer.py, the ``paged_kernel=False`` attend) with
 inactive rows zeroed.
@@ -64,15 +66,42 @@ def _sm_count(device: torch.device) -> int:
 
 
 def kv_splits(b: int, h: int, s_new: int, n_ptab: int, sms: int) -> int:
-    """How many ranges to split each row's live pages into: enough that
-    the (row, head, 16-query-row tile) blocks fill twice the card's SMs,
-    at most 16 and at most the table's pages; the kernel sizes the ranges
-    from each row's position and merges the partials.  Shapes only, no
-    look at the data (a device read would stall the host)."""
+    """How many ranges to split each row's live pages into; the kernel
+    sizes the ranges from each row's position and the last block of each
+    query tile to finish merges the partials, in the same launch.  Decode
+    and short verify (S <= 16, 4 query rows a block) stream whole pages
+    with every page of a block in flight, so a block's time is a few
+    memory round trips whatever its range: the split aims at about four
+    blocks per SM (at most 32 ranges) unless the (row, head, tile) blocks
+    already fill twice the SMs.  A prefill (16-row tiles counted) splits
+    only while its blocks do not fill the card, into enough ranges for
+    twice the SMs, at most 16.  Never more ranges than the table has
+    pages.  Shapes only, no look at the data (a device read would stall
+    the host)."""
+    if s_new <= 16:
+        blocks = b * h * -(-s_new // 4)
+        if blocks >= 2 * sms:
+            return 1
+        return min(32, -(-4 * sms // blocks), n_ptab)
     blocks = b * h * -(-s_new // 16)
     if blocks >= sms:
         return 1
     return min(16, -(-2 * sms // blocks), n_ptab)
+
+
+# Arrival counters of the split merge, per (device, stream): zeroed once when
+# allocated; every call leaves them zero again.  Calls on one stream run one
+# after another, so they never share a counter at once.
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream: int, n: int):
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 _POOL_KINDS = {torch.float32: kernels.F32, torch.bfloat16: kernels.BF16,
@@ -139,23 +168,29 @@ def paged_attention(q, pages_k, pages_v, page_table, pos, active, *,
     table = page_table.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
     active = active.to(torch.int32).contiguous()
+    if q.dtype == torch.bfloat16 and (
+            kind == kernels.F32 or (page * d * pages_k.element_size()) % 16):
+        raise ValueError("a bf16 query streams its pages by bulk copies of "
+                         "whole 16-byte multiples: the pool must be bf16, "
+                         "int8 or float8_e4m3fn")
     out = torch.empty_like(q)
     n_splits = kv_splits(b, h, s_new, n_ptab, _sm_count(q.device))
-    part_acc = part_ml = None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = counters = None
     if n_splits > 1:
         rows = b * h * s_new * n_splits
         part_acc = torch.empty(rows * d, dtype=torch.float32,
                                device=q.device)
         part_ml = torch.empty(rows * 2, dtype=torch.float32,
                               device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, b * h * s_new)
     code = kernels.lib().dtdl_paged_attention(
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         key_scale.data_ptr() if quant else None,
         value_scale.data_ptr() if quant else None,
         table.data_ptr(), pos.data_ptr(), active.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr() if n_splits > 1 else None,
-        part_ml.data_ptr() if n_splits > 1 else None,
+        *(None if t is None else t.data_ptr()
+          for t in (part_acc, part_ml, counters)),
         b, h, s_new, d, n_ptab, page,
         kernels.BF16 if q.dtype == torch.bfloat16 else kernels.F32,
         kind, scale_kind, n_splits, float(scale), stream)

@@ -147,9 +147,9 @@ def test_build_digest_tracks_the_sources(monkeypatch, tmp_path):
 
 def test_kv_split_rule():
     """Decode on few (row, head) pairs splits the page walk so the blocks
-    fill the card; a prefill with enough query tiles does not split; never
-    more splits than pages."""
-    assert kv_splits(8, 4, 1, 128, 132) == 9
+    fill the card about four times over; a prefill with enough query tiles
+    does not split; never more splits than pages."""
+    assert kv_splits(8, 4, 1, 128, 132) == 17
     assert kv_splits(1, 4, 1024, 128, 132) == 1
     assert kv_splits(1, 1, 1, 3, 132) == 3
     assert kv_splits(64, 8, 1, 128, 132) == 1

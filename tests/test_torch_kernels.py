@@ -28,9 +28,9 @@ import torch
 from dtdl_tpu_torch import kernels
 from dtdl_tpu_torch.models.transformer import transformer_lm
 from dtdl_tpu_torch.ops.attention import (_rotate, flash_attention_reference,
-                                          flash_bwd_dkv, flash_bwd_dq,
-                                          flash_bwd_reference, flash_fwd,
-                                          rope_rotate)
+                                          flash_bwd, flash_bwd_dkv,
+                                          flash_bwd_dq, flash_bwd_reference,
+                                          flash_fwd, rope_rotate)
 from dtdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                 paged_attention_reference)
 from dtdl_tpu_torch.ops.rope import rope_frequencies, rope_rows
@@ -85,8 +85,10 @@ def test_paged_kernel_matches_plain(cuda, dtype, s_new):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("sq,sk", [(64, 64), (40, 100)])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (40, 100), (100, 40)])
 def test_flash_kernel_matches_plain(cuda, causal, rope, sq, sk):
+    """K1's f32 body; causal (100, 40) holds rows that see no key, which
+    weight every key alike as in the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     d = 32
     q, k, v = (torch.randn(2, 2, s, d, generator=gen, device=cuda)
@@ -219,6 +221,107 @@ def test_flash_bwd_bf16_kernels_tile_edges(cuda, d, causal, rope, sq, sk):
         torch.testing.assert_close(g, ref, atol=atol + share * median,
                                    rtol=rtol)
     assert torch.equal(got[1], again[0]) and torch.equal(got[2], again[1])
+
+
+def _on_grid(x):
+    """``x`` rounded to multiples of 1/8.  A row that sees no key weights
+    every key with p = 1, so its ds = (dp - delta)·scale is of dp's size,
+    far above the tensor's median; where the kernel's dp and the plain
+    version's differ in their last f32 bit, ds can round to bf16 one ulp
+    apart, and that ulp times |k| exceeds the median-scaled tolerance.
+    With dO and v on this grid, dp = dO·vᵀ is exact in both (each product
+    has at most 12 significant bits, the sum stays below 2^24 of the
+    grid), so the comparison sees the kernel and not the summation
+    order."""
+    return ((x.float() * 8).round() / 8).to(x.dtype)
+
+
+# the edges of K2's bf16 tile (128 q rows x 128 keys): whole row tiles over
+# half a key tile (128/64) and over whole ones (256/128), a ragged row and
+# key tail (130/70), one tile that holds rows that see no key beside rows
+# that do (causal 130/70 and 200/100), and cross attention (64/192)
+DQ_EDGE_SHAPES = [(128, 64), (256, 128), (130, 70), (200, 100), (64, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("sq,sk", DQ_EDGE_SHAPES)
+def test_flash_bwd_dq_bf16_kernel_tile_edges(cuda, d, causal, rope, sq, sk):
+    """K2's wgmma body against its plain version at every head dim, and
+    bitwise equal to itself from run to run; flash_bwd runs the rope
+    pre-pass once for K2 and K3 together."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, do = (torch.randn(4, s, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for s in (sq, sk, sk, sq))
+    if causal and sq > sk:
+        v, do = _on_grid(v), _on_grid(do)
+    scale = 1 / math.sqrt(d)
+    tabs = _rope_case(cuda, d, sq, sk)[1] if rope else None
+    o, lse = flash_fwd(q.cpu(), k.cpu(), v.cpu(),
+                       None if tabs is None else tuple(t.cpu() for t in tabs),
+                       scale=scale, causal=causal)
+    o, lse = o.to(cuda), lse.to(cuda)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, tabs)
+    kernels.reset_launches()
+    got = flash_bwd(*args, scale=scale, causal=causal)
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 1
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == 1
+    assert kernels.LAUNCHES["rope_rows"] == (2 if rope else 0)
+    again = flash_bwd_dq(*args, scale=scale, causal=causal)
+    want = flash_bwd_reference(*args, scale=scale, causal=causal)
+    atol, share, rtol = BWD_TOL[torch.bfloat16]
+    for g, ref in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        median = float(ref.float().abs().median())
+        torch.testing.assert_close(g, ref, atol=atol + share * median,
+                                   rtol=rtol)
+    assert torch.equal(got[0], again)
+
+
+# (b, s_new, pos): decode with n_splits > 1 (rows of every length), splits
+# of which many are empty (small positions, many splits), verify windows,
+# and a batch big enough that each row takes one split
+PAGED_SPLIT_CASES = [
+    ("decode-splits", 8, 1, [100, 250, 400, 550, 700, 850, 1000, 1050]),
+    ("decode-empty-splits", 8, 1, [0, 1, 2, 3, 5, 8, 15, 16]),
+    ("verify-splits", 8, 5, [0, 1, 2, 30, 50, 80, 150, 160]),
+    ("decode-one-split", 80, 1, list(range(0, 800, 10))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,s_new,pos", PAGED_SPLIT_CASES,
+                         ids=[c[0] for c in PAGED_SPLIT_CASES])
+def test_paged_decode_splits_repeat_bitwise(cuda, name, b, s_new, pos):
+    """K4's bf16 decode body, its split partials merged in the same launch:
+    within tolerance of the plain version, and three calls in a row
+    bitwise equal (the arrival counters come back to zero)."""
+    from dtdl_tpu_torch.ops.paged_attention import kv_splits
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    h, d, page, n_ptab = 4, 128, 16, 68
+    pk = torch.randn(b * n_ptab + 1, h, page, d, generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    pv = torch.randn(pk.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    table = (1 + torch.randperm(b * n_ptab, generator=gen, device=cuda)
+             ).reshape(b, n_ptab).to(torch.int32)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    q = torch.randn(b, h, s_new, d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    n = kv_splits(b, h, s_new, n_ptab,
+                  torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (n == 1) == (name == "decode-one-split")
+    kernels.reset_launches()
+    outs = [paged_attention(q, pk, pv, table, pos_t, active, scale=0.088)
+            for _ in range(3)]
+    assert kernels.LAUNCHES["paged_attention"] == 3
+    want = paged_attention_reference(q, pk, pv, table, pos_t, active,
+                                     scale=0.088)
+    torch.testing.assert_close(outs[0], want, **TOL[torch.bfloat16])
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.cuda
