@@ -29,6 +29,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (identical greedy tokens), then one finished request scored
                by the cacheless forward (flash kernel), its logits held
                against the engine's prefill logits;
+5b. spec     - speculative decoding on the serving engine (n-gram and
+               model drafts, verify steps through K4's window body, each
+               launching K4 once per layer): f32 spec tokens identical to
+               plain decode but at near-ties, bf16 serving of the serve
+               phase's requests plain and with speculate=4 (tokens/s, TTFT,
+               acceptance, identity up to each request's first near-tie),
+               a random 2-layer draft model lossless, and K4 timed at the
+               verify geometry;
 6. train     - the training path: transformer_lm("base", max_seq=4096),
                bf16 compute with f32 parameters, init_state(..., adamw(3e-4))
                and make_lm_train_step(), batches of 8 x 4096 synthetic
@@ -67,8 +75,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "train",
-          "traincheck", "timing")
+PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
+          "train", "traincheck", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -98,6 +106,26 @@ BWD_TOL = {"float32": (1e-4, 0.0, 1e-4), "bfloat16": (0.0, 2**-5, 2e-2)}
 TRAINCHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-4),
                   "bfloat16": dict(loss=2e-2, grad=5e-2)}
 TRAINCHECK_LR = 0.1
+# spec, the near-tie rule: a speculative run may part from the plain run
+# only at a position where the plain run's top two logits lie within tau,
+# since there the verify pass (k+1 rows in each product, K4's window body
+# and split count) and the decode step (1 row) can round to another
+# argmax.  In f32 the two passes differ by summation order only, ~1e-5 on
+# these logits; TAU_F32 leaves 100x room and is still a tie at any logit
+# scale that matters.  The bf16 tau is measured in the phase, with no
+# kernel in the measurement: twice the largest |logit of one forward of
+# width k+1 - logit of k+1 single-token forwards| over the same positions
+# through the plain attend (each of the two leading logits can move by
+# that much).  The logits are bf16 values (the head's product rounds to
+# bf16), so that delta is whole units in the last place (ulp, 2^-7 of the
+# largest logit's power of two).  Rounding alone moves them by a few
+# ulps; an attend that drops or misplaces keys moves a logit by a fair
+# share of itself.  A delta past SPEC_DELTA_ULPS of them (2^-4 of the
+# largest logit's power of two) fails the phase, K4's own wide-vs-narrow
+# delta as well as the plain one
+SPEC_K = 4
+TAU_F32 = 1e-3
+SPEC_DELTA_ULPS = 8
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
@@ -234,6 +262,17 @@ def check_paged(torch, results):
             b=b, s_new=1, dtype=torch.bfloat16, pos=pos8, inactive=(7,),
             quant="fp8", nan_dead=True)),
     ]
+    # the widths the speculative path gives K4 (S = k+1 for k = 1, 2, 8
+    # through the window body, k = 16 through the prefill body) at the
+    # engine's geometry: each live window straddles a page boundary
+    for s_new in (2, 3, 9, 17):
+        spec_pos = [x - s_new // 2 for x in
+                    (16, 80, 304, 512, 1008, 1504, 2016)] + [0]
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"verify S={s_new} {str(dt).split('.')[1]} "
+                          f"(windows across a page)",
+                          dict(b=b, s_new=s_new, dtype=dt, pos=spec_pos,
+                               inactive=(7,))))
     for dd in (16, 32, 64):
         cases.append((f"verify S=5 f32 head_dim={dd}", dict(
             b=4, s_new=5, dtype=torch.float32, pos=[3, 40, 100, 0],
@@ -579,13 +618,28 @@ def make_traffic(seed: int, vocab: int, n: int = 16, new_tokens: int = 32):
     return out
 
 
-def serve(torch, model, traffic, *, paged_kernel="auto"):
+def serve(torch, model, traffic, *, paged_kernel="auto", speculate=0,
+          draft=None, verify_launches=None):
+    """Serve ``traffic`` through a fresh paged engine (page 16, 8 slots)
+    and scheduler (harvest lag 4).  ``verify_launches``, a list, receives
+    the K4 launches of each verify step."""
+    from dtdl_tpu_torch import kernels
     from dtdl_tpu_torch.serve.engine import InferenceEngine
     from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
     eng = InferenceEngine(model, n_slots=8, page_size=16,
                           paged_kernel=paged_kernel, device=DEV)
-    sched = Scheduler(eng, harvest_lag=4, device=DEV)
-    reqs = [Request(p, m) for p, m in traffic]
+    if verify_launches is not None:
+        verify = eng.verify
+
+        def counted(*args, **kwargs):
+            before = kernels.LAUNCHES["paged_attention"]
+            out = verify(*args, **kwargs)
+            verify_launches.append(kernels.LAUNCHES["paged_attention"]
+                                   - before)
+            return out
+        eng.verify = counted
+    sched = Scheduler(eng, harvest_lag=4, device=DEV, draft=draft)
+    reqs = [Request(p, m, speculate=speculate) for p, m in traffic]
     sync(torch)
     t0 = time.perf_counter()
     sched.run(reqs)
@@ -668,6 +722,263 @@ def phase_crosscheck(torch, seed, traffic):
     if not ok:
         raise AssertionError("cacheless forward disagrees with the engine")
     return flash_launches, len(prompt) + len(req.tokens) - 1
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: speculative decoding
+# ---------------------------------------------------------------------------
+
+def logit_gap(torch, model, prompt, tokens, j) -> float:
+    """The top-two logit gap where the plain run emitted ``tokens[j]``:
+    the last position's logits of an engine prefill of prompt +
+    tokens[:j] (a prefill, not the decode step itself, so it carries the
+    same rounding differences as the thing it judges)."""
+    import numpy as np
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV)
+    seq = list(prompt) + list(tokens[:j])
+    row = np.zeros(eng.n_ptab, np.int32)
+    n_pg = -(-len(seq) // eng.page_size)
+    row[:n_pg] = np.arange(1, n_pg + 1)
+    _, _, logits = eng.prefill(eng.init_arena(), eng.init_last_tokens(), 0,
+                               seq, page_row=row)
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def near_tie_divergences(torch, model, plain, spec, tau):
+    """Each request's first position where the speculative tokens part
+    from the plain ones, with the plain run's top-two gap there; raises
+    unless every such gap is within ``tau``."""
+    out = []
+    for a, b in zip(plain, spec):
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), None)
+        if j is None and len(a.tokens) == len(b.tokens):
+            continue
+        if j is None:
+            raise AssertionError(f"request {a.rid}: lengths "
+                                 f"{len(a.tokens)} vs {len(b.tokens)}")
+        out.append((j, logit_gap(torch, model, a.prompt, a.tokens, j)))
+    far = [(j, g) for j, g in out if g > tau]
+    if far:
+        raise AssertionError(f"speculative tokens part from plain decode "
+                             f"at (position, top-two gap) {far}, beyond "
+                             f"the near-tie tau {tau:.3e}")
+    return out
+
+
+def verify_vs_decode_delta(torch, model, traffic, plain_reqs, k=SPEC_K):
+    """max |logit of one forward of width k+1 - logit of the k+1 single-
+    token forwards| over the same positions, through the plain attend and
+    through K4: 8 slots prefilled with the requests' prompts, the plain
+    run's next k+1 tokens fed both ways on copies of the arena.  Returns
+    (plain delta, K4 delta, max |logit| of the plain wide forward)."""
+    import copy
+    import numpy as np
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    pg, B = eng.page_size, eng.n_slots
+    arena, last = eng.init_arena(), eng.init_last_tokens()
+    tables = np.zeros((B, eng.n_ptab), np.int32)
+    nxt = 1
+    for slot, ((prompt, _), req) in enumerate(zip(traffic, plain_reqs)):
+        n_pg = -(-(len(prompt) + k + 1) // pg)
+        tables[slot, :n_pg] = np.arange(nxt, nxt + n_pg)
+        nxt += n_pg
+        arena, last, _ = eng.prefill(arena, last, slot, prompt,
+                                     page_row=tables[slot])
+    x = torch.tensor([r.tokens[:k + 1] for r in plain_reqs], device=DEV)
+    pos = arena["index"].clone()
+    act = torch.ones(B, dtype=torch.bool, device=DEV)
+    tab = torch.tensor(tables, device=DEV)
+    out = []
+    for kernel in (False, True):
+        wide_arena, narrow_arena = copy.deepcopy(arena), copy.deepcopy(arena)
+        with torch.no_grad():
+            wide = eng.model(x, pos=pos, cache=wide_arena, page_table=tab,
+                             active=act, paged_kernel=kernel)
+            narrow = torch.stack([
+                eng.model(x[:, i:i + 1], pos=pos + i, cache=narrow_arena,
+                          page_table=tab, active=act,
+                          paged_kernel=kernel)[:, 0]
+                for i in range(k + 1)], dim=1)
+        out.append((max_err(wide, narrow), float(wide.abs().max())))
+    (plain, scale), (k4, _) = out
+    return plain, k4, scale
+
+
+class OracleDraft:
+    """Drafts the plain run's own continuation while the context still
+    follows it, and nothing once it has parted: the perfect source."""
+
+    def __init__(self, traffic, plain_reqs):
+        self.seqs = [list(p) + list(r.tokens)
+                     for (p, _), r in zip(traffic, plain_reqs)]
+
+    def propose(self, ctx, k):
+        import numpy as np
+        ctx = [int(t) for t in ctx]
+        for full in self.seqs:
+            if ctx == full[:len(ctx)]:
+                return np.asarray(full[len(ctx):len(ctx) + k], np.int32)
+        return np.zeros((0,), np.int32)
+
+
+def oracle_run(torch, model, traffic, plain_reqs, tau, label, lag=4):
+    """Serve ``traffic`` at speculate=SPEC_K with drafts from the plain
+    run's own tokens: multi-token commits at width SPEC_K, rollbacks,
+    page growth over accepted windows.  Only a near-tie parting (tau)
+    rejects a draft: that window and those dispatched before it is
+    harvested (at most ``lag`` more, each of at most SPEC_K drafts),
+    after which the oracle drafts nothing for the request.  Raises
+    unless every verify step launched K4 once per layer, width SPEC_K
+    ran, and the rejections are within what the partings explain."""
+    n_layers = model.cfg.n_layers
+    launches = []
+    _, sched, reqs, wall = serve(torch, model, traffic, speculate=SPEC_K,
+                                 draft=OracleDraft(traffic, plain_reqs),
+                                 verify_launches=launches)
+    if not launches or set(launches) != {n_layers}:
+        raise AssertionError(f"{label} oracle verify steps launched K4 "
+                             f"{launches} times, want {n_layers} each")
+    ties = near_tie_divergences(torch, model, plain_reqs, reqs, tau)
+    bad = [r for r, (_, n) in zip(reqs, traffic)
+           if not r.done or r.error or len(r.tokens) != n]
+    if bad:
+        raise AssertionError(f"{label} oracle speculative serving left {bad}")
+    O = sched.metrics.summary()
+    rejected = O["spec_drafted_tokens"] - O["spec_accepted_tokens"]
+    most = (lag + 1) * SPEC_K * len(ties)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    log(f"spec oracle {label} speculate={SPEC_K}: {len(reqs)} requests "
+        f"tokens_per_s={n_tok / wall:.2f} spec_steps_by_k="
+        f"{O['spec_steps_by_k']} decode_steps={O['decode_steps']} "
+        f"acceptance={O['spec_acceptance_rate']:.4f} drafted="
+        f"{O['spec_drafted_tokens']} rejected={rejected} (at most {most}: "
+        f"{len(ties)} near-tie partings {ties}) K4 launches {n_layers} in "
+        f"each of {len(launches)} verify steps")
+    if SPEC_K not in O["spec_steps_by_k"]:
+        raise AssertionError(f"the {label} oracle run never verified at "
+                             f"width {SPEC_K}: {O['spec_steps_by_k']}")
+    if rejected > most:
+        raise AssertionError(f"the {label} oracle run rejected {rejected} "
+                             f"drafts, more than the {most} its partings "
+                             f"explain")
+    return O
+
+
+def phase_spec(torch, seed):
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.draft import ModelDraft, NGramDraft
+    vocab = 32000
+    traffic = make_traffic(seed, vocab)
+    out = {}
+
+    # (a) f32: identity but at near-ties
+    m32 = transformer_lm("base", seed=seed, dtype=torch.float32, device=DEV)
+    n_layers = m32.cfg.n_layers
+    t8 = traffic[:8]
+    _, _, plain32, _ = serve(torch, m32, t8)
+    launches = []
+    _, s32, spec32, _ = serve(torch, m32, t8, speculate=SPEC_K,
+                              draft=NGramDraft(), verify_launches=launches)
+    if not launches or set(launches) != {n_layers}:
+        raise AssertionError(f"f32 verify steps launched K4 {launches} "
+                             f"times, want {n_layers} each")
+    ties = near_tie_divergences(torch, m32, plain32, spec32, TAU_F32)
+    a = s32.metrics.summary()
+    log(f"spec (a) base f32 ngram speculate={SPEC_K}: {len(t8)} requests, "
+        f"near-tie divergences={len(ties)} {ties} (tau {TAU_F32:.0e}); "
+        f"spec_steps_by_k={a['spec_steps_by_k']} acceptance="
+        f"{a['spec_acceptance_rate']:.4f} K4 per verify step={n_layers} "
+        f"over {len(launches)} steps")
+    oracle_run(torch, m32, t8, plain32, TAU_F32, "f32")
+
+    # (c) a random 2-layer draft model at vocab 32000, lossless by (a)'s rule
+    draft_model = transformer_lm("tiny", vocab_size=vocab, seed=seed + 1,
+                                 device=DEV)
+    md = ModelDraft(draft_model, window=32, warmup=SPEC_K)
+    mlaunch = []
+    _, smd, specmd, _ = serve(torch, m32, t8[:4], speculate=SPEC_K,
+                              draft=md, verify_launches=mlaunch)
+    if not mlaunch or set(mlaunch) != {n_layers}:
+        raise AssertionError(f"model-draft verify steps launched K4 "
+                             f"{mlaunch} times, want {n_layers} each")
+    ties_md = near_tie_divergences(torch, m32, plain32[:4], specmd, TAU_F32)
+    c = smd.metrics.summary()
+    log(f"spec (c) ModelDraft (tiny width, 2 layers, vocab {vocab}, random "
+        f"weights) on base f32: 4 requests, near-tie divergences="
+        f"{len(ties_md)} {ties_md}; spec_steps={c['spec_steps']} "
+        f"acceptance={c['spec_acceptance_rate']:.4f} "
+        f"draft_s={c['draft_s']:.4f}")
+    del m32
+
+    # (b) bf16 serving, plain and speculate=4, the serve phase's requests
+    m16 = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                         device=DEV)
+    serve(torch, m16, traffic[:2], speculate=SPEC_K)       # warm-up
+    _, sp, plain16, wall_p = serve(torch, m16, traffic)
+    launches = []
+    kernels.reset_launches()
+    _, ss, spec16, wall_s = serve(torch, m16, traffic, speculate=SPEC_K,
+                                  draft=NGramDraft(),
+                                  verify_launches=launches)
+    k4 = kernels.LAUNCHES["paged_attention"]
+    if not launches or set(launches) != {n_layers}:
+        raise AssertionError(f"bf16 verify steps launched K4 {launches} "
+                             f"times, want {n_layers} each")
+    delta, delta_k4, scale = verify_vs_decode_delta(torch, m16, traffic[:8],
+                                                    plain16[:8])
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    ceiling = SPEC_DELTA_ULPS * ulp
+    if delta > ceiling or delta_k4 > ceiling:
+        raise AssertionError(
+            f"bf16 wide-vs-narrow logit delta {delta:.4e} (plain attend), "
+            f"{delta_k4:.4e} (K4) beyond {SPEC_DELTA_ULPS} ulps "
+            f"({ceiling:.4e}) of the largest logit {scale:.4e}")
+    tau16 = 2 * delta
+    ties16 = near_tie_divergences(torch, m16, plain16, spec16, tau16)
+    bad = [r for r in spec16 if not r.done or r.error or len(r.tokens) != 32]
+    if bad:
+        raise AssertionError(f"speculative serving left {bad}")
+    P, S = sp.metrics.summary(), ss.metrics.summary()
+    n_tok = sum(len(r.tokens) for r in spec16)
+    log(f"spec (b) base bf16 ngram speculate={SPEC_K}: requests="
+        f"{len(spec16)} tokens={n_tok} wall_s={wall_s:.4f} tokens_per_s="
+        f"{n_tok / wall_s:.2f} (plain in the same call: {n_tok / wall_p:.2f}"
+        f", wall_s={wall_p:.4f}) ttft_p50_s={S['ttft_s_p50']:.4f} "
+        f"ttft_p99_s={S['ttft_s_p99']:.4f} (plain {P['ttft_s_p50']:.4f}/"
+        f"{P['ttft_s_p99']:.4f}) decode_steps={S['decode_steps']} (plain "
+        f"{P['decode_steps']}) spec_steps_by_k={S['spec_steps_by_k']} "
+        f"acceptance={S['spec_acceptance_rate']:.4f} drafted="
+        f"{S['spec_drafted_tokens']} accepted={S['spec_accepted_tokens']} "
+        f"draft_s={S['draft_s']:.4f} K4 launches={k4} ({n_layers} in each "
+        f"of {len(launches)} verify steps)")
+    log(f"spec (b) identity: max |wide - narrow logit| over 8 slots x "
+        f"{SPEC_K + 1} positions = {delta:.4e} through the plain attend, "
+        f"{delta_k4:.4e} through K4 (ceiling {SPEC_DELTA_ULPS} ulps = "
+        f"{ceiling:.4e} at the largest logit {scale:.4e}), tau_bf16 = "
+        f"{tau16:.4e}; requests parting at a near-tie: {len(ties16)} of "
+        f"{len(spec16)} {ties16}")
+
+    # (b') the same requests with the perfect draft source
+    O = oracle_run(torch, m16, traffic, plain16, tau16, "bf16")
+    by_k = {kk: S["spec_steps_by_k"].get(kk, 0)
+            + O["spec_steps_by_k"].get(kk, 0)
+            for kk in set(S["spec_steps_by_k"]) | set(O["spec_steps_by_k"])}
+
+    # (d) K4 at the verify geometry of speculate=4 (S = 5), and at every
+    # width the two bf16 runs dispatched, with their launches there
+    pos = [100, 250, 400, 550, 700, 850, 1000, 1050]
+    for k in sorted(set(by_k) | {SPEC_K}):
+        t = time_paged(torch, b=8, s_new=k + 1, pos=pos)
+        n = by_k.get(k, 0) * n_layers
+        out[k + 1] = dict(t, launches=n)
+        log(fmt_timing(f"time K4 verify S={k + 1} B=8 bf16 (launches in "
+                       f"the two bf16 spec runs: {n})", t))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1466,8 @@ def main(argv=None) -> int:
         if traffic is None:
             traffic = make_traffic(args.seed, 32000)
         _, scoring_len = phase_crosscheck(torch, args.seed, traffic)
+    if "spec" in phases:
+        phase_spec(torch, args.seed)
     if "train" in phases:
         train_launches, _ = phase_train(torch, args.seed)
     if "traincheck" in phases:

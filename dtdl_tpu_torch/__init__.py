@@ -13,7 +13,8 @@ with no CUDA device they raise :class:`NoCudaDeviceError`.  The ported
 slices train and serve the LM: :func:`transformer_lm`,
 :mod:`dtdl_tpu_torch.bridge`, ``train.state.init_state`` and
 ``train.step.make_lm_train_step`` over ``data.loader.DataLoader``, and
-:class:`InferenceEngine` with :class:`Scheduler`.
+:class:`InferenceEngine` with :class:`Scheduler`, speculative decoding
+included (:mod:`dtdl_tpu_torch.serve.draft`).
 """
 
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device

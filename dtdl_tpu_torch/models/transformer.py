@@ -22,7 +22,7 @@ multiplies them in f32.  A server takes :meth:`TransformerLM.compute_copy`
 once, a frozen copy whose weights are already in the compute dtype, so a
 decode step pays no per-step cast of every weight.
 
-Two forwards:
+Three forwards:
 
 * the cacheless forward (``pos=None``, the training and scoring path):
   full causal attention, ``attn_impl='flash'`` through
@@ -33,11 +33,15 @@ Two forwards:
 * the paged decode forward (``pos`` given): the engine's paged arena,
   :meth:`Attention.paged_attend` (the port of ``_paged_attend_slots``),
   which ends in :func:`~dtdl_tpu_torch.ops.paged_attention.paged_attention`
-  (kernel K4 on the card) or, for ``paged_kernel=False``, its plain version.
+  (kernel K4 on the card) or, for ``paged_kernel=False``, its plain version;
+* the dense decode forward (``cache`` from :meth:`TransformerLM.init_cache`,
+  no ``pos``): every row at the cache's one host-side index, the port of
+  ``_decode_attend``'s scalar-index path (plain torch, as the JAX one is
+  plain jnp), which :func:`generate` and the model draft run on.
 
 Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
 item): mixture-of-experts blocks, quantized layers and KV pools, LoRA, and
-the dense (unpaged) decode cache.
+the per-slot dense serving arena (a [B] index on the dense cache).
 """
 
 from __future__ import annotations
@@ -45,16 +49,21 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, fields
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dtdl_tpu_torch.device import resolve_device
+from dtdl_tpu_torch.device import resolve_device, upload
 from dtdl_tpu_torch.ops.attention import flash_attention, mha_reference
-from dtdl_tpu_torch.ops.paged_attention import (paged_attention,
+from dtdl_tpu_torch.ops.paged_attention import (NEG_INF, paged_attention,
                                                 paged_attention_reference)
 from dtdl_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate
+
+
+class CacheOverflowError(ValueError):
+    """A dense decode step would write past the KV cache (``max_seq``)."""
 
 
 class _Kernel(nn.Module):
@@ -107,8 +116,10 @@ class Attention(nn.Module):
 
     def forward(self, x, cos, sin, pools=None, step=None):
         q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
-        if step is not None:
+        if isinstance(step, PagedStep):
             o = self.paged_attend(q, k, v, pools, step)
+        elif step is not None:
+            o = self.dense_attend(q, k, v, pools, step, cos, sin)
         elif self.attn_impl == "flash":
             o = flash_attention(q, k, v, causal=True, rope=(cos, sin))
         else:
@@ -142,6 +153,40 @@ class Attention(nn.Module):
             else paged_attention_reference
         return attend(q, pk, pv, step.page_table, step.pos,
                       step.active_i32, scale=1.0 / math.sqrt(d))
+
+
+    # query rows attend in blocks of this many, so a long prefill holds
+    # [B, H, PREFILL_CHUNK, max_seq] f32 logits at a time, not the prompt's
+    PREFILL_CHUNK = 256
+
+    def dense_attend(self, q, k, v, pools, pos: int, cos, sin):
+        """Attend ``s_new`` new rows per batch row at the one position
+        ``pos`` against the dense cache (the port of ``_decode_attend``'s
+        scalar-index path): the new rows are roped at pos.., their K/V
+        written at [pos, pos + s_new) of this layer's (key, value)
+        [B, H, max_seq, D] buffers, and each query row attends every
+        cached column up to its own position, in f32 logits with the
+        weights cast to the compute dtype before P·V."""
+        s_new, d = q.shape[2], q.shape[3]
+        ck, cv = pools
+        q = apply_rope(q, cos, sin, offset=pos)
+        k = apply_rope(k, cos, sin, offset=pos)
+        ck[:, :, pos:pos + s_new] = k.to(ck.dtype)
+        cv[:, :, pos:pos + s_new] = v.to(cv.dtype)
+        keys_t = ck.float().transpose(-1, -2)
+        scale = 1.0 / math.sqrt(d)
+        cols = torch.arange(ck.shape[2], device=q.device)
+        out = []
+        for c0 in range(0, s_new, self.PREFILL_CHUNK):
+            rows = q[:, :, c0:c0 + self.PREFILL_CHUNK]
+            qpos = pos + c0 + torch.arange(rows.shape[2], device=q.device)
+            mask = cols[None, :] <= qpos[:, None]
+            logits = torch.matmul(rows.float(), keys_t) * scale
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+            probs = torch.softmax(logits, dim=-1)
+            out.append(torch.matmul(probs.to(self.dtype), cv))
+        return torch.cat(out, dim=2)
 
 
 class SwiGLU(nn.Module):
@@ -301,21 +346,30 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, *, return_hidden: bool = False, pos=None,
                 cache=None, page_table=None, active=None,
                 paged_kernel: bool = True):
-        """Cacheless forward (``pos=None``), or a paged decode forward:
-        ``cache`` the engine's arena (:meth:`init_paged_cache`),
-        ``page_table`` [B, n_ptab], ``active`` [B] bool and ``pos`` [B]
-        the rows' write positions; ``paged_kernel=False`` attends through
-        the plain version instead of the kernel wrapper.  The pools are
-        updated in place; the arena's ``index`` is the engine's to
-        advance."""
-        if pos is not None and cache is None:
+        """Cacheless forward (no ``cache``); a paged decode forward
+        (``pos`` given): ``cache`` the engine's arena
+        (:meth:`init_paged_cache`), ``page_table`` [B, n_ptab], ``active``
+        [B] bool and ``pos`` [B] the rows' write positions,
+        ``paged_kernel=False`` attending through the plain version instead
+        of the kernel wrapper, the pools updated in place and the arena's
+        ``index`` the engine's to advance; or a dense decode forward
+        (``cache`` from :meth:`init_cache`, no ``pos``): the tokens are
+        written at the cache's index, which advances by their count."""
+        if pos is not None and (cache is None or
+                                "pages_key" not in cache["block_0"]["attn"]):
             raise NotImplementedError(
-                "decode without a paged arena (the dense [B, max_seq] "
-                "cache) is ROADMAP queue A5 (dense arena), not in this "
-                "slice")
+                "per-slot positions on the dense [B, max_seq] cache (the "
+                "engine's dense arena) are ROADMAP queue A5 (dense arena), "
+                "not in this slice")
         x = self.embed[tokens].to(self.cfg.dtype)
         step = None
-        if pos is not None:
+        if cache is not None and pos is None:
+            step = int(cache["index"])
+            if step + tokens.shape[1] > self.cfg.max_seq:
+                raise CacheOverflowError(
+                    f"decode at position {step} with {tokens.shape[1]} new "
+                    f"token(s) exceeds max_seq={self.cfg.max_seq}")
+        elif pos is not None:
             pool = cache["block_0"]["attn"]["pages_key"]
             if pool.dtype not in (torch.float32, torch.bfloat16):
                 raise NotImplementedError(
@@ -334,10 +388,15 @@ class TransformerLM(nn.Module):
                                use_reentrant=False)
                 continue
             pools = None
-            if step is not None:
+            if isinstance(step, PagedStep):
                 layer = cache[f"block_{i}"]["attn"]
                 pools = (layer["pages_key"], layer["pages_value"])
+            elif step is not None:
+                layer = cache[f"block_{i}"]["attn"]
+                pools = (layer["key"], layer["value"])
             x = block(x, self.rope_cos, self.rope_sin, pools, step)
+        if cache is not None and pos is None:
+            cache["index"].fill_(step + tokens.shape[1])
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -346,6 +405,32 @@ class TransformerLM(nn.Module):
     def head(self, x):
         """Tied output head ``x @ embed.T`` in the compute dtype, as f32."""
         return torch.matmul(x, self.embed.to(self.cfg.dtype).t()).float()
+
+    def cache_shapes(self, batch_size: int) -> dict:
+        """Shapes and dtypes of the dense decode cache for ``batch_size``
+        rows: per block a ``key``/``value`` buffer [B, H, max_seq,
+        head_dim] in the compute dtype, plus one scalar int32 ``index``
+        for all blocks (the JAX tree keeps an identical copy per block).
+        The per-slot [B] index of the engine's dense arena is ROADMAP
+        queue A5, int8/fp8 caches A7."""
+        cfg = self.cfg
+        kv = ((batch_size, cfg.n_heads, cfg.max_seq, cfg.head_dim), cfg.dtype)
+        out = {f"block_{i}": {"attn": {"key": kv, "value": kv}}
+               for i in range(cfg.n_layers)}
+        out["index"] = ((), torch.int32)
+        return out
+
+    def init_cache(self, batch_size: int) -> dict:
+        """A zeroed dense decode cache: the K/V buffers on the model's
+        device, the ``index`` on the host (a CPU scalar tensor), so a
+        step's position is known without reading the card."""
+        shapes = self.cache_shapes(batch_size)
+        out = {name: {"attn": {k: torch.zeros(shape, dtype=dtype,
+                                              device=self.device)
+                               for k, (shape, dtype) in node["attn"].items()}}
+               for name, node in shapes.items() if name != "index"}
+        out["index"] = torch.zeros((), dtype=torch.int32)
+        return out
 
     def paged_cache_shapes(self, n_slots: int, n_pages: int, page_size: int,
                            kv_dtype=None) -> dict:
@@ -381,6 +466,59 @@ class TransformerLM(nn.Module):
             return torch.zeros(shape, dtype=dtype, device=self.device)
         return alloc(self.paged_cache_shapes(n_slots, n_pages, page_size,
                                              kv_dtype))
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, prompt, max_new_tokens: int,
+             temperature: float = 0.0, generator=None, strategy=None):
+    """Autoregressive generation over the dense decode cache, the port of
+    ``dtdl_tpu.models.transformer.generate``.
+
+    ``prompt`` int [B, S0] (numpy or a tensor; S0 + ``max_new_tokens``
+    must fit ``max_seq``).  One prefill writes the whole prompt into a
+    fresh cache (:meth:`TransformerLM.init_cache`) and samples from the
+    last position's logits; then ``max_new_tokens - 1`` single-token
+    steps.  ``temperature`` 0 is the greedy argmax, otherwise draws from
+    softmax(logits / temperature) with ``generator`` (a
+    ``torch.Generator`` on the model's device).  Everything runs on the
+    model's device.  Returns int32 [B, S0 + max_new_tokens] there.
+    ``strategy`` (data-parallel decoding) is ROADMAP queue A9."""
+    if strategy is not None:
+        raise NotImplementedError(
+            "generate(strategy=...) (data-parallel decoding) is ROADMAP "
+            "queue A9 (distributed)")
+    dev = model.device
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.to(dev, torch.int64)
+    else:
+        prompt = upload(np.asarray(prompt, np.int64), dev)
+    b, s0 = prompt.shape
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+    if s0 + max_new_tokens > model.cfg.max_seq:
+        raise ValueError(
+            f"prompt ({s0}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_seq ({model.cfg.max_seq})")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs a torch.Generator")
+
+    def pick(logits):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        return torch.multinomial(torch.softmax(logits / temperature, -1), 1,
+                                 generator=generator)[:, 0]
+
+    cache = model.init_cache(b)
+    # only the last position's logits are sampled: the [B, S0, vocab]
+    # logits of the prompt never materialize
+    hidden = model(prompt, cache=cache, return_hidden=True)
+    tok = pick(model.head(hidden[:, -1]))
+    out = [prompt, tok[:, None]]
+    for _ in range(max_new_tokens - 1):
+        tok = pick(model(tok[:, None], cache=cache)[:, -1])
+        out.append(tok[:, None])
+    return torch.cat(out, dim=1).to(torch.int32)
 
 
 _PRESETS = {

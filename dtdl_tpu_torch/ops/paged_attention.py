@@ -95,12 +95,20 @@ def kv_splits(b: int, h: int, s_new: int, n_ptab: int, sms: int) -> int:
 _COUNTERS: dict = {}
 
 
-def _counters(device, stream: int, n: int):
+def _counters(device, stream: int, b: int, h: int, s_new: int):
+    """The arrival counters for a launch over ``b·h`` rows of ``s_new``
+    query rows.  The kernel counts each (row, head, query tile) on the
+    counter at the tile's first row of [B·H·S] (``a.counters + row0``),
+    taking n_splits arrivals there; every tile's first row lies below
+    b·h·S, whatever the body's tile height, so a buffer of b·h·S entries
+    holds every tile's counter."""
     key = (device, stream)
     buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    if buf is None or buf.numel() < b * h * s_new:
+        buf = torch.zeros(max(b * h * s_new, 1024), dtype=torch.int32,
+                          device=device)
         _COUNTERS[key] = buf
+    assert buf.numel() >= b * h * s_new, (buf.numel(), b, h, s_new)
     return buf
 
 
@@ -183,7 +191,7 @@ def paged_attention(q, pages_k, pages_v, page_table, pos, active, *,
                                device=q.device)
         part_ml = torch.empty(rows * 2, dtype=torch.float32,
                               device=q.device)
-        counters = _counters(q.device, stream, b * h * s_new)
+        counters = _counters(q.device, stream, b, h, s_new)
     code = kernels.lib().dtdl_paged_attention(
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         key_scale.data_ptr() if quant else None,

@@ -10,7 +10,11 @@ the caller (:class:`~dtdl_tpu_torch.serve.scheduler.Scheduler`) keeps:
   shared pages), writing its K/V through the slot's page-table row, and
   the first token is sampled from the last real position's logits;
 * :meth:`InferenceEngine.decode` steps every slot one token at its own
-  position; only active slots advance.
+  position; only active slots advance;
+* :meth:`InferenceEngine.verify` scores each slot's draft tokens in one
+  paged forward of width k+1 and commits an accepted prefix plus one
+  token per slot (speculative decoding; a ``forced`` row is a prompt
+  chunk riding the same pass).
 
 The arena is a pool of ``n_pages`` pages of ``page_size`` tokens per
 block (page 0 the garbage page) plus one per-slot ``index``
@@ -26,9 +30,8 @@ to it: the weights in the compute dtype, taken once at construction.
 Every paged attend ends in kernel K4 on the card (``paged_kernel='auto'``
 resolves to the kernel on CUDA and to the plain version on the CPU;
 ``False`` asks for the plain version on any device).  The dense arena,
-verify (speculative decoding), weight/KV quantization, a device mesh and
-LoRA are later slices and raise ``NotImplementedError`` naming their
-ROADMAP item.
+weight/KV quantization, a device mesh, LoRA and grammar masks are later
+slices and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device, upload
-from dtdl_tpu_torch.serve.sampling import SampleParams, sample
+from dtdl_tpu_torch.serve.sampling import (SampleParams, accept_resample,
+                                           sample)
 
 
 class PromptTooLongError(ValueError):
@@ -232,8 +236,80 @@ class InferenceEngine:
         tok = self._sample(logits, generator, temp, top_k, top_p)
         return arena, torch.where(act, tok, last_tokens), logits
 
-    def verify(self, *args, **kwargs):
-        raise NotImplementedError(
-            "verify (speculative decoding and chunked prefill) is ROADMAP "
-            "queue A6 (speculative decoding)")
+    @torch.no_grad()
+    def verify(self, arena, last_tokens, draft_tokens, draft_len, active,
+               temp, top_k, top_p, page_tables, generator=None, forced=None,
+               first_tok=None, pos_set=None, allowed=None):
+        """One speculative verify pass over every slot: score slot b's
+        ``draft_len[b]`` candidates (``draft_tokens[b]``, zero-padded to
+        the pass's width k) in one paged forward of width k+1, accept a
+        prefix (:func:`accept_resample`) and advance each active slot's
+        index by its own ``n_accepted + 1``; inactive slots stay where
+        they are.  Returns ``(arena, last_tokens, tokens[n_slots, k+1],
+        n_emitted[n_slots])``: ``tokens[b, :n_emitted[b]]`` is what slot b
+        emitted (its last entry the new ``last_tokens[b]``), zeros on
+        inactive slots.
 
+        A ``forced[b]`` row is a prompt chunk, not a speculation: its
+        window is ``first_tok[b]`` and ``draft_len[b]`` further prompt
+        tokens, written at ``pos_set[b]`` (host truth: a freshly admitted
+        slot's arena index is its previous occupant's), committed
+        unconditionally, with the bonus token drawn from the last chunk
+        position's distribution.
+
+        ``draft_tokens`` [n_slots, k] and ``draft_len``, ``active``,
+        ``page_tables``, ``forced``, ``first_tok``, ``pos_set`` and the
+        sampling knobs are host arrays, as for :meth:`decode`.  The caller
+        guarantees every active slot room for the whole window,
+        ``index + k + 1 <= max_seq``: the attend clamps a row's position
+        to ``max_seq - (k + 1)``, which would shift the window back over
+        committed K/V.  ``allowed`` (grammar masks) is ROADMAP queue
+        A12."""
+        if allowed is not None:
+            raise NotImplementedError(
+                "verify(allowed=...) (grammar masks) is ROADMAP queue A12 "
+                "(tenancy)")
+        draft_tokens = np.asarray(draft_tokens, np.int32)
+        if draft_tokens.ndim != 2 or draft_tokens.shape[0] != self.n_slots:
+            raise ValueError(f"draft_tokens must be [n_slots={self.n_slots}"
+                             f", k], got {draft_tokens.shape}")
+        k = draft_tokens.shape[1]
+        if k < 1:
+            raise ValueError("verify needs k >= 1 draft positions; use "
+                             "decode for a plain step")
+        if k + 1 > self.max_seq:
+            raise ValueError(f"draft width {k} cannot fit "
+                             f"max_seq={self.max_seq}")
+        page_tables = np.asarray(page_tables, np.int32)
+        if page_tables.shape != (self.n_slots, self.n_ptab):
+            raise ValueError(f"page_tables must be [{self.n_slots}, "
+                             f"{self.n_ptab}], got {page_tables.shape}")
+        dev = self.device
+        act = upload(np.asarray(active, bool), dev)
+        drafts = upload(draft_tokens, dev, torch.int64)
+        index = arena["index"]
+        pos, x0, forced_t = index, last_tokens, None
+        if forced is not None:
+            forced_t = upload(np.asarray(forced, bool), dev)
+            pos = torch.where(forced_t,
+                              upload(np.asarray(pos_set, np.int32), dev),
+                              index)
+            x0 = torch.where(forced_t,
+                             upload(np.asarray(first_tok, np.int32), dev),
+                             last_tokens)
+        x = torch.cat([x0[:, None].long(), drafts], dim=1)      # [B, k+1]
+        logits = self.model(
+            x, pos=pos, cache=arena, page_table=upload(page_tables, dev),
+            active=act, paged_kernel=self.paged_kernel)        # [B, k+1, V]
+        tokens, n_acc = accept_resample(
+            logits, drafts, upload(np.asarray(draft_len, np.int32), dev),
+            generator, temp, top_k, top_p, forced=forced_t)
+        n_em = n_acc + 1
+        # the model wrote k+1 positions; the index keeps the committed
+        # n_accepted + 1 (K/V past it are overwritten before attended)
+        arena["index"] = torch.where(act, pos + n_em, index)
+        new_last = torch.gather(tokens, 1, n_acc[:, None].long())[:, 0]
+        last = torch.where(act, new_last, last_tokens)
+        tokens = torch.where(act[:, None], tokens, torch.zeros_like(tokens))
+        return arena, last, tokens, torch.where(act, n_em,
+                                                torch.zeros_like(n_em))

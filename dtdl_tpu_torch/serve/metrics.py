@@ -39,6 +39,14 @@ class ServeMetrics:
         self.decode_slot_steps = 0
         self.decode_tokens_delivered = 0
         self.prefill_tokens = 0
+        # speculative decoding: verify steps (by draft width), drafted and
+        # accepted candidates (known at harvest), and the host time spent
+        # inside DraftSource.propose, the draft's cost against its win
+        self.n_verify_steps = 0
+        self.verify_steps_by_k: dict[int, int] = {}
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.draft_s = 0.0
         self.prefix_hit_pages = 0
         self.prefix_full_pages = 0
         self.prefill_tokens_saved = 0
@@ -78,8 +86,25 @@ class ServeMetrics:
 
     def on_harvest_tokens(self, n: int):
         """``n`` generated tokens delivered at harvest (the request's
-        first token, sampled by prefill, excluded)."""
+        first token, sampled by prefill, excluded): every generated token
+        counts once, accepted from a draft or plainly decoded."""
         self.decode_tokens_delivered += n
+
+    def on_draft(self, seconds: float):
+        """One drafting phase's host time (the drafted and accepted counts
+        land at harvest, :meth:`on_spec_harvest`)."""
+        self.draft_s += seconds
+
+    def on_verify(self, k: int):
+        """One verify step dispatched at draft width ``k``."""
+        self.n_verify_steps += 1
+        self.verify_steps_by_k[k] = self.verify_steps_by_k.get(k, 0) + 1
+
+    def on_spec_harvest(self, drafted: int, accepted: int):
+        """One slot's verify outcome, known at harvest: ``drafted``
+        candidates were scored and ``accepted`` of them survived."""
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
 
     def on_admit(self, req, slot: int, prompt_len: int):
         if self._t_start is None:
@@ -127,6 +152,8 @@ class ServeMetrics:
             "decode_tokens": tokens,
             "wall_s": wall,
             "decode_tokens_per_sec": tokens / wall if wall > 0 else 0.0,
+            "tokens_per_step_mean": (tokens / self.n_decode_steps
+                                     if self.n_decode_steps else 0.0),
             "prefix_hit_rate": (self.prefix_hit_pages / self.prefix_full_pages
                                 if self.prefix_full_pages else 0.0),
             "prefix_hit_pages": self.prefix_hit_pages,
@@ -134,6 +161,13 @@ class ServeMetrics:
             "pages_in_use_peak": self.pages_in_use_peak,
             "pages_in_use_last": self.pages_in_use_last,
             "page_capacity": self.page_capacity,
+            "spec_steps": self.n_verify_steps,
+            "spec_steps_by_k": dict(self.verify_steps_by_k),
+            "spec_drafted_tokens": self.spec_drafted,
+            "spec_accepted_tokens": self.spec_accepted,
+            "spec_acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                     if self.spec_drafted else 0.0),
+            "draft_s": self.draft_s,
             "occupancy_mean": occ_mean / self.n_slots if self.n_slots else 0.0,
             "ttft_s_mean": 0.0, "tok_latency_s_mean": 0.0,
             **self.ttft_hist.summary("ttft_s_"),

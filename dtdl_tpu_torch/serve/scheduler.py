@@ -1,5 +1,6 @@
 """Slot-based continuous batcher over the paged InferenceEngine, the port
-of dtdl_tpu/serve/scheduler.py (its continuous-batching core).
+of dtdl_tpu/serve/scheduler.py (its continuous-batching core and
+speculative decoding).
 
 A request is admitted into the first free slot (one bucketed prefill of
 its uncached suffix), decodes in lockstep with whatever else is in
@@ -21,11 +22,21 @@ and the host reads it ``harvest_lag`` steps later, when the event has long
 fired.  EOS is therefore seen up to ``harvest_lag`` steps late; the
 garbage tokens past it are trimmed at harvest.
 
+A request with ``speculate=k > 0`` gets per-step drafts from the
+scheduler's :class:`~dtdl_tpu_torch.serve.draft.DraftSource` (default
+:class:`~dtdl_tpu_torch.serve.draft.NGramDraft`), drafted from the host
+context it already has, and its steps become verify steps
+(:meth:`InferenceEngine.verify`) that commit up to k+1 tokens each.  One
+verify step serves the whole batch at a power-of-two width; plain
+requests ride it with no drafts.  Each slot's draft length adapts to its
+trailing acceptance, and its worst-case index ``pos_hi`` counts every
+in-flight window, so page growth and the room check stay host
+arithmetic.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative decoding (``speculate``/``draft``), chunked prefill,
-KV spill tiers, the exporter and observer, LoRA adapters, grammars,
-streams, and prefill/decode disaggregation (``prefill_only``,
-``kv_inject``).
+item): chunked prefill, KV spill tiers, the exporter and observer, LoRA
+adapters, grammars, streams, and prefill/decode disaggregation
+(``prefill_only``, ``kv_inject``).
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device
+from dtdl_tpu_torch.serve.draft import NGramDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
 from dtdl_tpu_torch.serve.metrics import ERROR_KINDS, ServeMetrics
 from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, PageAllocator,
@@ -59,8 +71,9 @@ class Request:
     expires or sheds the request, always starting with its kind
     (``rejected:``, ``expired:``, ``shed:``).  ``deadline_s`` is a budget
     from this scheduler's submit, ``deadline_at`` an absolute
-    ``time.perf_counter()`` instant.  The remaining fields belong to later
-    slices and must stay at their defaults here.
+    ``time.perf_counter()`` instant.  ``speculate`` is the request's
+    largest draft length (0: plain decode).  The remaining fields belong
+    to later slices and must stay at their defaults here.
     """
     prompt: Sequence[int]
     max_new_tokens: int
@@ -103,7 +116,6 @@ class Request:
 
 
 _LATER = (
-    ("speculate", 0, "speculative decoding is ROADMAP queue A6"),
     ("prefill_only", False, "prefill/decode disaggregation is ROADMAP "
                             "queue A12 (fleet)"),
     ("kv_inject", None, "prefill/decode disaggregation is ROADMAP queue "
@@ -116,28 +128,60 @@ _LATER = (
 
 
 class _SlotState:
-    """Host-side tracking while a request occupies a slot: ``pos`` is the
-    cache index as of the last harvested step; ``inflight`` counts the
-    dispatched-but-unharvested steps, so ``pos_hi`` bounds the device
-    index from above."""
+    """Host-side tracking while a request occupies a slot.
 
-    __slots__ = ("rid", "pos", "inflight")
+    ``pos`` is the cache index as of the last harvested step (exact);
+    ``inflight`` holds each dispatched-but-unharvested step's draft
+    length, so ``pos_hi`` bounds the device index from above (every draft
+    accepted) and ``gap_est`` is the expected number of output tokens the
+    device is ahead of the harvested ones: drafting predicts across that
+    gap afresh every step, so a wrong guess heals at the next harvest.
+    ``k_cur`` is the adaptive draft length (from 2 up to ``k_max``, the
+    request's ``speculate``), steered by the acceptance EMA ``acc_ema``.
+    """
 
-    def __init__(self, rid: int, pos: int):
+    __slots__ = ("rid", "pos", "k_max", "k_cur", "acc_ema", "inflight")
+
+    def __init__(self, rid: int, pos: int, k_max: int = 0):
         self.rid = rid
         self.pos = pos
-        self.inflight = 0
+        self.k_max = k_max
+        # start at 2: the EMA doubles it under sustained acceptance and
+        # halves it under poor acceptance, so a weak draft source costs
+        # a few over-drafted steps before settling at 1
+        self.k_cur = max(1, min(2, k_max))
+        self.acc_ema = 1.0                  # optimistic until measured
+        self.inflight: deque[int] = deque()
 
     @property
     def pos_hi(self) -> int:
-        return self.pos + self.inflight
+        """Worst-case (all-accepted) device index."""
+        return self.pos + sum(dl + 1 for dl in self.inflight)
 
-    def dispatched(self) -> None:
-        self.inflight += 1
+    @property
+    def gap_est(self) -> int:
+        """Expected output tokens in flight: one per step plus the
+        acceptance-weighted drafts."""
+        a = min(1.0, max(0.0, self.acc_ema))
+        return sum(1 + int(round(dl * a)) for dl in self.inflight)
 
-    def settle(self, n_emitted: int) -> None:
-        self.inflight = max(0, self.inflight - 1)
+    def dispatched(self, draft_len: int = 0) -> None:
+        self.inflight.append(draft_len)
+
+    def settle(self, draft_len: int, n_emitted: int) -> None:
+        """One in-flight step harvested: the exact index, the acceptance
+        EMA, and k halved under ~50% trailing acceptance or doubled (up to
+        ``k_max``) above ~80%."""
+        if self.inflight:
+            self.inflight.popleft()
         self.pos += n_emitted
+        if draft_len > 0:
+            rate = (n_emitted - 1) / draft_len
+            self.acc_ema = 0.5 * self.acc_ema + 0.5 * rate
+            if self.acc_ema < 0.5:
+                self.k_cur = max(1, self.k_cur // 2)
+            elif self.acc_ema > 0.8:
+                self.k_cur = min(max(1, self.k_cur * 2), self.k_max)
 
 
 class _HostTokens:
@@ -165,13 +209,16 @@ class _HostTokens:
 
 class Scheduler:
     """Continuous batcher (see module docstring).  ``submit`` enqueues or
-    rejects; ``step`` runs one watchdog + admit + decode + harvest round;
-    ``run`` drives until everything submitted has finished and returns
-    the finished requests in completion order."""
+    rejects; ``step`` runs one watchdog + admit + draft + decode/verify +
+    harvest round; ``run`` drives until everything submitted has finished
+    and returns the finished requests in completion order.  ``draft`` is
+    the draft source of requests with ``speculate > 0``; a draft model
+    must share the served model's vocab."""
 
     def __init__(self, engine: InferenceEngine, seed: int = 0,
                  harvest_lag: int = 4, max_queue: Optional[int] = None,
-                 prefix_cache: bool = True, device=None, observer=None, draft=None, exporter=None,
+                 prefix_cache: bool = True, device=None, observer=None,
+                 draft=None, exporter=None,
                  chunk_tokens: Optional[int] = None,
                  spill_host_bytes: Optional[int] = None,
                  spill_dir: Optional[str] = None,
@@ -180,9 +227,6 @@ class Scheduler:
         if dev != engine.device:
             raise ValueError(f"the engine runs on {engine.device}, the "
                              f"scheduler was asked for {dev}")
-        if draft is not None:
-            raise NotImplementedError(
-                "draft sources (speculative decoding) are ROADMAP queue A6")
         if chunk_tokens is not None:
             raise NotImplementedError(
                 "chunked prefill is ROADMAP queue A6 (chunked prefill)")
@@ -198,6 +242,13 @@ class Scheduler:
             raise ValueError(f"harvest_lag must be >= 0, got {harvest_lag}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.draft = draft if draft is not None else NGramDraft()
+        draft_model = getattr(self.draft, "model", None)
+        if draft_model is not None and \
+                draft_model.cfg.vocab_size != engine.model.cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab ({draft_model.cfg.vocab_size}) must "
+                f"match the served model's ({engine.model.cfg.vocab_size})")
         self.engine = engine
         self.harvest_lag = harvest_lag
         self.max_queue = max_queue
@@ -214,8 +265,9 @@ class Scheduler:
         self._topk = np.zeros(engine.n_slots, np.int32)
         self._topp = np.ones(engine.n_slots, np.float32)
         self._gen = torch.Generator(device=dev).manual_seed(seed)
-        # lag harvest: (token vector on its way to the host, ((slot, rid),))
-        self._pending: deque[tuple[_HostTokens, tuple]] = deque()
+        # lag harvest: (tokens on their way to the host, the emitted counts
+        # of a verify step or None, ((slot, rid, draft_len), ...))
+        self._pending: deque[tuple] = deque()
         self.step_count = 0
         self._deadlines_seen = False
         self.pages = PageAllocator(engine.n_pages, engine.page_size,
@@ -368,7 +420,8 @@ class Scheduler:
             self.metrics.on_prefix(len(hits), len(hashes), start)
             self.slots[slot] = req
             self._active[slot] = True
-            self._state[slot] = _SlotState(req.rid, len(req.prompt))
+            self._state[slot] = _SlotState(req.rid, len(req.prompt),
+                                           req.speculate)
             self._temp[slot] = sp.temperature
             self._topk[slot] = sp.top_k
             self._topp[slot] = sp.top_p
@@ -377,24 +430,27 @@ class Scheduler:
             self.metrics.on_admit(req, slot, len(suffix))
             req._guaranteed = 1
             self._state[slot].dispatched()
-            self._pending.append((_HostTokens(self.last_tokens),
-                                  ((slot, req.rid),)))
+            self._pending.append((_HostTokens(self.last_tokens), None,
+                                  ((slot, req.rid, 0),)))
             if req._guaranteed >= self._budget(req):
                 self._retire(slot)
 
-    def _grow_pages(self, step_act):
+    def _grow_pages(self, step_act, lens=None):
         """Map pages covering every stepped slot's worst-case write window
-        ``[0, pos_hi + 1)`` before dispatch (host arithmetic, no device
-        reads).  A slot the pool cannot grow, with nothing evictable, is
-        shed with the named :class:`PagePoolExhaustedError` message."""
+        ``[0, pos_hi + lens + 1)`` before dispatch (``lens`` the upcoming
+        verify step's draft lengths, None for a decode step; host
+        arithmetic, no device reads).  A slot the pool cannot grow, with
+        nothing evictable, is shed with the named
+        :class:`PagePoolExhaustedError` message."""
         pg = self.engine.page_size
         for slot, req in enumerate(self.slots):
             if req is None or not step_act[slot]:
                 continue
             st = self._state[slot]
+            width = 1 + (int(lens[slot]) if lens is not None else 0)
             # pos_hi runs one ahead of the engine index; clamp to the table
             # (an out-of-range write clamps into the slot's own last page)
-            need = min(-(-(st.pos_hi + 1) // pg), self.engine.n_ptab)
+            need = min(-(-(st.pos_hi + width) // pg), self.engine.n_ptab)
             pages = self._slot_pages[slot]
             try:
                 while len(pages) < need:
@@ -407,16 +463,51 @@ class Scheduler:
                          f"tokens)", self.metrics.on_shed, "shed")
                 self._retire(slot)
 
+    def _spec_desires(self) -> dict[int, int]:
+        """Each speculating active slot's draft length this step, clamped
+        to its adaptive k, its budget and its room in the arena."""
+        desires = {}
+        for slot, req in enumerate(self.slots):
+            if not self._active[slot] or not req.speculate:
+                continue
+            st = self._state[slot]
+            room = self.engine.max_seq - 1 - st.pos_hi
+            remaining = self._budget(req) - req._guaranteed
+            des = min(st.k_cur, req.speculate, remaining - 1, room)
+            if des > 0:
+                desires[slot] = des
+        return desires
+
+    def _draft(self, desires: dict, k_prog: int):
+        """Drafts for the desiring slots, [n_slots, k_prog] and their
+        lengths: each from the slot's harvested context, skipping the
+        ``gap_est`` tokens already in flight."""
+        B = self.engine.n_slots
+        drafts = np.zeros((B, k_prog), np.int32)
+        lens = np.zeros(B, np.int32)
+        t0 = time.perf_counter()
+        for slot, des in desires.items():
+            req, st = self.slots[slot], self._state[slot]
+            want = min(des, k_prog)
+            gap = st.gap_est
+            ctx = np.asarray(list(req.prompt) + req.tokens, np.int32)
+            pred = np.asarray(self.draft.propose(ctx, gap + want), np.int32)
+            cand = pred[gap:gap + want]
+            drafts[slot, :cand.size] = cand
+            lens[slot] = cand.size
+        self.metrics.on_draft(time.perf_counter() - t0)
+        return drafts, lens
+
     # ---- the decode round --------------------------------------------
 
     def step(self) -> int:
-        """One watchdog + admit + decode round; returns how many slots
-        stepped."""
+        """One watchdog + admit + draft + decode/verify round; returns how
+        many slots stepped."""
         self._expire()
         self._admit()
         # overflow settling: a slot whose worst-case index leaves no room
         # for one more write waits for its in-flight steps to harvest
-        # (only ever within the last steps of a sequence)
+        # (only ever within the last k+1 positions of a sequence)
         while self._pending and any(
                 self._state[s].pos_hi > self.engine.max_seq - 1
                 for s in range(self.engine.n_slots) if self._active[s]):
@@ -435,19 +526,53 @@ class Scheduler:
         return n_active
 
     def _dispatch_round(self):
+        """Draft, then one decode or verify step over the active slots."""
         step_act = self._active.copy()
-        self._grow_pages(step_act)
+        desires = self._spec_desires()
+        # the room bound covers every active slot: the verify window of
+        # k+1 positions is written for every row, and a row's position is
+        # clamped to max_seq - (k + 1), which would shift an overflowing
+        # window back over committed K/V
+        k_room = min(self.engine.max_seq - 1 - self._state[s].pos_hi
+                     for s in range(self.engine.n_slots) if step_act[s])
+        if k_room < 1:
+            desires = {}        # a slot has room for one more token only
+        lens = None
+        if desires:
+            k_need = max(desires.values())
+            k_prog = 1
+            while k_prog < k_need:
+                k_prog *= 2
+            while k_prog > k_room and k_prog > 1:
+                k_prog //= 2
+            drafts, lens = self._draft(desires, k_prog)
+            if not lens.any():
+                lens = None     # every draft came back empty: decode
+        self._grow_pages(step_act, lens)
         step_act &= self._active          # growth may have shed slots
         if not step_act.any():
             return
-        entries = tuple((slot, req.rid) for slot, req in enumerate(self.slots)
+        dls = np.zeros(len(step_act), np.int32) if lens is None else lens
+        entries = tuple((slot, req.rid, int(dls[slot]))
+                        for slot, req in enumerate(self.slots)
                         if step_act[slot])
-        self.arena, self.last_tokens, _ = self.engine.decode(
-            self.arena, self.last_tokens, step_act, self._temp, self._topk,
-            self._topp, self._ptab, generator=self._gen)
-        self._pending.append((_HostTokens(self.last_tokens), entries))
-        for slot, _ in entries:
-            self._state[slot].dispatched()
+        if lens is None:
+            self.arena, self.last_tokens, _ = self.engine.decode(
+                self.arena, self.last_tokens, step_act, self._temp,
+                self._topk, self._topp, self._ptab, generator=self._gen)
+            self._pending.append((_HostTokens(self.last_tokens), None,
+                                  entries))
+        else:
+            self.arena, self.last_tokens, window, counts = \
+                self.engine.verify(
+                    self.arena, self.last_tokens, drafts, lens, step_act,
+                    self._temp, self._topk, self._topp, self._ptab,
+                    generator=self._gen)
+            self._pending.append((_HostTokens(window), _HostTokens(counts),
+                                  entries))
+            self.metrics.on_verify(k_prog)
+        for slot, _, dl in entries:
+            self._state[slot].dispatched(dl)
             req = self.slots[slot]
             req._guaranteed += 1
             if req._guaranteed >= self._budget(req):
@@ -456,29 +581,40 @@ class Scheduler:
     # ---- harvest ------------------------------------------------------
 
     def _harvest_one(self):
-        window, entries = self._pending.popleft()
+        window, counts, entries = self._pending.popleft()
         arr = window.numpy()       # waits only for this (lagged) copy
+        cnt = counts.numpy() if counts is not None else None
         now = time.perf_counter()
-        for slot, rid in entries:
+        for slot, rid, dl in entries:
             req = self._reqs[rid]
+            n_em = int(cnt[slot]) if cnt is not None else 1
+            toks = arr[slot, :n_em] if arr.ndim == 2 else arr[slot:slot + 1]
             st = self._state[slot]
             if st is not None and st.rid == rid:
-                st.settle(1)
+                st.settle(dl, n_em)
+            if dl:
+                self.metrics.on_spec_harvest(dl, n_em - 1)
             if req.done:           # post-eos/budget garbage from the lag
-                continue
+                continue           # (or a verify step's overshoot)
             budget = self._budget(req)
             first_window = len(req.tokens) == 0
-            req.tokens.append(int(arr[slot]))
-            if len(req.tokens) == 1:
-                req.t_first = now
-                self.metrics.on_first_token(req)
-            hit_eos = req.eos_id is not None and req.tokens[-1] == req.eos_id
-            if hit_eos or len(req.tokens) >= budget:
-                req.done = True
-                req.t_done = now
-                self.finished.append(req)
-                self.metrics.on_finish(req)
-            self.metrics.on_harvest_tokens(0 if first_window else 1)
+            delivered = 0
+            for t in toks:
+                req.tokens.append(int(t))
+                delivered += 1
+                if len(req.tokens) == 1:
+                    req.t_first = now
+                    self.metrics.on_first_token(req)
+                hit_eos = req.eos_id is not None and int(t) == req.eos_id
+                if hit_eos or len(req.tokens) >= budget:
+                    req.done = True
+                    req.t_done = now
+                    self.finished.append(req)
+                    self.metrics.on_finish(req)
+                    break          # EOS mid-window trims exactly
+            # every generated token counts once; the first is the prefill's
+            self.metrics.on_harvest_tokens(
+                delivered - (1 if first_window and delivered else 0))
             if req.done and self.slots[slot] is req:
                 self._retire(slot)
 

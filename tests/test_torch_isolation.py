@@ -21,9 +21,10 @@ import torch
 import dtdl_tpu_torch
 from dtdl_tpu_torch import bridge, kernels
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device
-from dtdl_tpu_torch.models.transformer import transformer_lm
+from dtdl_tpu_torch.models.transformer import generate, transformer_lm
 from dtdl_tpu_torch.ops.attention import flash_bwd, flash_fwd, rope_rotate
 from dtdl_tpu_torch.ops.paged_attention import kv_splits, paged_attention
+from dtdl_tpu_torch.serve.draft import ModelDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Scheduler
 
@@ -51,6 +52,7 @@ def _port_files():
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    assert PKG / "serve" / "draft.py" in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -88,6 +90,9 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda):
         bridge.load_flax_params(model, bridge.state_dict_to_flax(model))
     bridge.load_flax_params(model, bridge.state_dict_to_flax(model),
                             device="cpu")
+    # generate and the model draft run where the model was put by name
+    assert generate(model, np.zeros((1, 3), np.int32), 2).device.type == "cpu"
+    assert ModelDraft(model).propose(np.arange(4), 2).size == 2
     assert dtdl_tpu_torch.NoCudaDeviceError is NoCudaDeviceError
 
 

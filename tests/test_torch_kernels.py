@@ -326,6 +326,79 @@ def test_paged_decode_splits_repeat_bitwise(cuda, name, b, s_new, pos):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_geometry_in_an_engine_batch(cuda, dtype):
+    """K4 at the verify geometry of an engine batch: 8 rows of S = 5, the
+    serving pool (4 heads of 128, page 16), one inactive row (its table
+    all garbage page 0) and one window crossing from page 0 of its table
+    into page 1 (rows 14..18).  Within tolerance of the plain version,
+    one launch a call, and the split-merge arrival counters back to zero
+    after each of three calls, which are bitwise equal."""
+    from dtdl_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    b, h, s_new, d, page, n_ptab = 8, 4, 5, 128, 16, 128
+    pk = torch.randn(b * n_ptab + 1, h, page, d, generator=gen,
+                     device=cuda).to(dtype)
+    pv = torch.randn(pk.shape, generator=gen, device=cuda).to(dtype)
+    table = (1 + torch.randperm(b * n_ptab, generator=gen, device=cuda)
+             ).reshape(b, n_ptab).to(torch.int32)
+    table[5] = 0
+    pos = torch.tensor([100, 14, 400, 550, 700, 300, 1000, 1045],
+                       dtype=torch.int32, device=cuda)
+    active = torch.tensor([True] * 5 + [False] + [True] * 2, device=cuda)
+    q = torch.randn(b, h, s_new, d, generator=gen, device=cuda).to(dtype)
+    kernels.reset_launches()
+    outs = []
+    for _ in range(3):
+        outs.append(paged_attention(q, pk, pv, table, pos, active,
+                                    scale=0.088))
+        torch.cuda.synchronize()
+        assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
+    assert kernels.LAUNCHES["paged_attention"] == 3
+    want = paged_attention_reference(q, pk, pv, table, pos, active,
+                                     scale=0.088)
+    torch.testing.assert_close(outs[0], want, **TOL[dtype])
+    assert torch.equal(outs[0][5], torch.zeros_like(outs[0][5]))
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_engine_spec_tokens_kernel_vs_plain(cuda):
+    """Speculative traffic on a tiny f32 model: the kernel engine's
+    verify steps and the plain version's give identical greedy tokens,
+    equal to plain decode, and every verify step launches K4 once per
+    layer."""
+    from dtdl_tpu_torch.serve import NGramDraft
+    model = transformer_lm("tiny", seed=3, dtype=torch.float32,
+                           max_seq=64, device=cuda)
+    rng = np.random.default_rng(1)
+    traffic = [(np.resize(rng.integers(0, 256, 4), int(n)).tolist(), 12)
+               for n in rng.integers(6, 30, 5)]
+    out = {}
+    for flag, spec in ((True, 4), (False, 4), (True, 0)):
+        eng = InferenceEngine(model, n_slots=2, page_size=8,
+                              paged_kernel=flag, device=cuda)
+        verify, calls = eng.verify, []
+
+        def counted(*args, **kwargs):
+            before = kernels.LAUNCHES["paged_attention"]
+            res = verify(*args, **kwargs)
+            calls.append(kernels.LAUNCHES["paged_attention"] - before)
+            return res
+
+        eng.verify = counted
+        reqs = [Request(p, m, speculate=spec) for p, m in traffic]
+        Scheduler(eng, harvest_lag=2, draft=NGramDraft(),
+                  device=cuda).run(reqs)
+        out[flag, spec] = [r.tokens for r in reqs]
+        if spec:
+            assert calls, "no verify step ran"
+            n_layers = model.cfg.n_layers if flag else 0
+            assert calls == [n_layers] * len(calls)
+    assert out[True, 4] == out[False, 4] == out[True, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("positions", ["default", "explicit"])
 def test_rope_prepass_bitwise(cuda, dtype, d, positions):

@@ -31,7 +31,7 @@ from dtdl_tpu.serve import InferenceEngine as JaxEngine
 from dtdl_tpu.serve import Request as JaxRequest
 from dtdl_tpu.serve import Scheduler as JaxScheduler
 from dtdl_tpu_torch import bridge
-from dtdl_tpu_torch.models.transformer import transformer_lm
+from dtdl_tpu_torch.models.transformer import generate, transformer_lm
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
@@ -144,9 +144,15 @@ def test_engine_refuses_later_slices(models):
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scheduler(eng, chunk_tokens=4, device="cpu")
-    sched = Scheduler(eng, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.submit(Request([1, 2], 2, speculate=2))
+    knobs = (np.zeros(2, np.float32), np.zeros(2, np.int32),
+             np.ones(2, np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A12"):
+        eng.verify(eng.init_arena(), eng.init_last_tokens(),
+                   np.zeros((2, 2), np.int32), [2, 2], [True, True], *knobs,
+                   np.zeros((2, eng.n_ptab), np.int32),
+                   allowed=np.ones((2, 3, VOCAB), bool))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
+        generate(tm, np.zeros((1, 3), np.int32), 2, strategy=object())
 
 
 def test_deadline_and_pool_shedding_match_jax(models):
