@@ -37,6 +37,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
                acceptance, identity up to each request's first near-tie),
                a random 2-layer draft model lossless, and K4 timed at the
                verify geometry;
+5c. chunked  - chunked prefill (chunk_tokens=256, prompt windows of up to
+               257 through K4's prefill body at B = 8): at 2 layers in f32
+               tokens identical to whole-prompt prefill (chunked, and with
+               speculate=4) but at near-ties; the serve phase's bf16
+               requests chunked and whole-prompt in alternating pairs
+               (tokens/s, TTFT, decode steps delayed by prefill, verify
+               steps by width, K4 launches, 8 in every step), identity up
+               to each request's first near-tie;
+5d. quant    - the same requests on bf16, int8 (weights and KV) and fp8
+               engines: prefill logits of 4 prompts through K4 against the
+               plain attend, and against the bf16 engine's within the
+               stated share of the logit range (at 2 layers), tokens/s,
+               TTFT, pages per kv_pool_bytes budget, K4 launches with
+               quantized pools;
+5e. contain  - at base width, 2 layers: a raise injected into one engine's
+               decode fails the requests in flight, the queued ones are
+               served with a clean run's tokens and the pages come back;
+               cancel, shutdown with and without drain, the accounting
+               invariant;
+5f. dense    - the dense arena (page_size=0) at base width, 2 layers, f32:
+               tokens identical to the paged engine's, plain and chunked;
 6. train     - the training path: transformer_lm("base", max_seq=4096),
                bf16 compute with f32 parameters, init_state(..., adamw(3e-4))
                and make_lm_train_step(), batches of 8 x 4096 synthetic
@@ -50,7 +71,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                every gradient and every updated parameter, in f32 and bf16;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
-               paths' shapes, with CUDA events.
+               paths' shapes (K4 also at the chunk window S = 257 and at
+               decode with int8 and fp8 pools), and the quantized
+               projections against the bf16 one, with CUDA events.
 
 ``--phases profile`` (not in the default set) adds a serving run and two
 training steps under torch.profiler (and host timers for serving): where
@@ -76,7 +99,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
-          "train", "traincheck", "timing")
+          "chunked", "quant", "contain", "dense", "train", "traincheck",
+          "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -261,6 +285,22 @@ def check_paged(torch, results):
         ("decode S=1 NaN dead pages fp8", dict(
             b=b, s_new=1, dtype=torch.bfloat16, pos=pos8, inactive=(7,),
             quant="fp8", nan_dead=True)),
+    ]
+    # chunked prefill's windows (S = k_prog + 1: 33, and 257 at
+    # chunk_tokens=256) at the engine batch B = 8 with per-row positions
+    # and two rows inactive, through the prefill body; int8 and fp8 pools
+    chunk_pos = [0, 16, 250, 700, 1000, 1500, 30, 1790]
+    cases += [
+        ("chunk S=33 B=8 bf16", dict(b=b, s_new=33, dtype=torch.bfloat16,
+                                     pos=chunk_pos, inactive=(2, 6))),
+        ("chunk S=257 B=8 bf16", dict(b=b, s_new=257, dtype=torch.bfloat16,
+                                      pos=chunk_pos, inactive=(2, 6))),
+        ("chunk S=257 B=8 int8 pool", dict(
+            b=b, s_new=257, dtype=torch.bfloat16, pos=chunk_pos,
+            inactive=(2, 6), quant="int8")),
+        ("chunk S=33 B=8 fp8 pool NaN dead pages", dict(
+            b=b, s_new=33, dtype=torch.bfloat16, pos=chunk_pos,
+            inactive=(2, 6), quant="fp8", nan_dead=True)),
     ]
     # the widths the speculative path gives K4 (S = k+1 for k = 1, 2, 8
     # through the window body, k = 16 through the prefill body) at the
@@ -619,26 +659,42 @@ def make_traffic(seed: int, vocab: int, n: int = 16, new_tokens: int = 32):
 
 
 def serve(torch, model, traffic, *, paged_kernel="auto", speculate=0,
-          draft=None, verify_launches=None):
-    """Serve ``traffic`` through a fresh paged engine (page 16, 8 slots)
-    and scheduler (harvest lag 4).  ``verify_launches``, a list, receives
-    the K4 launches of each verify step."""
+          draft=None, verify_launches=None, step_launches=None,
+          verify_widths=None, chunk_tokens=None, page_size=16,
+          **engine_kw):
+    """Serve ``traffic`` through a fresh engine (page 16 unless
+    ``page_size`` says otherwise, 0 the dense arena; 8 slots) and
+    scheduler (harvest lag 4).  ``verify_launches`` and ``step_launches``,
+    lists, receive the K4 launches of each verify step and of each step
+    (decode or verify); ``verify_widths`` each verify step's draft width
+    k.  ``engine_kw`` goes to the engine (``quantize_weights``,
+    ``kv_dtype``, ...)."""
     from dtdl_tpu_torch import kernels
     from dtdl_tpu_torch.serve.engine import InferenceEngine
     from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
-    eng = InferenceEngine(model, n_slots=8, page_size=16,
-                          paged_kernel=paged_kernel, device=DEV)
-    if verify_launches is not None:
-        verify = eng.verify
+    eng = InferenceEngine(model, n_slots=8, page_size=page_size,
+                          paged_kernel=paged_kernel, device=DEV, **engine_kw)
 
-        def counted(*args, **kwargs):
+    def counted(fn, is_verify):
+        def wrapper(*args, **kwargs):
             before = kernels.LAUNCHES["paged_attention"]
-            out = verify(*args, **kwargs)
-            verify_launches.append(kernels.LAUNCHES["paged_attention"]
-                                   - before)
+            out = fn(*args, **kwargs)
+            n = kernels.LAUNCHES["paged_attention"] - before
+            if is_verify and verify_launches is not None:
+                verify_launches.append(n)
+            if is_verify and verify_widths is not None:
+                verify_widths.append(args[2].shape[1])
+            if step_launches is not None:
+                step_launches.append(n)
             return out
-        eng.verify = counted
-    sched = Scheduler(eng, harvest_lag=4, device=DEV, draft=draft)
+        return wrapper
+    if verify_launches is not None or verify_widths is not None \
+            or step_launches is not None:
+        eng.verify = counted(eng.verify, True)
+    if step_launches is not None:
+        eng.decode = counted(eng.decode, False)
+    sched = Scheduler(eng, harvest_lag=4, device=DEV, draft=draft,
+                      chunk_tokens=chunk_tokens)
     reqs = [Request(p, m, speculate=speculate) for p, m in traffic]
     sync(torch)
     t0 = time.perf_counter()
@@ -982,6 +1038,379 @@ def phase_spec(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phases 5c-5f: chunked prefill, quantized serving, containment, dense arena
+# ---------------------------------------------------------------------------
+
+CHUNK_TOKENS = 256
+# the engine positions of K4's chunk-window cases and timing (B = 8, each
+# row's window of up to 257 inside max_seq 2048)
+CHUNK_POS = [0, 16, 250, 700, 1000, 1500, 30, 1790]
+# quant, the stated parity budget of tests/test_quant.py (a 2-layer model):
+# the quantized engines' prefill logits within this share of the bf16
+# engine's logit range (int8 weights and KV 5%, fp8 3x that), held at 2
+# layers; at full depth the drift is reported (fp8's relative rounding
+# grows with depth past the budget)
+QUANT_REL_TOL = {"int8": 0.05, "fp8": 0.15}
+QUANT_MODES = {"bf16": {},
+               "int8": dict(quantize_weights=True, kv_dtype="int8"),
+               "fp8": dict(quantize_weights="w8f", kv_dtype="fp8")}
+
+
+def chunk_vs_whole_delta(torch, model, traffic, width=CHUNK_TOKENS + 1):
+    """max |last prompt position's logit of a whole-prompt prefill - that
+    of the same prompt fed in windows of ``width`` tokens| over the
+    requests, through the plain attend and through K4: the rounding that
+    chunked prefill adds (other matmul shapes, other attend tiles)."""
+    import numpy as np
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    out = []
+    for kernel in (False, True):
+        eng = InferenceEngine(model, n_slots=1, page_size=16,
+                              paged_kernel=kernel, device=DEV)
+        worst = 0.0
+        for prompt, _ in traffic:
+            row = np.zeros(eng.n_ptab, np.int32)
+            n_pg = -(-len(prompt) // eng.page_size)
+            row[:n_pg] = np.arange(1, n_pg + 1)
+            _, _, whole = eng.prefill(eng.init_arena(),
+                                      eng.init_last_tokens(), 0, prompt,
+                                      page_row=row)
+            arena = eng.init_arena()
+            tab = torch.tensor(row[None], device=DEV)
+            act = torch.ones(1, dtype=torch.bool, device=DEV)
+            with torch.no_grad():
+                for c0 in range(0, len(prompt), width):
+                    logits = eng.model(
+                        torch.tensor([prompt[c0:c0 + width]], device=DEV),
+                        pos=torch.tensor([c0], dtype=torch.int32,
+                                         device=DEV),
+                        cache=arena, page_table=tab, active=act,
+                        paged_kernel=kernel)
+            worst = max(worst, max_err(logits[0, -1], whole))
+        out.append(worst)
+    return out
+
+
+def phase_chunked(torch, seed):
+    """Chunked prefill (chunk_tokens=256) against whole-prompt prefill:
+    f32 identity at 2 layers (chunked, and chunked with speculate=4), then
+    the serve phase's bf16 traffic in alternating pairs with tokens/s,
+    TTFT, the decode steps a whole-prompt prefill delays, verify steps by
+    width and K4 launches (8 in every step of a chunked run), identical
+    tokens up to each request's first near-tie."""
+    import collections
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.draft import NGramDraft
+    traffic = make_traffic(seed, 32000)
+    m32 = transformer_lm("base", n_layers=2, seed=seed, dtype=torch.float32,
+                         device=DEV)
+    _, _, whole32, _ = serve(torch, m32, traffic)
+    _, _, chunk32, _ = serve(torch, m32, traffic, chunk_tokens=CHUNK_TOKENS)
+    _, cs, spec32, _ = serve(torch, m32, traffic, chunk_tokens=CHUNK_TOKENS,
+                             speculate=SPEC_K, draft=NGramDraft())
+    ties_c = near_tie_divergences(torch, m32, whole32, chunk32, TAU_F32)
+    ties_s = near_tie_divergences(torch, m32, whole32, spec32, TAU_F32)
+    log(f"chunked base 2-layer f32: {len(traffic)} requests chunked vs "
+        f"whole-prompt near-tie partings {len(ties_c)} {ties_c}, chunked + "
+        f"speculate={SPEC_K} {len(ties_s)} {ties_s} (tau {TAU_F32:.0e}); "
+        f"spec steps {cs.metrics.summary()['spec_steps_by_k']}")
+    del m32
+
+    m16 = transformer_lm("base", seed=seed, dtype=torch.bfloat16, device=DEV)
+    n_layers = m16.cfg.n_layers
+    serve(torch, m16, traffic[:2])                              # warm-up
+    serve(torch, m16, traffic[:2], chunk_tokens=CHUNK_TOKENS)
+    runs = {"whole": [], "chunked": []}
+    for mode in ("whole", "chunked", "chunked", "whole"):
+        steps, widths = [], []
+        kernels.reset_launches()
+        _, sched, reqs, wall = serve(
+            torch, m16, traffic,
+            chunk_tokens=CHUNK_TOKENS if mode == "chunked" else None,
+            step_launches=steps, verify_widths=widths)
+        k4 = kernels.LAUNCHES["paged_attention"]
+        bad = [r for r in reqs if not r.done or r.error or len(r.tokens) != 32]
+        if bad:
+            raise AssertionError(f"chunked phase ({mode}) left {bad}")
+        if set(steps) != {n_layers}:
+            raise AssertionError(f"{mode} steps launched K4 "
+                                 f"{sorted(set(steps))} times, want "
+                                 f"{n_layers} each")
+        S = sched.metrics.summary()
+        n_tok = sum(len(r.tokens) for r in reqs)
+        by_k = dict(sorted(collections.Counter(widths).items()))
+        log(f"chunked base bf16 {mode}: tokens_per_s={n_tok / wall:.2f} "
+            f"wall_s={wall:.4f} ttft_p50_s={S['ttft_s_p50']:.4f} "
+            f"ttft_p99_s={S['ttft_s_p99']:.4f} decode_steps_delayed_by_"
+            f"prefill={S['decode_steps_delayed_by_prefill']} "
+            f"prefill_chunks={S['prefill_chunks']} chunk_tokens="
+            f"{S['chunk_tokens']} decode_steps={S['decode_steps']} "
+            f"verify_steps_by_k={by_k} K4 launches={k4} "
+            f"({n_layers} in each of {len(steps)} steps)")
+        runs[mode].append(dict(reqs=reqs, k4=k4, by_k=by_k))
+    whole16 = runs["whole"][0]["reqs"]
+    chunk16 = runs["chunked"][0]["reqs"]
+    if [r.tokens for r in chunk16] != \
+            [r.tokens for r in runs["chunked"][1]["reqs"]]:
+        raise AssertionError("two chunked runs of one traffic disagree")
+    delta_v, delta_v_k4, scale = verify_vs_decode_delta(torch, m16,
+                                                        traffic[:8],
+                                                        whole16[:8])
+    delta_c, delta_c_k4 = chunk_vs_whole_delta(torch, m16, traffic[:8])
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    ceiling = SPEC_DELTA_ULPS * ulp
+    if max(delta_v, delta_v_k4, delta_c, delta_c_k4) > ceiling:
+        raise AssertionError(
+            f"bf16 logit deltas verify {delta_v:.4e}/{delta_v_k4:.4e}, chunk "
+            f"{delta_c:.4e}/{delta_c_k4:.4e} (plain/K4) beyond "
+            f"{SPEC_DELTA_ULPS} ulps ({ceiling:.4e})")
+    tau = 2 * max(delta_v, delta_c)
+    ties = near_tie_divergences(torch, m16, whole16, chunk16, tau)
+    log(f"chunked bf16 identity: wide-vs-narrow delta {delta_v:.4e} (plain) "
+        f"{delta_v_k4:.4e} (K4), chunk-vs-whole delta {delta_c:.4e} (plain) "
+        f"{delta_c_k4:.4e} (K4), ceiling {ceiling:.4e}, tau {tau:.4e}; "
+        f"requests parting at a near-tie {len(ties)} of {len(chunk16)} "
+        f"{ties}")
+    n257 = runs["chunked"][0]["by_k"].get(CHUNK_TOKENS, 0) * n_layers
+    return dict(k4=runs["chunked"][0]["k4"], launches_257=n257)
+
+
+def quant_prefill_logits(torch, eng, prompts):
+    """The engine's prefill logits of each prompt, alone in slot 0."""
+    import numpy as np
+    out = []
+    for prompt in prompts:
+        row = np.zeros(eng.n_ptab, np.int32)
+        n_pg = -(-len(prompt) // eng.page_size)
+        row[:n_pg] = np.arange(1, n_pg + 1)
+        _, _, logits = eng.prefill(eng.init_arena(), eng.init_last_tokens(),
+                                   0, prompt, page_row=row)
+        out.append(logits)
+    return out
+
+
+def phase_quant(torch, seed):
+    """The serve phase's traffic on a bf16 engine, int8 weights + int8 KV
+    and fp8 weights + fp8 KV (full depth): tokens/s, TTFT, the pages one
+    kv_pool_bytes budget buys, K4 launches with quantized pools (8 in
+    every decode step), and each engine's prefill logits of 4 prompts
+    through K4 against its plain version (within SPEC_DELTA_ULPS bf16 ulps
+    of the largest logit) and against the bf16 engine's (reported).  The
+    stated parity budget of tests/test_quant.py (QUANT_REL_TOL) is held at
+    the depth it was stated for, 2 layers, at base width."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    traffic = make_traffic(seed, 32000)
+    probes = [p for p, _ in traffic[:4]]
+
+    def drift(model, name, **kw):
+        eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV,
+                              **kw, **QUANT_MODES[name])
+        return quant_prefill_logits(torch, eng, probes)
+
+    m2 = transformer_lm("base", n_layers=2, seed=seed, dtype=torch.bfloat16,
+                        device=DEV)
+    ref2 = drift(m2, "bf16")
+    for name in ("int8", "fp8"):
+        d = max(max_err(g, w) / float(w.abs().max())
+                for g, w in zip(drift(m2, name), ref2))
+        ok = d <= QUANT_REL_TOL[name]
+        log(f"quant base 2-layer {name}: prefill logit drift {d:.4f} of the "
+            f"bf16 range (tol {QUANT_REL_TOL[name]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} prefill logits drift beyond the "
+                                 f"stated budget")
+    del m2
+
+    m16 = transformer_lm("base", seed=seed, dtype=torch.bfloat16, device=DEV)
+    n_layers = m16.cfg.n_layers
+    ref = drift(m16, "bf16")
+    budget = 1 << 30
+    out = {}
+    for name, kw in QUANT_MODES.items():
+        got, plain = drift(m16, name), drift(m16, name, paged_kernel=False)
+        scale = max(float(w.abs().max()) for w in plain)
+        ceiling = SPEC_DELTA_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        k4_err = max(max_err(g, w) for g, w in zip(got, plain))
+        d = max(max_err(g, w) / float(w.abs().max())
+                for g, w in zip(got, ref))
+        if k4_err > ceiling:
+            raise AssertionError(f"{name} prefill logits through K4 differ "
+                                 f"from the plain attend's by {k4_err:.4e}, "
+                                 f"beyond {ceiling:.4e}")
+        pages = InferenceEngine(m16, n_slots=8, page_size=16, device=DEV,
+                                kv_pool_bytes=budget,
+                                kv_dtype=kw.get("kv_dtype")).n_pages
+        serve(torch, m16, traffic[:2], **kw)                    # warm-up
+        steps = []
+        kernels.reset_launches()
+        eng, sched, reqs, wall = serve(torch, m16, traffic,
+                                       step_launches=steps, **kw)
+        k4 = kernels.LAUNCHES["paged_attention"]
+        bad = [r for r in reqs if not r.done or r.error or len(r.tokens) != 32]
+        if bad:
+            raise AssertionError(f"quant phase ({name}) left {bad}")
+        if set(steps) != {n_layers}:
+            raise AssertionError(f"{name} steps launched K4 "
+                                 f"{sorted(set(steps))} times")
+        S = sched.metrics.summary()
+        Q = eng.compile_stats()["quant"]
+        n_tok = sum(len(r.tokens) for r in reqs)
+        out[name] = dict(reqs=reqs, k4=k4)
+        same = ""
+        if name != "bf16":
+            agree = [next((i for i, (a, b) in enumerate(zip(
+                r.tokens, q.tokens)) if a != b), len(r.tokens))
+                for r, q in zip(out["bf16"]["reqs"], reqs)]
+            same = (f" tokens equal to bf16's before the first difference: "
+                    f"{sum(agree)}/{n_tok}")
+        log(f"quant base {name}: prefill logits K4 vs plain {k4_err:.4e} "
+            f"(ceiling {ceiling:.4e}), drift {d:.4f} of the bf16 range; "
+            f"tokens_per_s={n_tok / wall:.2f} wall_s={wall:.4f} ttft_p50_s="
+            f"{S['ttft_s_p50']:.4f} ttft_p99_s={S['ttft_s_p99']:.4f} "
+            f"param_bytes={Q['param_bytes']} kv_arena_bytes="
+            f"{Q['kv_arena_bytes']} page_bytes={eng.page_bytes} pages per "
+            f"{budget} B kv_pool_bytes={pages} K4 launches={k4} "
+            f"({n_layers} in each of {len(steps)} steps){same}")
+    return {name: v["k4"] for name, v in out.items()}
+
+
+def phase_contain(torch, seed):
+    """Containment at base width, 2 layers, f32, 4 slots: a raise injected
+    into one engine's decode at its third call fails the 4 requests in
+    flight, the 4 queued ones are then served with a clean run's tokens
+    and the pages come back; cancel of a queued and a slotted request;
+    shutdown with and without drain; the accounting invariant."""
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+    m = transformer_lm("base", n_layers=2, seed=seed, dtype=torch.float32,
+                       device=DEV)
+    traffic = make_traffic(seed, m.cfg.vocab_size, n=8, new_tokens=16)
+    eng = InferenceEngine(m, n_slots=4, page_size=16, device=DEV)
+    clean = [Request(p, n) for p, n in traffic[4:]]
+    Scheduler(eng, harvest_lag=4, device=DEV).run(clean)
+
+    def accounted(s):
+        return s["requests_submitted"] == (
+            s["requests_finished"] + s["requests_rejected"]
+            + s["requests_expired"] + s["requests_failed"]
+            + s["requests_aborted"] + s["requests_shed"])
+
+    faulty = InferenceEngine(m, n_slots=4, page_size=16, device=DEV)
+    decode, calls = faulty.decode, []
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("fault injected at decode call 3")
+        return decode(*args, **kwargs)
+    faulty.decode = failing
+    sched = Scheduler(faulty, harvest_lag=4, device=DEV)
+    reqs = [sched.submit(Request(p, n)) for p, n in traffic]
+    sched.run()
+    s = sched.metrics.summary()
+    failed = [r for r in reqs if (r.error or "").startswith("failed:")]
+    ok = (failed == reqs[:4] and s["requests_failed"] == 4
+          and [r.tokens for r in reqs[4:]] == [r.tokens for r in clean]
+          and sched.pages.pages_in_use == 0 and accounted(s))
+    log(f"contain base 2-layer f32: fault at decode call 3 -> failed "
+        f"{len(failed)} ({sched.last_engine_error}), queued served "
+        f"{sum(r.error is None for r in reqs[4:])}/{len(reqs) - 4} with the "
+        f"clean run's "
+        f"tokens {[r.tokens for r in reqs[4:]] == [r.tokens for r in clean]}, "
+        f"pages in use after {sched.pages.pages_in_use}, accounting "
+        f"{accounted(s)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("containment did not hold")
+
+    sched = Scheduler(eng, harvest_lag=4, device=DEV)
+    reqs = [sched.submit(Request(p, n)) for p, n in traffic[:6]]
+    sched.step()
+    queued, slotted = reqs[5], reqs[1]
+    done = [sched.cancel(queued.rid), sched.cancel(slotted.rid),
+            sched.cancel(slotted.rid)]
+    sched.run()
+    s = sched.metrics.summary()
+    ok = (done == [True, True, False] and s["requests_aborted"] == 2
+          and queued.error.startswith("aborted:")
+          and slotted.error.startswith("aborted:")
+          and sched.pages.pages_in_use == 0 and accounted(s))
+    log(f"contain cancel: queued {queued.error!r}, slotted "
+        f"{slotted.error!r}, second cancel {done[2]}, pages in use after "
+        f"{sched.pages.pages_in_use} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cancel did not hold")
+
+    for drain in (True, False):
+        sched = Scheduler(eng, harvest_lag=4, device=DEV)
+        reqs = [sched.submit(Request(p, n)) for p, n in traffic[:6]]
+        sched.step()
+        sched.step()
+        sched.shutdown(drain=drain)
+        late = sched.submit(Request(traffic[0][0], 2))
+        kinds = [(r.error or "ok").split(":")[0] for r in reqs]
+        want = (["ok"] * 4 if drain else ["aborted"] * 4) + ["aborted"] * 2
+        s = sched.metrics.summary()
+        ok = (kinds == want and late.error.startswith("rejected:")
+              and sched.pages.pages_in_use == 0 and accounted(s)
+              and not sched._pending)
+        log(f"contain shutdown(drain={drain}): request kinds {kinds}, late "
+            f"submit {late.error!r} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"shutdown(drain={drain}) did not hold")
+
+
+def phase_dense(torch, seed):
+    """The dense arena (page_size=0) at base width, 2 layers, f32: greedy
+    tokens identical to the paged engine's, plain and chunked (near-tie
+    rule at TAU_F32), with no K4 launch (the dense attend is plain
+    torch)."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    m = transformer_lm("base", n_layers=2, seed=seed, dtype=torch.float32,
+                       device=DEV)
+    traffic = make_traffic(seed, m.cfg.vocab_size)[:8]
+    _, _, paged, _ = serve(torch, m, traffic)
+    kernels.reset_launches()
+    _, _, dense, wall = serve(torch, m, traffic, page_size=0)
+    _, _, dense_c, _ = serve(torch, m, traffic, page_size=0,
+                             chunk_tokens=CHUNK_TOKENS)
+    k4 = kernels.LAUNCHES["paged_attention"]
+    ties = near_tie_divergences(torch, m, paged, dense, TAU_F32)
+    ties_c = near_tie_divergences(torch, m, paged, dense_c, TAU_F32)
+    n_tok = sum(len(r.tokens) for r in dense)
+    log(f"dense base 2-layer f32: {len(traffic)} requests, dense vs paged "
+        f"near-tie partings {len(ties)} {ties}, dense chunked vs paged "
+        f"{len(ties_c)} {ties_c} (tau {TAU_F32:.0e}); dense tokens_per_s="
+        f"{n_tok / wall:.2f}; K4 launches in the dense runs {k4}")
+    if k4:
+        raise AssertionError("the dense arena launched K4")
+
+
+def time_quant_linear(torch, m_rows):
+    """One projection of the base model's MLP (512 -> 1408) for ``m_rows``
+    rows: the bf16 weight, and the int8 and fp8 QuantLinear (the payload
+    converted to bf16 before torch.matmul, the scale on the output)."""
+    from dtdl_tpu_torch.quant import QuantLinear, quantize_tensor
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    x = torch.randn(m_rows, 512, generator=gen, device=DEV).to(torch.bfloat16)
+    w = torch.randn(512, 1408, generator=gen, device=DEV) / 512 ** 0.5
+    wb = w.to(torch.bfloat16)
+    out = {"bf16": cuda_ms(torch, lambda: torch.matmul(x, wb))}
+    for name, mode, dt in (("int8", True, torch.int8),
+                           ("fp8", "w8f", torch.float8_e4m3fn)):
+        layer = QuantLinear(512, 1408, mode=mode, device=DEV)
+        q, sc = quantize_tensor(w, (1, 1408), dtype=dt)
+        layer.kernel.data, layer.kernel_scale.data = q, sc
+        with torch.no_grad():
+            out[name] = cuda_ms(torch, lambda: layer(x, torch.bfloat16))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: training
 # ---------------------------------------------------------------------------
 
@@ -1235,28 +1664,30 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_paged(torch, *, b, s_new, pos, dtype=None):
-    """K4, its plain version, bound: at the engine's pool geometry."""
+def time_paged(torch, *, b, s_new, pos, dtype=None, quant=None):
+    """K4, its plain version, bound: at the engine's pool geometry
+    (``quant`` 'int8' or 'fp8': quantized pools with their scales)."""
     from dtdl_tpu_torch.ops.paged_attention import (paged_attention,
                                                     paged_attention_reference)
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=DEV).manual_seed(3)
     h, d, page, n_ptab = 4, 128, 16, 128
-    q, pk, pv, _, _, table, pos_t, active, _ = paged_case(
+    q, pk, pv, ks, vs, table, pos_t, active, _ = paged_case(
         torch, gen, b=b, h=h, s_new=s_new, d=d, page=page, n_ptab=n_ptab,
-        dtype=dtype, pos=pos)
+        dtype=dtype, pos=pos, quant=quant)
     scale = 1.0 / math.sqrt(d)
     run = lambda: paged_attention(q, pk, pv, table, pos_t, active,  # noqa: E731
-                                  scale=scale)
+                                  scale=scale, key_scale=ks, value_scale=vs)
     plain = lambda: paged_attention_reference(  # noqa: E731
-        q, pk, pv, table, pos_t, active, scale=scale)
+        q, pk, pv, table, pos_t, active, scale=scale, key_scale=ks,
+        value_scale=vs)
     ms = cuda_ms(torch, run)
     plain_ms = cuda_ms(torch, plain, iters=5)
-    el = pk.element_size()
+    el = pk.element_size() + (0 if ks is None else ks.element_size() / d)
     live_pages = sum((p + s_new - 1) // page + 1 for p in pos)
-    nbytes = (2 * live_pages * page * h * d * el          # live K and V
-              + 2 * q.numel() * q.element_size()          # q in, o out
-              + b * n_ptab * 4 + 2 * b * 4)               # table, pos, active
+    nbytes = int(2 * live_pages * page * h * d * el       # live K, V, scales
+                 + 2 * q.numel() * q.element_size()       # q in, o out
+                 + b * n_ptab * 4 + 2 * b * 4)            # table, pos, active
     visible = sum((p + i + 1) for p in pos for i in range(s_new))
     ops = 4 * visible * h * d
     name = str(dtype).split(".")[1]
@@ -1468,6 +1899,15 @@ def main(argv=None) -> int:
         _, scoring_len = phase_crosscheck(torch, args.seed, traffic)
     if "spec" in phases:
         phase_spec(torch, args.seed)
+    chunked = quant_launches = None
+    if "chunked" in phases:
+        chunked = phase_chunked(torch, args.seed)
+    if "quant" in phases:
+        quant_launches = phase_quant(torch, args.seed)
+    if "contain" in phases:
+        phase_contain(torch, args.seed)
+    if "dense" in phases:
+        phase_dense(torch, args.seed)
     if "train" in phases:
         train_launches, _ = phase_train(torch, args.seed)
     if "traincheck" in phases:
@@ -1484,6 +1924,23 @@ def main(argv=None) -> int:
         log(fmt_timing("time K4 decode S=1 B=8 bf16", k4))
         k4p = time_paged(torch, b=1, s_new=512, pos=[256])
         log(fmt_timing("time K4 prefill S=512 pos=256 bf16", k4p))
+        # K4 at chunked prefill's widest window (S = 257, B = 8) and at the
+        # decode geometry with int8 and fp8 pools, each with its launches
+        # on the chunked and quant phases' runs
+        k4c = time_paged(torch, b=8, s_new=CHUNK_TOKENS + 1, pos=CHUNK_POS)
+        log(fmt_timing(f"time K4 chunk S={CHUNK_TOKENS + 1} B=8 bf16 "
+                       f"(launches at that width in a chunked run: "
+                       f"{chunked and chunked['launches_257']})", k4c))
+        for name in ("int8", "fp8"):
+            t = time_paged(torch, b=8, s_new=1, pos=pos, quant=name)
+            log(fmt_timing(f"time K4 decode S=1 B=8 {name} pool (launches in "
+                           f"the quant phase's {name} run: "
+                           f"{quant_launches and quant_launches[name]})", t))
+        for rows in (8, 2048):
+            ql = time_quant_linear(torch, rows)
+            log(f"time projection 512->1408 x {rows} rows: bf16 "
+                f"ms={ql['bf16']:.4f} int8 QuantLinear ms={ql['int8']:.4f} "
+                f"fp8 QuantLinear ms={ql['fp8']:.4f}")
         # K1 at the scoring forward's shape (f32, one sequence, 4 heads)
         k1 = time_flash(torch, b=1, h=4, s=scoring_len, d=128,
                         dtype=torch.float32)

@@ -13,8 +13,10 @@ with no CUDA device they raise :class:`NoCudaDeviceError`.  The ported
 slices train and serve the LM: :func:`transformer_lm`,
 :mod:`dtdl_tpu_torch.bridge`, ``train.state.init_state`` and
 ``train.step.make_lm_train_step`` over ``data.loader.DataLoader``, and
-:class:`InferenceEngine` with :class:`Scheduler`, speculative decoding
-included (:mod:`dtdl_tpu_torch.serve.draft`).
+:class:`InferenceEngine` (paged or dense arena, int8/fp8 weights and KV
+through :mod:`dtdl_tpu_torch.quant`) with :class:`Scheduler` (speculative
+decoding, :mod:`dtdl_tpu_torch.serve.draft`; chunked prefill; cancel,
+shutdown and containment of engine failures).
 """
 
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device

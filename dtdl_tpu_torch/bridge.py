@@ -17,7 +17,14 @@ flax path                                 layout
 ``ln_f/scale``                            [d_model]
 ========================================  ===========================
 
-A missing or extra leaf, or a shape that differs, raises
+A quantized JAX tree (``quant.quantize_params``) maps onto a model built
+with ``quantize=``: each quantized kernel keeps its path and gains a
+``<path>_scale`` sibling, both carried bit for bit.  An int8 payload
+crosses as int8; an fp8 one (an ml_dtypes ``float8_e4m3fn`` array) crosses
+as its uint8 bytes, viewed as ``torch.float8_e4m3fn``, never through a
+float cast; bf16 scales cross exactly through f32.
+
+A missing or extra leaf, or a shape or payload type that differs, raises
 :class:`BridgeError` naming the path.  Nothing here imports JAX: the
 caller hands over numpy arrays (``jax.device_get`` of the tree).
 """
@@ -72,9 +79,25 @@ def flax_to_state_dict(model: TransformerLM, params) -> dict:
         if tuple(arr.shape) != tuple(param.shape):
             raise BridgeError(f"{path}: flax shape {tuple(arr.shape)} but the "
                               f"model wants {tuple(param.shape)}")
-        state[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=param.device, dtype=param.dtype)
+        state[name] = _to_tensor(path, arr, param)
     return state
+
+
+def _to_tensor(path, arr, param):
+    """One flax leaf as a tensor of ``param``'s dtype and device: a
+    quantized payload bit for bit, a float through f32."""
+    if param.dtype in (torch.int8, torch.float8_e4m3fn):
+        want = "int8" if param.dtype == torch.int8 else "float8_e4m3fn"
+        if arr.dtype.name != want:
+            raise BridgeError(f"{path}: flax payload {arr.dtype.name} but the "
+                              f"model wants {want}")
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int8 if want == "int8" else np.uint8))
+        if want != "int8":
+            t = t.view(torch.float8_e4m3fn)
+        return t.to(param.device)
+    return torch.from_numpy(np.array(arr, np.float32)).to(
+        device=param.device, dtype=param.dtype)
 
 
 def state_dict_to_flax(model: TransformerLM) -> dict:

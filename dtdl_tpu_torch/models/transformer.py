@@ -22,7 +22,12 @@ multiplies them in f32.  A server takes :meth:`TransformerLM.compute_copy`
 once, a frozen copy whose weights are already in the compute dtype, so a
 decode step pays no per-step cast of every weight.
 
-Three forwards:
+``cfg.quantize`` (``True`` int8, ``'w8f'`` fp8) builds every matmul
+kernel as a :class:`~dtdl_tpu_torch.quant.layers.QuantLinear`: the same
+``kernel`` names plus ``kernel_scale`` siblings, the JAX package's
+``quantize=`` schema.  A quantized model is served, never trained.
+
+Four forwards:
 
 * the cacheless forward (``pos=None``, the training and scoring path):
   full causal attention, ``attn_impl='flash'`` through
@@ -30,24 +35,34 @@ Three forwards:
   (kernel K1 forward, K2 and K3 backward on the card) or ``'dense'``
   (``apply_rope`` then :func:`mha_reference`, plain autograd); with
   ``remat`` each block is checkpointed (recomputed in the backward);
-* the paged decode forward (``pos`` given): the engine's paged arena,
-  :meth:`Attention.paged_attend` (the port of ``_paged_attend_slots``),
-  which ends in :func:`~dtdl_tpu_torch.ops.paged_attention.paged_attention`
-  (kernel K4 on the card) or, for ``paged_kernel=False``, its plain version;
+* the paged forward (``pos`` given, a paged ``cache``): the engine's paged
+  arena, :meth:`Attention.paged_attend` (the port of
+  ``_paged_attend_slots``), which ends in
+  :func:`~dtdl_tpu_torch.ops.paged_attention.paged_attention` (kernel K4 on
+  the card) or, for ``paged_kernel=False``, its plain version;
+* the per-slot dense forward (``pos`` given, a dense ``cache`` from
+  ``init_cache(B, per_slot_index=True)``): the engine's dense arena, each
+  row a slot at its own position, :meth:`Attention.slots_attend` (the port
+  of ``_verify_attend_slots``, plain torch as the JAX one is plain jnp);
 * the dense decode forward (``cache`` from :meth:`TransformerLM.init_cache`,
   no ``pos``): every row at the cache's one host-side index, the port of
-  ``_decode_attend``'s scalar-index path (plain torch, as the JAX one is
-  plain jnp), which :func:`generate` and the model draft run on.
+  ``_decode_attend``'s scalar-index path (plain torch), which
+  :func:`generate`, the model draft and the dense engine's prefill run on.
 
-Not ported yet (they raise ``NotImplementedError`` naming their ROADMAP
-item): mixture-of-experts blocks, quantized layers and KV pools, LoRA, and
-the per-slot dense serving arena (a [B] index on the dense cache).
+A cache or arena with ``kv_dtype`` int8/fp8 holds quantized K/V with a
+scale per (row or page, head, position): each new row is quantized as it
+is written (:func:`~dtdl_tpu_torch.quant.core.kv_quantize`) and the attend
+applies the key scale to the logits and the value scale to the weights.
+
+Mixture-of-experts blocks and LoRA are not ported yet (they raise
+``NotImplementedError`` naming their ROADMAP item).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
+from typing import Any
 
 import numpy as np
 import torch
@@ -60,6 +75,10 @@ from dtdl_tpu_torch.ops.attention import flash_attention, mha_reference
 from dtdl_tpu_torch.ops.paged_attention import (NEG_INF, paged_attention,
                                                 paged_attention_reference)
 from dtdl_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate
+from dtdl_tpu_torch.quant.core import (canon_kv_dtype, canon_weight_quant,
+                                       kv_quantize, kv_scale_dtype,
+                                       quantize_params)
+from dtdl_tpu_torch.quant.layers import QuantLinear
 
 
 class CacheOverflowError(ValueError):
@@ -67,12 +86,27 @@ class CacheOverflowError(ValueError):
 
 
 class _Kernel(nn.Module):
-    """One weight tensor under the flax param name ``kernel``."""
+    """One weight tensor under the flax param name ``kernel``, whose first
+    ``n_in`` dims are contracted by :meth:`forward`."""
 
-    def __init__(self, *shape, dtype, device):
+    def __init__(self, *shape, n_in: int = 1, dtype, device):
         super().__init__()
+        self.n_in = n_in
         self.kernel = nn.Parameter(torch.empty(*shape, dtype=dtype,
                                                device=device))
+
+    def forward(self, x, dtype):
+        """``x`` [..., prod(in_dims)] @ the kernel cast to ``dtype``."""
+        k = self.kernel
+        return torch.matmul(
+            x, k.reshape(math.prod(k.shape[:self.n_in]), -1).to(dtype))
+
+
+def _weight(*shape, n_in=1, quantize, param_dtype, device):
+    """A matmul weight: quantized (``quantize`` True or 'w8f') or float."""
+    if quantize:
+        return QuantLinear(*shape, n_in=n_in, mode=quantize, device=device)
+    return _Kernel(*shape, n_in=n_in, dtype=param_dtype, device=device)
 
 
 class RMSNorm(nn.Module):
@@ -92,10 +126,10 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
     """q/k/v/out projections around the cacheless attention (flash or
-    dense) or the paged decode attend."""
+    dense) or one of the cached attends."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, dtype,
-                 param_dtype, attn_impl: str, device):
+                 param_dtype, attn_impl: str, device, quantize=False):
         super().__init__()
         if attn_impl not in ("flash", "dense"):
             raise ValueError(f"attn_impl must be 'flash' or 'dense', got "
@@ -103,106 +137,162 @@ class Attention(nn.Module):
         self.n_heads, self.head_dim = n_heads, head_dim
         self.dtype, self.attn_impl = dtype, attn_impl
         for name in ("q", "k", "v"):
-            setattr(self, name, _Kernel(d_model, n_heads, head_dim,
-                                        dtype=param_dtype, device=device))
-        self.out = _Kernel(n_heads, head_dim, d_model, dtype=param_dtype,
+            setattr(self, name, _weight(d_model, n_heads, head_dim,
+                                        quantize=quantize,
+                                        param_dtype=param_dtype,
+                                        device=device))
+        self.out = _weight(n_heads, head_dim, d_model, n_in=2,
+                           quantize=quantize, param_dtype=param_dtype,
                            device=device)
 
     def _proj(self, x, w):
         b, s, _ = x.shape
-        kernel = w.kernel.reshape(w.kernel.shape[0], -1).to(self.dtype)
-        y = torch.matmul(x, kernel)
+        y = w(x, self.dtype)
         return y.reshape(b, s, self.n_heads, self.head_dim).transpose(1, 2)
 
-    def forward(self, x, cos, sin, pools=None, step=None):
+    def forward(self, x, cos, sin, layer=None, step=None):
         q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
-        if isinstance(step, PagedStep):
-            o = self.paged_attend(q, k, v, pools, step)
+        if isinstance(step, SlotStep):
+            attend = (self.paged_attend if step.page_table is not None
+                      else self.slots_attend)
+            o = attend(q, k, v, layer, step)
         elif step is not None:
-            o = self.dense_attend(q, k, v, pools, step, cos, sin)
+            o = self.dense_attend(q, k, v, layer, step, cos, sin)
         elif self.attn_impl == "flash":
             o = flash_attention(q, k, v, causal=True, rope=(cos, sin))
         else:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             o = mha_reference(q, k, v, causal=True).to(self.dtype)
         b, _, s, _ = o.shape
-        o = o.transpose(1, 2).reshape(b, s, -1)
-        out = self.out.kernel.reshape(-1, self.out.kernel.shape[-1])
-        return torch.matmul(o, out.to(self.dtype))
+        return self.out(o.transpose(1, 2).reshape(b, s, -1), self.dtype)
 
-    def paged_attend(self, q, k, v, pools, step: "PagedStep"):
+    @staticmethod
+    def _write(layer, names, step, k, v):
+        """Scatter the new rows ``k``/``v`` [B, H, S, D] into this layer's
+        buffers ``names`` (key, value) at ``step.scatter_at``; a quantized
+        cache (``<name>_scale`` leaves present) takes each row quantized
+        with its own scale.  Returns the (key scale, value scale) buffers,
+        (None, None) for an unquantized cache."""
+        nk, nv = names
+        scales = (layer.get(nk + "_scale"), layer.get(nv + "_scale"))
+        for name, new, sc in ((nk, k, scales[0]), (nv, v, scales[1])):
+            buf = layer[name]
+            b, h, s_new, d = new.shape
+            if sc is not None:
+                new, row_scale = kv_quantize(new, buf.dtype)
+                sc.index_put_(step.scatter_at,
+                              row_scale.transpose(1, 2).reshape(b * s_new, h))
+            buf.index_put_(step.scatter_at, new.transpose(1, 2).reshape(
+                b * s_new, h, d).to(buf.dtype))
+        return scales
+
+    def paged_attend(self, q, k, v, layer, step: "SlotStep"):
         """Attend ``s_new`` new rows per slot against the block-paged
-        arena (the port of ``_paged_attend_slots``): ``pools`` is this
-        layer's (pages_key, pages_value), ``step`` the call's
-        :class:`PagedStep`.  The new rows are roped at their positions,
-        scattered into the pools through each row's page table (inactive
-        rows to the garbage page 0), and every query row attends its
-        row's columns up to its own position."""
-        b, h, s_new, d = q.shape
-        pk, pv = pools
+        arena (the port of ``_paged_attend_slots``): ``layer`` is this
+        layer's arena node (``pages_key``/``pages_value`` and, for a
+        quantized pool, their ``_scale`` sidecars [n_pages, H, page]),
+        ``step`` the call's :class:`SlotStep`.  The new rows are roped at
+        their positions, scattered into the pools through each row's page
+        table (inactive rows to the garbage page 0; quantized on the way
+        in), and every query row attends its row's columns up to its own
+        position.  The pools are updated in place (``index_put_``) where
+        the JAX program returned a new donated arena."""
         q = rotate(q, step.cos, step.sin)
         k = rotate(k, step.cos, step.sin)
-        # The pools are updated in place (index_put_) where the JAX program
-        # returned a new donated arena: token t of row b lands at offset
-        # g % page of physical page table[b, g // page].
-        for pool, new in ((pk, k), (pv, v)):
-            upd = new.transpose(1, 2).reshape(b * s_new, h, d)
-            pool.index_put_((step.page_idx, step.heads, step.off_idx),
-                            upd.to(pool.dtype))
+        ks, vs = self._write(layer, ("pages_key", "pages_value"), step, k, v)
         attend = paged_attention if step.kernel \
             else paged_attention_reference
-        return attend(q, pk, pv, step.page_table, step.pos,
-                      step.active_i32, scale=1.0 / math.sqrt(d))
+        return attend(q, layer["pages_key"], layer["pages_value"],
+                      step.page_table, step.pos, step.active_i32,
+                      scale=1.0 / math.sqrt(q.shape[-1]), key_scale=ks,
+                      value_scale=vs)
 
+    def slots_attend(self, q, k, v, layer, step: "SlotStep"):
+        """Attend ``s_new`` new rows per slot against the dense serving
+        arena (the port of ``_verify_attend_slots``): row b of ``layer``'s
+        ``key``/``value`` [B, H, max_seq, D] buffers is slot b, its new
+        rows roped at ``pos[b]..``, written at [pos[b], pos[b] + s_new)
+        of its own row (inactive rows too: garbage in their own row,
+        overwritten before it is attended) and attending every column up
+        to each row's own position."""
+        q = rotate(q, step.cos, step.sin)
+        k = rotate(k, step.cos, step.sin)
+        ks, vs = self._write(layer, ("key", "value"), step, k, v)
+        return self._attend(q, layer["key"], layer["value"], step.qpos, ks,
+                            vs)
 
     # query rows attend in blocks of this many, so a long prefill holds
     # [B, H, PREFILL_CHUNK, max_seq] f32 logits at a time, not the prompt's
     PREFILL_CHUNK = 256
 
-    def dense_attend(self, q, k, v, pools, pos: int, cos, sin):
+    def dense_attend(self, q, k, v, layer, pos: int, cos, sin):
         """Attend ``s_new`` new rows per batch row at the one position
         ``pos`` against the dense cache (the port of ``_decode_attend``'s
         scalar-index path): the new rows are roped at pos.., their K/V
-        written at [pos, pos + s_new) of this layer's (key, value)
-        [B, H, max_seq, D] buffers, and each query row attends every
-        cached column up to its own position, in f32 logits with the
-        weights cast to the compute dtype before P·V."""
-        s_new, d = q.shape[2], q.shape[3]
-        ck, cv = pools
+        written at [pos, pos + s_new) of this layer's ``key``/``value``
+        [B, H, max_seq, D] buffers (quantized, with their ``_scale``
+        rows, in an int8/fp8 cache), and each query row attends every
+        cached column up to its own position."""
+        s_new = q.shape[2]
         q = apply_rope(q, cos, sin, offset=pos)
         k = apply_rope(k, cos, sin, offset=pos)
+        ck, cv = layer["key"], layer["value"]
+        ks, vs = layer.get("key_scale"), layer.get("value_scale")
+        if ks is not None:
+            k, k_scale = kv_quantize(k, ck.dtype)
+            v, v_scale = kv_quantize(v, cv.dtype)
+            ks[:, :, pos:pos + s_new] = k_scale
+            vs[:, :, pos:pos + s_new] = v_scale
         ck[:, :, pos:pos + s_new] = k.to(ck.dtype)
         cv[:, :, pos:pos + s_new] = v.to(cv.dtype)
-        keys_t = ck.float().transpose(-1, -2)
+        qpos = pos + torch.arange(s_new, device=q.device)[None]
+        return self._attend(q, ck, cv, qpos, ks, vs)
+
+    def _attend(self, q, keys, values, qpos, key_scale=None,
+                value_scale=None):
+        """Query rows ``q`` [B, H, S, D] at positions ``qpos`` [B or 1, S]
+        against cached ``keys``/``values`` [B, H, L, D]: f32 logits (times
+        the key scale of a quantized cache), scaled, masked at -1e30 past
+        each row's position, softmax, the weights (times the value scale)
+        cast to the compute dtype before P·V; in blocks of
+        ``PREFILL_CHUNK`` query rows."""
+        s_new, d = q.shape[2], q.shape[3]
+        quant = key_scale is not None
+        keys_t = keys.to(self.dtype).float().transpose(-1, -2)
+        values = values.to(self.dtype)
         scale = 1.0 / math.sqrt(d)
-        cols = torch.arange(ck.shape[2], device=q.device)
+        cols = torch.arange(keys.shape[2], device=q.device)
         out = []
         for c0 in range(0, s_new, self.PREFILL_CHUNK):
             rows = q[:, :, c0:c0 + self.PREFILL_CHUNK]
-            qpos = pos + c0 + torch.arange(rows.shape[2], device=q.device)
-            mask = cols[None, :] <= qpos[:, None]
-            logits = torch.matmul(rows.float(), keys_t) * scale
-            logits = torch.where(mask, logits,
+            mask = cols <= qpos[:, c0:c0 + rows.shape[2], None]
+            logits = torch.matmul(rows.float(), keys_t)
+            if quant:
+                logits = logits * key_scale.float()[:, :, None, :]
+            logits = torch.where(mask[:, None], logits * scale,
                                  torch.full_like(logits, NEG_INF))
             probs = torch.softmax(logits, dim=-1)
-            out.append(torch.matmul(probs.to(self.dtype), cv))
+            if quant:
+                probs = probs * value_scale.float()[:, :, None, :]
+            out.append(torch.matmul(probs.to(self.dtype), values))
         return torch.cat(out, dim=2)
 
 
 class SwiGLU(nn.Module):
     def __init__(self, d_model: int, d_ff: int, *, dtype, param_dtype,
-                 device):
+                 device, quantize=False):
         super().__init__()
         self.dtype = dtype
-        self.wi = _Kernel(d_model, d_ff, dtype=param_dtype, device=device)
-        self.wg = _Kernel(d_model, d_ff, dtype=param_dtype, device=device)
-        self.wo = _Kernel(d_ff, d_model, dtype=param_dtype, device=device)
+        for name, shape in (("wi", (d_model, d_ff)), ("wg", (d_model, d_ff)),
+                            ("wo", (d_ff, d_model))):
+            setattr(self, name, _weight(*shape, quantize=quantize,
+                                        param_dtype=param_dtype,
+                                        device=device))
 
     def forward(self, x):
         dt = self.dtype
-        h = F.silu(torch.matmul(x, self.wg.kernel.to(dt))) \
-            * torch.matmul(x, self.wi.kernel.to(dt))
-        return torch.matmul(h, self.wo.kernel.to(dt))
+        h = F.silu(self.wg(x, dt)) * self.wi(x, dt)
+        return self.wo(h, dt)
 
 
 class Block(nn.Module):
@@ -212,13 +302,15 @@ class Block(nn.Module):
         self.ln_attn = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.head_dim,
                               dtype=dt, param_dtype=param_dtype,
-                              attn_impl=cfg.attn_impl, device=device)
+                              attn_impl=cfg.attn_impl, device=device,
+                              quantize=cfg.quantize)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt,
-                          param_dtype=param_dtype, device=device)
+                          param_dtype=param_dtype, device=device,
+                          quantize=cfg.quantize)
 
-    def forward(self, x, cos, sin, pools=None, step=None):
-        x = x + self.attn(self.ln_attn(x), cos, sin, pools, step)
+    def forward(self, x, cos, sin, layer=None, step=None):
+        x = x + self.attn(self.ln_attn(x), cos, sin, layer, step)
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -234,6 +326,7 @@ class LMConfig:
     attn_impl: str = "flash"      # 'flash' | 'dense'
     remat: bool = False           # checkpoint every block when training
     dtype: torch.dtype = torch.bfloat16
+    quantize: Any = False         # weight-only: True int8, 'w8f' fp8
 
     @property
     def head_dim(self) -> int:
@@ -241,18 +334,20 @@ class LMConfig:
 
 
 @dataclass
-class PagedStep:
-    """What every layer of one paged forward shares, computed once per
-    call: the page tables, the active mask (int32 for the kernel), the
-    rows' clamped positions, the (page, offset) scatter coordinates of the
-    new tokens and their rope rows, and whether to attend through the
-    kernel wrapper (:func:`paged_attention`) or its plain version."""
-    page_table: torch.Tensor   # [B, n_ptab] int32
+class SlotStep:
+    """What every layer of one per-slot forward shares, computed once per
+    call: the rows' clamped positions and the positions of their new
+    tokens, the scatter coordinates of those tokens and their rope rows.
+    On a paged arena (``page_table`` given) the coordinates are (physical
+    page, heads, offset), inactive rows routed to the garbage page 0, and
+    ``kernel`` says whether to attend through the kernel wrapper
+    (:func:`paged_attention`) or its plain version; on the dense arena
+    they are (slot row, heads, position)."""
+    page_table: torch.Tensor | None   # [B, n_ptab] int32, None: dense
     active_i32: torch.Tensor   # [B]
     pos: torch.Tensor          # [B] clamped positions
-    page_idx: torch.Tensor     # [B*S, 1] physical page of each new token
-    off_idx: torch.Tensor      # [B*S, 1] offset in that page
-    heads: torch.Tensor        # [1, H]
+    qpos: torch.Tensor         # [B, S] positions of the new tokens
+    scatter_at: tuple          # ([B*S, 1], [1, H], [B*S, 1]) index_put_
     cos: torch.Tensor          # [B, 1, S, D/2] f32 rope rows
     sin: torch.Tensor
     kernel: bool = True
@@ -260,19 +355,26 @@ class PagedStep:
     @classmethod
     def build(cls, page_table, active, pos, *, s_new, page, n_heads,
               rope_cos, rope_sin, kernel):
+        """``page_table`` None (and ``page`` ignored) for the dense arena."""
         max_len = rope_cos.shape[0]
         # identity for active rows (caller contract); keeps stale inactive
         # rows inside every table
         pos_safe = pos.clamp(0, max_len - s_new)
         g = pos_safe[:, None] + torch.arange(s_new, device=pos.device)
-        phys = torch.gather(page_table, 1,
-                            (g // page).clamp(0, page_table.shape[1] - 1))
-        page_idx = torch.where(active[:, None], phys, torch.zeros_like(phys))
-        return cls(page_table=page_table.to(torch.int32),
-                   active_i32=active.to(torch.int32), pos=pos_safe,
-                   page_idx=page_idx.reshape(-1, 1).long(),
-                   off_idx=(g % page).reshape(-1, 1).long(),
-                   heads=torch.arange(n_heads, device=pos.device)[None, :],
+        heads = torch.arange(n_heads, device=pos.device)[None, :]
+        if page_table is None:
+            rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+            at = (rows.expand_as(g).reshape(-1, 1), heads, g.reshape(-1, 1))
+        else:
+            page_table = page_table.to(torch.int32)
+            phys = torch.gather(page_table, 1,
+                                (g // page).clamp(0, page_table.shape[1] - 1))
+            page_idx = torch.where(active[:, None], phys,
+                                   torch.zeros_like(phys))
+            at = (page_idx.reshape(-1, 1).long(), heads,
+                  (g % page).reshape(-1, 1))
+        return cls(page_table=page_table, active_i32=active.to(torch.int32),
+                   pos=pos_safe, qpos=g, scatter_at=at,
                    cos=rope_cos[g].float()[:, None],
                    sin=rope_sin[g].float()[:, None], kernel=kernel)
 
@@ -312,22 +414,38 @@ class TransformerLM(nn.Module):
 
     def compute_copy(self) -> "TransformerLM":
         """A frozen twin for serving whose matmul weights and embedding
-        are held in the compute dtype (norm scales stay f32), copied once
-        so that the eager decode step does not cast every weight per call.
-        The model itself when its weights are in the compute dtype
-        already (an f32 model)."""
+        are held in the compute dtype (norm scales stay f32, a quantized
+        model's payloads and scales as they are), copied once so that the
+        eager decode step does not cast every weight per call.  The model
+        itself when its weights are in the compute dtype already (an f32
+        model)."""
         if self.param_dtype == self.cfg.dtype:
             return self
-        twin = TransformerLM(self.cfg, device=self.device,
-                             param_dtype=self.cfg.dtype)
+        twin = self.clone(param_dtype=self.cfg.dtype)
         twin.load_state_dict(self.state_dict())
         return twin.requires_grad_(False)
+
+    def clone(self, param_dtype=None, **overrides) -> "TransformerLM":
+        """A new model on this one's device with :class:`LMConfig` fields
+        replaced by ``overrides`` (``quantize=``, ...) and weights left
+        uninitialized (a quantized one's at zero payloads and unit
+        scales)."""
+        return TransformerLM(replace(self.cfg, **overrides),
+                             device=self.device,
+                             param_dtype=param_dtype or self.param_dtype)
 
     def init_weights(self, seed: int = 0) -> "TransformerLM":
         """Random weights from ``seed`` (torch.Generator on the CPU, so
         the same seed gives the same weights on every device): normal
         embedding (std 0.02), fan-in scaled normal matmul kernels, unit
-        norm scales."""
+        norm scales.  A quantized model takes the float model's weights
+        from the same seed, quantized
+        (:func:`~dtdl_tpu_torch.quant.core.quantize_params`)."""
+        if self.cfg.quantize:
+            src = self.clone(quantize=False).init_weights(seed)
+            self.load_state_dict(quantize_params(src, src.state_dict(),
+                                                 self.cfg.quantize))
+            return self
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
@@ -346,21 +464,16 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, *, return_hidden: bool = False, pos=None,
                 cache=None, page_table=None, active=None,
                 paged_kernel: bool = True):
-        """Cacheless forward (no ``cache``); a paged decode forward
-        (``pos`` given): ``cache`` the engine's arena
-        (:meth:`init_paged_cache`), ``page_table`` [B, n_ptab], ``active``
-        [B] bool and ``pos`` [B] the rows' write positions,
-        ``paged_kernel=False`` attending through the plain version instead
-        of the kernel wrapper, the pools updated in place and the arena's
-        ``index`` the engine's to advance; or a dense decode forward
-        (``cache`` from :meth:`init_cache`, no ``pos``): the tokens are
-        written at the cache's index, which advances by their count."""
-        if pos is not None and (cache is None or
-                                "pages_key" not in cache["block_0"]["attn"]):
-            raise NotImplementedError(
-                "per-slot positions on the dense [B, max_seq] cache (the "
-                "engine's dense arena) are ROADMAP queue A5 (dense arena), "
-                "not in this slice")
+        """Cacheless forward (no ``cache``); a per-slot forward (``pos``
+        [B] the rows' write positions): on the engine's paged arena
+        (:meth:`init_paged_cache`) with ``page_table`` [B, n_ptab],
+        ``active`` [B] bool and ``paged_kernel=False`` attending through
+        the plain version instead of the kernel wrapper, or on its dense
+        arena (``init_cache(B, per_slot_index=True)``), the K/V updated
+        in place and the arena's ``index`` the engine's to advance; or a
+        dense decode forward (``cache`` from :meth:`init_cache`, no
+        ``pos``): the tokens are written at the cache's host index, which
+        advances by their count."""
         x = self.embed[tokens].to(self.cfg.dtype)
         step = None
         if cache is not None and pos is None:
@@ -370,16 +483,19 @@ class TransformerLM(nn.Module):
                     f"decode at position {step} with {tokens.shape[1]} new "
                     f"token(s) exceeds max_seq={self.cfg.max_seq}")
         elif pos is not None:
-            pool = cache["block_0"]["attn"]["pages_key"]
-            if pool.dtype not in (torch.float32, torch.bfloat16):
-                raise NotImplementedError(
-                    "int8/fp8 KV pools are ROADMAP queue A7 (quantized "
-                    "serving)")
-            step = PagedStep.build(
-                page_table, active, pos, s_new=tokens.shape[1],
-                page=pool.shape[2], n_heads=self.cfg.n_heads,
-                rope_cos=self.rope_cos, rope_sin=self.rope_sin,
-                kernel=paged_kernel)
+            layer = cache["block_0"]["attn"]
+            paged = "pages_key" in layer
+            if paged and page_table is None:
+                raise ValueError("a paged arena needs page_table")
+            if active is None:
+                active = torch.ones(pos.shape[0], dtype=torch.bool,
+                                    device=pos.device)
+            step = SlotStep.build(
+                page_table if paged else None, active, pos,
+                s_new=tokens.shape[1],
+                page=layer["pages_key"].shape[2] if paged else 0,
+                n_heads=self.cfg.n_heads, rope_cos=self.rope_cos,
+                rope_sin=self.rope_sin, kernel=paged_kernel)
         # remat is a training-time memory/FLOPs trade: never under decode
         remat = self.cfg.remat and step is None and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
@@ -387,14 +503,8 @@ class TransformerLM(nn.Module):
                 x = checkpoint(block, x, self.rope_cos, self.rope_sin,
                                use_reentrant=False)
                 continue
-            pools = None
-            if isinstance(step, PagedStep):
-                layer = cache[f"block_{i}"]["attn"]
-                pools = (layer["pages_key"], layer["pages_value"])
-            elif step is not None:
-                layer = cache[f"block_{i}"]["attn"]
-                pools = (layer["key"], layer["value"])
-            x = block(x, self.rope_cos, self.rope_sin, pools, step)
+            layer = None if step is None else cache[f"block_{i}"]["attn"]
+            x = block(x, self.rope_cos, self.rope_sin, layer, step)
         if cache is not None and pos is None:
             cache["index"].fill_(step + tokens.shape[1])
         x = self.ln_f(x)
@@ -406,30 +516,45 @@ class TransformerLM(nn.Module):
         """Tied output head ``x @ embed.T`` in the compute dtype, as f32."""
         return torch.matmul(x, self.embed.to(self.cfg.dtype).t()).float()
 
-    def cache_shapes(self, batch_size: int) -> dict:
-        """Shapes and dtypes of the dense decode cache for ``batch_size``
-        rows: per block a ``key``/``value`` buffer [B, H, max_seq,
-        head_dim] in the compute dtype, plus one scalar int32 ``index``
-        for all blocks (the JAX tree keeps an identical copy per block).
-        The per-slot [B] index of the engine's dense arena is ROADMAP
-        queue A5, int8/fp8 caches A7."""
-        cfg = self.cfg
-        kv = ((batch_size, cfg.n_heads, cfg.max_seq, cfg.head_dim), cfg.dtype)
-        out = {f"block_{i}": {"attn": {"key": kv, "value": kv}}
-               for i in range(cfg.n_layers)}
-        out["index"] = ((), torch.int32)
+    def _kv_leaves(self, shape, kv_dtype, names) -> dict:
+        """The K/V leaves ``names`` of ``shape`` [.., L, head_dim] in the
+        compute dtype, or in ``kv_dtype`` with ``<name>_scale`` [.., L]
+        sidecars."""
+        kv_dtype = canon_kv_dtype(kv_dtype)
+        out = {n: (shape, kv_dtype or self.cfg.dtype) for n in names}
+        if kv_dtype is not None:
+            out.update({n + "_scale": (shape[:-1], kv_scale_dtype(kv_dtype))
+                        for n in names})
         return out
 
-    def init_cache(self, batch_size: int) -> dict:
-        """A zeroed dense decode cache: the K/V buffers on the model's
-        device, the ``index`` on the host (a CPU scalar tensor), so a
-        step's position is known without reading the card."""
-        shapes = self.cache_shapes(batch_size)
-        out = {name: {"attn": {k: torch.zeros(shape, dtype=dtype,
-                                              device=self.device)
-                               for k, (shape, dtype) in node["attn"].items()}}
-               for name, node in shapes.items() if name != "index"}
-        out["index"] = torch.zeros((), dtype=torch.int32)
+    def cache_shapes(self, batch_size: int, per_slot_index: bool = False,
+                     kv_dtype=None) -> dict:
+        """Shapes and dtypes of the dense cache for ``batch_size`` rows:
+        per block a ``key``/``value`` buffer [B, H, max_seq, head_dim] in
+        the compute dtype, plus one int32 ``index`` for all blocks (the
+        JAX tree keeps an identical copy per block): a scalar, or with
+        ``per_slot_index`` a [B] vector (the engine's dense arena, each
+        row a slot at its own position).  ``kv_dtype`` 'int8' or 'fp8'
+        stores the K/V quantized with ``key_scale``/``value_scale``
+        [B, H, max_seq] sidecars (f32 for int8, bf16 for fp8)."""
+        cfg = self.cfg
+        kv = self._kv_leaves((batch_size, cfg.n_heads, cfg.max_seq,
+                              cfg.head_dim), kv_dtype, ("key", "value"))
+        out = {f"block_{i}": {"attn": dict(kv)} for i in range(cfg.n_layers)}
+        out["index"] = (((batch_size,) if per_slot_index else ()),
+                        torch.int32)
+        return out
+
+    def init_cache(self, batch_size: int, per_slot_index: bool = False,
+                   kv_dtype=None) -> dict:
+        """A zeroed dense cache (see :meth:`cache_shapes`): the K/V
+        buffers on the model's device; a scalar ``index`` on the host (a
+        CPU tensor), so a step's position is known without reading the
+        card, a per-slot one on the device beside the K/V."""
+        out = _alloc(self.cache_shapes(batch_size, per_slot_index, kv_dtype),
+                     self.device)
+        if not per_slot_index:
+            out["index"] = torch.zeros((), dtype=torch.int32)
         return out
 
     def paged_cache_shapes(self, n_slots: int, n_pages: int, page_size: int,
@@ -438,10 +563,10 @@ class TransformerLM(nn.Module):
         ``pages_key``/``pages_value`` pool [n_pages, H, page_size,
         head_dim] (page 0 is the reserved garbage page), plus one
         ``index`` [n_slots] int32 for all blocks (the JAX tree keeps an
-        identical copy per block)."""
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                "int8/fp8 KV pools are ROADMAP queue A7 (quantized serving)")
+        identical copy per block).  ``kv_dtype`` 'int8' or 'fp8' makes the
+        pools int8 or float8_e4m3fn with ``pages_key_scale``/
+        ``pages_value_scale`` [n_pages, H, page_size] sidecars (f32 for
+        int8, bf16 for fp8) that ride with their page."""
         cfg = self.cfg
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(f"page_size must be >= 1 and divide max_seq="
@@ -449,9 +574,10 @@ class TransformerLM(nn.Module):
         if n_pages < 2:
             raise ValueError(f"n_pages must be >= 2 (page 0 is the reserved "
                              f"garbage page), got {n_pages}")
-        pool = ((n_pages, cfg.n_heads, page_size, cfg.head_dim), cfg.dtype)
-        out = {f"block_{i}": {"attn": {"pages_key": pool,
-                                       "pages_value": pool}}
+        pools = self._kv_leaves((n_pages, cfg.n_heads, page_size,
+                                 cfg.head_dim), kv_dtype,
+                                ("pages_key", "pages_value"))
+        out = {f"block_{i}": {"attn": dict(pools)}
                for i in range(cfg.n_layers)}
         out["index"] = ((n_slots,), torch.int32)
         return out
@@ -459,13 +585,16 @@ class TransformerLM(nn.Module):
     def init_paged_cache(self, n_slots: int, n_pages: int, page_size: int,
                          kv_dtype=None) -> dict:
         """A zeroed paged arena on the model's device."""
-        def alloc(node):
-            if isinstance(node, dict):
-                return {k: alloc(v) for k, v in node.items()}
-            shape, dtype = node
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-        return alloc(self.paged_cache_shapes(n_slots, n_pages, page_size,
-                                             kv_dtype))
+        return _alloc(self.paged_cache_shapes(n_slots, n_pages, page_size,
+                                              kv_dtype), self.device)
+
+
+def _alloc(node, device):
+    """Zeroed tensors on ``device`` for a nested dict of (shape, dtype)."""
+    if isinstance(node, dict):
+        return {k: _alloc(v, device) for k, v in node.items()}
+    shape, dtype = node
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 @torch.no_grad()
@@ -542,17 +671,20 @@ def transformer_lm(size: str = "tiny", *, device=None, seed: int | None = 0,
     """The JAX package's named configs, built on ``device`` (the card
     unless ``device="cpu"``) with random weights from ``seed`` (``None``
     leaves them uninitialized, for a bridge load).  ``overrides`` set
-    :class:`LMConfig` fields (``attn_impl``, ``remat``, ``dtype``, ...);
-    the JAX fields of layers not ported yet, ``moe_every``,
-    ``moe_dispatch``, ``capacity_factor``, ``moe_top_k``,
-    ``moe_group_size`` and ``quantize``, are refused by name."""
+    :class:`LMConfig` fields (``attn_impl``, ``remat``, ``dtype``,
+    ``quantize`` (True/'int8' or 'w8f'), ...); the JAX fields of MoE
+    layers, not ported yet (``moe_every``, ``moe_dispatch``,
+    ``capacity_factor``, ``moe_top_k``, ``moe_group_size``), are refused
+    by name."""
     if size not in _PRESETS:
         raise ValueError(f"unknown size {size!r}; one of {sorted(_PRESETS)}")
     unknown = set(overrides) - _FIELDS
     if unknown:
         raise NotImplementedError(
-            f"{sorted(unknown)} are not ported yet (MoE and quantized layers "
-            f"are ROADMAP queue A3/A7)")
+            f"{sorted(unknown)} are not ported yet (MoE layers are ROADMAP "
+            f"queue A3)")
+    if "quantize" in overrides:
+        overrides["quantize"] = canon_weight_quant(overrides["quantize"])
     model = TransformerLM(LMConfig(**{**_PRESETS[size], **overrides}),
                           device=device)
     if seed is not None:

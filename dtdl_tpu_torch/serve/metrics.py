@@ -1,5 +1,6 @@
 """Serving telemetry, the port of dtdl_tpu/serve/metrics.py for the
-counters this slice touches.
+counters the ported scheduler touches (the fleet's, the spill tiers' and
+the tenants' wait for their slices).
 
 Nothing here reads the device.  Dispatch-side counters (admissions,
 steps, occupancy) are host state the scheduler already has; request
@@ -17,10 +18,10 @@ import time
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.obs.hist import LogHistogram
 
-# the terminal error kinds this slice's scheduler gives (``req.error``
-# starts with one of them); failed/aborted come with containment, cancel
-# and shutdown, ROADMAP A6
-ERROR_KINDS = ("rejected", "expired", "shed")
+# the terminal error kinds (``req.error`` is "<kind>: <reason>").  The
+# accounting invariant: submitted == finished + rejected + expired +
+# failed + aborted + shed, every request counted once
+ERROR_KINDS = ("rejected", "expired", "failed", "aborted", "shed")
 
 
 class ServeMetrics:
@@ -31,7 +32,9 @@ class ServeMetrics:
         self.n_slots = n_slots
         self.n_submitted = 0
         self.n_rejected = 0
-        self.n_expired = 0
+        self.n_expired = 0      # deadline watchdog retirements
+        self.n_failed = 0       # engine-failure containment retirements
+        self.n_aborted = 0      # cancelled, or cut by shutdown
         self.n_shed = 0
         self.n_admitted = 0
         self.n_finished = 0
@@ -39,6 +42,11 @@ class ServeMetrics:
         self.decode_slot_steps = 0
         self.decode_tokens_delivered = 0
         self.prefill_tokens = 0
+        # chunked prefill: chunks dispatched and their prompt tokens, and
+        # the decode slots a blocking whole-prompt prefill stalled
+        self.n_prefill_chunks = 0
+        self.n_chunk_tokens = 0
+        self.n_decode_steps_delayed = 0
         # speculative decoding: verify steps (by draft width), drafted and
         # accepted candidates (known at harvest), and the host time spent
         # inside DraftSource.propose, the draft's cost against its win
@@ -71,8 +79,31 @@ class ServeMetrics:
     def on_expire(self, req):
         self.n_expired += 1
 
+    def on_failure(self, req):
+        """Engine-failure containment: the request was in flight when a
+        step raised, and retired ``failed:``."""
+        self.n_failed += 1
+
+    def on_abort(self, req):
+        """A submitted request cancelled by rid or cut by shutdown: a
+        deliberate abort, kept apart from ``requests_failed`` (engine
+        health); ``on_submit`` counted it already."""
+        self.n_aborted += 1
+
     def on_shed(self, req):
         self.n_shed += 1
+
+    def on_chunk(self, tokens: int):
+        """One prefill chunk of ``tokens`` prompt tokens dispatched in a
+        step shared with the in-flight decodes."""
+        self.n_prefill_chunks += 1
+        self.n_chunk_tokens += tokens
+
+    def on_prefill_block(self, n_decoding: int):
+        """One blocking whole-prompt prefill dispatched while
+        ``n_decoding`` slots were mid-decode, each of which waits for it;
+        zero under chunked prefill."""
+        self.n_decode_steps_delayed += n_decoding
 
     def on_prefix(self, hit_pages: int, full_pages: int, tokens_saved: int):
         self.prefix_hit_pages += hit_pages
@@ -145,9 +176,14 @@ class ServeMetrics:
             "requests_submitted": self.n_submitted,
             "requests_rejected": self.n_rejected,
             "requests_expired": self.n_expired,
+            "requests_failed": self.n_failed,
+            "requests_aborted": self.n_aborted,
             "requests_shed": self.n_shed,
             "requests_finished": self.n_finished,
             "prefill_tokens": self.prefill_tokens,
+            "prefill_chunks": self.n_prefill_chunks,
+            "chunk_tokens": self.n_chunk_tokens,
+            "decode_steps_delayed_by_prefill": self.n_decode_steps_delayed,
             "decode_steps": self.n_decode_steps,
             "decode_tokens": tokens,
             "wall_s": wall,

@@ -1,5 +1,5 @@
 """Host-side page bookkeeping for the block-paged KV arena, the port's own
-copy of dtdl_tpu/serve/paged.py (allocator and prefix cache; the spill
+copy of dtdl_tpu/serve/paged.py (allocator, prefix cache and reset; the spill
 tiers and the fleet prefix directory come with a later slice).
 
 * **Page allocation**: a free list over physical pages 1..n_pages-1.  Page
@@ -112,6 +112,16 @@ class PageAllocator:
             self._lru[page] = None           # most-recently released
         else:
             self._free.append(page)
+
+    def reset(self) -> None:
+        """Forget everything: every page free, no reference, no cached
+        prefix.  Containment calls it after re-initializing the arena, so
+        no stale prefix hit can map a page whose contents are gone."""
+        self._free = deque(range(1, self.n_pages))
+        self._ref.clear()
+        self._cached.clear()
+        self._page_hash.clear()
+        self._lru.clear()
 
     def refcount(self, page: int) -> int:
         return self._ref.get(page, 0)

@@ -1,19 +1,21 @@
-"""Slot-based continuous batcher over the paged InferenceEngine, the port
-of dtdl_tpu/serve/scheduler.py (its continuous-batching core and
-speculative decoding).
+"""Slot-based continuous batcher over the InferenceEngine, the port of
+dtdl_tpu/serve/scheduler.py (its continuous-batching core, speculative
+decoding, chunked prefill and containment).
 
 A request is admitted into the first free slot (one bucketed prefill of
 its uncached suffix), decodes in lockstep with whatever else is in
 flight, and retires the moment its budget is exhausted, freeing the row
 for the next queued request mid-flight.
 
-Admission is gated on free pages: the scheduler owns the host-side
-:class:`~dtdl_tpu_torch.serve.paged.PageAllocator`, maps the longest
-cached prompt prefix read-only, prefills only the suffix, and waits in
-FIFO order when the pool cannot map a prompt yet.  Decode growth
+On a paged engine admission is gated on free pages: the scheduler owns
+the host-side :class:`~dtdl_tpu_torch.serve.paged.PageAllocator`, maps the
+longest cached prompt prefix read-only, prefills only the suffix, and
+waits in FIFO order when the pool cannot map a prompt yet.  Decode growth
 allocates pages from worst-case host arithmetic (``pos_hi``), so the
 fresh table rides into the next step as data; a slot the pool cannot grow
-is shed with the named :class:`PagePoolExhaustedError` message.
+is shed with the named :class:`PagePoolExhaustedError` message.  A dense
+engine (``page_size=0``) gives every slot its own max_seq row, and none of
+that applies.
 
 Dispatch never reads what it just dispatched.  The sampled tokens stay on
 the card as the next step's input; each step's token vector starts a
@@ -33,10 +35,26 @@ trailing acceptance, and its worst-case index ``pos_hi`` counts every
 in-flight window, so page growth and the room check stay host
 arithmetic.
 
+**Chunked prefill** (``chunk_tokens=N``): a prompt is admitted without a
+prefill (its pages mapped) and enters in per-step chunks of at most N
+tokens in all, FIFO over the prefilling slots, riding the verify step as
+``forced`` rows beside the decoding slots, so a long admission no longer
+stalls every in-flight decode for a whole-prompt prefill.  The final
+chunk's bonus token is the request's first token, and a paged prompt's
+pages are published to the prefix cache only once that chunk is
+dispatched.  Greedy tokens are those of whole-prompt prefill.
+
+**Containment**: an exception from a step's dispatch fails the requests in
+flight (``failed:``), re-initializes the arena and, for a paged engine,
+the pages, and the queue is then served; ``cancel(rid)`` aborts one
+request, ``shutdown(drain=)`` stops intake and drains or aborts what is
+in flight.  Every terminal error is ``"<kind>: <reason>"`` with a kind of
+:data:`~dtdl_tpu_torch.serve.metrics.ERROR_KINDS`.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): chunked prefill, KV spill tiers, the exporter and observer, LoRA
-adapters, grammars, streams, and prefill/decode disaggregation
-(``prefill_only``, ``kv_inject``).
+item): KV spill tiers, the exporter and observer, LoRA adapters,
+grammars, streams, and prefill/decode disaggregation (``prefill_only``,
+``kv_inject``).
 """
 
 from __future__ import annotations
@@ -68,8 +86,9 @@ class Request:
     ``tokens`` fills with the generated tokens (eos included, post-eos
     trimmed) as they harvest; ``done`` flips when the last one lands.
     ``error`` is set instead of raising when the scheduler rejects,
-    expires or sheds the request, always starting with its kind
-    (``rejected:``, ``expired:``, ``shed:``).  ``deadline_s`` is a budget
+    expires, fails (containment), aborts (cancel, shutdown) or sheds the
+    request, always starting with its kind (``rejected:``, ``expired:``,
+    ``failed:``, ``aborted:``, ``shed:``).  ``deadline_s`` is a budget
     from this scheduler's submit, ``deadline_at`` an absolute
     ``time.perf_counter()`` instant.  ``speculate`` is the request's
     largest draft length (0: plain decode).  The remaining fields belong
@@ -131,18 +150,29 @@ class _SlotState:
     """Host-side tracking while a request occupies a slot.
 
     ``pos`` is the cache index as of the last harvested step (exact);
-    ``inflight`` holds each dispatched-but-unharvested step's draft
-    length, so ``pos_hi`` bounds the device index from above (every draft
-    accepted) and ``gap_est`` is the expected number of output tokens the
-    device is ahead of the harvested ones: drafting predicts across that
-    gap afresh every step, so a wrong guess heals at the next harvest.
-    ``k_cur`` is the adaptive draft length (from 2 up to ``k_max``, the
-    request's ``speculate``), steered by the acceptance EMA ``acc_ema``.
+    ``inflight`` holds each dispatched-but-unharvested step's (draft
+    length, kind), so ``pos_hi`` bounds the device index from above (every
+    draft accepted) and ``gap_est`` is the expected number of output
+    tokens the device is ahead of the harvested ones: drafting predicts
+    across that gap afresh every step, so a wrong guess heals at the next
+    harvest.  ``k_cur`` is the adaptive draft length (from 2 up to
+    ``k_max``, the request's ``speculate``), steered by the acceptance EMA
+    ``acc_ema``.
+
+    ``fill_next``/``fill_end`` are the chunked-prefill cursor: while
+    ``fill_next < fill_end`` the slot still takes its prompt in chunks
+    (``fill_next``, the next prompt position to write, advances at
+    dispatch and equals ``pos_hi``) and never decodes, drafts or emits;
+    ``fill_toks`` is the prompt as one int32 array.  Whole-prompt
+    admission leaves the two equal.  A step's kind is 0 (decode or
+    verify), 1 (an intermediate chunk) or 2 (the final chunk).
     """
 
-    __slots__ = ("rid", "pos", "k_max", "k_cur", "acc_ema", "inflight")
+    __slots__ = ("rid", "pos", "k_max", "k_cur", "acc_ema", "inflight",
+                 "fill_next", "fill_end", "fill_toks")
 
-    def __init__(self, rid: int, pos: int, k_max: int = 0):
+    def __init__(self, rid: int, pos: int, k_max: int = 0,
+                 fill_end: Optional[int] = None):
         self.rid = rid
         self.pos = pos
         self.k_max = k_max
@@ -151,22 +181,37 @@ class _SlotState:
         # a few over-drafted steps before settling at 1
         self.k_cur = max(1, min(2, k_max))
         self.acc_ema = 1.0                  # optimistic until measured
-        self.inflight: deque[int] = deque()
+        self.inflight: deque[tuple[int, int]] = deque()
+        self.fill_next = pos
+        self.fill_end = pos if fill_end is None else fill_end
+        self.fill_toks = None
+
+    @property
+    def prefilling(self) -> bool:
+        """Still taking prompt chunks: no decode, draft or output."""
+        return self.fill_next < self.fill_end
 
     @property
     def pos_hi(self) -> int:
         """Worst-case (all-accepted) device index."""
-        return self.pos + sum(dl + 1 for dl in self.inflight)
+        return self.pos + sum(dl + 1 for dl, _ in self.inflight)
 
     @property
     def gap_est(self) -> int:
-        """Expected output tokens in flight: one per step plus the
-        acceptance-weighted drafts."""
+        """Expected output tokens in flight: one per decode or verify
+        step plus the acceptance-weighted drafts.  Prefill chunks advance
+        the cache index, not the output: an intermediate chunk counts 0,
+        the final one its bonus token."""
         a = min(1.0, max(0.0, self.acc_ema))
-        return sum(1 + int(round(dl * a)) for dl in self.inflight)
+        out = 0
+        for dl, kind in self.inflight:
+            if kind == 1:
+                continue
+            out += 1 if kind == 2 else 1 + int(round(dl * a))
+        return out
 
-    def dispatched(self, draft_len: int = 0) -> None:
-        self.inflight.append(draft_len)
+    def dispatched(self, draft_len: int = 0, kind: int = 0) -> None:
+        self.inflight.append((draft_len, kind))
 
     def settle(self, draft_len: int, n_emitted: int) -> None:
         """One in-flight step harvested: the exact index, the acceptance
@@ -209,11 +254,14 @@ class _HostTokens:
 
 class Scheduler:
     """Continuous batcher (see module docstring).  ``submit`` enqueues or
-    rejects; ``step`` runs one watchdog + admit + draft + decode/verify +
-    harvest round; ``run`` drives until everything submitted has finished
-    and returns the finished requests in completion order.  ``draft`` is
-    the draft source of requests with ``speculate > 0``; a draft model
-    must share the served model's vocab."""
+    rejects; ``step`` runs one watchdog + admit + draft/chunk + decode or
+    verify + harvest round; ``run`` drives until everything submitted has
+    finished and returns the finished requests in completion order.
+    ``draft`` is the draft source of requests with ``speculate > 0``; a
+    draft model must share the served model's vocab.  ``chunk_tokens``
+    turns on chunked prefill with that many prompt tokens per step.  Used
+    as a context manager it shuts down on exit: draining on a clean exit,
+    aborting on an exception."""
 
     def __init__(self, engine: InferenceEngine, seed: int = 0,
                  harvest_lag: int = 4, max_queue: Optional[int] = None,
@@ -227,9 +275,6 @@ class Scheduler:
         if dev != engine.device:
             raise ValueError(f"the engine runs on {engine.device}, the "
                              f"scheduler was asked for {dev}")
-        if chunk_tokens is not None:
-            raise NotImplementedError(
-                "chunked prefill is ROADMAP queue A6 (chunked prefill)")
         if spill_host_bytes is not None or spill_dir is not None \
                 or spill_disk_bytes is not None:
             raise NotImplementedError(
@@ -242,6 +287,9 @@ class Scheduler:
             raise ValueError(f"harvest_lag must be >= 0, got {harvest_lag}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if chunk_tokens is not None and chunk_tokens < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, got "
+                             f"{chunk_tokens}")
         self.draft = draft if draft is not None else NGramDraft()
         draft_model = getattr(self.draft, "model", None)
         if draft_model is not None and \
@@ -252,6 +300,7 @@ class Scheduler:
         self.engine = engine
         self.harvest_lag = harvest_lag
         self.max_queue = max_queue
+        self.chunk_tokens = chunk_tokens
         self.arena = engine.init_arena()
         self.last_tokens = engine.init_last_tokens()
         self.queue: deque[Request] = deque()
@@ -266,16 +315,28 @@ class Scheduler:
         self._topp = np.ones(engine.n_slots, np.float32)
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         # lag harvest: (tokens on their way to the host, the emitted counts
-        # of a verify step or None, ((slot, rid, draft_len), ...))
+        # of a verify step or None, ((slot, rid, draft_len, kind), ...))
         self._pending: deque[tuple] = deque()
         self.step_count = 0
         self._deadlines_seen = False
-        self.pages = PageAllocator(engine.n_pages, engine.page_size,
-                                   prefix_cache=prefix_cache)
-        self._ptab = np.full((engine.n_slots, engine.n_ptab), GARBAGE_PAGE,
-                             np.int32)
-        self._slot_pages: list[list[int]] = [[] for _ in
-                                             range(engine.n_slots)]
+        # containment: intake closed by shutdown, or paused while _contain
+        # re-initializes the arena; the last contained error
+        self._closed = False
+        self._containing = False
+        self.last_engine_error: Optional[str] = None
+        # paged arena: the host page allocator, the tables every step
+        # takes as data, each slot's pages (released at retirement), and
+        # the prefix hashes a chunked admission publishes at its final
+        # chunk; a dense engine has none of these
+        self.pages: Optional[PageAllocator] = None
+        self._slot_hashes: list = [None] * engine.n_slots
+        if engine.paged:
+            self.pages = PageAllocator(engine.n_pages, engine.page_size,
+                                       prefix_cache=prefix_cache)
+            self._ptab = np.full((engine.n_slots, engine.n_ptab),
+                                 GARBAGE_PAGE, np.int32)
+            self._slot_pages: list[list[int]] = [[] for _ in
+                                                 range(engine.n_slots)]
 
     # ---- intake -------------------------------------------------------
 
@@ -296,9 +357,10 @@ class Scheduler:
 
     def submit(self, req: Request) -> Request:
         """Enqueue ``req``; one the scheduler cannot serve comes back
-        rejected (``req.error`` set, ``req.done`` True): a prompt past the
-        largest prefill bucket, a full admission queue, or a prompt whose
-        pages exceed the whole pool."""
+        rejected (``req.error`` set, ``req.done`` True): a shut-down
+        scheduler or one in containment, a full admission queue, a prompt
+        past the largest prefill bucket, or a prompt whose pages exceed
+        the whole pool."""
         for field, default, why in _LATER:
             if getattr(req, field) != default:
                 raise NotImplementedError(f"Request.{field}: {why}")
@@ -306,6 +368,11 @@ class Scheduler:
         if prompt_len < 1:
             raise ValueError("empty prompt")
         req.t_submit = time.perf_counter()
+        if self._closed:
+            return self._reject(req, "scheduler is shut down")
+        if self._containing:
+            return self._reject(
+                req, "engine containment in progress; retry shortly")
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return self._reject(req, f"admission queue full ({self.max_queue}"
                                      f" waiting); retry later")
@@ -313,13 +380,14 @@ class Scheduler:
             self.engine.bucket_for(prompt_len)
         except PromptTooLongError as e:
             return self._reject(req, str(e))
-        pg = self.engine.page_size
-        need = (prompt_len + 1 + pg - 1) // pg
-        if need > self.pages.capacity:
-            return self._reject(
-                req, f"page pool exhausted: prompt needs {need} pages "
-                     f"(page_size={pg}) but the pool has only "
-                     f"{self.pages.capacity}")
+        if self.pages is not None:
+            pg = self.engine.page_size
+            need = (prompt_len + 1 + pg - 1) // pg
+            if need > self.pages.capacity:
+                return self._reject(
+                    req, f"page pool exhausted: prompt needs {need} pages "
+                         f"(page_size={pg}) but the pool has only "
+                         f"{self.pages.capacity}")
         if req.deadline_at is None and req.deadline_s is not None:
             req.deadline_at = req.t_submit + req.deadline_s
         if req.deadline_at is not None:
@@ -343,14 +411,19 @@ class Scheduler:
         self.slots[slot] = None
         self._active[slot] = False
         self._temp[slot], self._topk[slot], self._topp[slot] = 0.0, 0, 1.0
-        # release the slot's pages (cached prefix pages become evictable)
-        # and point the stale table row at the garbage page; any step
-        # still in flight for it was dispatched with its own table copy,
-        # and the stream orders it before whatever reuses the pages
-        for p in self._slot_pages[slot]:
-            self.pages.release(p)
-        self._slot_pages[slot] = []
-        self._ptab[slot] = GARBAGE_PAGE
+        if self.pages is not None:
+            # release the slot's pages (cached prefix pages become
+            # evictable) and point the stale table row at the garbage page;
+            # any step still in flight for it was dispatched with its own
+            # table copy, and the stream orders it before whatever reuses
+            # the pages
+            for p in self._slot_pages[slot]:
+                self.pages.release(p)
+            self._slot_pages[slot] = []
+            self._ptab[slot] = GARBAGE_PAGE
+        # a request retired mid-chunked-prefill must not leave its deferred
+        # prefix registration to the slot's next occupant
+        self._slot_hashes[slot] = None
 
     def _expire(self):
         """Deadline watchdog: retire any request past its deadline, queued
@@ -374,73 +447,194 @@ class Scheduler:
                     self.metrics.on_expire, "expired")
                 self._retire(slot)
 
+    # ---- outstanding work, cancel, containment ----------------------
+
+    @property
+    def load(self) -> int:
+        """Queued plus slot-occupying requests."""
+        return len(self.queue) + sum(s is not None for s in self.slots)
+
+    def pending_requests(self) -> list:
+        """Every submitted request not finished yet: queued, slotted, or
+        retired and waiting for the lag harvest."""
+        return [r for r in self._reqs.values() if not r.done]
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """Cancel one request by id: a queued one leaves the queue, a
+        slotted one retires (its pages come back); both finish
+        ``aborted: cancelled ...`` and count under ``requests_aborted``.
+        False when it is too late: unknown rid, already finished, or
+        retired on its budget with its tokens still in the lag harvest
+        (those are computed and will be delivered)."""
+        req = self._reqs.get(rid)
+        if req is None or req.done:
+            return False
+        if req in self.queue:
+            self.queue.remove(req)
+            self._finish_error(req, f"cancelled before admission: {reason}",
+                               self.metrics.on_abort, "aborted")
+            return True
+        for slot, r in enumerate(self.slots):
+            if r is req:
+                self._finish_error(
+                    req, f"cancelled after {len(req.tokens)} tokens: "
+                         f"{reason}", self.metrics.on_abort, "aborted")
+                self._retire(slot)
+                return True
+        return False
+
+    def _contain(self, exc: BaseException):
+        """A step raised: the arena may be half written, so everything in
+        flight is condemned.  The windows harvested already come from
+        steps that completed, so they are delivered first (a request that
+        retired on its budget and only waited for the harvest finishes
+        cleanly); then every slotted request, and every unsettled one
+        from the lag, finishes ``failed:``, the arena and the last tokens
+        are re-initialized and the pages reset.  The queue survives.  An
+        error from the re-initialization itself (an unusable CUDA
+        context) propagates."""
+        self._containing = True
+        try:
+            self.last_engine_error = f"{type(exc).__name__}: {exc}"
+            reason = f"engine failure: {self.last_engine_error}"
+            pending_rids = {rid for _, _, entries in self._pending
+                            for _, rid, _, _ in entries}
+            try:
+                while self._pending:
+                    self._harvest_one()
+            except Exception:       # the device's results are unusable
+                self._pending.clear()
+            for slot, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                self._finish_error(req, reason, self.metrics.on_failure,
+                                   "failed")
+                self._retire(slot)
+                self._state[slot] = None
+            for rid in pending_rids:     # retired on budget, unharvested
+                req = self._reqs[rid]
+                if not req.done:
+                    self._finish_error(req, reason, self.metrics.on_failure,
+                                       "failed")
+            self.arena = self.engine.init_arena()
+            self.last_tokens = self.engine.init_last_tokens()
+            if self.pages is not None:
+                # the new arena holds none of the cached pages' contents
+                self.pages.reset()
+                self._ptab[:] = GARBAGE_PAGE
+                self._slot_pages = [[] for _ in range(self.engine.n_slots)]
+        finally:
+            self._containing = False
+
+    # ---- admission ----------------------------------------------------
+
     def _admit(self):
+        if self._closed:
+            return
         eng = self.engine
+        chunked = self.chunk_tokens is not None
         for slot in range(eng.n_slots):
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            pg = eng.page_size
             prompt = [int(t) for t in req.prompt]
-            hits = self.pages.match_prefix(prompt)
-            hashes = (self.pages.page_hashes(prompt)
-                      if self.pages.prefix_cache else [])
-            # the suffix's padded bucket must fit max_seq too; dropping
-            # trailing hit pages grows the suffix until it does
-            while hits and (len(hits) * pg
-                            + eng.bucket_for(len(prompt) - len(hits) * pg)
-                            > eng.max_seq):
-                hits.pop()
-            start = len(hits) * pg
-            n_prompt_pages = -(-len(prompt) // pg)
-            need = n_prompt_pages - len(hits)
-            # pinning an evictable (refcount-0) hit consumes a page too
-            evictable = sum(1 for p in hits if self.pages.refcount(p) == 0)
-            if need + evictable > self.pages.available:
-                break                  # FIFO backpressure: wait for pages
-            for p in hits:             # pin BEFORE alloc can evict them
-                self.pages.acquire(p)
-            fresh = [self.pages.alloc() for _ in range(need)]
-            row = np.full(eng.n_ptab, GARBAGE_PAGE, np.int32)
-            row[:len(hits)] = hits
-            row[len(hits):n_prompt_pages] = fresh
+            start, row, hits, fresh, hashes = 0, None, [], [], []
+            if self.pages is not None:
+                pg = eng.page_size
+                hits = self.pages.match_prefix(prompt)
+                hashes = (self.pages.page_hashes(prompt)
+                          if self.pages.prefix_cache else [])
+                if chunked:
+                    # chunks write exact positions (no padded bucket); the
+                    # one rule is never to strand a 1-token final chunk at
+                    # max_seq - 1 (a window there would clamp back over
+                    # the cached pages)
+                    while hits and len(prompt) == eng.max_seq \
+                            and len(prompt) - len(hits) * pg < 2:
+                        hits.pop()
+                else:
+                    # the suffix's padded bucket must fit max_seq too;
+                    # dropping trailing hit pages grows the suffix until
+                    # it does
+                    while hits and (len(hits) * pg
+                                    + eng.bucket_for(len(prompt)
+                                                     - len(hits) * pg)
+                                    > eng.max_seq):
+                        hits.pop()
+                start = len(hits) * pg
+                n_prompt_pages = -(-len(prompt) // pg)
+                need = n_prompt_pages - len(hits)
+                # pinning an evictable (refcount-0) hit consumes a page too
+                evictable = sum(1 for p in hits
+                                if self.pages.refcount(p) == 0)
+                if need + evictable > self.pages.available:
+                    break              # FIFO backpressure: wait for pages
+                for p in hits:         # pin BEFORE alloc can evict them
+                    self.pages.acquire(p)
+                fresh = [self.pages.alloc() for _ in range(need)]
+                row = np.full(eng.n_ptab, GARBAGE_PAGE, np.int32)
+                row[:len(hits)] = hits
+                row[len(hits):n_prompt_pages] = fresh
             suffix = prompt[start:]
             self.queue.popleft()
             sp = req.sampling
-            self.arena, self.last_tokens, _ = eng.prefill(
-                self.arena, self.last_tokens, slot, suffix, sp, self._gen,
-                page_row=row, start=start)
-            self._ptab[slot] = row
-            self._slot_pages[slot] = list(hits) + list(fresh)
-            # publish the freshly computed full prompt pages: the next
-            # identical prefix hits (same tokens at the same positions give
-            # identical K/V, so first-writer-wins is sound)
-            for i in range(len(hits), len(hashes)):
-                self.pages.register(hashes[i], int(row[i]))
-            self.metrics.on_prefix(len(hits), len(hashes), start)
+            if not chunked:
+                # a blocking whole-prompt prefill: every decoding slot
+                # waits for it
+                self.metrics.on_prefill_block(int(self._active.sum()))
+                try:
+                    self.arena, self.last_tokens, _ = eng.prefill(
+                        self.arena, self.last_tokens, slot, suffix, sp,
+                        self._gen, page_row=row, start=start)
+                except Exception as e:
+                    # this request is not slotted yet: _contain frees the
+                    # pages it mapped with the pool reset
+                    self._contain(e)
+                    self._finish_error(
+                        req, f"engine failure: {self.last_engine_error}",
+                        self.metrics.on_failure, "failed")
+                    return
+            if self.pages is not None:
+                self._ptab[slot] = row
+                self._slot_pages[slot] = list(hits) + list(fresh)
+                if chunked:
+                    # published at the final chunk, once fully written
+                    self._slot_hashes[slot] = (hashes, len(hits))
+                else:
+                    # same tokens at the same positions give identical
+                    # K/V, so first-writer-wins is sound
+                    for i in range(len(hits), len(hashes)):
+                        self.pages.register(hashes[i], int(row[i]))
+                self.metrics.on_prefix(len(hits), len(hashes), start)
             self.slots[slot] = req
             self._active[slot] = True
-            self._state[slot] = _SlotState(req.rid, len(req.prompt),
-                                           req.speculate)
+            st = _SlotState(req.rid, start if chunked else len(prompt),
+                            req.speculate,
+                            fill_end=len(prompt) if chunked else None)
+            self._state[slot] = st
             self._temp[slot] = sp.temperature
             self._topk[slot] = sp.top_k
             self._topp[slot] = sp.top_p
             req.t_admit = time.perf_counter()
             req.admit_step = self.step_count
             self.metrics.on_admit(req, slot, len(suffix))
+            if chunked:
+                # no token guaranteed yet: the first is the final chunk's
+                st.fill_toks = np.asarray(prompt, np.int32)
+                continue
             req._guaranteed = 1
-            self._state[slot].dispatched()
+            st.dispatched()
             self._pending.append((_HostTokens(self.last_tokens), None,
-                                  ((slot, req.rid, 0),)))
+                                  ((slot, req.rid, 0, 0),)))
             if req._guaranteed >= self._budget(req):
                 self._retire(slot)
 
     def _grow_pages(self, step_act, lens=None):
         """Map pages covering every stepped slot's worst-case write window
         ``[0, pos_hi + lens + 1)`` before dispatch (``lens`` the upcoming
-        verify step's draft lengths, None for a decode step; host
-        arithmetic, no device reads).  A slot the pool cannot grow, with
-        nothing evictable, is shed with the named
+        verify step's draft or chunk widths minus one, None for a decode
+        step; host arithmetic, no device reads).  A slot the pool cannot
+        grow, with nothing evictable, is shed with the named
         :class:`PagePoolExhaustedError` message."""
         pg = self.engine.page_size
         for slot, req in enumerate(self.slots):
@@ -463,14 +657,18 @@ class Scheduler:
                          f"tokens)", self.metrics.on_shed, "shed")
                 self._retire(slot)
 
+    # ---- drafting and chunk planning ---------------------------------
+
     def _spec_desires(self) -> dict[int, int]:
-        """Each speculating active slot's draft length this step, clamped
+        """Each speculating decoding slot's draft length this step, clamped
         to its adaptive k, its budget and its room in the arena."""
         desires = {}
         for slot, req in enumerate(self.slots):
             if not self._active[slot] or not req.speculate:
                 continue
             st = self._state[slot]
+            if st.prefilling:
+                continue
             room = self.engine.max_seq - 1 - st.pos_hi
             remaining = self._budget(req) - req._guaranteed
             des = min(st.k_cur, req.speculate, remaining - 1, room)
@@ -478,14 +676,39 @@ class Scheduler:
                 desires[slot] = des
         return desires
 
-    def _draft(self, desires: dict, k_prog: int):
-        """Drafts for the desiring slots, [n_slots, k_prog] and their
-        lengths: each from the slot's harvested context, skipping the
-        ``gap_est`` tokens already in flight."""
-        B = self.engine.n_slots
-        drafts = np.zeros((B, k_prog), np.int32)
-        lens = np.zeros(B, np.int32)
+    def _plan_chunks(self) -> dict[int, int]:
+        """This step's prefill chunks ``{slot: width}`` under the per-step
+        budget ``chunk_tokens``, FIFO over the prefilling slots.  A prompt
+        that fills ``max_seq`` must never be left a 1-token final chunk (a
+        window there would clamp back over its own written positions), so
+        the chunk before it shrinks, or the final pair goes out together,
+        one token over the budget."""
+        if self.chunk_tokens is None:
+            return {}
+        max_seq = self.engine.max_seq
+        plan = {}
+        budget = self.chunk_tokens
+        filling = [s for s in range(self.engine.n_slots)
+                   if self._active[s] and self._state[s] is not None
+                   and self._state[s].prefilling]
+        for slot in sorted(filling, key=lambda s: self._state[s].rid):
+            if budget < 1:
+                break
+            st = self._state[slot]
+            remaining = st.fill_end - st.fill_next
+            w = min(budget, remaining)
+            if st.fill_end == max_seq and remaining - w == 1:
+                w = remaining - 2 if remaining > 2 else 2
+            plan[slot] = w
+            budget -= w
+        return plan
+
+    def _draft(self, desires: dict, k_prog: int, drafts, lens) -> int:
+        """Fill ``drafts``/``lens`` rows of the desiring slots, each from
+        the slot's harvested context, skipping the ``gap_est`` tokens
+        already in flight; returns the number of tokens drafted."""
         t0 = time.perf_counter()
+        n_drafted = 0
         for slot, des in desires.items():
             req, st = self.slots[slot], self._state[slot]
             want = min(des, k_prog)
@@ -495,14 +718,16 @@ class Scheduler:
             cand = pred[gap:gap + want]
             drafts[slot, :cand.size] = cand
             lens[slot] = cand.size
+            n_drafted += int(cand.size)
         self.metrics.on_draft(time.perf_counter() - t0)
-        return drafts, lens
+        return n_drafted
 
     # ---- the decode round --------------------------------------------
 
     def step(self) -> int:
-        """One watchdog + admit + draft + decode/verify round; returns how
-        many slots stepped."""
+        """One watchdog + admit + draft/chunk + decode/verify round;
+        returns how many slots were active.  An exception from the
+        dispatch is contained to the in-flight batch (:meth:`_contain`)."""
         self._expire()
         self._admit()
         # overflow settling: a slot whose worst-case index leaves no room
@@ -514,10 +739,15 @@ class Scheduler:
             self._harvest_one()
         n_active = int(self._active.sum())
         if n_active:
-            self._dispatch_round()
+            try:
+                self._dispatch_round()
+            except Exception as e:
+                self._contain(e)
         self.step_count += 1
         self.metrics.on_step(n_active, self.engine.n_slots)
-        self.metrics.on_pages(self.pages.pages_in_use, self.pages.capacity)
+        if self.pages is not None:
+            self.metrics.on_pages(self.pages.pages_in_use,
+                                  self.pages.capacity)
         if len(self._pending) > self.harvest_lag:
             while len(self._pending) > self.harvest_lag:
                 self._harvest_one()
@@ -526,53 +756,142 @@ class Scheduler:
         return n_active
 
     def _dispatch_round(self):
-        """Draft, then one decode or verify step over the active slots."""
-        step_act = self._active.copy()
+        """Plan drafts and chunks, then one decode or verify step over the
+        stepped slots: the decoding ones, plain or speculative, and the
+        prefilling ones that drew a chunk, as ``forced`` rows."""
+        B = self.engine.n_slots
+        max_seq = self.engine.max_seq
         desires = self._spec_desires()
-        # the room bound covers every active slot: the verify window of
-        # k+1 positions is written for every row, and a row's position is
-        # clamped to max_seq - (k + 1), which would shift an overflowing
-        # window back over committed K/V
-        k_room = min(self.engine.max_seq - 1 - self._state[s].pos_hi
-                     for s in range(self.engine.n_slots) if step_act[s])
-        if k_room < 1:
-            desires = {}        # a slot has room for one more token only
+        chunk_plan = self._plan_chunks()
+        # a prefilling slot steps only when it drew a chunk (its index
+        # must not advance in a step it is not part of)
+        step_act = self._active.copy()
+        for slot in range(B):
+            st = self._state[slot]
+            if step_act[slot] and st.prefilling and slot not in chunk_plan:
+                step_act[slot] = False
+        if not step_act.any():
+            return
+        # the room bound covers every active slot, stepped or not: the
+        # window of k+1 positions is written for every row (a dense row
+        # at its own index), and a row's position is clamped to
+        # max_seq - (k + 1), which would shift an overflowing window back
+        # over committed K/V
+        k_room = min(max_seq - 1 - self._state[s].pos_hi
+                     for s in range(B) if self._active[s])
+        if k_room < 1 and (desires or chunk_plan):
+            # a slot has room for one more token only: no k >= 1 window
+            # fits, so drafts wait and chunks sit this round out
+            desires, chunk_plan = {}, {}
+            for slot in range(B):
+                if step_act[slot] and self._state[slot].prefilling:
+                    step_act[slot] = False
+            if not step_act.any():
+                return
+        k_need = max([0] + list(desires.values())
+                     + [w - 1 for w in chunk_plan.values()]
+                     + ([1] if chunk_plan else []))
         lens = None
-        if desires:
-            k_need = max(desires.values())
+        if k_need > 0:
             k_prog = 1
             while k_prog < k_need:
                 k_prog *= 2
             while k_prog > k_room and k_prog > 1:
                 k_prog //= 2
-            drafts, lens = self._draft(desires, k_prog)
-            if not lens.any():
+            # re-cap the chunks to the step's width
+            for slot in list(chunk_plan):
+                st = self._state[slot]
+                w = min(chunk_plan[slot], k_prog + 1)
+                if st.fill_end == max_seq and st.fill_end - st.fill_next \
+                        - w == 1:
+                    w -= 1          # never strand a 1-token final chunk
+                if w < 1:
+                    del chunk_plan[slot]
+                    step_act[slot] = False
+                else:
+                    chunk_plan[slot] = w
+            if not step_act.any():
+                return
+            drafts = np.zeros((B, k_prog), np.int32)
+            lens = np.zeros(B, np.int32)
+            forced = np.zeros(B, bool)
+            first_tok = np.zeros(B, np.int32)
+            pos_set = np.zeros(B, np.int32)
+            n_drafted = self._draft(desires, k_prog, drafts, lens)
+            for slot, w in chunk_plan.items():
+                st = self._state[slot]
+                toks = st.fill_toks[st.fill_next:st.fill_next + w]
+                first_tok[slot] = toks[0]
+                drafts[slot, :w - 1] = toks[1:]
+                lens[slot] = w - 1
+                forced[slot] = True
+                pos_set[slot] = st.fill_next
+            if n_drafted == 0 and not chunk_plan:
                 lens = None     # every draft came back empty: decode
-        self._grow_pages(step_act, lens)
-        step_act &= self._active          # growth may have shed slots
-        if not step_act.any():
-            return
-        dls = np.zeros(len(step_act), np.int32) if lens is None else lens
-        entries = tuple((slot, req.rid, int(dls[slot]))
-                        for slot, req in enumerate(self.slots)
-                        if step_act[slot])
-        if lens is None:
-            self.arena, self.last_tokens, _ = self.engine.decode(
-                self.arena, self.last_tokens, step_act, self._temp,
-                self._topk, self._topp, self._ptab, generator=self._gen)
-            self._pending.append((_HostTokens(self.last_tokens), None,
-                                  entries))
-        else:
+        if self.pages is not None:
+            self._grow_pages(step_act, lens)
+            step_act &= self._active      # growth may have shed slots
+            if not step_act.any():
+                return
+        tables = self._ptab if self.pages is not None else None
+        if lens is not None:
+            entries = []
+            for slot in range(B):
+                if not step_act[slot]:
+                    continue
+                rid = self.slots[slot].rid
+                if slot in chunk_plan:
+                    st = self._state[slot]
+                    final = st.fill_next + chunk_plan[slot] == st.fill_end
+                    # kind 1: an intermediate chunk (nothing delivered);
+                    # kind 2: the final chunk (its bonus token is the
+                    # request's first); the draft length rides as 0 so
+                    # the harvest never counts prompt as speculation
+                    entries.append((slot, rid, 0, 2 if final else 1))
+                else:
+                    entries.append((slot, rid, int(lens[slot]), 0))
+            entries = tuple(entries)
             self.arena, self.last_tokens, window, counts = \
                 self.engine.verify(
                     self.arena, self.last_tokens, drafts, lens, step_act,
-                    self._temp, self._topk, self._topp, self._ptab,
-                    generator=self._gen)
+                    self._temp, self._topk, self._topp, tables,
+                    generator=self._gen, forced=forced,
+                    first_tok=first_tok, pos_set=pos_set)
             self._pending.append((_HostTokens(window), _HostTokens(counts),
                                   entries))
-            self.metrics.on_verify(k_prog)
-        for slot, _, dl in entries:
-            self._state[slot].dispatched(dl)
+            if n_drafted:
+                self.metrics.on_verify(k_prog)
+            for slot, _, dl, kind in entries:
+                st = self._state[slot]
+                if kind == 0:
+                    st.dispatched(dl)
+                    continue
+                w = chunk_plan[slot]
+                st.dispatched(w - 1, kind)   # worst-case index += w
+                st.fill_next += w
+                self.metrics.on_chunk(w)
+                if kind == 2 and self._slot_hashes[slot] is not None:
+                    # the prompt is fully dispatched: publish its pages
+                    # (one stream orders any later hit after these writes)
+                    hashes, n_hits = self._slot_hashes[slot]
+                    for i in range(n_hits, len(hashes)):
+                        self.pages.register(hashes[i],
+                                            int(self._ptab[slot, i]))
+                    self._slot_hashes[slot] = None
+        else:
+            entries = tuple((slot, req.rid, 0, 0)
+                            for slot, req in enumerate(self.slots)
+                            if step_act[slot])
+            self.arena, self.last_tokens, _ = self.engine.decode(
+                self.arena, self.last_tokens, step_act, self._temp,
+                self._topk, self._topp, tables, generator=self._gen)
+            self._pending.append((_HostTokens(self.last_tokens), None,
+                                  entries))
+            for slot, _, _, _ in entries:
+                self._state[slot].dispatched()
+        for slot, _, _, kind in entries:
+            if kind == 1:
+                continue             # a chunk guarantees no token
             req = self.slots[slot]
             req._guaranteed += 1
             if req._guaranteed >= self._budget(req):
@@ -585,10 +904,16 @@ class Scheduler:
         arr = window.numpy()       # waits only for this (lagged) copy
         cnt = counts.numpy() if counts is not None else None
         now = time.perf_counter()
-        for slot, rid, dl in entries:
+        for slot, rid, dl, kind in entries:
             req = self._reqs[rid]
             n_em = int(cnt[slot]) if cnt is not None else 1
-            toks = arr[slot, :n_em] if arr.ndim == 2 else arr[slot:slot + 1]
+            if kind == 1:
+                toks = arr[slot, :0]         # prompt echo: nothing
+            elif kind == 2:
+                toks = arr[slot, n_em - 1:n_em]   # the bonus token only
+            else:
+                toks = (arr[slot, :n_em] if arr.ndim == 2
+                        else arr[slot:slot + 1])
             st = self._state[slot]
             if st is not None and st.rid == rid:
                 st.settle(dl, n_em)
@@ -622,6 +947,46 @@ class Scheduler:
         """Harvest everything still in flight (the boundary sync)."""
         while self._pending:
             self._harvest_one()
+
+    # ---- shutdown -----------------------------------------------------
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Stop the intake and wind down.  Queued requests finish
+        ``aborted:`` either way.  ``drain=True`` runs the slotted ones to
+        completion and settles every harvest; ``drain=False`` dispatches
+        nothing more, settles the windows already computed, and aborts
+        what is still slotted.  Idempotent; a later ``submit`` is
+        rejected."""
+        already = self._closed
+        self._closed = True
+        while self.queue:
+            # on_abort, not on_reject: on_submit counted them already
+            self._finish_error(self.queue.popleft(),
+                               "scheduler shut down before admission",
+                               self.metrics.on_abort, "aborted")
+        if already:
+            return
+        if drain:
+            while any(s is not None for s in self.slots):
+                self.step()
+            self.drain()
+            return
+        self.drain()
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self._finish_error(req, "scheduler shut down",
+                               self.metrics.on_abort, "aborted")
+            self._retire(slot)
+
+    def __enter__(self) -> "Scheduler":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        # a clean exit drains; an exception aborts (stepping a possibly
+        # broken engine to drain would compound the failure)
+        self.shutdown(drain=exc_type is None)
+        return False
 
     def run(self, requests: Sequence[Request] = ()) -> list[Request]:
         for r in requests:

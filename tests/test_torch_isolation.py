@@ -53,6 +53,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
     assert PKG / "serve" / "draft.py" in files
+    for name in ("__init__.py", "core.py", "layers.py"):
+        assert PKG / "quant" / name in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]

@@ -397,6 +397,90 @@ def test_engine_spec_tokens_kernel_vs_plain(cuda):
     assert out[True, 4] == out[False, 4] == out[True, 0]
 
 
+# chunked prefill's windows (S = k_prog + 1 up to 257 at chunk_tokens=256)
+# at the engine batch B = 8, per-row positions, two rows inactive; with
+# int8 and fp8 pools (quantized by the port's kv_quantize), one of them
+# with NaN in the scales of every page no active row can see
+CHUNK_CASES = [("S33-bf16", 33, None, False), ("S257-bf16", 257, None, False),
+               ("S257-int8", 257, "int8", False),
+               ("S33-fp8-nan-dead", 33, "fp8", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,s_new,kv,nan_dead", CHUNK_CASES,
+                         ids=[c[0] for c in CHUNK_CASES])
+def test_paged_chunk_windows_b8(cuda, name, s_new, kv, nan_dead):
+    """K4 through its prefill body at chunk geometries: within tolerance
+    of the plain version (on clean pools), inactive rows zero and finite,
+    the split counters back to zero."""
+    from dtdl_tpu_torch.ops import paged_attention as pa
+    from dtdl_tpu_torch.quant import kv_quantize
+    gen = torch.Generator(device=cuda).manual_seed(s_new)
+    b, h, d, page, n_ptab = 8, 4, 128, 16, 128
+    kf = torch.randn(b * n_ptab + 1, h, page, d, generator=gen, device=cuda)
+    vf = torch.randn(kf.shape, generator=gen, device=cuda)
+    table = (1 + torch.randperm(b * n_ptab, generator=gen, device=cuda)
+             ).reshape(b, n_ptab).to(torch.int32)
+    pos_l = [0, 16, 250, 700, 1000, 1500, 30, 1790][:b]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False, True, True, True, False, True],
+                          device=cuda)
+    q = torch.randn(b, h, s_new, d, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    ks = vs = None
+    if kv is None:
+        pk, pv = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    else:
+        dt = torch.int8 if kv == "int8" else torch.float8_e4m3fn
+        (pk, ks), (pv, vs) = kv_quantize(kf, dt), kv_quantize(vf, dt)
+    want = paged_attention_reference(q, pk, pv, table, pos, active,
+                                     scale=0.088, key_scale=ks,
+                                     value_scale=vs)
+    if nan_dead:
+        live = {0}
+        for i in range(b):
+            if active[i]:
+                live.update(table[i, :(pos_l[i] + s_new - 1) // page + 1]
+                            .tolist())
+        dead = [p for p in range(kf.shape[0]) if p not in live]
+        ks, vs = ks.clone(), vs.clone()
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+    kernels.reset_launches()
+    got = paged_attention(q, pk, pv, table, pos, active, scale=0.088,
+                          key_scale=ks, value_scale=vs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_attention"] == 1
+    assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[~active] == 0).all())
+    torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+def test_engine_chunked_quant_tokens_kernel_vs_plain(cuda, kv):
+    """A tiny f32 model with int8 weights and chunked prefill (8 tokens a
+    step) over f32, int8 or fp8 pools: the kernel engine and the plain
+    version's give identical greedy tokens, equal to the kernel engine's
+    whole-prompt run."""
+    model = transformer_lm("tiny", seed=3, dtype=torch.float32,
+                           max_seq=64, device=cuda)
+    rng = np.random.default_rng(2)
+    traffic = [(rng.integers(0, 256, int(n)).tolist(), 6)
+               for n in rng.integers(3, 40, 5)]
+    out = {}
+    for flag, chunk in ((True, 8), (False, 8), (True, None)):
+        eng = InferenceEngine(model, n_slots=2, page_size=8,
+                              paged_kernel=flag, quantize_weights=True,
+                              kv_dtype=kv, device=cuda)
+        reqs = [Request(p, m) for p, m in traffic]
+        Scheduler(eng, harvest_lag=2, chunk_tokens=chunk,
+                  device=cuda).run(reqs)
+        out[flag, chunk] = [r.tokens for r in reqs]
+    assert out[True, 8] == out[False, 8] == out[True, None]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])

@@ -92,8 +92,10 @@ def test_presets_match_jax():
         transformer_lm("tiny", device="cpu", moe_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer_lm("base-moe8", device="cpu", seed=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer_lm("tiny", device="cpu", quantize=True)
+    # quantized projections are ported: int8 payloads beside f32 scales
+    q = transformer_lm("tiny", device="cpu", quantize=True).state_dict()
+    assert q["block_0.attn.q.kernel"].dtype == torch.int8
+    assert q["block_0.attn.q.kernel_scale"].shape == (1, 4, 16)
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "dense"])

@@ -135,15 +135,16 @@ def test_decode_tokens_stay_on_device_until_harvest(models):
 
 def test_engine_refuses_later_slices(models):
     _, _, tm = models
-    for kwargs in ({"page_size": 0}, {"kv_dtype": "int8"},
-                   {"quantize_weights": True}, {"lora_rank": 2,
-                                                "lora_adapters": 3}):
+    # the dense arena, quantization and chunked prefill are ported; the
+    # fleet's, the tenants' and the operations' options still refuse
+    for kwargs in ({"mesh": object()}, {"observer": object()},
+                   {"lora_rank": 2, "lora_adapters": 3}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(tm, n_slots=2, device="cpu", **kwargs)
     eng = InferenceEngine(tm, n_slots=2, buckets=BUCKETS, page_size=PAGE,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(eng, chunk_tokens=4, device="cpu")
+        Scheduler(eng, spill_host_bytes=1 << 20, device="cpu")
     knobs = (np.zeros(2, np.float32), np.zeros(2, np.int32),
              np.ones(2, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A12"):
