@@ -58,6 +58,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
                invariant;
 5f. dense    - the dense arena (page_size=0) at base width, 2 layers, f32:
                tokens identical to the paged engine's, plain and chunked;
+5g. moe_serve - transformer_lm("base-moe8") (MoE every second block,
+               8 experts, routed top-1, capacity 1.25): the serve phase's
+               requests in bf16 and on an int8 engine (experts quantized,
+               int8 KV) through K4 (tokens/s, TTFT, K4 launches, prefill
+               logit drift); K4 vs plain attend at 2 layers in f32
+               (identical tokens) and at full depth in bf16 (requests
+               served alone, each parting explained by a router or logit
+               near-tie); at capacity factor 8 (nothing drops), 2 layers,
+               f32, chunked and speculative tokens equal to whole-prompt
+               and plain ones;
 6. train     - the training path: transformer_lm("base", max_seq=4096),
                bf16 compute with f32 parameters, init_state(..., adamw(3e-4))
                and make_lm_train_step(), batches of 8 x 4096 synthetic
@@ -69,6 +79,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                attn_impl='flash' (K1, K2, K3) against attn_impl='dense'
                (plain autograd) from the same weights and batch: loss,
                every gradient and every updated parameter, in f32 and bf16;
+7b. moe_train - the train phase on transformer_lm("base-moe8",
+               max_seq=4096): step ms, tokens/s, MFU (activated experts
+               only), peak memory, loss and the Switch aux loss, K1, K2, K3
+               once per layer and step;
+7c. moe_traincheck - traincheck at base-moe8 width, 2 layers (one MoE
+               block): routing identical in f32; in bf16 every token the
+               two steps route apart is a router near-tie;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -76,9 +93,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                projections against the bf16 one, with CUDA events.
 
 ``--phases profile`` (not in the default set) adds a serving run and two
-training steps under torch.profiler (and host timers for serving): where
-the main paths' time goes.  ``--phases train,traincheck`` drives the
-training path alone.
+training steps of base and of base-moe8 under torch.profiler (and host
+timers for serving): where the main paths' time goes.  ``--phases
+train,traincheck`` drives the training path alone.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Without a CUDA device, or without
@@ -99,8 +116,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
-          "chunked", "quant", "contain", "dense", "train", "traincheck",
-          "timing")
+          "chunked", "quant", "contain", "dense", "moe_serve", "train",
+          "traincheck", "moe_train", "moe_traincheck", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -130,6 +147,14 @@ BWD_TOL = {"float32": (1e-4, 0.0, 1e-4), "bfloat16": (0.0, 2**-5, 2e-2)}
 TRAINCHECK_TOL = {"float32": dict(loss=1e-5, grad=1e-4),
                   "bfloat16": dict(loss=2e-2, grad=5e-2)}
 TRAINCHECK_LR = 0.1
+# MoE routing: two computations of one router input that differ by
+# rounding (flash vs dense attention, K4 vs the plain attend, in bf16)
+# may send a token to different experts only where its first and second
+# experts' probs lie within this gap.  bf16 rounds at 2^-8 relative; over
+# up to 8 layers the router's input moves by a few such units, its
+# logits (of size ~1) by ~1e-2, and its probs (~0.1-0.5) by less than
+# 0.03
+ROUTER_TAU = 0.03
 # spec, the near-tie rule: a speculative run may part from the plain run
 # only at a position where the plain run's top two logits lie within tau,
 # since there the verify pass (k+1 rows in each product, K4's window body
@@ -1411,15 +1436,224 @@ def time_quant_linear(torch, m_rows):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: serving the mixture-of-experts model
+# ---------------------------------------------------------------------------
+
+def lone_request_log(torch, model, prompt, n_new, kernel):
+    """Serve one request alone (8 slots, page 16) and log, step by step,
+    what the MoE routers saw of its tokens and the logits it was sampled
+    from: (tokens, [(step, layer, probs [n, E])], [logits [V]]).  Step 0
+    is the prefill (its prompt rows), step t > 0 the decode that emits
+    token t."""
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+    eng = InferenceEngine(model, n_slots=8, page_size=16,
+                          paged_kernel=kernel, device=DEV)
+    calls, routed, logits = [], [], []
+    hooks = router_logits(torch, eng.model, calls)
+    prefill, decode = eng.prefill, eng.decode
+
+    def on_prefill(*a, **k):
+        calls.clear()
+        out = prefill(*a, **k)
+        routed.extend((0, n, torch.softmax(x[0, :len(prompt)], -1))
+                      for n, x in calls)
+        logits.append(out[2])
+        return out
+
+    def on_decode(arena, last, active, *a, **k):
+        calls.clear()
+        out = decode(arena, last, active, *a, **k)
+        slots = [i for i, x in enumerate(active) if x]
+        if slots:
+            step = len(logits)
+            routed.extend((step, n, torch.softmax(x[slots[0]], -1))
+                          for n, x in calls)
+            logits.append(out[2][slots[0]])
+        return out
+    eng.prefill, eng.decode = on_prefill, on_decode
+    req = Request(prompt, n_new)
+    Scheduler(eng, harvest_lag=4, device=DEV).run([req])
+    for h in hooks:
+        h.remove()
+    if req.error or len(req.tokens) != n_new:
+        raise AssertionError(f"lone request failed: {req.error}")
+    return req.tokens, routed, logits
+
+
+def explain_moe_partings(torch, model, traffic, tau_logit):
+    """K4 against the plain attend, each request served alone: where the
+    two runs' tokens part, the parting must be explained by a router
+    near-tie at or before the step that emitted it (the first token the
+    two runs route apart, with the plain run's first-vs-second prob gap
+    within ROUTER_TAU) or by a logit near-tie (the plain run's top-two
+    logit gap there within ``tau_logit``).  Returns the partings as
+    (request, position, 'router' gap or 'logit' gap)."""
+    out = []
+    for i, (prompt, n_new) in enumerate(traffic):
+        tok_k, route_k, _ = lone_request_log(torch, model, prompt, n_new,
+                                             True)
+        tok_p, route_p, logit_p = lone_request_log(torch, model, prompt,
+                                                   n_new, False)
+        j = next((t for t, (a, b) in enumerate(zip(tok_k, tok_p)) if a != b),
+                 None)
+        # the first router call where the two runs route a token apart:
+        # every token parted there is a rounding effect (no earlier
+        # routing differs), so the largest gap among them is judged
+        first = None
+        for (step, _, pk), (_, _, pp) in zip(route_k, route_p):
+            apart = pk.argmax(-1) != pp.argmax(-1)
+            if bool(apart.any()):
+                top = torch.topk(pp, 2, dim=-1).values
+                first = (step, float((top[..., 0] - top[..., 1])[apart].max()))
+                break
+        if first is not None and first[1] > ROUTER_TAU:
+            raise AssertionError(
+                f"request {i}: K4 and plain route a token apart at step "
+                f"{first[0]} with a prob gap {first[1]:.4e} beyond the "
+                f"router near-tie tau {ROUTER_TAU}")
+        if j is None:
+            if first is not None:
+                out.append((i, None, "router", first[1]))
+            continue
+        if first is not None and first[0] <= j:
+            kind, gap, ok = "router", first[1], True
+        else:
+            top = torch.topk(logit_p[j], 2).values
+            kind, gap = "logit", float(top[0] - top[1])
+            ok = gap <= tau_logit
+        out.append((i, j, kind, gap))
+        if not ok:
+            raise AssertionError(
+                f"request {i}: K4 and plain tokens part at {j}, explained by "
+                f"no near-tie ({kind} gap {gap:.4e}; router tau {ROUTER_TAU}, "
+                f"logit tau {tau_logit:.4e})")
+    return out
+
+
+def phase_moe_serve(torch, seed):
+    """base-moe8 served: (a) the serving cell in bf16 through K4 (tokens/s,
+    TTFT, K4 launches, 8 in every decode step); (b) the same cell on an
+    int8 engine (weights, experts included, and KV), prefill logits
+    against bf16's; (c) 2 layers, f32: K4 and plain engines give identical
+    tokens; (d) full depth, bf16, 8 requests each served alone through K4
+    and through the plain attend: every parting explained by a router or
+    logit near-tie; (e) 2 layers, f32, capacity factor 8 (= E / top_k,
+    nothing drops): chunked (chunk_tokens=256) and speculate=4 give
+    whole-prompt and plain tokens (near-tie rule at TAU_F32)."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.draft import NGramDraft
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    traffic = make_traffic(seed, 32000)
+    probes = [p for p, _ in traffic[:4]]
+
+    # (a), (b) the serving cell at full depth, bf16 and int8
+    m16 = transformer_lm("base-moe8", seed=seed, dtype=torch.bfloat16,
+                         device=DEV)
+    n_layers = m16.cfg.n_layers
+    ref = quant_prefill_logits(torch, InferenceEngine(
+        m16, n_slots=1, page_size=16, device=DEV), probes)
+    for name in ("bf16", "int8"):
+        kw = QUANT_MODES[name]
+        serve(torch, m16, traffic[:2], **kw)                    # warm-up
+        steps = []
+        kernels.reset_launches()
+        eng, sched, reqs, wall = serve(torch, m16, traffic,
+                                       step_launches=steps, **kw)
+        k4 = kernels.LAUNCHES["paged_attention"]
+        bad = [r for r, (_, n) in zip(reqs, traffic)
+               if not r.done or r.error or len(r.tokens) != n]
+        if bad:
+            raise AssertionError(f"moe_serve ({name}) left {bad}")
+        if set(steps) != {n_layers} or k4 <= 0:
+            raise AssertionError(f"moe_serve {name} steps launched K4 "
+                                 f"{sorted(set(steps))} times")
+        drift = ""
+        if name != "bf16":
+            got = quant_prefill_logits(torch, InferenceEngine(
+                m16, n_slots=1, page_size=16, device=DEV, **kw), probes)
+            d = max(max_err(g, w) / float(w.abs().max())
+                    for g, w in zip(got, ref))
+            drift = f" prefill logit drift {d:.4f} of the bf16 range;"
+        S = sched.metrics.summary()
+        n_tok = sum(len(r.tokens) for r in reqs)
+        log(f"moe_serve base-moe8 {name}:{drift} requests={len(reqs)} "
+            f"tokens={n_tok} wall_s={wall:.4f} tokens_per_s="
+            f"{n_tok / wall:.2f} decode_tokens_per_s="
+            f"{S['decode_tokens_per_sec']:.2f} ttft_p50_s={S['ttft_s_p50']:.4f}"
+            f" ttft_p99_s={S['ttft_s_p99']:.4f} prefix_hit_pages="
+            f"{S['prefix_hit_pages']} decode_steps={S['decode_steps']} "
+            f"param_bytes={eng.compile_stats()['quant']['param_bytes']} "
+            f"K4 launches={k4} ({n_layers} in each of {len(steps)} steps)")
+
+    # (d) K4 vs the plain attend at full depth in bf16, partings explained
+    scale = max(float(w.abs().max()) for w in ref)
+    tau = 2 * SPEC_DELTA_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    parts = explain_moe_partings(torch, m16, traffic[:8], tau)
+    log(f"moe_serve base-moe8 bf16 K4 vs plain attend, 8 requests each "
+        f"alone: partings (request, position, cause, gap) {parts} (router "
+        f"tau {ROUTER_TAU}, logit tau {tau:.4e})")
+    del m16
+
+    # (c) K4 vs the plain attend, f32, 2 layers: identical tokens
+    m32 = transformer_lm("base-moe8", n_layers=2, seed=seed,
+                         dtype=torch.float32, device=DEV)
+    _, _, with_kernel, _ = serve(torch, m32, traffic)
+    _, _, plain, _ = serve(torch, m32, traffic, paged_kernel=False)
+    diff = [i for i, (a, b) in enumerate(zip(with_kernel, plain))
+            if a.tokens != b.tokens]
+    log(f"moe_serve base-moe8 2-layer f32: K4 and plain engines "
+        f"{'identical' if not diff else 'DIFFER on ' + str(diff)} for "
+        f"{len(plain)} requests")
+    if diff:
+        raise AssertionError(f"K4 and plain MoE engines disagree on {diff}")
+    del m32
+
+    # (e) nothing droppable: chunked and speculative equal whole and plain
+    m8 = transformer_lm("base-moe8", n_layers=2, seed=seed,
+                        dtype=torch.float32, capacity_factor=8.0, device=DEV)
+    _, _, whole, _ = serve(torch, m8, traffic)
+    kernels.reset_launches()
+    steps = []
+    _, cs, chunk, _ = serve(torch, m8, traffic, chunk_tokens=CHUNK_TOKENS,
+                            step_launches=steps)
+    k4c = kernels.LAUNCHES["paged_attention"]
+    _, ss, spec, _ = serve(torch, m8, traffic, speculate=SPEC_K,
+                           draft=NGramDraft())
+    # drafts from the whole run's own tokens: verify steps of full width
+    _, so, oracle, _ = serve(torch, m8, traffic, speculate=SPEC_K,
+                             draft=OracleDraft(traffic, whole))
+    ties_c = near_tie_divergences(torch, m8, whole, chunk, TAU_F32)
+    ties_s = near_tie_divergences(torch, m8, whole, spec, TAU_F32)
+    ties_o = near_tie_divergences(torch, m8, whole, oracle, TAU_F32)
+    if set(steps) != {2}:
+        raise AssertionError(f"chunked MoE steps launched K4 "
+                             f"{sorted(set(steps))} times")
+    O = so.metrics.summary()
+    if not O["spec_steps"]:
+        raise AssertionError("the oracle MoE run never verified")
+    log(f"moe_serve base-moe8 2-layer f32 capacity_factor=8: chunked "
+        f"(chunk_tokens={CHUNK_TOKENS}) vs whole-prompt near-tie partings "
+        f"{len(ties_c)} {ties_c}, speculate={SPEC_K} vs plain: n-gram "
+        f"{len(ties_s)} {ties_s} (spec_steps "
+        f"{ss.metrics.summary()['spec_steps']}), oracle drafts "
+        f"{len(ties_o)} {ties_o} (spec_steps_by_k {O['spec_steps_by_k']}, "
+        f"acceptance {O['spec_acceptance_rate']:.4f}) (tau {TAU_F32:.0e}); "
+        f"prefill_chunks={cs.metrics.summary()['prefill_chunks']} K4 "
+        f"launches chunked={k4c} (2 in each of {len(steps)} steps)")
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: training
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 4096
 
 
-def train_setup(torch, seed, n_batches, batch, seq):
+def train_setup(torch, seed, n_batches, batch, seq, size="base"):
     """The training path's pieces, as a user builds them: synthetic Markov
-    tokens (vocab 32000) through the DataLoader, transformer_lm("base",
+    tokens (vocab 32000) through the DataLoader, transformer_lm(size,
     max_seq=seq) with bf16 compute and f32 weights from ``seed``, an
     adamw(3e-4) state and the step."""
     from dtdl_tpu_torch.data.loader import DataLoader
@@ -1434,21 +1668,26 @@ def train_setup(torch, seed, n_batches, batch, seq):
     loader = DataLoader({"tokens": tokens}, batch,
                         sampler=ShardedSampler(len(tokens), seed=seed),
                         device=DEV)
-    model = transformer_lm("base", max_seq=seq, seed=None, device=DEV)
+    model = transformer_lm(size, max_seq=seq, seed=None, device=DEV)
     state = init_state(model, seed, adamw(3e-4), device=DEV)
     return state, make_lm_train_step(), iter(loader)
 
 
-def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
+def phase_train(torch, seed, warmup: int = 3, steps: int = 10,
+                size: str = "base"):
+    """``size`` "base" (the train phase) or "base-moe8" (moe_train: MoE
+    blocks every second layer, routed top-1 at capacity 1.25, groups of
+    1024; the loss carries the Switch aux, reported beside it)."""
     from dtdl_tpu_torch import kernels
     from dtdl_tpu_torch.obs.goodput import lm_train_flops, peak_flops_per_chip
     state, step, batches = train_setup(torch, seed, warmup + steps,
-                                       TRAIN_BATCH, TRAIN_SEQ)
+                                       TRAIN_BATCH, TRAIN_SEQ, size)
     cfg = state.model.cfg
-    losses = []
+    losses, auxes = [], []
     for _ in range(warmup):
         state, metrics = step(state, next(batches))
         losses.append(metrics["loss"])
+        auxes.append(metrics.get("moe_aux_loss"))
     sync(torch)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1456,27 +1695,37 @@ def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
     for _ in range(steps):
         state, metrics = step(state, next(batches))
         losses.append(metrics["loss"])
+        auxes.append(metrics.get("moe_aux_loss"))
     sync(torch)
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     losses = [float(x) for x in losses]
+    moe = cfg.n_experts > 0
+    auxes = [float(x) for x in auxes] if moe else []
     peak_mem = torch.cuda.max_memory_allocated() / 2**30
     flops = lm_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     peak = peak_flops_per_chip()
     step_ms = 1e3 * wall / steps
     tokens_per_s = TRAIN_BATCH * (TRAIN_SEQ - 1) * steps / wall
     mfu = flops * steps / wall / peak if peak else None
-    log(f"train base bf16 (f32 weights) adamw(3e-4) batch {TRAIN_BATCH}x"
+    aux_txt = (f" moe_aux_loss_first={auxes[0]:.5f} moe_aux_loss_last="
+               f"{auxes[-1]:.5f}" if moe else "")
+    log(f"{'moe_' if moe else ''}train {size} bf16 (f32 weights) adamw(3e-4) "
+        f"batch {TRAIN_BATCH}x"
         f"{TRAIN_SEQ}: steps={steps} (after {warmup} warm-up) wall_s="
         f"{wall:.4f} step_ms={step_ms:.2f} tokens_per_s={tokens_per_s:.1f} "
         f"flops_per_step={flops:.4e} mfu={mfu if mfu is None else round(mfu, 5)} "
         f"peak_mem_gib={peak_mem:.2f} loss_first={losses[0]:.5f} "
-        f"loss_last={losses[-1]:.5f} launches={launches}")
-    log("train losses: " + " ".join(f"{x:.5f}" for x in losses))
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
+        f"loss_last={losses[-1]:.5f}{aux_txt} launches={launches}")
+    log(f"{size} train losses: " + " ".join(f"{x:.5f}" for x in losses))
+    if moe:
+        log(f"{size} moe_aux_loss: " + " ".join(f"{x:.5f}" for x in auxes))
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"non-finite training loss: {losses} {auxes}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+    if moe and not min(auxes) > 0:
+        raise AssertionError(f"the MoE aux loss is not positive: {auxes}")
     want = cfg.n_layers * steps
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] != want:
@@ -1494,9 +1743,53 @@ def phase_train(torch, seed, warmup: int = 3, steps: int = 10):
                           mfu=mfu)
 
 
-def phase_traincheck(torch, seed):
+def router_logits(torch, model, store, substitute=None):
+    """Hooks that append each MoE router's logits (detached, f32) to
+    ``store`` as the model runs; returns the hook handles.  With
+    ``substitute`` (logits, one tensor per call in call order) each
+    router's output takes those values instead, straight through:
+    ``out + (substitute - out).detach()``, so the router's own gradient
+    still flows."""
+    from dtdl_tpu_torch.models.transformer import MoE
+
+    def hook(out, name):
+        store.append((name, out.detach().float()))
+        if substitute is not None:
+            return out + (substitute[len(store) - 1] - out).detach()
+        return None
+    return [m.router.register_forward_hook(
+                lambda mod, args, out, name=name: hook(out, name))
+            for name, m in model.named_modules() if isinstance(m, MoE)]
+
+
+def router_partings(torch, got, want):
+    """Compare two runs' router logits, call for call: the tokens whose
+    first choice differs, with ``want``'s gap between its first and second
+    choice's prob there (a near-tie when small).  Returns (n_tokens,
+    [gaps])."""
+    n, gaps = 0, []
+    for (name_g, lg), (name_w, lw) in zip(got, want):
+        if name_g != name_w or lg.shape != lw.shape:
+            raise AssertionError(f"router calls differ: {name_g} "
+                                 f"{tuple(lg.shape)} vs {name_w} "
+                                 f"{tuple(lw.shape)}")
+        pg, pw = torch.softmax(lg, -1), torch.softmax(lw, -1)
+        n += pg.shape[:-1].numel()
+        top = torch.topk(pw, 2, dim=-1).values
+        differ = pg.argmax(-1) != pw.argmax(-1)
+        gaps += (top[..., 0] - top[..., 1])[differ].tolist()
+    return n, gaps
+
+
+def phase_traincheck(torch, seed, size: str = "base"):
     """One make_lm_train_step step through the flash kernels and one
-    through dense attention (plain autograd), same weights and batch."""
+    through dense attention (plain autograd), same weights and batch.
+    ``size`` "base-moe8" (moe_traincheck): the MoE width at 2 layers, one
+    MoE block, whose routing the two steps must share in f32 (gate
+    identity).  In bf16 a token that the two steps' own router logits
+    route apart must be a router near-tie (first-minus-second prob gap
+    within ROUTER_TAU); the flash step then routes on the dense step's
+    logits, so the loss and gradients are held as for the dense model."""
     from dtdl_tpu_torch import kernels
     from dtdl_tpu_torch.data.synthetic import markov_tokens
     from dtdl_tpu_torch.models.transformer import transformer_lm
@@ -1504,18 +1797,29 @@ def phase_traincheck(torch, seed):
     from dtdl_tpu_torch.train.state import init_state
     from dtdl_tpu_torch.train.step import make_lm_train_step
     tokens = markov_tokens(2, 512, 32000, seed=seed + 1)
+    label = "moe_traincheck" if size != "base" else "traincheck"
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tol = TRAINCHECK_TOL[name]
-        out = {}
-        for impl in ("flash", "dense"):
-            model = transformer_lm("base", n_layers=2, max_seq=512,
+        out, logits = {}, {}
+        for impl in ("dense", "flash"):
+            model = transformer_lm(size, n_layers=2, max_seq=512,
                                    dtype=dtype, attn_impl=impl, seed=None,
                                    device=DEV)
             state = init_state(model, seed, sgd(TRAINCHECK_LR), device=DEV)
+            logits[impl] = []
+            # bf16: the flash step routes on the dense step's router logits
+            # (straight through), so rounding cannot route the two steps
+            # apart and their gradients stay comparable; where its own
+            # logits would have routed a token elsewhere is counted below
+            substitute = ([o for _, o in logits["dense"]] if impl == "flash"
+                          and dtype == torch.bfloat16 else None)
+            hooks = router_logits(torch, model, logits[impl], substitute)
             kernels.reset_launches()
             state, metrics = make_lm_train_step()(state, {"tokens": tokens})
             sync(torch)
+            for h in hooks:
+                h.remove()
             out[impl] = (float(metrics["loss"]), dict(kernels.LAUNCHES),
                          {n: p.grad.detach().clone()
                           for n, p in model.named_parameters()},
@@ -1543,14 +1847,30 @@ def phase_traincheck(torch, seed):
                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
         dense_plain = launches_d["flash_fwd"] == 0 == launches_d[
             "flash_bwd_dq"]
-        log(f"traincheck base 2-layer {name} flash (K1-K3) vs dense step: "
+        route = ""
+        parted = []
+        if logits["dense"]:
+            n_routed, parted = router_partings(torch, logits["flash"],
+                                               logits["dense"])
+            route = (f"; routing: {len(parted)} of {n_routed} tokens routed "
+                     f"apart, first-vs-second prob gaps there "
+                     f"{[round(g, 6) for g in parted]} (router near-tie tau "
+                     f"{ROUTER_TAU})")
+            if parted and (dtype == torch.float32
+                           or max(parted) > ROUTER_TAU):
+                raise AssertionError(f"{label} {name}: the flash and dense "
+                                     f"steps route apart beyond a near-tie"
+                                     f"{route}")
+            if dtype == torch.bfloat16:
+                route += "; the flash step routed on the dense step's logits"
+        log(f"{label} {size} 2-layer {name} flash (K1-K3) vs dense step: "
             f"loss {lf:.6f} vs {ld:.6f} (|d|={abs(lf - ld):.3e} tol "
             f"{tol['loss']:.0e}); worst gradient err {grad_err:.3e} of the "
             f"tensor's max (tol {tol['grad']:.0e}); worst updated-parameter "
             f"err {upd_err:.3f} of its bound; {len(gd)} tensors; flash launches "
-            f"{launches} {'ok' if ok and kernels_ran else 'FAIL'}")
+            f"{launches}{route} {'ok' if ok else 'FAIL'}")
         if not (ok and kernels_ran and dense_plain):
-            raise AssertionError(f"traincheck {name}: the flash step disagrees "
+            raise AssertionError(f"{label} {name}: the flash step disagrees "
                                  f"with the dense step")
 
 
@@ -1588,6 +1908,90 @@ def phase_profile_train(torch, seed, steps: int = 2):
         spent[name] += e.self_device_time_total / 1e3
     for name, ms in spent.items():
         log(f"  {ms / steps:9.2f} ms/step  {100 * ms / dev_total:5.1f}%  "
+            f"{name}")
+    for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / steps:9.2f} ms/step "
+            f"{e.count // steps:5d}x/step  {e.key[:70]}")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+
+def phase_profile_moe(torch, seed, steps: int = 2):
+    """Where a base-moe8 training step's device time goes (torch.profiler):
+    the forward by part (the MoE's router, routing, dispatch/combine and
+    expert GEMMs, and the head's matmul, each wrapped in a record_function
+    range here), the backward by autograd node, and the whole step by
+    kernel family."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    from dtdl_tpu_torch.models import transformer as tr
+    parts = {"fwd router": (tr._Router, "forward"),
+             "fwd routing (top-k, slots)": (tr.MoE, "_route"),
+             "fwd expert GEMMs": (tr.MoE, "_experts"),
+             "fwd MoE dispatch/combine": (tr.MoE, "_routed"),
+             "fwd head matmul": (tr.TransformerLM, "head")}
+    saved = {name: getattr(cls, attr) for name, (cls, attr) in parts.items()}
+
+    def ranged(name, fn):
+        def wrapper(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapper
+    state, step, batches = train_setup(torch, seed, steps + 2, TRAIN_BATCH,
+                                       TRAIN_SEQ, "base-moe8")
+    for _ in range(2):
+        state, _ = step(state, next(batches))
+    sync(torch)
+    try:
+        for name, (cls, attr) in parts.items():
+            setattr(cls, attr, ranged(name, saved[name]))
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state, _ = step(state, next(batches))
+            sync(torch)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, (cls, attr) in parts.items():
+            setattr(cls, attr, saved[name])
+    rows = prof.key_averages()
+    # the ranges show on the device timeline too: not kernels
+    kernel_rows = [e for e in rows if "CUDA" in str(e.device_type)
+                   and e.key not in parts]
+    dev_total = sum(e.self_device_time_total for e in kernel_rows) / 1e3
+    log(f"profile moe_train base-moe8 {steps} steps: wall {wall:.4f}s "
+        f"(traced), device kernel time {dev_total / steps:.2f} ms per step")
+    dev_total = max(dev_total, 1e-9)
+    by_key = {e.key: e.device_time_total / 1e3 / steps for e in rows}
+    missing = [name for name in parts if name not in by_key]
+    if missing:
+        raise AssertionError(f"the profile has no range {missing}")
+    fwd = {name: by_key.get(name, 0.0) for name in parts}
+    # the dispatch/combine range holds the routing and expert ranges
+    fwd["fwd MoE dispatch/combine"] -= (fwd["fwd routing (top-k, slots)"]
+                                        + fwd["fwd expert GEMMs"])
+    for name, ms in fwd.items():
+        log(f"  {ms:9.2f} ms/step  {100 * ms * steps / dev_total:5.1f}%  "
+            f"{name}")
+    bwd_groups = {"bwd expert GEMMs": ("BmmBackward",),
+                  "bwd MoE dispatch/combine/routing": (
+                      "IndexPutBackward", "IndexBackward", "CatBackward",
+                      "SortBackward", "GatherBackward", "SoftmaxBackward",
+                      "ToCopyBackward"),
+                  "bwd dense GEMMs (projections, router, head)": (
+                      "MmBackward", "MatmulBackward"),
+                  "bwd flash (K2, K3)": ("Flash",)}
+    bwd = dict.fromkeys(bwd_groups, 0.0)
+    for e in rows:
+        if not e.key.startswith("autograd::engine::evaluate_function"):
+            continue
+        name = next((g for g, keys in bwd_groups.items()
+                     if any(k in e.key for k in keys)), None)
+        if name:
+            bwd[name] += e.device_time_total / 1e3 / steps
+    for name, ms in bwd.items():
+        log(f"  {ms:9.2f} ms/step  {100 * ms * steps / dev_total:5.1f}%  "
             f"{name}")
     for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3 / steps:9.2f} ms/step "
@@ -1908,14 +2312,21 @@ def main(argv=None) -> int:
         phase_contain(torch, args.seed)
     if "dense" in phases:
         phase_dense(torch, args.seed)
+    if "moe_serve" in phases:
+        phase_moe_serve(torch, args.seed)
     if "train" in phases:
         train_launches, _ = phase_train(torch, args.seed)
     if "traincheck" in phases:
         phase_traincheck(torch, args.seed)
+    if "moe_train" in phases:
+        phase_train(torch, args.seed, size="base-moe8")
+    if "moe_traincheck" in phases:
+        phase_traincheck(torch, args.seed, size="base-moe8")
 
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
+        phase_profile_moe(torch, args.seed)
     if "timing" in phases:
         # K4 at the main path's decode shape: 8 slots, pool of the engine
         # (page 16, 128 pages per slot), positions spread as the traffic's

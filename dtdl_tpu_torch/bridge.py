@@ -13,13 +13,17 @@ flax path                                 layout
 ``block_{i}/attn/out/kernel``             [H, D, d_model] DenseGeneral
 ``block_{i}/mlp/{wi,wg}/kernel``          [d_model, d_ff] Dense
 ``block_{i}/mlp/wo/kernel``               [d_ff, d_model] Dense
+``block_{i}/moe/router/kernel``           [d_model, E] Dense, f32
+``block_{i}/moe/{wi,wg}``                 [E, d_model, d_ff]
+``block_{i}/moe/wo``                      [E, d_ff, d_model]
 ``block_{i}/{ln_attn,ln_mlp}/scale``,
 ``ln_f/scale``                            [d_model]
 ========================================  ===========================
 
 A quantized JAX tree (``quant.quantize_params``) maps onto a model built
 with ``quantize=``: each quantized kernel keeps its path and gains a
-``<path>_scale`` sibling, both carried bit for bit.  An int8 payload
+``<path>_scale`` sibling (an MoE expert weight's ``moe/wi_scale`` [E, 1,
+d_ff], ...), both carried bit for bit.  An int8 payload
 crosses as int8; an fp8 one (an ml_dtypes ``float8_e4m3fn`` array) crosses
 as its uint8 bytes, viewed as ``torch.float8_e4m3fn``, never through a
 float cast; bf16 scales cross exactly through f32.

@@ -1,7 +1,7 @@
-"""Decoder-only Transformer LM, the port of dtdl_tpu/models/transformer.py
-(dense part).
+"""Decoder-only Transformer LM, the port of dtdl_tpu/models/transformer.py.
 
-Pre-norm blocks, RMSNorm, rotary embeddings, SwiGLU MLP, tied head.  The
+Pre-norm blocks, RMSNorm, rotary embeddings, SwiGLU MLP or mixture of
+experts (:class:`MoE`, every ``moe_every``-th block), tied head.  The
 parameters keep the flax layouts and names, so ``state_dict`` keys are the
 flax param paths with ``.`` for ``/`` (``block_0.attn.q.kernel``,
 ``embed``, ``ln_f.scale``) and :mod:`dtdl_tpu_torch.bridge` maps a flax
@@ -11,6 +11,8 @@ tree straight across:
   [H, D, d_model] (flax DenseGeneral);
 * ``mlp.{wi,wg}.kernel`` [d_model, d_ff] and ``mlp.wo.kernel``
   [d_ff, d_model] (flax Dense);
+* an MoE block's ``moe.router.kernel`` [d_model, E] (f32 always) and
+  ``moe.{wi,wg}`` [E, d_model, d_ff], ``moe.wo`` [E, d_ff, d_model];
 * ``embed`` [vocab, d_model]; ``ln_attn``/``ln_mlp``/``ln_f`` ``scale``.
 
 Parameters are held in f32, as flax holds them (``param_dtype`` f32), and
@@ -25,7 +27,9 @@ decode step pays no per-step cast of every weight.
 ``cfg.quantize`` (``True`` int8, ``'w8f'`` fp8) builds every matmul
 kernel as a :class:`~dtdl_tpu_torch.quant.layers.QuantLinear`: the same
 ``kernel`` names plus ``kernel_scale`` siblings, the JAX package's
-``quantize=`` schema.  A quantized model is served, never trained.
+``quantize=`` schema; an MoE block's experts become payloads beside
+``{wi,wg,wo}_scale`` [E, 1, out] (its router stays f32).  A quantized
+model is served, never trained.
 
 Four forwards:
 
@@ -54,8 +58,10 @@ scale per (row or page, head, position): each new row is quantized as it
 is written (:func:`~dtdl_tpu_torch.quant.core.kv_quantize`) and the attend
 applies the key scale to the logits and the value scale to the weights.
 
-Mixture-of-experts blocks and LoRA are not ported yet (they raise
-``NotImplementedError`` naming their ROADMAP item).
+The forward returns the MoE blocks' Switch load-balance values only when
+asked (``return_aux=True``, the train step): each block returns its value
+(a checkpointed block's recompute returns it again and records nothing),
+and serving computes none.  LoRA is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ from dtdl_tpu_torch.ops.paged_attention import (NEG_INF, paged_attention,
 from dtdl_tpu_torch.ops.rope import apply_rope, rope_frequencies, rotate
 from dtdl_tpu_torch.quant.core import (canon_kv_dtype, canon_weight_quant,
                                        kv_quantize, kv_scale_dtype,
-                                       quantize_params)
+                                       quantize_params, weight_dtypes)
 from dtdl_tpu_torch.quant.layers import QuantLinear
 
 
@@ -295,8 +301,188 @@ class SwiGLU(nn.Module):
         return self.wo(h, dt)
 
 
+class _Router(nn.Module):
+    """An MoE router: a [d_model, E] f32 ``kernel`` applied in f32 to the
+    f32 input, whatever the compute and parameter dtypes (the JAX router
+    is an f32 Dense), and never quantized."""
+
+    def __init__(self, d_model: int, n_experts: int, device):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(d_model, n_experts,
+                                               dtype=torch.float32,
+                                               device=device))
+
+    def forward(self, x):
+        return torch.matmul(x.float(), self.kernel)
+
+
+class MoE(nn.Module):
+    """Mixture-of-experts MLP, the port of the JAX ``MoE``: a softmax
+    router over ``n_experts`` SwiGLU experts (``wi``/``wg`` [E, D, F],
+    ``wo`` [E, F, D]) and two dispatch modes with the same parameters.
+
+    ``'dense'`` (the numerics oracle, top-1 only): every expert over every
+    token, the output weighted by the first choice's prob.  ``'routed'``:
+    capacity-factor top-k over routing groups of ``g = min(group_size or
+    1024, S)`` consecutive tokens of a batch row (a ragged tail padded and
+    masked out of routing), ``C = min(g, ceil(cf·g·k/E))`` slots per
+    expert and group, filled choice-major in token order; a token past
+    capacity is dropped (its residual passes).  Top-k takes the lower
+    expert index first on equal probs (``lax.top_k``'s order) and
+    renormalizes the k gates when k > 1.  Dispatch and combine go by index
+    (the slot of each kept (token, choice) into an [E, groups·C, D]
+    buffer and back), which computes the one-hot einsums' function: each
+    slot holds at most one token, and the combine sums each token's k
+    gated outputs in f32 before the one rounding to the compute dtype,
+    the gate rounded to the compute dtype first, as JAX rounds
+    ``combine``.
+
+    ``forward(x, want_aux)`` returns ``(y, aux)``: ``aux`` the Switch
+    load-balance value ``E · Σ_e mean(first-choice one-hot) · mean(probs)``
+    over the unpadded tokens when ``want_aux``, else None."""
+
+    EXPERT_WEIGHTS = ("wi", "wg", "wo")
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int, *, dtype,
+                 param_dtype, device, dispatch: str = "dense",
+                 capacity_factor: float = 1.25, top_k: int = 1,
+                 group_size: int = 0, quantize=False):
+        super().__init__()
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k={top_k} must be in "
+                             f"[1, n_experts={n_experts}]")
+        if dispatch == "dense" and top_k != 1:
+            raise ValueError("dense dispatch is top-1 only; top_k="
+                             f"{top_k} requires dispatch='routed'")
+        if dispatch not in ("dense", "routed"):
+            raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+        self.n_experts, self.top_k, self.dtype = n_experts, top_k, dtype
+        self.dispatch, self.capacity_factor = dispatch, capacity_factor
+        self.group_size, self.quantize = group_size, quantize
+        self.router = _Router(d_model, n_experts, device)
+        shapes = {"wi": (d_model, d_ff), "wg": (d_model, d_ff),
+                  "wo": (d_ff, d_model)}
+        for name, (d_in, d_out) in shapes.items():
+            shape = (n_experts, d_in, d_out)
+            if quantize:
+                payload, scale_dtype = weight_dtypes(quantize)
+                setattr(self, name, nn.Parameter(
+                    torch.zeros(shape, dtype=payload, device=device),
+                    requires_grad=False))
+                setattr(self, name + "_scale", nn.Parameter(
+                    torch.ones((n_experts, 1, d_out), dtype=scale_dtype,
+                               device=device), requires_grad=False))
+            else:
+                setattr(self, name, nn.Parameter(torch.empty(
+                    shape, dtype=param_dtype, device=device)))
+
+    def _emm(self, x, name):
+        """Expert matmul ``x`` [E, rows, in] @ this expert weight, in the
+        compute dtype; a quantized weight's per-(expert, out-channel)
+        scale multiplies the output in f32."""
+        y = torch.bmm(x, getattr(self, name).to(self.dtype))
+        scale = getattr(self, name + "_scale", None)
+        if scale is not None:
+            y = (y.float() * scale.float()).to(self.dtype)
+        return y
+
+    def _experts(self, xe):
+        """SwiGLU of every expert over its rows ``xe`` [E, rows, D]."""
+        return self._emm(F.silu(self._emm(xe, "wg"))
+                         * self._emm(xe, "wi"), "wo")
+
+    def forward(self, x, want_aux: bool = False):
+        E = self.n_experts
+        probs = torch.softmax(self.router(x), dim=-1)          # [b, s, E]
+        aux = None
+        if want_aux:
+            onehot1 = F.one_hot(probs.argmax(-1), E).float()
+            aux = E * torch.sum(onehot1.mean((0, 1)) * probs.mean((0, 1)))
+        if self.dispatch == "routed":
+            return self._routed(x, probs), aux
+        b, s, d = x.shape
+        first = probs.argmax(-1)        # the lowest index among equal probs
+        gate = probs.gather(-1, first[..., None])               # [b, s, 1]
+        onehot = F.one_hot(first, E).to(self.dtype)
+        xe = onehot.permute(2, 0, 1)[..., None] * x[None]       # [E,b,s,D]
+        h = F.silu(self._emm(xe.reshape(E, b * s, d), "wg")) \
+            * self._emm(xe.reshape(E, b * s, d), "wi")          # [E,bs,F]
+        if self.quantize:
+            # each expert's output scale cannot factor out of a
+            # cross-expert contraction: keep the expert axis, then sum
+            y = self._emm(h, "wo").sum(0)
+        else:
+            y = torch.matmul(h.transpose(0, 1).reshape(b * s, -1),
+                             self.wo.to(self.dtype).reshape(-1, d))
+        return y.reshape(b, s, d) * gate.to(self.dtype), aux
+
+    def _routed(self, x, probs):
+        b, s_full, d = x.shape
+        E, k = self.n_experts, self.top_k
+        g = min(self.group_size or 1024, s_full)
+        pad = -s_full % g
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            probs = F.pad(probs, (0, 0, 0, pad))
+        n_groups = b * ((s_full + pad) // g)
+        valid = (torch.arange(s_full + pad, device=x.device) < s_full)
+        valid = valid.reshape(-1, g).repeat(b, 1)               # [G, g]
+        C = min(g, int(math.ceil(self.capacity_factor * g * k / E)))
+        gates, dest = self._route(probs.reshape(n_groups, g, E), valid, C)
+        # dispatch: each kept (token, choice) to its slot of the expert
+        # buffer, the dropped ones to its trash row
+        trash = E * n_groups * C
+        x = x.reshape(n_groups * g, d)
+        xe = x.new_zeros(trash + 1, d).index_put(
+            (dest.reshape(-1),), x.expand(k, -1, -1).reshape(-1, d))
+        y = self._experts(xe[:trash].view(E, n_groups * C, d))
+        # combine: each token's k gated outputs (a dropped one reads the
+        # zero row) summed in f32, the gates rounded to the compute dtype.
+        # index_select, whose backward adds by atomics: the backward of
+        # y[dest] sorts the indices and adds each run of equal ones in
+        # series, and every dropped token's index is the zero row
+        y = torch.cat([y.reshape(trash, d), y.new_zeros(1, d)])
+        gates = gates.reshape(-1, k).to(self.dtype).float()     # [G·g, k]
+        out = sum(gates[:, j, None] * y.index_select(0, dest[j]).float()
+                  for j in range(k))
+        out = out.to(self.dtype).reshape(b, s_full + pad, d)
+        return out[:, :s_full]
+
+    def _route(self, probs, valid, C: int):
+        """Top-k choices of ``probs`` [G, g, E] over the ``valid`` [G, g]
+        tokens of each group, filled choice-major into ``C`` slots per
+        expert: ``(gates [G, g, k], dest [k, G·g])``, dest the row of the
+        [E·G·C + 1] expert buffer each (choice, token) goes to, the last
+        row (trash) for a dropped or padding one."""
+        n_groups, g, E = probs.shape
+        k = self.top_k
+        # top-k, the lower index first among equal probs
+        gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = gates[..., :k], idx[..., :k]               # [G, g, k]
+        if k > 1:
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        # the slot of (token, choice j) in its expert: the earlier tokens'
+        # choices j of that expert plus the slots every earlier choice
+        # claimed, kept or not
+        group = torch.arange(n_groups, device=probs.device)[:, None]
+        taken = torch.zeros(n_groups, 1, E, dtype=torch.long,
+                            device=probs.device)
+        dest = []
+        for j in range(k):
+            e = idx[..., j]                                     # [G, g]
+            m = F.one_hot(e, E) * valid[..., None]
+            slot = (torch.cumsum(m, 1) - m + taken).gather(-1, e[..., None])
+            slot = slot[..., 0]
+            keep = valid & (slot < C)
+            dest.append(torch.where(keep, (e * n_groups + group) * C + slot,
+                                    E * n_groups * C).reshape(-1))
+            taken = taken + m.sum(1, keepdim=True)
+        return gates, torch.stack(dest)
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: "LMConfig", *, param_dtype, device):
+    def __init__(self, cfg: "LMConfig", *, param_dtype, device,
+                 moe: bool = False):
         super().__init__()
         dt = cfg.dtype
         self.ln_attn = RMSNorm(cfg.d_model, dtype=dt, device=device)
@@ -305,13 +491,31 @@ class Block(nn.Module):
                               attn_impl=cfg.attn_impl, device=device,
                               quantize=cfg.quantize)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt,
-                          param_dtype=param_dtype, device=device,
-                          quantize=cfg.quantize)
+        if moe:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, dtype=dt,
+                           param_dtype=param_dtype, device=device,
+                           dispatch=cfg.moe_dispatch,
+                           capacity_factor=cfg.capacity_factor,
+                           top_k=cfg.moe_top_k,
+                           group_size=cfg.moe_group_size,
+                           quantize=cfg.quantize)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt,
+                              param_dtype=param_dtype, device=device,
+                              quantize=cfg.quantize)
 
-    def forward(self, x, cos, sin, layer=None, step=None):
+    def forward(self, x, cos, sin, layer=None, step=None,
+                want_aux: bool = False):
+        """(the block's output, its MoE load-balance value when
+        ``want_aux``, else None; always None for a dense block)."""
         x = x + self.attn(self.ln_attn(x), cos, sin, layer, step)
-        return x + self.mlp(self.ln_mlp(x))
+        aux = None
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln_mlp(x), want_aux)
+            x = x + y
+        else:
+            x = x + self.mlp(self.ln_mlp(x))
+        return x, aux
 
 
 @dataclass(frozen=True)
@@ -322,7 +526,12 @@ class LMConfig:
     n_heads: int = 8
     d_ff: int = 1408
     max_seq: int = 2048
-    n_experts: int = 0
+    n_experts: int = 0            # 0: every block a dense SwiGLU MLP
+    moe_every: int = 2            # every k-th block is MoE (n_experts > 0)
+    moe_dispatch: str = "dense"   # 'dense' oracle | 'routed' capacity top-k
+    capacity_factor: float = 1.25  # routed: slots = ceil(cf * g * k / E)
+    moe_top_k: int = 1            # routed: experts per token
+    moe_group_size: int = 0       # routing group (0 = min(seq, 1024))
     attn_impl: str = "flash"      # 'flash' | 'dense'
     remat: bool = False           # checkpoint every block when training
     dtype: torch.dtype = torch.bfloat16
@@ -387,18 +596,15 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are ROADMAP queue A3 (MoE "
-                "sub-step), not ported yet")
         self.cfg = cfg
         self.param_dtype = param_dtype
         dev = resolve_device(device)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
                                               dtype=param_dtype, device=dev))
         for i in range(cfg.n_layers):
+            moe = cfg.n_experts > 0 and (i + 1) % cfg.moe_every == 0
             self.add_module(f"block_{i}", Block(cfg, param_dtype=param_dtype,
-                                                device=dev))
+                                                device=dev, moe=moe))
         self.ln_f = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=dev)
         cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -437,8 +643,9 @@ class TransformerLM(nn.Module):
     def init_weights(self, seed: int = 0) -> "TransformerLM":
         """Random weights from ``seed`` (torch.Generator on the CPU, so
         the same seed gives the same weights on every device): normal
-        embedding (std 0.02), fan-in scaled normal matmul kernels, unit
-        norm scales.  A quantized model takes the float model's weights
+        embedding (std 0.02), fan-in scaled normal matmul kernels (an
+        expert weight's fan-in leaves out its expert dim), unit norm
+        scales.  A quantized model takes the float model's weights
         from the same seed, quantized
         (:func:`~dtdl_tpu_torch.quant.core.quantize_params`)."""
         if self.cfg.quantize:
@@ -456,6 +663,8 @@ class TransformerLM(nn.Module):
                     std = 0.02
                 elif name.endswith("out.kernel"):
                     std = 1.0 / math.sqrt(p.shape[0] * p.shape[1])
+                elif name.rsplit(".", 1)[-1] in MoE.EXPERT_WEIGHTS:
+                    std = 1.0 / math.sqrt(p.shape[1])
                 else:
                     std = 1.0 / math.sqrt(p.shape[0])
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
@@ -463,7 +672,7 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, *, return_hidden: bool = False, pos=None,
                 cache=None, page_table=None, active=None,
-                paged_kernel: bool = True):
+                paged_kernel: bool = True, return_aux: bool = False):
         """Cacheless forward (no ``cache``); a per-slot forward (``pos``
         [B] the rows' write positions): on the engine's paged arena
         (:meth:`init_paged_cache`) with ``page_table`` [B, n_ptab],
@@ -473,7 +682,9 @@ class TransformerLM(nn.Module):
         in place and the arena's ``index`` the engine's to advance; or a
         dense decode forward (``cache`` from :meth:`init_cache`, no
         ``pos``): the tokens are written at the cache's host index, which
-        advances by their count."""
+        advances by their count.  ``return_aux`` returns ``(out, aux)``:
+        ``aux`` the MoE blocks' load-balance values, one 0-d tensor per
+        MoE block in block order (empty for a dense model)."""
         x = self.embed[tokens].to(self.cfg.dtype)
         step = None
         if cache is not None and pos is None:
@@ -498,19 +709,19 @@ class TransformerLM(nn.Module):
                 rope_sin=self.rope_sin, kernel=paged_kernel)
         # remat is a training-time memory/FLOPs trade: never under decode
         remat = self.cfg.remat and step is None and torch.is_grad_enabled()
+        aux = []
         for i, block in enumerate(self.blocks):
-            if remat:
-                x = checkpoint(block, x, self.rope_cos, self.rope_sin,
-                               use_reentrant=False)
-                continue
             layer = None if step is None else cache[f"block_{i}"]["attn"]
-            x = block(x, self.rope_cos, self.rope_sin, layer, step)
+            args = (x, self.rope_cos, self.rope_sin, layer, step, return_aux)
+            x, a = (checkpoint(block, *args, use_reentrant=False) if remat
+                    else block(*args))
+            if a is not None:
+                aux.append(a)
         if cache is not None and pos is None:
             cache["index"].fill_(step + tokens.shape[1])
         x = self.ln_f(x)
-        if return_hidden:
-            return x
-        return self.head(x)
+        out = x if return_hidden else self.head(x)
+        return (out, aux) if return_aux else out
 
     def head(self, x):
         """Tied output head ``x @ embed.T`` in the compute dtype, as f32."""
@@ -660,7 +871,8 @@ _PRESETS = {
     "large": dict(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8,
                   d_ff=2816, max_seq=2048, remat=True),
 }
-_PRESETS["base-moe8"] = dict(_PRESETS["base"], n_experts=8)
+_PRESETS["base-moe8"] = dict(_PRESETS["base"], n_experts=8, moe_every=2,
+                             moe_dispatch="routed")
 _PRESETS["small-hd128"] = _PRESETS["small"]
 _PRESETS["base-hd128"] = _PRESETS["base"]
 _FIELDS = {f.name for f in fields(LMConfig)}
@@ -672,17 +884,14 @@ def transformer_lm(size: str = "tiny", *, device=None, seed: int | None = 0,
     unless ``device="cpu"``) with random weights from ``seed`` (``None``
     leaves them uninitialized, for a bridge load).  ``overrides`` set
     :class:`LMConfig` fields (``attn_impl``, ``remat``, ``dtype``,
-    ``quantize`` (True/'int8' or 'w8f'), ...); the JAX fields of MoE
-    layers, not ported yet (``moe_every``, ``moe_dispatch``,
-    ``capacity_factor``, ``moe_top_k``, ``moe_group_size``), are refused
-    by name."""
+    ``quantize`` (True/'int8' or 'w8f'), ``n_experts``, ``moe_dispatch``,
+    ...); an unknown one raises a TypeError naming it."""
     if size not in _PRESETS:
         raise ValueError(f"unknown size {size!r}; one of {sorted(_PRESETS)}")
     unknown = set(overrides) - _FIELDS
     if unknown:
-        raise NotImplementedError(
-            f"{sorted(unknown)} are not ported yet (MoE layers are ROADMAP "
-            f"queue A3)")
+        raise TypeError(f"transformer_lm got unknown options "
+                        f"{sorted(unknown)}")
     if "quantize" in overrides:
         overrides["quantize"] = canon_weight_quant(overrides["quantize"])
     model = TransformerLM(LMConfig(**{**_PRESETS[size], **overrides}),

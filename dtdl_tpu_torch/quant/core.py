@@ -2,12 +2,13 @@
 port of dtdl_tpu/quant/core.py.
 
 **Weights**: every matmul kernel of the transformer (attention q/k/v/out,
-SwiGLU wi/wg/wo) is stored as an int8 tensor plus an f32 scale per OUTPUT
-feature (``scale_c = max|w[..., c]| / 127``), or, for ``'w8f'``, as a
+SwiGLU wi/wg/wo, MoE expert wi/wg/wo) is stored as an int8 tensor plus an
+f32 scale per OUTPUT feature (``scale_c = max|w[..., c]| / 127``; per
+expert and output feature for the experts), or, for ``'w8f'``, as a
 float8_e4m3fn tensor plus a bf16 scale (``max / 448``).  The scale is
 constant along the contracted dims, so it factors out of the product:
 ``x @ (q·s) == (x @ q)·s`` (:class:`~dtdl_tpu_torch.quant.layers.QuantLinear`).
-The embedding and the norm scales stay as they are.
+The embedding, the norm scales and the MoE routers stay as they are.
 
 **KV**: each new K/V row gets a scale from its own max (write-once, so an
 append-only page never needs rescaling): int8 payload with an f32 scale,
@@ -118,11 +119,21 @@ def quantize_tensor(w, scale_shape, dtype=torch.int8):
 
 
 def _sites(model) -> dict:
-    """{state_dict name of each matmul kernel: its number of contracted
-    (input) dims}, read off the model's weight modules (each carries
-    ``n_in``)."""
-    return {(f"{name}.kernel" if name else "kernel"): m.n_in
-            for name, m in model.named_modules() if hasattr(m, "n_in")}
+    """{state_dict name of each matmul weight: the keepdims shape of its
+    scale, 1 on every contracted dim}, read off the model's modules: a
+    weight module's ``kernel`` contracts its first ``n_in`` dims; an MoE
+    block's expert weights [E, in, out] (``EXPERT_WEIGHTS``) take a scale
+    per (expert, out-channel), [E, 1, out].  The MoE router is neither."""
+    out = {}
+    for name, m in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if hasattr(m, "n_in"):
+            shape = m.kernel.shape
+            out[prefix + "kernel"] = (1,) * m.n_in + tuple(shape[m.n_in:])
+        for leaf in getattr(m, "EXPERT_WEIGHTS", ()):
+            e, _, d_out = getattr(m, leaf).shape
+            out[prefix + leaf] = (e, 1, d_out)
+    return out
 
 
 def quantize_params(model, params, mode=True) -> dict:
@@ -152,9 +163,7 @@ def quantize_params(model, params, mode=True) -> dict:
         if name not in sites:
             out[name] = w
             continue
-        n_in = sites[name]
-        q, s = quantize_tensor(w, (1,) * n_in + tuple(w.shape[n_in:]),
-                               dtype=payload)
+        q, s = quantize_tensor(w, sites[name], dtype=payload)
         out[name], out[name + SCALE_SUFFIX] = q, s
     return out
 

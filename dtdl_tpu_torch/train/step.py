@@ -38,12 +38,16 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     the head through :func:`chunked_lm_loss` on the final hidden states
     and the tied embedding, so the [B, S, V] logits never exist.
 
+    An MoE model's blocks return their Switch load-balance values (the
+    forward's ``return_aux``); the loss gains ``moe_aux_weight`` times
+    their mean over the MoE layers, reported as the ``moe_aux_loss``
+    metric (a weight of 0 adds nothing and still reports it).
+
     Only the single-device step is ported: another ``strategy`` is
-    ROADMAP queue A9 (distributed), ``guard`` is A13 (operations), an MoE
-    model A3.  ``seed`` feeds dropout in the JAX step, and the LM has no
-    dropout; ``moe_aux_weight`` waits for MoE.
+    ROADMAP queue A9 (distributed), ``guard`` is A13 (operations).
+    ``seed`` feeds dropout in the JAX step, and the LM has no dropout.
     """
-    del seed, moe_aux_weight
+    del seed
     if strategy is not None:
         raise NotImplementedError(
             f"strategy {strategy!r}: data/tensor-parallel training steps are "
@@ -56,9 +60,6 @@ def make_lm_train_step(strategy=None, seed: int = 0,
 
     def step(state: TrainState, batch):
         model = state.model
-        if getattr(model.cfg, "n_experts", 0) > 0:
-            raise NotImplementedError(
-                "MoE training (the Switch aux loss) is ROADMAP queue A3")
         dev = model.device
         tokens = _on(batch["tokens"], dev, torch.long)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
@@ -69,7 +70,7 @@ def make_lm_train_step(strategy=None, seed: int = 0,
 
         state.optimizer.zero_grad(set_to_none=True)
         if vocab_chunk_size:
-            h = model(inputs, return_hidden=True)
+            h, aux = model(inputs, return_hidden=True, return_aux=True)
             b, s, d = h.shape
             loss_sum, correct = chunked_lm_loss(
                 h.reshape(b * s, d), model.embed, targets.reshape(b * s),
@@ -77,15 +78,20 @@ def make_lm_train_step(strategy=None, seed: int = 0,
             loss = loss_sum * scale
             acc = correct.detach() * scale
         else:
-            logits = model(inputs)                       # f32
+            logits, aux = model(inputs, return_aux=True)     # f32
             lse = torch.logsumexp(logits, dim=-1)
             true = logits.gather(-1, targets[..., None])[..., 0]
             loss = ((lse - true) * mask).sum() * scale
             with torch.no_grad():
                 correct = (logits.argmax(-1) == targets).float()
                 acc = (correct * mask).sum() * scale
+        metrics = {}
+        if aux:
+            aux = sum(aux) / len(aux)
+            loss = loss + moe_aux_weight * aux
+            metrics["moe_aux_loss"] = aux.detach()
         loss.backward()
         state.apply_gradients()
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return state, {"loss": loss.detach(), "accuracy": acc, **metrics}
 
     return step

@@ -80,18 +80,17 @@ def test_bridge_names_the_bad_leaf(pair):
 
 
 def test_presets_match_jax():
-    for size in ("tiny", "small", "base", "large", "base-hd128"):
+    for size in ("tiny", "small", "base", "large", "base-hd128",
+                 "base-moe8"):
         jcfg = jtr.transformer_lm(size)
         tcfg = transformer_lm(size, device="cpu", seed=None).cfg
         for f in ("vocab_size", "d_model", "n_layers", "n_heads", "d_ff",
-                  "max_seq", "remat", "attn_impl"):
+                  "max_seq", "remat", "attn_impl", "n_experts", "moe_every",
+                  "moe_dispatch", "capacity_factor", "moe_top_k",
+                  "moe_group_size"):
             assert getattr(tcfg, f) == getattr(jcfg, f), (size, f)
         assert tcfg.head_dim == jcfg.head_dim
     assert transformer_lm("large", device="cpu", seed=None).cfg.remat
-    with pytest.raises(NotImplementedError, match="A3"):
-        transformer_lm("tiny", device="cpu", moe_every=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer_lm("base-moe8", device="cpu", seed=None)
     # quantized projections are ported: int8 payloads beside f32 scales
     q = transformer_lm("tiny", device="cpu", quantize=True).state_dict()
     assert q["block_0.attn.q.kernel"].dtype == torch.int8
