@@ -86,15 +86,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7c. moe_traincheck - traincheck at base-moe8 width, 2 layers (one MoE
                block): routing identical in f32; in bf16 every token the
                two steps route apart is a router near-tie;
+7d. classify - the classifier path (no kernel of K1-K4: cuDNN convs,
+               cuBLAS Dense layers): train-step throughput cells timed as
+               bench.py times them, bf16 compute with f32 weights and BN
+               statistics, sgd(0.1, momentum 0.9): pyramidnet() (110
+               layers, alpha 270) at batch 64 and 256 (and at 256 with
+               channel_align=8), resnet50() at batch 256 (samples/s, step
+               ms, analytic MFU, peak memory, first and last loss); then
+               train_epoch over synthetic CIFAR-10 through the DataLoader
+               and the train transform at batch 64, and evaluate over 1000
+               test images (a ragged last batch);
+7e. classifycheck - (1) one f32 SGD step of a small PyramidNet and a small
+               ResNet on the card against the CPU from the same bridged
+               weights and batch (loss, accuracy, every parameter and BN
+               statistic, eval logits); (3) PyramidNet-110 bf16 learns the
+               synthetic task in 90 steps through the loop; (2) its eval
+               logits in bf16 within the stated budget of f32;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
                decode with int8 and fp8 pools), and the quantized
                projections against the bf16 one, with CUDA events.
 
-``--phases profile`` (not in the default set) adds a serving run and two
-training steps of base and of base-moe8 under torch.profiler (and host
-timers for serving): where the main paths' time goes.  ``--phases
+``--phases profile`` (not in the default set) adds a serving run, two
+training steps of base and of base-moe8, and one PyramidNet-110 batch-256
+step under torch.profiler (and host timers for serving and the
+classifier step): where the main paths' time goes.  ``--phases
 train,traincheck`` drives the training path alone.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
@@ -117,7 +134,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
-          "traincheck", "moe_train", "moe_traincheck", "timing")
+          "traincheck", "moe_train", "moe_traincheck", "classify",
+          "classifycheck", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -2000,6 +2018,454 @@ def phase_profile_moe(torch, seed, steps: int = 2):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the classifier path: PyramidNet-110 and ResNet-50
+# ---------------------------------------------------------------------------
+
+# (model, batch, channel_align) of the throughput cells: the JAX package's
+# bench row (bench.py:bench_one: PyramidNet at the reference's batch 64 and
+# at 256, ResNet-50 at 256), and PyramidNet at 256 with its widths rounded
+# up to multiples of 8 (the JAX option) once, for the record
+CLASSIFY_CELLS = (("pyramidnet", 64, 1), ("pyramidnet", 256, 1),
+                  ("pyramidnet", 256, 8), ("resnet50", 256, 1))
+# warm-up and timed steps of each cell (bench.py takes max(20, its sample
+# budget / batch) after 10; these keep the phase short).  The cells, the
+# loop and the profile run with cudnn.benchmark on, as a user training
+# these models would: cuDNN's heuristic algorithms are far slower on
+# PyramidNet's odd widths, and the search falls inside the warm-up
+CLASSIFY_WARMUP, CLASSIFY_ITERS = 5, 30
+CLASSIFY_INPUT = {"pyramidnet": ((32, 32, 3), 10),
+                  "resnet50": ((224, 224, 3), 1000)}
+# the end-to-end loop (classify) and the learnability run (classifycheck):
+# PyramidNet-110 bf16 at batch 64 over the JAX package's synthetic CIFAR-10
+# through DataLoader + cifar10_train_transform, train_epoch and evaluate
+LOOP_BATCH = 64
+E2E_STEPS, E2E_TEST = 40, 1000          # 1000 = 15 x 64 + a ragged 40
+LEARN_EPOCHS, LEARN_STEPS = 3, 30       # 90 steps
+# learnability: the reference's SGD + StepLR (examples/common.py:sgd_steplr:
+# lr 0.1, a tenfold drop every 2 epochs, momentum 0.9, weight decay 1e-4);
+# chance is 0.1; the last epoch's mean train accuracy must reach LEARN_ACC,
+# and the test split's accuracy (eval mode, the running statistics)
+# LEARN_ACC as well
+LEARN_ACC = 0.5
+# classifycheck (1): one f32 SGD step (momentum 0.9, weight decay 5e-4) on
+# the card against the same step on the CPU, same bridged weights and
+# batch.  Loss within 1e-5 relative, accuracy equal, every BN statistic
+# within 1e-5 of its BN's scale, eval logits within 1e-5 of the largest.
+# A parameter: f32 cuDNN picks its own algorithms for the convolutions'
+# weight gradients, which round otherwise than the CPU's, and a ReLU input
+# within rounding of 0 can land on the other side of the kink, switching
+# its gradient.  On an H100 80GB HBM3 the small PyramidNet put 0.88% of
+# its elements past 1e-4 of their tensor's largest update, the worst at
+# 4.1e-3 of it; a wrong rule (weight decay, momentum, a BN gradient) moves
+# elements by a share of the update itself.
+# So: at least STEP_WITHIN of the elements within STEP_ATOL + STEP_SHARE of
+# their tensor's largest update, every element within STEP_SHARE_ALL of it
+STEP_LR, STEP_ATOL, STEP_SHARE, STEP_SHARE_ALL = 0.1, 1e-6, 1e-4, 2e-2
+STEP_WITHIN = 0.97
+# classifycheck (2): PyramidNet-110 in bf16 against the same weights and
+# statistics in f32 (the learnability run's trained model), eval logits of
+# the test images: max |bf16 - f32| within BF16_LOGIT_BUDGET of the f32
+# logits' range (max - min).  bf16 rounds each conv's and BN's output at
+# 2^-9 relative; over 110 layers on a residual stream that is ~3% of the
+# activations' size, a few % of the logits' spread
+BF16_LOGIT_BUDGET = 0.1
+
+
+def classifier(name, **kw):
+    """The JAX package's factories, ported (``pyramidnet``,
+    ``resnet50``)."""
+    from dtdl_tpu_torch.models import get_model
+    return get_model(name, **kw)
+
+
+def classifier_train_flops(torch, model, shape) -> float:
+    """Analytic train-step FLOPs per image: 2·MAC of every conv and Dense
+    in one forward (from a batch-1 forward's output shapes), x3 for the
+    backward at twice the forward.  Not XLA's cost analysis, which
+    bench.py read."""
+    from dtdl_tpu_torch.models.layers import Conv, Dense
+    macs = [0]
+
+    def count(m, args, out):
+        w = m.weight
+        macs[0] += out.numel() * (w.shape[1] * w.shape[2] * w.shape[3]
+                                  if isinstance(m, Conv) else w.shape[1])
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv, Dense))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((1,) + shape, device=model.device))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return 3.0 * 2.0 * macs[0]
+
+
+def classify_cell(torch, seed, name, batch, align=1):
+    """One throughput cell, timed as bench.py times it: sgd(0.1,
+    momentum 0.9), 4 distinct device-resident batches from ``seed``,
+    CLASSIFY_WARMUP steps, then the timed steps ending in
+    float(loss)."""
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_train_step
+    t_setup = time.perf_counter()
+    shape, classes = CLASSIFY_INPUT[name]
+    kw = dict(channel_align=align) if align > 1 else {}
+    model = classifier(name, dtype=torch.bfloat16, device=DEV, seed=None,
+                       **kw)
+    state = init_state(model, seed, sgd(0.1, momentum=0.9), device=DEV)
+    step = make_train_step()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    batches = [{"image": torch.randn((batch,) + shape, generator=gen,
+                                     device=DEV),
+                "label": torch.randint(0, classes, (batch,), generator=gen,
+                                       device=DEV)} for _ in range(4)]
+    iters = CLASSIFY_ITERS
+    losses = []
+    for i in range(CLASSIFY_WARMUP):
+        state, metrics = step(state, batches[i % 4])
+        losses.append(metrics["loss"])
+    sync(torch)
+    t_setup = time.perf_counter() - t_setup
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        state, metrics = step(state, batches[i % 4])
+    last = float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    first = float(losses[0])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    flops = classifier_train_flops(torch, model, shape) * batch
+    step_ms = 1e3 * wall / iters
+    out = dict(samples_per_s=batch * iters / wall, step_ms=step_ms,
+               mfu=flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
+               bound_ms=1e3 * flops / PEAK_OPS["bfloat16"], peak_gib=peak_gib,
+               loss_first=first, loss_last=last, iters=iters)
+    log(f"classify {name}{f' channel_align={align}' if align > 1 else ''} "
+        f"bf16 (f32 weights and BN stats) sgd(0.1, momentum 0.9) batch "
+        f"{batch} {shape}: {iters} timed steps after {CLASSIFY_WARMUP} "
+        f"warm-up (cudnn.benchmark on, its search inside the warm-up; "
+        f"init and warm-up {t_setup:.2f}s) "
+        f"samples_per_s={out['samples_per_s']:.2f} step_ms={step_ms:.3f} "
+        f"mfu={out['mfu']:.5f} (analytic conv+Dense FLOPs, 2 per MAC, x3 "
+        f"for a train step: {flops:.4e} a step, over 989 TFLOP/s; not XLA's "
+        f"cost analysis) bound_ms={out['bound_ms']:.3f} peak_mem_gib="
+        f"{peak_gib:.2f} loss_first={first:.5f} loss_last={last:.5f}")
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"classify {name}: non-finite loss {first} "
+                             f"{last}")
+    del state, step, batches, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def loop_data(n_train, n_test):
+    """The JAX package's synthetic CIFAR-10 (its own seed), train split
+    through DataLoader + cifar10_train_transform, test split normalized,
+    batch LOOP_BATCH, on the card."""
+    from dtdl_tpu_torch.data.datasets import CIFAR10_MEAN, CIFAR10_STD
+    from dtdl_tpu_torch.data.loader import (DataLoader,
+                                            cifar10_train_transform,
+                                            normalize_transform)
+    from dtdl_tpu_torch.data.synthetic import synthetic_cifar10
+    (xtr, ytr), (xte, yte) = synthetic_cifar10(n_train=n_train,
+                                               n_test=n_test)
+    train = DataLoader({"image": xtr, "label": ytr}, LOOP_BATCH,
+                       transform=cifar10_train_transform(CIFAR10_MEAN,
+                                                         CIFAR10_STD),
+                       device=DEV)
+    val = DataLoader({"image": xte, "label": yte}, LOOP_BATCH, shuffle=False,
+                     drop_last=False,
+                     transform=normalize_transform(CIFAR10_MEAN, CIFAR10_STD),
+                     device=DEV)
+    return train, val
+
+
+class ListSink:
+    """A reporter sink that keeps the payloads."""
+
+    def __init__(self):
+        self.payloads = []
+
+    def write(self, payload):
+        self.payloads.append(dict(payload))
+
+    def close(self):
+        pass
+
+
+def phase_classify(torch, seed):
+    """The throughput cells, then one end-to-end loop: train_epoch over
+    E2E_STEPS batches and evaluate over the E2E_TEST test images."""
+    from dtdl_tpu_torch.metrics.report import Reporter
+    from dtdl_tpu_torch.train.loop import evaluate, train_epoch
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_eval_step, make_train_step
+    torch.backends.cudnn.benchmark = True
+    cells = {(name, batch, align): classify_cell(torch, seed, name, batch,
+                                                 align)
+             for name, batch, align in CLASSIFY_CELLS}
+    train, val = loop_data(LOOP_BATCH * E2E_STEPS, E2E_TEST)
+    model = classifier("pyramidnet", dtype=torch.bfloat16, device=DEV,
+                       seed=None)
+    state = init_state(model, seed, sgd(0.1, momentum=0.9,
+                                        weight_decay=1e-4), device=DEV)
+    sink = ListSink()
+    sync(torch)
+    t0 = time.perf_counter()
+    state, means = train_epoch(make_train_step(), state, train,
+                               reporter=Reporter([sink]), log_interval=20)
+    sync(torch)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = evaluate(make_eval_step(), state, val)
+    t_eval = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = False
+    step_alone = cells.get(("pyramidnet", LOOP_BATCH, 1))
+    loop_sps = LOOP_BATCH * E2E_STEPS / t_train
+    log(f"classify loop pyramidnet bf16 batch {LOOP_BATCH}: train_epoch "
+        f"over {E2E_STEPS} batches of synthetic CIFAR-10 (DataLoader + "
+        f"cifar10_train_transform, first steps included) {t_train:.3f}s "
+        f"samples_per_s={loop_sps:.2f} (the step alone: "
+        f"{step_alone and round(step_alone['samples_per_s'], 2)}); "
+        f"evaluate over {E2E_TEST} test images {t_eval:.3f}s "
+        f"samples_per_s={E2E_TEST / t_eval:.2f} (eval mode reads the "
+        f"running statistics, which after {E2E_STEPS} steps at lr 0.1 lag "
+        f"the weights); train means {means}; eval {res}; reports "
+        f"{[p.get('step') for p in sink.payloads]}")
+    if not all(math.isfinite(v) for v in [*means.values(), *res.values()]):
+        raise AssertionError(f"classify loop: non-finite metrics {means} "
+                             f"{res}")
+    return cells
+
+
+def step_pair(torch, make_model, shape, batch, seed):
+    """One f32 SGD step on the card and on the CPU from the same bridged
+    weights and batch: (card state, CPU state, metrics each, eval logits
+    each, the params before)."""
+    from dtdl_tpu_torch import bridge
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_train_step
+    import numpy as np
+    src = make_model("cpu").init_weights(seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():   # statistics off their init, so eval reads them
+        for name, buf in src.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5
+                      + (0.75 if name.endswith("var") else -0.25))
+    params = bridge.state_dict_to_flax(src)
+    stats = bridge.state_dict_to_flax(src, "batch_stats")
+    rng = np.random.default_rng(seed)
+    batch_np = {"image": rng.normal(size=(batch,) + shape).astype(np.float32),
+                "label": rng.integers(0, 10, batch).astype(np.int32)}
+    out = {}
+    for dev in (DEV, "cpu"):
+        model = bridge.load_flax_params(make_model(dev), params, stats,
+                                        device=dev)
+        state = init_state(model, None, sgd(STEP_LR, momentum=0.9,
+                                            weight_decay=5e-4), device=dev)
+        state, metrics = make_train_step()(state, batch_np)
+        model.eval()
+        with torch.no_grad():
+            logits = model(torch.from_numpy(batch_np["image"]).to(dev))
+        out[dev] = (state, {k: float(v) for k, v in metrics.items()},
+                    logits.cpu())
+    return out[DEV], out["cpu"], bridge.flatten(params)
+
+
+def check_step_pair(torch, label, card, cpu, before):
+    """classifycheck (1)'s comparisons."""
+    import numpy as np
+    from dtdl_tpu_torch import bridge
+    (cs, cm, cl), (ps, pm, pl) = card, cpu
+    loss_err = abs(cm["loss"] - pm["loss"]) / abs(pm["loss"])
+    logit_err = float((cl - pl).abs().max() / pl.abs().max())
+    got = bridge.flatten(bridge.state_dict_to_flax(cs.model))
+    want = bridge.flatten(bridge.state_dict_to_flax(ps.model))
+    shares, n_el = [], 0
+    for path, w in want.items():
+        moved = float(abs(w - before[path]).max())
+        err = abs(got[path] - w) - STEP_ATOL
+        shares.append((err / max(moved, 1e-30)).ravel())
+        n_el += w.size
+    shares = np.concatenate(shares)
+    beyond = int((shares > STEP_SHARE).sum())
+    worst = float(shares.max())
+    gs = bridge.flatten(bridge.state_dict_to_flax(cs.model, "batch_stats"))
+    ws = bridge.flatten(bridge.state_dict_to_flax(ps.model, "batch_stats"))
+    stats_err = 0.0
+    for path, w in ws.items():
+        var = ws[path.rsplit("/", 1)[0] + "/var"]
+        scale = (abs(var).max() if path.endswith("var")
+                 else max(abs(w).max(), np.sqrt(var).max()))
+        stats_err = max(stats_err, float(abs(gs[path] - w).max() / scale))
+    ok = (loss_err <= 1e-5 and cm["accuracy"] == pm["accuracy"]
+          and logit_err <= 1e-5 and stats_err <= 1e-5
+          and beyond <= (1 - STEP_WITHIN) * n_el and worst <= STEP_SHARE_ALL)
+    log(f"classifycheck {label} f32 card vs CPU, one sgd({STEP_LR}, "
+        f"momentum 0.9, wd 5e-4) step: loss {cm['loss']:.6f} vs "
+        f"{pm['loss']:.6f} (rel {loss_err:.2e}, tol 1e-5), accuracy "
+        f"{cm['accuracy']} vs {pm['accuracy']}; eval logits err "
+        f"{logit_err:.2e} of max (tol 1e-5); BN stats err {stats_err:.2e} "
+        f"of scale (tol 1e-5); params: {beyond} of {n_el} elements beyond "
+        f"{STEP_ATOL} + {STEP_SHARE} of their tensor's largest update "
+        f"(allowed {1 - STEP_WITHIN:.0%}), worst {worst:.2e} of it (tol "
+        f"{STEP_SHARE_ALL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"classifycheck {label}: the card's f32 step "
+                             f"disagrees with the CPU's")
+
+
+def phase_classifycheck(torch, seed):
+    """(1) f32 card vs CPU steps, (3) learnability, (2) bf16 vs f32."""
+    from dtdl_tpu_torch.data.datasets import normalize_cifar10
+    from dtdl_tpu_torch.data.synthetic import synthetic_cifar10
+    from dtdl_tpu_torch.metrics.report import Reporter
+    from dtdl_tpu_torch.models import PyramidNet, ResNet
+    from dtdl_tpu_torch.train.loop import evaluate, train_epoch
+    from dtdl_tpu_torch.train.optim import exponential_decay, sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_eval_step, make_train_step
+    for label, make, shape, batch in (
+            ("PyramidNet(num_layers=3, alpha=48)",
+             lambda dev: PyramidNet(num_layers=3, alpha=48, device=dev,
+                                    seed=None), (32, 32, 3), 8),
+            ("ResNet(stage_sizes=(1, 1, 1, 1))",
+             lambda dev: ResNet(stage_sizes=(1, 1, 1, 1), device=dev,
+                                seed=None), (64, 64, 3), 4)):
+        card, cpu, before = step_pair(torch, make, shape, batch, seed)
+        check_step_pair(torch, label, card, cpu, before)
+    # (3) learnability: PyramidNet-110 bf16 through the loop
+    train, val = loop_data(LOOP_BATCH * LEARN_STEPS, E2E_TEST)
+    model = classifier("pyramidnet", dtype=torch.bfloat16, device=DEV,
+                       seed=None)
+    tx = sgd(exponential_decay(0.1, 2 * LEARN_STEPS, 0.1, staircase=True),
+             momentum=0.9, weight_decay=1e-4)
+    state = init_state(model, seed, tx, device=DEV)
+    step, sink, epochs = make_train_step(), ListSink(), []
+    t0 = time.perf_counter()
+    for epoch in range(LEARN_EPOCHS):
+        state, means = train_epoch(step, state, train, epoch=epoch,
+                                   reporter=Reporter([sink]),
+                                   log_interval=25)
+        epochs.append(means)
+    res = evaluate(make_eval_step(), state, val)
+    wall = time.perf_counter() - t0
+    ok = (epochs[-1]["loss"] < epochs[0]["loss"]
+          and epochs[-1]["accuracy"] >= LEARN_ACC
+          and res["accuracy"] >= LEARN_ACC)
+    log(f"classifycheck learnability pyramidnet bf16 batch {LOOP_BATCH}, "
+        f"{LEARN_EPOCHS} epochs x {LEARN_STEPS} steps of synthetic CIFAR-10 "
+        f"with augmentation, sgd_steplr (0.1, x0.1 every 2 epochs) "
+        f"({wall:.2f}s): epoch means "
+        f"{[{k: round(v, 5) for k, v in e.items()} for e in epochs]}; "
+        f"test {res}; threshold {LEARN_ACC} (chance 0.1) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("classifycheck: PyramidNet-110 did not learn "
+                             "the synthetic task")
+    # (2) the trained model's eval logits, bf16 against f32
+    f32 = classifier("pyramidnet", dtype=torch.float32, device=DEV,
+                     seed=None)
+    f32.load_state_dict(model.state_dict())
+    (_, _), (xte, _) = synthetic_cifar10(n_train=1, n_test=256)
+    x = torch.from_numpy(normalize_cifar10(xte)).to(DEV)
+    model.eval()
+    f32.eval()
+    with torch.no_grad():
+        lb, lf = model(x), f32(x)
+    spread = float(lf.max() - lf.min())
+    err = float((lb - lf).abs().max())
+    agree = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
+    ok = err <= BF16_LOGIT_BUDGET * spread and math.isfinite(err)
+    log(f"classifycheck pyramidnet-110 bf16 vs f32 eval logits (trained "
+        f"weights, 256 test images): max |d| {err:.5f} = "
+        f"{err / spread:.5f} of the f32 range {spread:.4f} (budget "
+        f"{BF16_LOGIT_BUDGET}); argmax agreement {agree:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("classifycheck: bf16 logits outside their "
+                             "budget of f32")
+
+
+def phase_profile_classify(torch, seed, batch: int = 256):
+    """Where a PyramidNet-110 bf16 step's time goes (torch.profiler):
+    device time by group and host wall time per step."""
+    from torch.profiler import ProfilerActivity, profile
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_train_step
+    torch.backends.cudnn.benchmark = True
+    model = classifier("pyramidnet", dtype=torch.bfloat16, device=DEV,
+                       seed=None)
+    state = init_state(model, seed, sgd(0.1, momentum=0.9), device=DEV)
+    step = make_train_step()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b = {"image": torch.randn((batch, 32, 32, 3), generator=gen, device=DEV),
+         "label": torch.randint(0, 10, (batch,), generator=gen, device=DEV)}
+    for _ in range(5):
+        state, _ = step(state, b)
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, _ = step(state, b)
+    sync(torch)
+    untraced = (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    state, _ = step(state, b)
+    host = time.perf_counter() - t0      # the step's return: dispatch only
+    sync(torch)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, b)
+        sync(torch)
+    traced = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = False
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    log(f"profile classify pyramidnet-110 bf16 batch {batch}, one step: "
+        f"untraced {1e3 * untraced:.3f} ms, traced {1e3 * traced:.3f} ms, "
+        f"host dispatch of one untraced step (until it returns, before the "
+        f"synchronize) {1e3 * host:.3f} ms, device kernel time "
+        f"{dev_ms:.3f} ms over {n_launch} kernel launches (device busy "
+        f"{dev_ms / (1e3 * traced):.3f} of the traced wall)")
+    groups = {"conv wgrad": ("wgrad",), "conv dgrad": ("dgrad",),
+              "cuDNN pads of channel counts (nhwcAddPadding)": (
+                  "addpadding",),
+              "conv forward": ("fprop", "implicit_convolve", "convolve",
+                               "implicit_gemm", "cutlass"),
+              "batch norm": ("batch_norm", "bn_"),
+              "weight casts and copies": ("copy", "to_copy"),
+              "memset": ("memset",),
+              "optimizer": ("multi_tensor",),
+              "elementwise, reductions, pads, pools": ()}
+    spent = {g: [0.0, 0] for g in groups}
+    for e in kernels:
+        name = e.key.lower()
+        g = next((g for g, keys in groups.items()
+                  if any(k in name for k in keys)),
+                 "elementwise, reductions, pads, pools")
+        spent[g][0] += e.self_device_time_total / 1e3
+        spent[g][1] += e.count
+    for g, (ms, n) in spent.items():
+        log(f"  {ms:9.3f} ms {n:6d} launches {100 * ms / max(dev_ms, 1e-9):5.1f}%"
+            f"  {g}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
+            f"{e.key[:80]}")
+    del state, step, model
+    torch.cuda.empty_cache()
+
+
 def phase_profile(torch, seed):
     """Where a serving run's time goes: host seconds inside prefill,
     decode dispatch and the harvest wait (wrapped timers), and device
@@ -2322,11 +2788,16 @@ def main(argv=None) -> int:
         phase_train(torch, args.seed, size="base-moe8")
     if "moe_traincheck" in phases:
         phase_traincheck(torch, args.seed, size="base-moe8")
+    if "classify" in phases:
+        phase_classify(torch, args.seed)
+    if "classifycheck" in phases:
+        phase_classifycheck(torch, args.seed)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
         phase_profile_moe(torch, args.seed)
+        phase_profile_classify(torch, args.seed)
     if "timing" in phases:
         # K4 at the main path's decode shape: 8 slots, pool of the engine
         # (page 16, 128 pages per slot), positions spread as the traffic's

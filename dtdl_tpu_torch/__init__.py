@@ -10,7 +10,11 @@ PyTorch version beside it that CPU tensors take.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no CUDA device they raise :class:`NoCudaDeviceError`.  The ported
-slices train and serve the LM: :func:`transformer_lm`,
+slices train the image classifiers (:func:`pyramidnet`, :func:`resnet50`,
+``MLP``, ``MnistCNN`` in :mod:`dtdl_tpu_torch.models`, with flax's
+BatchNorm, through ``train.step.make_train_step``/``make_eval_step`` and
+``train.loop.train_epoch``/``evaluate`` over ``data.loader.DataLoader``
+and ``data.datasets``), and train and serve the LM: :func:`transformer_lm`,
 :mod:`dtdl_tpu_torch.bridge`, ``train.state.init_state`` and
 ``train.step.make_lm_train_step`` over ``data.loader.DataLoader``, and
 :class:`InferenceEngine` (paged or dense arena, int8/fp8 weights and KV
@@ -20,11 +24,12 @@ shutdown and containment of engine failures).
 """
 
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device
+from dtdl_tpu_torch.models import pyramidnet, resnet50
 from dtdl_tpu_torch.models.transformer import TransformerLM, transformer_lm
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.sampling import GREEDY, SampleParams
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["GREEDY", "InferenceEngine", "NoCudaDeviceError", "Request",
-           "SampleParams", "Scheduler", "TransformerLM", "resolve_device",
-           "transformer_lm"]
+           "SampleParams", "Scheduler", "TransformerLM", "pyramidnet",
+           "resnet50", "resolve_device", "transformer_lm"]

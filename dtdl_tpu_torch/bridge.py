@@ -1,4 +1,4 @@
-"""Flax parameters -> the port's ``state_dict``.
+"""Flax parameters (and BatchNorm statistics) -> the port's ``state_dict``.
 
 The JAX package's :class:`TransformerLM` params are a nested dict (the
 ``params`` collection, unboxed); given as nested dicts of numpy arrays
@@ -28,6 +28,30 @@ crosses as int8; an fp8 one (an ml_dtypes ``float8_e4m3fn`` array) crosses
 as its uint8 bytes, viewed as ``torch.float8_e4m3fn``, never through a
 float cast; bf16 scales cross exactly through f32.
 
+The classifiers (:class:`MLP`, :class:`MnistCNN`, :class:`PyramidNet`,
+:class:`ResNet`) keep readable module names and torch's layouts, and this
+module owns the map onto flax's auto names: a conv kernel ``HWIO`` is
+the weight ``[O, I, kh, kw]``, a Dense kernel ``[in, out]`` the weight
+``[out, in]``, biases and BatchNorm ``scale``/``bias`` (params) and
+``mean``/``var`` (the ``batch_stats`` collection) carry across as they
+stand:
+
+==============================================  ==========================
+flax path                                       port module
+==============================================  ==========================
+MLP ``Dense_{0,1,2}``                           ``fc{1,2,3}``
+MnistCNN ``Conv_{0,1,2}``, ``Dense_{0,1}``      ``conv{1,2,3}``, ``fc{1,2}``
+PyramidNet ``Conv_0``, ``BatchNorm_0``          ``stem``, ``stem_bn``
+``ResidualBlock_{i}/BatchNorm_{0,1,2}``         ``blocks.{i}.bn{1,2,3}``
+``ResidualBlock_{i}/Conv_{0,1}``                ``blocks.{i}.conv{1,2}``
+``BatchNorm_1``, ``Dense_0``                    ``bn_final``, ``fc``
+ResNet ``Conv_0`` or ``SpaceToDepthStem_0``     ``stem`` (either path)
+``BatchNorm_0``, ``Dense_0``                    ``stem_bn``, ``fc``
+``BottleneckBlock_{i}/Conv_{0,1,2}``            ``blocks.{i}.conv{1,2,3}``
+``BottleneckBlock_{i}/BatchNorm_{0,1,2}``       ``blocks.{i}.bn{1,2,3}``
+``BottleneckBlock_{i}/{Conv_3,BatchNorm_3}``    ``blocks.{i}.{proj,proj_bn}``
+==============================================  ==========================
+
 A missing or extra leaf, or a shape or payload type that differs, raises
 :class:`BridgeError` naming the path.  Nothing here imports JAX: the
 caller hands over numpy arrays (``jax.device_get`` of the tree).
@@ -41,7 +65,12 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device
-from dtdl_tpu_torch.models.transformer import TransformerLM
+from dtdl_tpu_torch.models.cnn import MnistCNN
+from dtdl_tpu_torch.models.layers import Classifier, Conv
+from dtdl_tpu_torch.models.mlp import MLP
+from dtdl_tpu_torch.models.norm import BatchNorm
+from dtdl_tpu_torch.models.pyramidnet import PyramidNet
+from dtdl_tpu_torch.models.resnet import ResNet
 
 
 class BridgeError(ValueError):
@@ -61,21 +90,31 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def flax_to_state_dict(model: TransformerLM, params) -> dict:
-    """The ``state_dict`` for ``model`` from a flax param tree, each
-    tensor in the dtype and on the device of the model's parameter."""
-    flat = flatten(params)
-    own = dict(model.named_parameters())
-    expected = {name.replace(".", "/"): name for name in own}
+def _check_leaves(expected, flat, what: str = "flax tree") -> None:
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing:
-        raise BridgeError(f"flax tree is missing {missing[0]!r}"
+        raise BridgeError(f"{what} is missing {missing[0]!r}"
                           f"{f' (and {len(missing) - 1} more)' if len(missing) > 1 else ''}")
     if extra:
-        raise BridgeError(f"flax tree has a leaf the model does not: "
+        raise BridgeError(f"{what} has a leaf the model does not: "
                           f"{extra[0]!r}"
                           f"{f' (and {len(extra) - 1} more)' if len(extra) > 1 else ''}")
+
+
+def flax_to_state_dict(model, params, batch_stats=None) -> dict:
+    """The ``state_dict`` for ``model`` from a flax param tree (and, for
+    a classifier with BatchNorm, its ``batch_stats`` tree), each tensor
+    in the dtype and on the device of the model's own."""
+    if isinstance(model, Classifier):
+        return _classifier_state_dict(model, params, batch_stats)
+    if batch_stats:
+        raise BridgeError("the LM has no BatchNorm statistics, but a "
+                          "batch_stats tree was given")
+    flat = flatten(params)
+    own = dict(model.named_parameters())
+    expected = {name.replace(".", "/"): name for name in own}
+    _check_leaves(expected, flat)
     state = {}
     for path, name in expected.items():
         arr = np.asarray(flat[path])
@@ -104,27 +143,155 @@ def _to_tensor(path, arr, param):
         device=param.device, dtype=param.dtype)
 
 
-def state_dict_to_flax(model: TransformerLM) -> dict:
-    """The inverse direction: the model's parameters as a nested dict of
-    f32 numpy arrays under the flax paths."""
+def _module_paths(model: Classifier, stem: str | None = None) -> dict:
+    """Port module name -> flax module path.  ``stem`` names a ResNet's
+    stem path (``Conv_0`` or ``SpaceToDepthStem_0``; default by the
+    model's ``s2d_stem``)."""
+    if isinstance(model, MLP):
+        return {f"fc{i + 1}": f"Dense_{i}" for i in range(3)}
+    if isinstance(model, MnistCNN):
+        return {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
+                "fc1": "Dense_0", "fc2": "Dense_1"}
+    if isinstance(model, PyramidNet):
+        paths = {"stem": "Conv_0", "stem_bn": "BatchNorm_0",
+                 "bn_final": "BatchNorm_1", "fc": "Dense_0"}
+        for i in range(len(model.blocks)):
+            for port, name in (("bn1", "BatchNorm_0"), ("conv1", "Conv_0"),
+                               ("bn2", "BatchNorm_1"), ("conv2", "Conv_1"),
+                               ("bn3", "BatchNorm_2")):
+                paths[f"blocks.{i}.{port}"] = f"ResidualBlock_{i}/{name}"
+        return paths
+    if isinstance(model, ResNet):
+        if stem is None:
+            stem = "SpaceToDepthStem_0" if model.s2d_stem else "Conv_0"
+        paths = {"stem": stem, "stem_bn": "BatchNorm_0", "fc": "Dense_0"}
+        for i, block in enumerate(model.blocks):
+            names = [(f"conv{j + 1}", f"Conv_{j}") for j in range(3)]
+            names += [(f"bn{j + 1}", f"BatchNorm_{j}") for j in range(3)]
+            if block.proj is not None:
+                names += [("proj", "Conv_3"), ("proj_bn", "BatchNorm_3")]
+            for port, name in names:
+                paths[f"blocks.{i}.{port}"] = f"BottleneckBlock_{i}/{name}"
+        return paths
+    raise TypeError(f"no flax name map for {type(model).__name__}")
+
+
+def _classifier_leaves(model: Classifier, stem: str | None = None) -> dict:
+    """(collection, flax leaf path) -> (state_dict key, layout), layout
+    "conv" (HWIO <-> OIHW), "dense" ([in, out] <-> [out, in]) or "vec"."""
+    modules = dict(model.named_modules())
+    leaves = {}
+    for port, path in _module_paths(model, stem).items():
+        m = modules[port]
+        if isinstance(m, BatchNorm):
+            for leaf in ("scale", "bias"):
+                leaves["params", f"{path}/{leaf}"] = (f"{port}.{leaf}", "vec")
+            for leaf in ("mean", "var"):
+                leaves["batch_stats", f"{path}/{leaf}"] = (f"{port}.{leaf}",
+                                                           "vec")
+            continue
+        leaves["params", f"{path}/kernel"] = (
+            f"{port}.weight", "conv" if isinstance(m, Conv) else "dense")
+        if m.bias is not None:
+            leaves["params", f"{path}/bias"] = (f"{port}.bias", "vec")
+    return leaves
+
+
+# torch layout -> flax layout: OIHW -> HWIO, [out, in] -> [in, out]
+_FLAX_ORDER = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
+
+
+def _flax_layout(kind: str, x):
+    """A torch-layout weight (tensor, or its shape) in flax's layout."""
+    order = _FLAX_ORDER.get(kind)
+    if order is None:
+        return x
+    if isinstance(x, tuple):
+        return tuple(x[i] for i in order)
+    return x.permute(order)
+
+
+def _classifier_state_dict(model, params, batch_stats) -> dict:
+    stem = ("SpaceToDepthStem_0" if isinstance(model, ResNet)
+            and "SpaceToDepthStem_0" in params else None)
+    leaves = _classifier_leaves(model, stem)
+    own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    state = {}
+    for coll, tree in (("params", params), ("batch_stats", batch_stats)):
+        want = {path: v for (c, path), v in leaves.items() if c == coll}
+        if want and tree is None:
+            raise BridgeError(f"the model has BatchNorm statistics "
+                              f"({len(want)} leaves); pass the flax "
+                              f"batch_stats tree")
+        flat = flatten(tree or {})
+        _check_leaves(want, flat, f"flax {coll} tree")
+        for path, (key, kind) in want.items():
+            arr = np.asarray(flat[path], np.float32)
+            t = own[key]
+            shape = _flax_layout(kind, tuple(t.shape))
+            if tuple(arr.shape) != shape:
+                raise BridgeError(f"{coll} {path}: flax shape "
+                                  f"{tuple(arr.shape)} but the model wants "
+                                  f"{shape}")
+            if kind in _FLAX_ORDER:
+                arr = arr.transpose(np.argsort(_FLAX_ORDER[kind]))
+            state[key] = torch.from_numpy(np.array(arr)).to(t.device)
+    return state
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
     tree: dict = {}
-    for name, param in model.named_parameters():
-        *parents, leaf = name.split(".")
+    for path, val in flat.items():
+        *parents, leaf = path.split("/")
         node = tree
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = param.detach().float().cpu().numpy()
+        node[leaf] = val
     return tree
 
 
-def load_flax_params(model: TransformerLM, params, device=None
-                     ) -> TransformerLM:
-    """Load a flax param tree into ``model`` in place and return it.
-    ``device`` must match the model's (``None`` = the card, as for every
-    entry point of the port)."""
+def batch_stats_view(model) -> dict | None:
+    """A classifier's BatchNorm statistics as a flax ``batch_stats`` tree
+    of its live buffers (no copy); ``None`` for a model without
+    BatchNorm."""
+    if not isinstance(model, Classifier):
+        return None
+    own = dict(model.named_buffers())
+    flat = {path: own[key] for (coll, path), (key, _)
+            in _classifier_leaves(model).items() if coll == "batch_stats"}
+    return _nest(flat) if flat else None
+
+
+def state_dict_to_flax(model, collection: str = "params") -> dict | None:
+    """The inverse direction: the model's ``params`` (or, for
+    ``collection="batch_stats"``, its BatchNorm statistics; ``None`` for
+    a model without) as a nested dict of f32 numpy arrays under the flax
+    paths and in flax's layouts."""
+    if collection not in ("params", "batch_stats"):
+        raise ValueError(f"collection is 'params' or 'batch_stats', got "
+                         f"{collection!r}")
+    if isinstance(model, Classifier):
+        own = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+        flat = {path: _flax_layout(kind, own[key].detach()).float().cpu()
+                .numpy() for (coll, path), (key, kind)
+                in _classifier_leaves(model).items() if coll == collection}
+        return _nest(flat) if flat else None
+    if collection == "batch_stats":
+        return None
+    return _nest({name.replace(".", "/"): p.detach().float().cpu().numpy()
+                  for name, p in model.named_parameters()})
+
+
+def load_flax_params(model, params, batch_stats=None, device=None):
+    """Load a flax param tree (and a classifier's ``batch_stats``) into
+    ``model`` in place and return it.  ``device`` must match the model's
+    (``None`` = the card, as for every entry point of the port)."""
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"model lives on {model.device}, asked to load "
                          f"onto {dev}")
-    model.load_state_dict(flax_to_state_dict(model, params), strict=True)
+    model.load_state_dict(flax_to_state_dict(model, params, batch_stats),
+                          strict=True)
     return model

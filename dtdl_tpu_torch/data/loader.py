@@ -1,4 +1,5 @@
-"""Host-side batch loader, the port of dtdl_tpu/data/loader.py:DataLoader.
+"""Host-side batch loader and image transforms, the port of
+dtdl_tpu/data/loader.py.
 
 Batches are cut from in-memory numpy arrays in the order of a
 :class:`~dtdl_tpu_torch.data.sharding.ShardedSampler` (the same batches,
@@ -6,10 +7,15 @@ in the same order, as the JAX loader for the same seed), transformed on
 the host, and put on the device through pinned memory with a
 non-blocking copy, so the next batch travels while the card works.  The
 device is the card unless the caller asks for ``device="cpu"``.
+
+The transforms are the JAX package's vectorized numpy ones (the same
+arrays for the same rng): CIFAR-10's random crop with padding 4,
+horizontal flip and normalization, and normalization alone.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -75,3 +81,66 @@ class DataLoader:
                     (self.sampler.seed, self._epoch, b, 7))
                 batch = self.transform(rng, batch)
             yield {k: upload(v, self.device) for k, v in batch.items()}
+
+
+def resume_iter(loader, skip: int):
+    """Iterator over ``loader`` from batch ``skip`` of the current epoch:
+    ``iter_from`` where the loader has it, else the skipped batches are
+    drawn and dropped."""
+    if not skip:
+        return iter(loader)
+    if hasattr(loader, "iter_from"):
+        return loader.iter_from(skip)
+    return (b for j, b in enumerate(iter(loader)) if j >= skip)
+
+
+class LimitBatches:
+    """First-``n``-batches view of a loader (``n=0``: no limit)."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+
+    @property
+    def batch_size(self):
+        return self.loader.batch_size
+
+    def __iter__(self):
+        it = iter(self.loader)
+        return itertools.islice(it, self.n) if self.n else it
+
+
+def cifar10_train_transform(mean, std):
+    """Random crop (pad 4) + horizontal flip + normalize, vectorized
+    over the batch (torchvision's RandomCrop(32, padding=4),
+    RandomHorizontalFlip, ToTensor, Normalize)."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+
+    def transform(rng, batch):
+        x = batch["image"]
+        b, h, w, c = x.shape
+        padded = np.pad(x, ((0, 0), (4, 4), (4, 4), (0, 0)), mode="constant")
+        ys = rng.integers(0, 9, b)
+        xs = rng.integers(0, 9, b)
+        row_idx = ys[:, None] + np.arange(h)[None, :]
+        col_idx = xs[:, None] + np.arange(w)[None, :]
+        out = padded[np.arange(b)[:, None, None], row_idx[:, :, None],
+                     col_idx[:, None, :], :]
+        flip = rng.random(b) < 0.5
+        out[flip] = out[flip, :, ::-1, :]
+        out = (out - mean) / std
+        return {**batch, "image": out.astype(np.float32)}
+
+    return transform
+
+
+def normalize_transform(mean, std):
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+
+    def transform(rng, batch):
+        del rng
+        x = (batch["image"] - mean) / std
+        return {**batch, "image": x.astype(np.float32)}
+
+    return transform

@@ -1,15 +1,53 @@
-"""Deterministic synthetic token data, the port's copy of the LM part of
+"""Deterministic synthetic datasets, the port's copy of
 dtdl_tpu/data/synthetic.py (numpy only, the same arrays for the same
-seed).
+seed): the stand-ins for MNIST and CIFAR-10 when their files are absent,
+and the LM's token data.
 
-The Markov chain is learnable: each token has only ``branch`` plausible
-successors, so a trained LM's cross entropy approaches log(branch) <
-log(vocab).
+Both are learnable.  An image is its class's fixed pattern plus noise, so
+a classifier can reach high train accuracy; in the Markov chain each
+token has only ``branch`` plausible successors, so a trained LM's cross
+entropy approaches log(branch) < log(vocab).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def class_pattern_images(n: int, shape: tuple[int, ...], num_classes: int,
+                         seed: int, noise: float = 0.25,
+                         noise_seed: int | None = None):
+    """Images = a fixed per-class pattern + gaussian noise, squashed into
+    [0, 1]; labels balanced.  ``seed`` fixes the patterns (the task),
+    ``noise_seed`` the draw: a dataset's train and test splits share
+    ``seed`` and differ in ``noise_seed``."""
+    patterns = np.random.default_rng(seed).normal(
+        size=(num_classes,) + shape).astype(np.float32)
+    rng = np.random.default_rng(seed if noise_seed is None else noise_seed)
+    labels = np.arange(n, dtype=np.int32) % num_classes
+    rng.shuffle(labels)
+    images = patterns[labels] + noise * rng.normal(
+        size=(n,) + shape).astype(np.float32)
+    images = 1.0 / (1.0 + np.exp(-images))
+    return images.astype(np.float32), labels
+
+
+def synthetic_mnist(n_train: int = 60000, n_test: int = 10000,
+                    seed: int = 1234):
+    tr = class_pattern_images(n_train, (28, 28, 1), 10, seed,
+                              noise_seed=seed + 10)
+    te = class_pattern_images(n_test, (28, 28, 1), 10, seed,
+                              noise_seed=seed + 11)
+    return tr, te
+
+
+def synthetic_cifar10(n_train: int = 50000, n_test: int = 10000,
+                      seed: int = 4321):
+    tr = class_pattern_images(n_train, (32, 32, 3), 10, seed,
+                              noise_seed=seed + 10)
+    te = class_pattern_images(n_test, (32, 32, 3), 10, seed,
+                              noise_seed=seed + 11)
+    return tr, te
 
 
 def markov_tokens(n_seqs: int, seq_len: int, vocab_size: int = 256,

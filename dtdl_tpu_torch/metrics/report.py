@@ -1,0 +1,136 @@
+"""Metrics bus, the port of dtdl_tpu/metrics/report.py: one reporter,
+pluggable sinks.
+
+:class:`Accumulator` keeps running means over an epoch; sinks write each
+payload as the reference's fixed-format line (:class:`StdoutSink`) or as
+JSON lines (:class:`JsonlSink`); :class:`Reporter` fans a payload out to
+its sinks and closes them on exit.  The JAX reporter is silent on every
+process but the leader; the port runs one process, which is the leader.
+TensorBoard event files (:class:`TensorBoardSink`) are ROADMAP queue A13
+(operations).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+
+class Accumulator:
+    """Running means of scalar metrics over an epoch (Chainer-report style)."""
+
+    def __init__(self):
+        self._sums: dict[str, float] = {}
+        self._counts: dict[str, int] = {}
+
+    def add(self, metrics: dict, weight: int = 1) -> None:
+        for k, v in metrics.items():
+            v = float(v)
+            self._sums[k] = self._sums.get(k, 0.0) + v * weight
+            self._counts[k] = self._counts.get(k, 0) + weight
+
+    def means(self) -> dict:
+        return {k: self._sums[k] / self._counts[k] for k in self._sums}
+
+    def reset(self) -> None:
+        self._sums.clear()
+        self._counts.clear()
+
+
+class _SinkContext:
+    """``with JsonlSink(...) as s:`` closes (and so flushes) on any exit,
+    exceptions included."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+
+class StdoutSink(_SinkContext):
+    """The reference's per-batch log line: ``Epoch [e] [step/steps] |
+    loss: ... | accuracy: ... | batch_time: ...``."""
+
+    def __init__(self, prefix: str = ""):
+        self.prefix = prefix
+
+    def write(self, payload: dict) -> None:
+        parts = []
+        if "epoch" in payload:
+            parts.append(f"Epoch [{payload['epoch']}]")
+        if "step" in payload and "steps_per_epoch" in payload:
+            parts.append(f"[{payload['step']}/{payload['steps_per_epoch']}]")
+        elif "step" in payload:
+            parts.append(f"step {payload['step']}")
+        for k, v in payload.items():
+            if k in ("epoch", "step", "steps_per_epoch", "split"):
+                continue
+            if isinstance(v, float):
+                parts.append(f"{k}: {v:.4f}" if abs(v) < 100 else f"{k}: {v:.2f}")
+            else:
+                parts.append(f"{k}: {v}")
+        line = (self.prefix + " " if self.prefix else "") + " | ".join(parts)
+        print(line, flush=True)
+
+    def close(self) -> None:
+        pass
+
+
+class JsonlSink(_SinkContext):
+    """JSON-lines log file, one payload a line with its ``elapsed_time``
+    (Chainer ``LogReport`` parity)."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.path = path
+        self._f = open(path, "a", buffering=1)
+        self._t0 = time.time()
+
+    def write(self, payload: dict) -> None:
+        rec = dict(payload)
+        rec.setdefault("elapsed_time", round(time.time() - self._t0, 3))
+        self._f.write(json.dumps(rec) + "\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class TensorBoardSink(_SinkContext):
+    """TensorBoard event files: not ported yet."""
+
+    def __init__(self, logdir: str):
+        raise NotImplementedError(
+            "TensorBoardSink is ROADMAP queue A13 (operations); use "
+            "StdoutSink or JsonlSink")
+
+
+class Reporter:
+    """Fan-out of metric payloads to sinks (a :class:`StdoutSink` by
+    default).  A context manager: every sink is closed on exit,
+    exceptions included.  ``leader_only`` is the JAX reporter's gate; with
+    one process this process is the leader, so every payload is
+    written."""
+
+    def __init__(self, sinks=None, leader_only: bool = True):
+        self.sinks = list(sinks) if sinks is not None else [StdoutSink()]
+        self.leader_only = leader_only
+
+    def __enter__(self) -> "Reporter":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    def report(self, payload: dict) -> None:
+        clean = {k: (float(v) if hasattr(v, "item") else v)
+                 for k, v in payload.items()}
+        for sink in self.sinks:
+            sink.write(clean)
+
+    def close(self) -> None:
+        for sink in self.sinks:
+            sink.close()

@@ -20,6 +20,16 @@ bias corrections m̂ = m / (1 - b1^t), v̂ = v / (1 - b2^t):
   momentum·t (t starts at 0) with update -lr·t, or -lr·(g + momentum·t)
   with Nesterov, is torch's SGD buffer b = momentum·b + g (b starts at
   g, dampening 0); without momentum both are p ← p - lr·g.
+* ``sgd(lr, momentum, weight_decay=wd)`` is optax's
+  ``chain(add_decayed_weights(wd), sgd(lr, momentum))`` (the JAX
+  examples' ``sgd_steplr``, the reference's SGD + StepLR): optax adds
+  wd·p to the gradient before the trace, and torch's ``SGD(weight_decay=
+  wd)`` adds wd·p to the gradient before the momentum buffer.
+
+A learning rate may be a schedule, a function of the update count
+(:func:`exponential_decay`, optax's): as optax's ``scale_by_schedule``,
+the n-th update (from 0) takes ``schedule(n)``, set on the optimizer's
+param groups just before each ``step()``.
 
 The optimizer state lives beside the parameters, on their device and in
 their dtype (f32 master weights keep f32 moments).
@@ -27,6 +37,7 @@ their dtype (f32 master weights keep f32 moments).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -56,9 +67,41 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return Transform("adam", lambda p: torch.optim.Adam(p, **hp))
 
 
-def sgd(learning_rate: float, momentum: float | None = None,
-        nesterov: bool = False) -> Transform:
+def sgd(learning_rate, momentum: float | None = None,
+        nesterov: bool = False, weight_decay: float = 0.0) -> Transform:
+    """``learning_rate`` a float or a schedule (count -> lr)."""
     if nesterov and not momentum:
         raise ValueError("nesterov needs a momentum")
-    hp = dict(lr=learning_rate, momentum=momentum or 0.0, nesterov=nesterov)
-    return Transform("sgd", lambda p: torch.optim.SGD(p, **hp))
+    hp = dict(momentum=momentum or 0.0, nesterov=nesterov,
+              weight_decay=weight_decay)
+    if not callable(learning_rate):
+        return Transform("sgd", lambda p: torch.optim.SGD(
+            p, lr=learning_rate, **hp))
+
+    def make(params):
+        opt = torch.optim.SGD(params, lr=learning_rate(0), **hp)
+        count = [0]
+
+        def set_lr(optimizer, args, kwargs):
+            for group in optimizer.param_groups:
+                group["lr"] = learning_rate(count[0])
+            count[0] += 1
+        opt.register_step_pre_hook(set_lr)
+        return opt
+    return Transform("sgd", make)
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float, staircase: bool = False
+                      ) -> Callable[[int], float]:
+    """optax's ``exponential_decay``: count n -> init·rate^(n / steps),
+    the exponent floored with ``staircase`` (a step decay every
+    ``transition_steps`` updates).  ``transition_steps <= 0`` gives the
+    constant ``init_value``, as optax."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count: int) -> float:
+        p = count / transition_steps
+        return init_value * decay_rate ** (math.floor(p) if staircase else p)
+    return schedule

@@ -5,7 +5,10 @@ opt_state, batch_stats) that every step replaces.  Here the parameters
 live in the model and the optimizer state in a ``torch.optim``
 optimizer, and :meth:`TrainState.apply_gradients` updates both in place
 where JAX returns a new state: PyTorch keeps one copy of the weights and
-moments instead of a donated old and a new one.
+moments instead of a donated old and a new one.  A classifier's BatchNorm
+statistics live in its BN modules' buffers, which a train-mode forward
+updates; :attr:`TrainState.batch_stats` shows them in the flax tree
+shape.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
+from dtdl_tpu_torch.bridge import batch_stats_view
 from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.train.optim import Transform
 
@@ -23,7 +27,13 @@ class TrainState:
     step: int
     model: torch.nn.Module           # the params
     optimizer: torch.optim.Optimizer  # the opt_state
-    batch_stats: None = None          # the LM has no BatchNorm statistics
+
+    @property
+    def batch_stats(self) -> dict | None:
+        """The model's BatchNorm statistics as the flax ``batch_stats``
+        tree of its live buffers; ``None`` for a model without BatchNorm
+        (the LM, the MLP, the CNN)."""
+        return batch_stats_view(self.model)
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the gradients the parameters hold
@@ -38,9 +48,11 @@ def init_state(model, seed: int | None, tx: Transform,
                device=None) -> TrainState:
     """Weights of ``model`` from ``seed`` (an explicit CPU
     ``torch.Generator``, so one seed gives the same weights on every
-    device; ``None`` keeps the weights the model holds, e.g. after a
-    bridge load) and the optimizer ``tx`` over them.  ``device`` must be
-    the model's (``None`` = the card, as for every entry point)."""
+    device; a classifier as the JAX ``conv_init``/flax defaults draw
+    them, BatchNorm statistics reset; ``None`` keeps the weights the
+    model holds, e.g. after a bridge load) and the optimizer ``tx`` over
+    them.  ``device`` must be the model's (``None`` = the card, as for
+    every entry point)."""
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(f"the model lives on {model.device}, the state was "

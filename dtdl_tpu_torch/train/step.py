@@ -1,20 +1,34 @@
-"""The LM train step, the port of dtdl_tpu/train/step.py:make_lm_train_step
-for one device.
+"""The train, eval and predict steps, the port of dtdl_tpu/train/step.py
+for one device: the classifier steps (``make_train_step``,
+``make_eval_step``, ``make_predict_step``) and the LM step
+(``make_lm_train_step``).
 
-One call is forward, next-token loss, backward (flash attention's
-backward runs kernels K2 and K3 on the card) and the optimizer update,
-eagerly.  The metrics come back as device tensors and the step never
-reads them on the host, so the card runs ahead of the Python loop as the
-JAX step's asynchronous metrics let it; the caller settles a window with
+One train call is forward, loss, backward (flash attention's backward
+runs kernels K2 and K3 on the card) and the optimizer update, eagerly.
+The metrics come back as device tensors and the step never reads them on
+the host, so the card runs ahead of the Python loop as the JAX step's
+asynchronous metrics let it; the caller settles a window with
 ``float(metrics["loss"])``.
+
+Train or eval mode follows the JAX ``train=`` flag: the classifier train
+step puts the model in train mode (BatchNorm normalizes by the batch and
+updates its statistics); the eval and predict steps put it in eval mode
+(the stored statistics) and restore its mode after.
+
+Only the single-device steps are ported: another ``strategy`` is ROADMAP
+queue A9 (distributed), ``guard`` is A13 (operations).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Callable
+
 import torch
 
 from dtdl_tpu_torch.device import upload
-from dtdl_tpu_torch.ops.cross_entropy import chunked_lm_loss
+from dtdl_tpu_torch.ops.cross_entropy import (accuracy, chunked_lm_loss,
+                                              softmax_cross_entropy)
 from dtdl_tpu_torch.train.state import TrainState
 
 
@@ -23,6 +37,102 @@ def _on(x, device, dtype=None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype, non_blocking=True)
     return upload(x, device, dtype)
+
+
+def _single_device(strategy, guard=None) -> None:
+    if strategy is not None:
+        raise NotImplementedError(
+            f"strategy {strategy!r}: data/tensor-parallel training steps are "
+            f"ROADMAP queue A9 (distributed); only the single-device step "
+            f"is ported")
+    if guard is not None:
+        raise NotImplementedError(
+            "the step guard (resil StepGuard) is ROADMAP queue A13 "
+            "(operations)")
+
+
+@contextmanager
+def _eval_mode(model):
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train(was)
+
+
+def make_train_step(strategy=None,
+                    loss_fn: Callable = softmax_cross_entropy,
+                    seed: int = 0, guard=None):
+    """Classifier step ``(state, batch) -> (state, metrics)``.
+
+    ``batch``: {'image': NHWC images, 'label': int labels} (numpy arrays
+    or tensors; they are put on the model's device).  Train-mode forward
+    (BatchNorm statistics updated), ``loss_fn`` (softmax cross entropy),
+    backward, optimizer update; metrics {'loss', 'accuracy'} as 0-d
+    device tensors.  ``seed`` feeds dropout in the JAX step, and no
+    classifier has dropout."""
+    del seed
+    _single_device(strategy, guard)
+
+    def step(state: TrainState, batch):
+        model = state.model
+        dev = model.device
+        images = _on(batch["image"], dev)
+        labels = _on(batch["label"], dev, torch.long)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = model(images)
+        loss = loss_fn(logits, labels)
+        loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            acc = accuracy(logits, labels)
+        return state, {"loss": loss.detach(), "accuracy": acc}
+
+    return step
+
+
+def make_eval_step(strategy=None,
+                   loss_fn: Callable = softmax_cross_entropy):
+    """Eval step ``(state, batch) -> summed metrics``: eval mode (the
+    stored BatchNorm statistics), and **sums** {'loss_sum',
+    'correct_sum', 'count'} as 0-d device tensors over the rows with
+    ``batch["mask"]`` 1 (all rows without a mask), so a padded ragged
+    tail counts each real example once."""
+    _single_device(strategy)
+
+    def evaluate(state: TrainState, batch):
+        model = state.model
+        dev = model.device
+        labels = _on(batch["label"], dev, torch.long)
+        mask = batch.get("mask")
+        mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+                if mask is None else _on(mask, dev, torch.float32))
+        with _eval_mode(model):
+            logits = model(_on(batch["image"], dev))
+            losses = loss_fn(logits, labels, reduction="none")
+            correct = (logits.argmax(-1) == labels).float()
+            return {"loss_sum": (losses * mask).sum(),
+                    "correct_sum": (correct * mask).sum(),
+                    "count": mask.sum()}
+
+    return evaluate
+
+
+def make_predict_step(strategy=None, probabilities: bool = False):
+    """Predict step ``(state, batch) -> logits`` (f32, on the device), or
+    their softmax with ``probabilities=True``; eval mode."""
+    _single_device(strategy)
+
+    def predict(state: TrainState, batch):
+        model = state.model
+        with _eval_mode(model):
+            logits = model(_on(batch["image"], model.device))
+            return logits.softmax(-1) if probabilities else logits
+
+    return predict
 
 
 def make_lm_train_step(strategy=None, seed: int = 0,
@@ -43,20 +153,10 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     their mean over the MoE layers, reported as the ``moe_aux_loss``
     metric (a weight of 0 adds nothing and still reports it).
 
-    Only the single-device step is ported: another ``strategy`` is
-    ROADMAP queue A9 (distributed), ``guard`` is A13 (operations).
     ``seed`` feeds dropout in the JAX step, and the LM has no dropout.
     """
     del seed
-    if strategy is not None:
-        raise NotImplementedError(
-            f"strategy {strategy!r}: data/tensor-parallel training steps are "
-            f"ROADMAP queue A9 (distributed); only the single-device step "
-            f"is ported")
-    if guard is not None:
-        raise NotImplementedError(
-            "the step guard (resil StepGuard) is ROADMAP queue A13 "
-            "(operations)")
+    _single_device(strategy, guard)
 
     def step(state: TrainState, batch):
         model = state.model

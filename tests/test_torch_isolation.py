@@ -21,6 +21,8 @@ import torch
 import dtdl_tpu_torch
 from dtdl_tpu_torch import bridge, kernels
 from dtdl_tpu_torch.device import NoCudaDeviceError, resolve_device
+from dtdl_tpu_torch.models import (MLP, MnistCNN, get_model, pyramidnet,
+                                   resnet50)
 from dtdl_tpu_torch.models.transformer import generate, transformer_lm
 from dtdl_tpu_torch.ops.attention import flash_bwd, flash_fwd, rope_rotate
 from dtdl_tpu_torch.ops.paged_attention import kv_splits, paged_attention
@@ -55,6 +57,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert PKG / "serve" / "draft.py" in files
     for name in ("__init__.py", "core.py", "layers.py"):
         assert PKG / "quant" / name in files
+    for rel in ("models/norm.py", "models/layers.py", "models/mlp.py",
+                "models/cnn.py", "models/pyramidnet.py", "models/resnet.py",
+                "train/loop.py", "metrics/report.py", "utils/timing.py",
+                "data/idx.py", "data/datasets.py"):
+        assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -96,6 +103,19 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda):
     assert generate(model, np.zeros((1, 3), np.int32), 2).device.type == "cpu"
     assert ModelDraft(model).propose(np.arange(4), 2).size == 2
     assert dtdl_tpu_torch.NoCudaDeviceError is NoCudaDeviceError
+
+
+def test_classifiers_refuse_to_run_without_a_card(no_cuda):
+    for make in (pyramidnet, resnet50, MLP, MnistCNN,
+                 lambda: get_model("mnist_cnn")):
+        with pytest.raises(NoCudaDeviceError):
+            make()
+    cnn = MnistCNN(device="cpu")
+    assert cnn.device.type == "cpu"
+    params = bridge.state_dict_to_flax(cnn)
+    with pytest.raises(NoCudaDeviceError):
+        bridge.load_flax_params(cnn, params)
+    bridge.load_flax_params(cnn, params, device="cpu")
 
 
 def test_cpu_calls_take_the_plain_version_and_count_nothing():
