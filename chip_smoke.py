@@ -102,6 +102,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                statistic, eval logits); (3) PyramidNet-110 bf16 learns the
                synthetic task in 90 steps through the loop; (2) its eval
                logits in bf16 within the stated budget of f32;
+7f. ddp      - data-parallel training through the port's launcher
+               (python -m dtdl_tpu_torch.launch.local; each rank is this
+               script with --ddp-worker): (1) an NCCL world of one, the
+               base LM in bf16 at 8 x 4096 with adamw: the DDP step's
+               parameters after 3 steps bitwise equal to the single-device
+               step's, K1-K3 once per layer and DDP step, step ms and
+               tokens/s of both in turns, the bucketed allreduce alone;
+               (2) two gloo ranks on the one card, f32: the small LM and
+               the MLP against the single-device step on the global batch,
+               the ranks' parameter digests equal; what NCCL says for two
+               ranks on one card (recorded); (3) the DDP twin
+               (examples.distributed_data_parallel: PyramidNet-110, global
+               batch 64, 24 steps and one evaluate over synthetic CIFAR-10)
+               at world 1 over NCCL and 2 over gloo: leader-only log and
+               weights, the weights loading back to every rank's digest,
+               BatchNorm statistics equal across ranks, samples/s; (4) a
+               launch in which one rank exits 3 returns 3 within 20 s;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -135,7 +152,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
-          "classifycheck", "timing")
+          "classifycheck", "ddp", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -1669,11 +1686,13 @@ def phase_moe_serve(torch, seed):
 TRAIN_BATCH, TRAIN_SEQ = 8, 4096
 
 
-def train_setup(torch, seed, n_batches, batch, seq, size="base"):
+def train_setup(torch, seed, n_batches, batch, seq, size="base",
+                strategy=None):
     """The training path's pieces, as a user builds them: synthetic Markov
     tokens (vocab 32000) through the DataLoader, transformer_lm(size,
     max_seq=seq) with bf16 compute and f32 weights from ``seed``, an
-    adamw(3e-4) state and the step."""
+    adamw(3e-4) state (replicated by ``strategy``) and the step under
+    ``strategy``."""
     from dtdl_tpu_torch.data.loader import DataLoader
     from dtdl_tpu_torch.data.sharding import ShardedSampler
     from dtdl_tpu_torch.data.synthetic import synthetic_lm
@@ -1688,7 +1707,9 @@ def train_setup(torch, seed, n_batches, batch, seq, size="base"):
                         device=DEV)
     model = transformer_lm(size, max_seq=seq, seed=None, device=DEV)
     state = init_state(model, seed, adamw(3e-4), device=DEV)
-    return state, make_lm_train_step(), iter(loader)
+    if strategy is not None:
+        state = strategy.replicate(state)
+    return state, make_lm_train_step(strategy), iter(loader)
 
 
 def phase_train(torch, seed, warmup: int = 3, steps: int = 10,
@@ -2466,6 +2487,396 @@ def phase_profile_classify(torch, seed, batch: int = 256):
     torch.cuda.empty_cache()
 
 
+# ---- ddp: data-parallel training through the port's launcher ----------------
+
+DDP_STEPS = 3        # steps whose parameters are held to the single-device
+DDP_TIMED = 3        # steps in each timed block (single, ddp, ddp, single)
+# (2) two gloo ranks on the one card, f32: the small LM at 8 x 257 tokens
+# with a ragged mask and adamw, the MLP at 64 images with sgd + momentum,
+# against the single-device step on the global batch.  The LM bound is
+# tests/test_torch_train.py's for three adamw steps (atol 1e-5 on all but
+# 0.1% of the elements, 2·lr a step on all: adam divides by the root of
+# the second moment, so a near-zero gradient's sign, and a whole lr-sized
+# step with it, can flip on last-bit differences); the MLP's is
+# tests/test_torch_ddp.py's (rtol 1e-4, atol 1e-5)
+DDP_PAIR_BATCH, DDP_PAIR_SEQ, DDP_PAIR_LR = 8, 256, 3e-4
+DDP_PAIR_ATOL, DDP_PAIR_SHARE = 1e-5, 1e-3
+DDP_MLP_TOL = (1e-4, 1e-5)
+# (3) the DDP twin: PyramidNet-110 at the reference's global batch
+TWIN_BATCH, TWIN_STEPS, TWIN_TEST = 64, 24, 1000
+FAILFAST_BOUND_S = 5.0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(args, nproc, timeout, label, env=None):
+    """``python -m dtdl_tpu_torch.launch.local --nproc N -- args`` from
+    the checkout's root: (exit code, output, seconds).  The whole output
+    goes to build/ddp/<label>.log."""
+    cmd = [sys.executable, "-m", "dtdl_tpu_torch.launch.local", "--nproc",
+           str(nproc), "--port", str(free_port()), "--timeout", str(timeout),
+           "--", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": ROOT,
+                               **(env or {})}, timeout=timeout + 60)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    logdir = os.path.join(ROOT, "build", "ddp")
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, f"{label}.log"), "w") as f:
+        f.write(out)
+    return proc.returncode, out, seconds
+
+
+def rank_lines(out, key="ddp_result "):
+    """The JSON each rank printed after ``key``, by rank."""
+    got = {}
+    for line in out.splitlines():
+        m = re.match(r"\[rank (\d+)\] " + re.escape(key) + r"(.*)", line)
+        if m:
+            got[int(m[1])] = json.loads(m[2])
+    return got
+
+
+def launched_ok(rc, out, label, ranks):
+    if rc != 0:
+        raise AssertionError(f"ddp {label}: the launch exited {rc}:\n"
+                             f"{out[-4000:]}")
+    got = rank_lines(out)
+    if sorted(got) != list(range(ranks)):
+        raise AssertionError(f"ddp {label}: results from ranks "
+                             f"{sorted(got)}, want {ranks}:\n{out[-4000:]}")
+    return got
+
+
+def ddp_nccl_lm(torch, seed):
+    """Rank 0 of an NCCL world of one: the base LM step single-device and
+    under DataParallel from one seed and one batch stream."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.parallel import DataParallel
+    from dtdl_tpu_torch.runtime import build_mesh
+    dp = DataParallel(build_mesh())
+    n = DDP_STEPS + 2 * DDP_TIMED
+    runs = {"single": train_setup(torch, seed, n, TRAIN_BATCH, TRAIN_SEQ),
+            "ddp": train_setup(torch, seed, n, TRAIN_BATCH, TRAIN_SEQ,
+                               strategy=dp)}
+
+    def run(name, k):
+        state, step, batches = runs[name]
+        losses = []
+        for _ in range(k):
+            state, metrics = step(state, next(batches))
+            losses.append(metrics["loss"])
+        return [float(x) for x in losses]
+
+    losses = {"single": run("single", DDP_STEPS)}
+    sync(torch)
+    kernels.reset_launches()
+    losses["ddp"] = run("ddp", DDP_STEPS)
+    sync(torch)
+    launches = dict(kernels.LAUNCHES)
+    single = dict(runs["single"][0].model.named_parameters())
+    ddp = dict(runs["ddp"][0].model.named_parameters())
+    differ = [k for k in single if not torch.equal(single[k], ddp[k])]
+    step_s = {"single": [], "ddp": []}
+    for name in ("single", "ddp", "ddp", "single"):
+        sync(torch)
+        t0 = time.perf_counter()
+        run(name, DDP_TIMED)
+        step_s[name].append((time.perf_counter() - t0) / DDP_TIMED)
+    grads = [p.grad for p in runs["ddp"][0].model.parameters()]
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    sync_ms = cuda_ms(torch, lambda: dp.grad_sync(grads), iters=10,
+                      warmup=2)
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    out = {"bitwise_equal": not differ and losses["single"] == losses["ddp"],
+           "differ": differ[:8], "losses": losses, "launches": launches,
+           "n_layers": runs["ddp"][0].model.cfg.n_layers,
+           "grad_bytes": grad_bytes, "grad_sync_ms": sync_ms}
+    for name, ts in step_s.items():
+        ms = 1e3 * sum(ts) / len(ts)
+        out[f"{name}_step_ms"] = ms
+        out[f"{name}_tokens_per_s"] = tokens / ms * 1e3
+    return out
+
+
+def ddp_gloo_pair(torch, seed):
+    """Each of two gloo ranks on the one card: the small LM and the MLP
+    under DataParallel on its half of each global batch; rank 0 also
+    runs the single-device steps on the global batches and compares."""
+    import numpy as np
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.bridge import flatten, state_dict_to_flax
+    from dtdl_tpu_torch.models import MLP
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel import DataParallel
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    from dtdl_tpu_torch.runtime import build_mesh, process_index
+    from dtdl_tpu_torch.train.optim import adamw, sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step, make_train_step
+    rank = process_index()
+    dp = DataParallel(build_mesh())
+    rng = np.random.default_rng(seed)
+    b, s = DDP_PAIR_BATCH, DDP_PAIR_SEQ
+    data = {"lm": [{"tokens": rng.integers(0, 8192, (b, s + 1)),
+                    "mask": (rng.random((b, s)) > 0.2).astype(np.float32)}
+                   for _ in range(DDP_STEPS)],
+            "mlp": [{"image": rng.normal(size=(64, 784)).astype(np.float32),
+                     "label": rng.integers(0, 10, 64)}
+                    for _ in range(DDP_STEPS)]}
+
+    def half(batch):
+        n = len(next(iter(batch.values()))) // 2
+        return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+    def train(kind, strategy):
+        if kind == "lm":
+            model = transformer_lm("small", max_seq=s, seed=seed,
+                                   dtype=torch.float32, device=DEV)
+            tx, make = adamw(DDP_PAIR_LR), make_lm_train_step
+        else:
+            model = MLP(device=DEV, seed=seed)
+            tx, make = sgd(0.1, momentum=0.9), make_train_step
+        state = init_state(model, None, tx, device=DEV)
+        if strategy is not None:
+            state = strategy.replicate(state)
+        step = make(strategy)
+        for batch in data[kind]:
+            state, metrics = step(state, half(batch) if strategy else batch)
+        return float(metrics["loss"]), flatten(state_dict_to_flax(model))
+
+    out = {}
+    for kind in ("lm", "mlp"):
+        kernels.reset_launches()
+        loss, got = train(kind, dp)
+        out[kind] = {"loss": loss, "digest": tree_digest(got)}
+        if kind == "lm":
+            out[kind]["launches"] = dict(kernels.LAUNCHES)
+        if rank == 0:
+            want_loss, want = train(kind, None)
+            err = {k: np.abs(got[k] - want[k]) for k in want}
+            scale = {k: np.abs(want[k]) for k in want}
+            n_el = sum(e.size for e in err.values())
+            if kind == "lm":
+                past = sum(int((e > DDP_PAIR_ATOL).sum())
+                           for e in err.values())
+                out[kind].update(
+                    past_atol=past, elements=n_el,
+                    max_err=max(float(e.max()) for e in err.values()),
+                    ok=past <= DDP_PAIR_SHARE * n_el and all(
+                        float(e.max()) <= 2 * DDP_PAIR_LR * DDP_STEPS
+                        for e in err.values()))
+            else:
+                rtol, atol = DDP_MLP_TOL
+                worst = max(float((err[k] - rtol * scale[k]).max())
+                            for k in err)
+                out[kind].update(max_err=max(float(e.max())
+                                             for e in err.values()),
+                                 ok=worst <= atol)
+            out[kind]["single_loss"] = want_loss
+    # the bucketed gloo allreduce at the base LM's gradient set (42M f32)
+    grads = [p.detach() for p in transformer_lm(
+        "base", max_seq=TRAIN_SEQ, seed=None, dtype=torch.float32,
+        device=DEV).parameters()]
+    dp.grad_sync(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dp.grad_sync(grads)
+    torch.cuda.synchronize()
+    out["gloo_base_grad_sync_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["gloo_base_grad_bytes"] = sum(g.numel() * 4 for g in grads)
+    return out
+
+
+def ddp_nccl_dup(torch, seed):
+    """Two NCCL ranks on one card: what NCCL says (recorded, not gated)."""
+    import torch.distributed as dist
+    t = torch.ones(1, device=DEV)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return {"message": f"no error: all_reduce gave {float(t)}"}
+
+
+DDP_WORKERS = {"nccl_lm": ddp_nccl_lm, "gloo_pair": ddp_gloo_pair,
+               "nccl_dup": ddp_nccl_dup}
+
+
+def ddp_worker(args) -> int:
+    """One rank of a ddp-phase world, as ``launch.local`` starts it."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from dtdl_tpu_torch.runtime import initialize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = "gloo" if args.ddp_worker == "gloo_pair" else "nccl"
+    try:
+        initialize(args.coordinator, args.num_processes, args.process_id,
+                   backend=backend, timeout_s=120)
+        result = DDP_WORKERS[args.ddp_worker](torch, args.seed)
+    except Exception as e:
+        if args.ddp_worker != "nccl_dup":
+            raise
+        result = {"message": f"{type(e).__name__}: {e}"[:1500]}
+        print("ddp_result " + json.dumps(result), flush=True)
+        os._exit(0)      # no teardown of a refused communicator
+    print("ddp_result " + json.dumps(result), flush=True)
+    return 0
+
+
+def phase_ddp(torch, seed, card):
+    """(1) NCCL world 1, the base LM: DDP step bitwise the single-device
+    step's, and their times; (2) two gloo ranks on the one card against
+    the single-device step on the global batch, and what NCCL says for
+    two ranks on one card; (3) the PyramidNet-110 DDP twin at world 1
+    (NCCL) and 2 (gloo): leader-only log and weights, digests; (4) a
+    launch in which one rank exits 3 returns 3."""
+    import shutil
+    from dtdl_tpu_torch.bridge import state_dict_to_flax
+    from dtdl_tpu_torch.ckpt import load_weights
+    from dtdl_tpu_torch.launch.local import launch_local
+    from dtdl_tpu_torch.models import pyramidnet
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    me = os.path.join(ROOT, "chip_smoke.py")
+
+    # (1)
+    rc, out, secs = launch([me, "--ddp-worker", "nccl_lm", "--seed",
+                            str(seed)], 1, 600, "nccl_lm")
+    r = launched_ok(rc, out, "nccl_lm", 1)[0]
+    want = r["n_layers"] * DDP_STEPS
+    for name, k in (("flash_fwd", 1), ("flash_bwd_dq", 1),
+                    ("flash_bwd_dkv", 1), ("rope_rows", 4)):
+        if r["launches"][name] != k * want:
+            raise AssertionError(f"ddp nccl_lm: {name} launched "
+                                 f"{r['launches'][name]} times in "
+                                 f"{DDP_STEPS} DDP steps, want {k * want}")
+    if not r["bitwise_equal"]:
+        raise AssertionError(f"ddp nccl_lm: the DDP step's parameters or "
+                             f"losses differ from the single-device "
+                             f"step's: {r['differ']} {r['losses']}")
+    log(f"ddp nccl world 1 base bf16 (f32 weights) adamw(3e-4) "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}: params after {DDP_STEPS} steps bitwise "
+        f"equal to the single-device step's: True; single step_ms="
+        f"{r['single_step_ms']:.3f} tokens_per_s="
+        f"{r['single_tokens_per_s']:.1f}; ddp step_ms={r['ddp_step_ms']:.3f}"
+        f" tokens_per_s={r['ddp_tokens_per_s']:.1f}; grad_sync ms="
+        f"{r['grad_sync_ms']:.4f} over {r['grad_bytes']} bytes; launches "
+        f"{r['launches']}; launch s={secs:.1f} | {card}")
+
+    # (2)
+    rc, out, secs = launch([me, "--ddp-worker", "gloo_pair", "--seed",
+                            str(seed)], 2, 600, "gloo_pair")
+    r = launched_ok(rc, out, "gloo_pair", 2)
+    for kind in ("lm", "mlp"):
+        if r[0][kind]["digest"] != r[1][kind]["digest"]:
+            raise AssertionError(f"ddp gloo_pair {kind}: the ranks' "
+                                 f"parameters differ")
+        if not r[0][kind]["ok"]:
+            raise AssertionError(f"ddp gloo_pair {kind}: DDP against the "
+                                 f"single-device step: {r[0][kind]}")
+    lm = r[0]["lm"]
+    if not all(lm["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                           "flash_bwd_dkv")):
+        raise AssertionError(f"ddp gloo_pair: K1-K3 not launched: "
+                             f"{lm['launches']}")
+    log(f"ddp gloo 2 ranks on one card f32: small LM {DDP_PAIR_BATCH}x"
+        f"{DDP_PAIR_SEQ + 1} adamw({DDP_PAIR_LR}) {DDP_STEPS} steps: "
+        f"{lm['past_atol']} of {lm['elements']} elements past "
+        f"{DDP_PAIR_ATOL} of the single-device step, max {lm['max_err']:.3e}"
+        f", loss {lm['loss']:.6f} vs {lm['single_loss']:.6f}; MLP sgd: "
+        f"max {r[0]['mlp']['max_err']:.3e}; digests equal across ranks; "
+        f"K1-K3 launches {lm['launches']}; gloo grad_sync of the base LM's "
+        f"{r[0]['gloo_base_grad_bytes']} bytes: "
+        f"{r[0]['gloo_base_grad_sync_ms']:.2f} ms (host clock); launch "
+        f"s={secs:.1f} | {card}")
+    rc, out, secs = launch([me, "--ddp-worker", "nccl_dup", "--seed",
+                            str(seed)], 2, 150, "nccl_dup")
+    dup = rank_lines(out)
+    log(f"ddp nccl 2 ranks on one card: launch rc={rc} in {secs:.1f}s; "
+        f"rank 0 says: {dup.get(0, {}).get('message', out[-300:])!r} | "
+        f"{card}")
+
+    # (3)
+    like = state_dict_to_flax(pyramidnet(device="cpu", seed=None))
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        outdir = os.path.join(ROOT, "build", "ddp_twin", f"world{world}")
+        shutil.rmtree(outdir, ignore_errors=True)
+        args = ["-m", "dtdl_tpu_torch.examples.distributed_data_parallel",
+                "--batch-size", str(TWIN_BATCH), "--limit-train",
+                str(TWIN_BATCH * TWIN_STEPS), "--limit-test", str(TWIN_TEST),
+                "--epochs", "1", "--log-interval", "8", "--seed", str(seed),
+                "--out", outdir, "--dataset-dir",
+                os.path.join(ROOT, "build", "ddp_twin", "datasets")]
+        if backend == "gloo":
+            args += ["--dist-backend", "gloo"]
+        label = f"twin_world{world}"
+        rc, out, secs = launch(args, world, 900, label,
+                               env={"DTDL_OFFLINE": "1"})
+        if rc != 0:
+            raise AssertionError(f"ddp {label}: exited {rc}:\n{out[-4000:]}")
+        summ = rank_lines(out, "ddp_summary ")
+        if sorted(summ) != list(range(world)):
+            raise AssertionError(f"ddp {label}: summaries from {sorted(summ)}")
+        for key in ("params_digest", "batch_stats_digest"):
+            if len({x[key] for x in summ.values()}) != 1:
+                raise AssertionError(f"ddp {label}: {key} differs across "
+                                     f"ranks: {summ}")
+        files = sorted(os.listdir(outdir))
+        if files != ["final.pt", "final.pt.manifest.json", "log.jsonl"]:
+            raise AssertionError(f"ddp {label}: the run wrote {files}")
+        rows = [json.loads(x) for x in open(os.path.join(outdir,
+                                                         "log.jsonl"))]
+        val = [x for x in rows if x.get("split") == "val"]
+        if len(val) != 1 or "[p1]" in out:
+            raise AssertionError(f"ddp {label}: log rows {len(rows)}, val "
+                                 f"rows {len(val)}, a rank other than the "
+                                 f"leader reported: {'[p1]' in out}")
+        back = load_weights(os.path.join(outdir, "final.pt"), like)
+        if tree_digest(back) != summ[0]["params_digest"]:
+            raise AssertionError(f"ddp {label}: the saved weights' digest "
+                                 f"differs from the ranks'")
+        s0 = summ[0]
+        # after the first window (the first step's warm-up): the loop's
+        # per-step time at each later log boundary
+        later = [x["batch_time"] for x in rows if x.get("step", 0) > 0
+                 and "batch_time" in x]
+        steady = TWIN_BATCH * len(later) / sum(later) if later else math.nan
+        log(f"ddp twin pyramidnet-110 bf16 world {world} ({backend}) global "
+            f"batch {TWIN_BATCH}: steps={s0['steps']} samples_per_s="
+            f"{s0['samples_per_s']:.2f} (epoch, first step included; after "
+            f"it {steady:.2f}) train_s={s0['train_s']:.3f} "
+            f"val_accuracy={val[0]['val_accuracy']:.4f} over {TWIN_TEST} "
+            f"images; log rows {len(rows)} by the leader, weights "
+            f"{os.path.getsize(os.path.join(outdir, 'final.pt'))} bytes load "
+            f"back to every rank's digest; BN statistics equal across ranks;"
+            f" launch s={secs:.1f} | {card}")
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    # (4) launch_local in this process: the time is the two children's
+    # start, rank 1's exit and rank 0's termination, not the launcher's
+    # own interpreter start
+    code = ("import sys, time\nif sys.argv[-1] == '1':\n    sys.exit(3)\n"
+            "time.sleep(300)\n")
+    t0 = time.perf_counter()
+    rc = launch_local(["-c", code], nproc=2, port=free_port(), timeout=120)
+    secs = time.perf_counter() - t0
+    if rc != 3 or secs > FAILFAST_BOUND_S:
+        raise AssertionError(f"ddp fail-fast: rc {rc} after {secs:.1f}s, "
+                             f"want 3 within {FAILFAST_BOUND_S}s")
+    log(f"ddp fail-fast: rank 1 exits 3 while rank 0 sleeps, launch_local "
+        f"returned {rc} in {secs:.3f}s (bound {FAILFAST_BOUND_S}s) | {card}")
+    log(f"ddp phase: {time.perf_counter() - t_phase:.1f}s")
+
+
 def phase_profile(torch, seed):
     """Where a serving run's time goes: host seconds inside prefill,
     decode dispatch and the harvest wait (wrapped timers), and device
@@ -2700,7 +3111,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    # one rank of the ddp phase's worlds, as launch.local starts it
+    for name, kind in (("--ddp-worker", str), ("--coordinator", str),
+                       ("--num-processes", int), ("--process-id", int)):
+        ap.add_argument(name, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ddp_worker:
+        return ddp_worker(args)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - {"profile"}
     if unknown:
@@ -2792,6 +3209,8 @@ def main(argv=None) -> int:
         phase_classify(torch, args.seed)
     if "classifycheck" in phases:
         phase_classifycheck(torch, args.seed)
+    if "ddp" in phases:
+        phase_ddp(torch, args.seed, card)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)

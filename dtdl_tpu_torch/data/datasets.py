@@ -8,11 +8,13 @@ under ``root/mnist``; CIFAR-10 from the python pickle batches under
 ``root``; and, when the files are absent, the JAX package's loud
 deterministic synthetic fallback (the same arrays, the same warning).
 
-The JAX ``load_cifar10(download=True)`` fetches the archive when the
-batches are missing, the leader alone, the other processes waiting at a
-barrier.  That needs the network and ROADMAP queue A9's leader barrier,
-so here it raises by name; with ``download=False`` or ``DTDL_OFFLINE``
-set the missing batches mean the synthetic fallback, as in JAX.
+``load_cifar10(download=True)`` fetches the archive when the batches are
+missing, as the JAX one does: the leader alone downloads (MD5-checked,
+atomic extraction), the other processes wait at a barrier, and a process
+that still sees no batches after it (a disk of its own) retries under an
+exclusive lock file.  Only if that fails too, or with ``download=False``
+or ``DTDL_OFFLINE`` set, do the missing batches mean the loud synthetic
+fallback.
 """
 
 from __future__ import annotations
@@ -89,6 +91,160 @@ def load_mnist(root: str = "./datasets", flatten: bool = False):
     return prep(*train), prep(*test)
 
 
+CIFAR10_URL = "https://www.cs.toronto.edu/~kriz/cifar-10-python.tar.gz"
+CIFAR10_MD5 = "c58f30108f718f92721af3b95e74349a"  # torchvision's tgz_md5
+
+
+def download_cifar10(root: str, url: str | None = None,
+                     md5: str | None = None) -> str:
+    """Fetch, checksum-verify, and extract the CIFAR-10 python batches.
+
+    Parity with the reference's ``CIFAR10(root, download=True)``
+    (reference pytorch/single_gpu.py:57,
+    pytorch/distributed_data_parallel.py:85): idempotent (skips the fetch
+    when the verified archive is already present), MD5-checked with the
+    same constant torchvision pins, atomic (.part rename).  Returns the
+    extracted ``cifar-10-batches-py`` directory.
+    """
+    import hashlib
+    import shutil
+    import tarfile
+    import urllib.request
+
+    url = url or CIFAR10_URL
+    md5 = md5 or CIFAR10_MD5
+    os.makedirs(root, exist_ok=True)
+    tgz = os.path.join(root, "cifar-10-python.tar.gz")
+    if not os.path.exists(tgz):
+        log.info("downloading CIFAR-10 from %s to %s", url, tgz)
+        tmp = tgz + ".part"
+        with urllib.request.urlopen(url, timeout=120) as r, \
+                open(tmp, "wb") as f:
+            shutil.copyfileobj(r, f)
+        os.replace(tmp, tgz)
+    h = hashlib.md5()
+    with open(tgz, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    if h.hexdigest() != md5:
+        os.remove(tgz)
+        raise IOError(f"CIFAR-10 archive checksum mismatch: got "
+                      f"{h.hexdigest()}, want {md5} — corrupt download "
+                      f"removed, retry")
+    # atomic extraction: unpack into a scratch dir, verify every batch
+    # file, then one os.replace — an interrupted run can never leave a
+    # half-extracted cifar-10-batches-py that later loads partially
+    scratch = tgz + ".extract"
+    shutil.rmtree(scratch, ignore_errors=True)
+    with tarfile.open(tgz, "r:gz") as tf:
+        tf.extractall(scratch, filter="data")
+    src = os.path.join(scratch, "cifar-10-batches-py")
+    missing = [n for n in _CIFAR_BATCHES
+               if not os.path.exists(os.path.join(src, n))]
+    if missing:
+        shutil.rmtree(scratch, ignore_errors=True)
+        raise IOError(f"archive extracted but missing {missing}")
+    out = os.path.join(root, "cifar-10-batches-py")
+    shutil.rmtree(out, ignore_errors=True)   # replace any partial leftover
+    os.replace(src, out)
+    shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
+def _download_locked(root: str, heartbeat: float = 15.0,
+                     stale_after: float = 120.0) -> None:
+    """download_cifar10 guarded by an exclusive lockfile: the winner
+    fetches, everyone else sharing this filesystem polls for the result.
+
+    **Liveness, not a wall clock**: the winner touches the lock's mtime
+    every ``heartbeat`` seconds from a daemon thread, and pollers wait for
+    as long as they keep *observing the mtime change* (judged against a
+    local monotonic clock, so cross-host clock skew and NFS attribute-cache
+    lag cannot make a live lock look stale) — a live download can
+    legitimately run for hours and every rank still converges on the same
+    real dataset (no poller ever gives up on a live winner and silently
+    trains on synthetic data while the winner trains on real CIFAR-10).
+    Only a lock whose heartbeat has stopped for ``stale_after`` of local
+    observation (a hard-killed owner) is reaped.  Every poller exit —
+    winner finished, lock reaped here or by a peer — loops back into
+    acquisition, where the already-downloaded check under the lock decides
+    whether any work remains: a transiently-vanished lock can never strand
+    one rank on the synthetic fallback while its peers get real data.
+    Reap removal goes through rename-then-unlink, which narrows (but does
+    not close) the check-to-remove race against a fresh lock re-created at
+    the same path; the fallout of losing that race is a duplicate download
+    attempt, and the checksum + atomic extract keep the result correct.
+    """
+    import threading
+    import time
+    os.makedirs(root, exist_ok=True)
+    lock = os.path.join(root, ".cifar10.download.lock")
+
+    def _reap():
+        try:
+            victim = f"{lock}.stale.{os.getpid()}.{time.time_ns()}"
+            os.rename(lock, victim)   # narrows (not closes) the race
+            os.unlink(victim)
+            log.warning("removed stale dataset download lock %s", lock)
+        except OSError:
+            pass   # already gone / lost the rename race
+
+    while True:
+        try:
+            fd = os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            break   # winner
+        except FileExistsError:
+            pass
+        # Loser: poll while the winner's heartbeat keeps the lock's mtime
+        # *changing*.  Staleness is judged by locally-observed mtime change
+        # against a local monotonic clock — never by (now - mtime), which
+        # compares this host's wall clock against an mtime stamped by the
+        # winner's host (cross-host clock skew or NFS attribute-cache lag
+        # would reap a live lock).  The cost: an orphan lock takes
+        # ``stale_after`` of observation before it is reaped.
+        last_mtime = None
+        last_change = time.monotonic()
+        stale = False
+        while True:
+            try:
+                m = os.path.getmtime(lock)
+            except OSError:
+                break   # lock vanished: winner finished OR another poller
+                        # reaped it — re-enter acquisition; a finished
+                        # download is caught under the lock (dir re-scan)
+            if m != last_mtime:
+                last_mtime, last_change = m, time.monotonic()
+            elif time.monotonic() - last_change > stale_after:
+                stale = True
+                break   # heartbeat stopped: hard-killed owner
+            time.sleep(1.0)
+        if stale:
+            _reap()
+        continue    # retry acquisition; the dataset check below decides
+                    # whether any downloading is actually left to do
+    stop = threading.Event()
+
+    def _beat():
+        while not stop.wait(heartbeat):
+            try:
+                os.utime(lock)
+            except OSError:
+                return
+    beater = threading.Thread(target=_beat, daemon=True)
+    beater.start()
+    try:
+        os.close(fd)
+        if _find_cifar10_dir(root) is None:
+            download_cifar10(root)
+    finally:
+        stop.set()
+        beater.join()
+        try:
+            os.unlink(lock)
+        except OSError:
+            pass
+
+
 def _find_cifar10_dir(root: str) -> str | None:
     """A directory counts only when every batch file is in it."""
     for cand in ("cifar-10-batches-py", "cifar10", "."):
@@ -100,20 +256,42 @@ def _find_cifar10_dir(root: str) -> str | None:
 
 def load_cifar10(root: str = "./datasets", download: bool = True):
     """CIFAR-10 from the python pickle batches under ``root`` (or its
-    ``cifar-10-batches-py``/``cifar10`` directory); the synthetic
-    fallback, loudly, when they are missing and ``download`` is off or
-    ``DTDL_OFFLINE`` is set.  Missing batches with ``download`` on raise
-    :class:`NotImplementedError`: fetching them is ROADMAP queue A9."""
+    ``cifar-10-batches-py``/``cifar10`` directory).
+
+    When the batches are missing and ``download=True``, they are fetched
+    and checksum-verified first — **leader-gated**: in a multi-process
+    world only process 0 downloads and extracts, everyone else waits at a
+    barrier and re-scans, so ranks sharing a dataset root never race on
+    the archive.  A process that still finds no batches (the leader's
+    download landed on another filesystem, or failed) retries into its
+    own root under :func:`_download_locked`.  Only if that fails too
+    (e.g. no network egress) does the LOUD deterministic synthetic
+    fallback engage; ``download=False`` or ``DTDL_OFFLINE`` go to it
+    directly.
+    """
+    from dtdl_tpu_torch.runtime.bootstrap import barrier, is_leader
+
     if os.environ.get("DTDL_OFFLINE"):
         download = False     # CI / air-gapped: never touch the network
     cdir = _find_cifar10_dir(root)
-    if cdir is None and download:
-        raise NotImplementedError(
-            f"CIFAR-10 batches not found under {root!r}, and fetching them "
-            f"(download=True) needs the network and the leader barrier of "
-            f"ROADMAP queue A9 (distributed); place the extracted "
-            f"cifar-10-batches-py under the root, or pass download=False "
-            f"(or set DTDL_OFFLINE) for the synthetic stand-in")
+    if download:
+        # every process takes this path (the barrier is collective even
+        # for ranks that already see the extracted directory)
+        if cdir is None and is_leader():
+            try:
+                download_cifar10(root)
+            except Exception as e:  # no egress / bad mirror: loud fallback
+                log.error("CIFAR-10 download failed (%s: %s)",
+                          type(e).__name__, e)
+        barrier("cifar10_download")
+        cdir = _find_cifar10_dir(root)
+        if cdir is None:
+            try:
+                _download_locked(root)
+            except Exception as e:
+                log.error("CIFAR-10 local download failed (%s: %s)",
+                          type(e).__name__, e)
+            cdir = _find_cifar10_dir(root)
     if cdir is None:
         log.warning(
             "=== SYNTHETIC DATA IN USE === CIFAR-10 not found under %s and "

@@ -19,6 +19,7 @@ Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -87,14 +88,23 @@ def source_digest() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile and link the library unless an up-to-date one exists;
     returns its path.  ``verbose`` adds ``-Xptxas -v`` (register and
-    spill counts) and forces a rebuild, so :data:`BUILD_LOG` holds it."""
+    spill counts) and forces a rebuild, so :data:`BUILD_LOG` holds it.
+    Processes that build at once (the ranks of a data-parallel world)
+    take turns on a lock file in the build directory: the first builds,
+    the others find its library up to date."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
+        return _build_locked(verbose)
+
+
+def _build_locked(verbose: bool) -> Path:
     digest = source_digest()
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest \
             and not verbose:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     extra = ("-Xptxas", "-v") if verbose else ()
     jobs = []

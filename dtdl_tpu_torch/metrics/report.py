@@ -16,6 +16,8 @@ import json
 import os
 import time
 
+from dtdl_tpu_torch.runtime.bootstrap import is_leader
+
 
 class Accumulator:
     """Running means of scalar metrics over an epoch (Chainer-report style)."""
@@ -109,10 +111,9 @@ class TensorBoardSink(_SinkContext):
 
 class Reporter:
     """Fan-out of metric payloads to sinks (a :class:`StdoutSink` by
-    default).  A context manager: every sink is closed on exit,
-    exceptions included.  ``leader_only`` is the JAX reporter's gate; with
-    one process this process is the leader, so every payload is
-    written."""
+    default); silent on processes other than the leader unless
+    ``leader_only=False``.  A context manager: every sink is closed on
+    exit, exceptions included."""
 
     def __init__(self, sinks=None, leader_only: bool = True):
         self.sinks = list(sinks) if sinks is not None else [StdoutSink()]
@@ -125,7 +126,13 @@ class Reporter:
         self.close()
         return False
 
+    @property
+    def active(self) -> bool:
+        return not self.leader_only or is_leader()
+
     def report(self, payload: dict) -> None:
+        if not self.active:
+            return
         clean = {k: (float(v) if hasattr(v, "item") else v)
                  for k, v in payload.items()}
         for sink in self.sinks:

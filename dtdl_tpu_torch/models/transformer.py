@@ -822,11 +822,17 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
     softmax(logits / temperature) with ``generator`` (a
     ``torch.Generator`` on the model's device).  Everything runs on the
     model's device.  Returns int32 [B, S0 + max_new_tokens] there.
-    ``strategy`` (data-parallel decoding) is ROADMAP queue A9."""
-    if strategy is not None:
-        raise NotImplementedError(
-            "generate(strategy=...) (data-parallel decoding) is ROADMAP "
-            "queue A9 (distributed)")
+
+    ``strategy`` (a :class:`~dtdl_tpu_torch.parallel.DataParallel`)
+    decodes data-parallel, as the JAX ``generate`` does: every process
+    passes the same full ``prompt``, decodes its stripe of the rows
+    (B must divide by the replicas) with its own cache, and each step's
+    logits are gathered to the full batch before the pick, so greedy and
+    sampled tokens are those of ``strategy=None`` (the same draws from
+    the same ``generator`` on every process).  Every process returns the
+    full batch."""
+    from dtdl_tpu_torch.parallel.strategy import check_strategy
+    strategy = check_strategy(strategy)
     dev = model.device
     if isinstance(prompt, torch.Tensor):
         prompt = prompt.to(dev, torch.int64)
@@ -843,20 +849,32 @@ def generate(model: TransformerLM, prompt, max_new_tokens: int,
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")
 
+    n = strategy.num_replicas
+    if b % n:
+        raise ValueError(f"{b} prompt rows do not divide over {n} replicas")
+    if n > 1:
+        from dtdl_tpu_torch.parallel import collectives
+        lo = collectives.axis_index(strategy.mesh) * (b // n)
+        rows = slice(lo, lo + b // n)
+        gather = lambda x: collectives.all_gather_batch(x, strategy.mesh)  # noqa: E731
+    else:
+        rows, gather = slice(0, b), (lambda x: x)
+
     def pick(logits):
+        logits = gather(logits)          # [B, vocab] on every replica
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
         return torch.multinomial(torch.softmax(logits / temperature, -1), 1,
                                  generator=generator)[:, 0]
 
-    cache = model.init_cache(b)
+    cache = model.init_cache(b // n)
     # only the last position's logits are sampled: the [B, S0, vocab]
     # logits of the prompt never materialize
-    hidden = model(prompt, cache=cache, return_hidden=True)
+    hidden = model(prompt[rows], cache=cache, return_hidden=True)
     tok = pick(model.head(hidden[:, -1]))
     out = [prompt, tok[:, None]]
     for _ in range(max_new_tokens - 1):
-        tok = pick(model(tok[:, None], cache=cache)[:, -1])
+        tok = pick(model(tok[rows, None], cache=cache)[:, -1])
         out.append(tok[:, None])
     return torch.cat(out, dim=1).to(torch.int32)
 

@@ -1,8 +1,10 @@
 """Analytic model FLOPs and the card's peak: the numerator and the
 denominator of a training run's MFU.  The port's copy of the LM part of
 dtdl_tpu/obs/goodput.py (``lm_forward_flops``, ``lm_train_flops``, MoE
-layers at their activated experts) and a
-``peak_flops_per_chip`` keyed on the CUDA device's name.
+layers at their activated experts), a ``peak_flops_per_chip`` keyed on
+the CUDA device's name, and ``window_fields``, the per-window row fields
+of the JAX ``GoodputMeter`` (the meter itself, with the Observer, is
+ROADMAP queue A13).
 
 The convention is the JAX package's: matmul-only model FLOPs, causal
 attention counted at the computed half, the backward at twice the
@@ -52,3 +54,27 @@ def lm_train_flops(cfg, batch: int, seq: int) -> float:
     ``seq - 1`` predicted positions, times 3 (backward at twice the
     forward)."""
     return 3.0 * lm_forward_flops(cfg, batch, seq - 1)
+
+
+def window_fields(steps: int, seconds: float, *,
+                  flops_per_step: Optional[float] = None,
+                  tokens_per_step: Optional[float] = None,
+                  samples_per_step: Optional[float] = None,
+                  peak_flops: Optional[float] = None) -> dict:
+    """The JAX ``GoodputMeter``'s fields for one settled window of
+    ``steps`` steps in ``seconds`` (same names, same rounding; empty if
+    degenerate): steps_per_sec, tokens_per_sec, samples_per_sec,
+    achieved_tflops and, with ``peak_flops``, mfu."""
+    if steps <= 0 or seconds <= 0:
+        return {}
+    out = {"steps_per_sec": round(steps / seconds, 3)}
+    if tokens_per_step:
+        out["tokens_per_sec"] = round(tokens_per_step * steps / seconds, 1)
+    if samples_per_step:
+        out["samples_per_sec"] = round(samples_per_step * steps / seconds, 2)
+    if flops_per_step:
+        achieved = flops_per_step * steps / seconds
+        out["achieved_tflops"] = round(achieved / 1e12, 4)
+        if peak_flops:
+            out["mfu"] = round(achieved / peak_flops, 4)
+    return out

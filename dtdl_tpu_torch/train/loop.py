@@ -11,10 +11,16 @@ boundaries the host only enqueues the next step.  ``sync_every_step=True``
 is the blocking loop (exact per-step times, one stall a step); the values
 are the same either way.
 
+Under a strategy each batch goes through ``strategy.shard_batch``, and
+``evaluate``'s sums are sum-synced over the replicas: each process pads
+its own ragged tail with mask 0, and a process with fewer batches than
+another runs all-masked ones, so the world's counts cover every example
+of every process's loader exactly once.
+
 Not ported yet, and refused by name: ``unroll > 1`` (JAX runs k steps as
 one ``lax.scan`` program; in PyTorch that meaning comes with CUDA-graph
 capture, ROADMAP queue A5), ``profile_dir``, ``observer`` and ``guard``
-(queue A13), and a ``strategy`` (queue A9).
+(queue A13).
 """
 
 from __future__ import annotations
@@ -26,15 +32,12 @@ import torch
 
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import Accumulator, Reporter
+from dtdl_tpu_torch.parallel.strategy import check_strategy
 from dtdl_tpu_torch.utils.timing import StepTimer
 
 
-def _refuse(strategy=None, unroll: int = 1, profile_dir=None,
-            observer=None, guard=None) -> None:
-    if strategy is not None:
-        raise NotImplementedError(
-            f"strategy {strategy!r}: sharded batches are ROADMAP queue A9 "
-            f"(distributed); the loop runs the single-device steps")
+def _refuse(unroll: int = 1, profile_dir=None, observer=None,
+            guard=None) -> None:
     if unroll > 1:
         raise NotImplementedError(
             "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
@@ -75,13 +78,14 @@ def train_epoch(train_step, state, loader, strategy=None,
     avg_batch_time}, the JAX payloads."""
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
-    _refuse(strategy, unroll, profile_dir, observer, guard)
+    strategy = check_strategy(strategy)
+    _refuse(unroll, profile_dir, observer, guard)
     timer = timer or StepTimer(blocking=sync_every_step)
     timer.reset_epoch()
     acc = Accumulator()
     loader.set_epoch(epoch)
     steps_per_epoch = len(loader)
-    it = _prefetch(iter(loader), prefetch)
+    it = _prefetch(map(strategy.shard_batch, loader), prefetch)
 
     if sync_every_step:
         for i, batch in enumerate(it):
@@ -171,8 +175,13 @@ def evaluate(eval_step, state, loader, strategy=None,
     rows, so every real example counts exactly once.  Batches dispatch
     back to back; per-batch sums convert on the queue's backpressure
     (``lag`` batches behind) and at the final drain, summed in batch
-    order.  Reports {epoch, split: "val", val_loss, val_accuracy}."""
-    _refuse(strategy, observer=observer)
+    order.  Reports {epoch, split: "val", val_loss, val_accuracy}.
+
+    Under a strategy every process runs as many eval steps as the one
+    with the most batches (``max_sync``); the extra ones repeat the last
+    batch with mask 0, so the sum-synced counts stay exact."""
+    strategy = check_strategy(strategy)
+    _refuse(observer=observer)
     target = loader.batch_size
     queue = MetricsQueue(lag)
     sums = {"loss_sum": 0.0, "correct_sum": 0.0, "count": 0.0}
@@ -182,8 +191,19 @@ def evaluate(eval_step, state, loader, strategy=None,
             for k in sums:
                 sums[k] += vals[k]
 
-    for batch in _prefetch(iter(loader), prefetch):
-        absorb(queue.push(eval_step(state, _pad_and_mask(batch, target))))
+    def batches():
+        last = None
+        for batch in loader:
+            last = _pad_and_mask(batch, target)
+            yield last
+        for _ in range(extra):
+            yield {**last, "mask": last["mask"] * 0}
+
+    # one replica needs no agreement (and its loader may have no len)
+    extra = (strategy.max_sync(len(loader)) - len(loader)
+             if strategy.num_replicas > 1 else 0)
+    for batch in _prefetch(map(strategy.shard_batch, batches()), prefetch):
+        absorb(queue.push(eval_step(state, batch)))
     absorb(queue.drain())
     if sums["count"] == 0:
         return {"loss": float("nan"), "accuracy": float("nan")}

@@ -1,7 +1,8 @@
-"""The train, eval and predict steps, the port of dtdl_tpu/train/step.py
-for one device: the classifier steps (``make_train_step``,
-``make_eval_step``, ``make_predict_step``) and the LM step
-(``make_lm_train_step``).
+"""The train, eval and predict steps, the port of dtdl_tpu/train/step.py:
+the classifier steps (``make_train_step``, ``make_eval_step``,
+``make_predict_step``) and the LM step (``make_lm_train_step``), each
+under a strategy (:mod:`dtdl_tpu_torch.parallel.strategy`; ``None`` is
+:class:`SingleDevice`).
 
 One train call is forward, loss, backward (flash attention's backward
 runs kernels K2 and K3 on the card) and the optimizer update, eagerly.
@@ -15,8 +16,12 @@ step puts the model in train mode (BatchNorm normalizes by the batch and
 updates its statistics); the eval and predict steps put it in eval mode
 (the stored statistics) and restore its mode after.
 
-Only the single-device steps are ported: another ``strategy`` is ROADMAP
-queue A9 (distributed), ``guard`` is A13 (operations).
+Under :class:`DataParallel` each process runs the step on its own rows,
+with the JAX step's semantics: the gradients are the mean of the
+per-replica gradients (``grad_sync``, before the update); BatchNorm
+normalizes by the replica's own rows and its new running statistics are
+mean-synced (``stats_sync``); train metrics are mean-synced, eval sums
+sum-synced.  ``guard`` is ROADMAP queue A13 (operations).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from typing import Callable
 
 import torch
 
+from dtdl_tpu_torch.bridge import batch_stats_view, flatten
 from dtdl_tpu_torch.device import upload
 from dtdl_tpu_torch.ops.cross_entropy import (accuracy, chunked_lm_loss,
                                               softmax_cross_entropy)
+from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
 from dtdl_tpu_torch.train.state import TrainState
 
 
@@ -39,16 +46,28 @@ def _on(x, device, dtype=None):
     return upload(x, device, dtype)
 
 
-def _single_device(strategy, guard=None) -> None:
-    if strategy is not None:
-        raise NotImplementedError(
-            f"strategy {strategy!r}: data/tensor-parallel training steps are "
-            f"ROADMAP queue A9 (distributed); only the single-device step "
-            f"is ported")
+def _strategy(strategy, guard=None) -> Strategy:
     if guard is not None:
         raise NotImplementedError(
             "the step guard (resil StepGuard) is ROADMAP queue A13 "
             "(operations)")
+    return check_strategy(strategy)
+
+
+def _grads(model) -> list:
+    """The gradients of every trainable parameter, which every replica
+    must hold for the bucketed allreduce to line up."""
+    grads = [p.grad for p in model.parameters() if p.requires_grad]
+    if any(g is None for g in grads):
+        raise RuntimeError("a trainable parameter got no gradient; every "
+                           "replica must hold one for each to sync them")
+    return grads
+
+
+def _stats(model) -> list:
+    """A classifier's BatchNorm running statistics (its live buffers)."""
+    view = batch_stats_view(model)
+    return list(flatten(view).values()) if view else []
 
 
 @contextmanager
@@ -74,7 +93,7 @@ def make_train_step(strategy=None,
     device tensors.  ``seed`` feeds dropout in the JAX step, and no
     classifier has dropout."""
     del seed
-    _single_device(strategy, guard)
+    strategy = _strategy(strategy, guard)
 
     def step(state: TrainState, batch):
         model = state.model
@@ -86,10 +105,16 @@ def make_train_step(strategy=None,
         logits = model(images)
         loss = loss_fn(logits, labels)
         loss.backward()
+        if strategy.mesh is not None:        # SingleDevice: nothing to sync
+            strategy.grad_sync(_grads(model))
+            with torch.no_grad():
+                strategy.stats_sync(_stats(model))
         state.apply_gradients()
         with torch.no_grad():
             acc = accuracy(logits, labels)
-        return state, {"loss": loss.detach(), "accuracy": acc}
+            metrics = strategy.metric_sync({"loss": loss.detach(),
+                                            "accuracy": acc})
+        return state, metrics
 
     return step
 
@@ -100,8 +125,9 @@ def make_eval_step(strategy=None,
     stored BatchNorm statistics), and **sums** {'loss_sum',
     'correct_sum', 'count'} as 0-d device tensors over the rows with
     ``batch["mask"]`` 1 (all rows without a mask), so a padded ragged
-    tail counts each real example once."""
-    _single_device(strategy)
+    tail counts each real example once.  Under :class:`DataParallel` the
+    sums are sum-synced over the replicas."""
+    strategy = _strategy(strategy)
 
     def evaluate(state: TrainState, batch):
         model = state.model
@@ -114,17 +140,19 @@ def make_eval_step(strategy=None,
             logits = model(_on(batch["image"], dev))
             losses = loss_fn(logits, labels, reduction="none")
             correct = (logits.argmax(-1) == labels).float()
-            return {"loss_sum": (losses * mask).sum(),
-                    "correct_sum": (correct * mask).sum(),
-                    "count": mask.sum()}
+            return strategy.sum_sync({"loss_sum": (losses * mask).sum(),
+                                      "correct_sum": (correct * mask).sum(),
+                                      "count": mask.sum()})
 
     return evaluate
 
 
 def make_predict_step(strategy=None, probabilities: bool = False):
     """Predict step ``(state, batch) -> logits`` (f32, on the device), or
-    their softmax with ``probabilities=True``; eval mode."""
-    _single_device(strategy)
+    their softmax with ``probabilities=True``; eval mode.  Under
+    :class:`DataParallel` each process predicts its own rows (the JAX
+    outputs stay sharded on the data axis, aligned with the batch)."""
+    _strategy(strategy)
 
     def predict(state: TrainState, batch):
         model = state.model
@@ -143,8 +171,11 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     ``batch``: {'tokens': int [B, S]} and optionally 'mask' f32 [B, S-1]
     over the *target* positions (numpy arrays or tensors; they are put on
     the model's device).  Next-token cross entropy with shift over f32
-    logits, scaled by 1 / max(mask.sum(), 1); metrics {'loss',
-    'accuracy'} as 0-d device tensors.  ``vocab_chunk_size > 0`` takes
+    logits, scaled by ``num_replicas / max(sum_sync(mask.sum()), 1)``:
+    the global token count, so the mean of the per-replica gradients is
+    the global token mean under a ragged mask (one replica:
+    1 / max(mask.sum(), 1)); metrics {'loss', 'accuracy'} as 0-d device
+    tensors, mean-synced.  ``vocab_chunk_size > 0`` takes
     the head through :func:`chunked_lm_loss` on the final hidden states
     and the tied embedding, so the [B, S, V] logits never exist.
 
@@ -156,7 +187,7 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     ``seed`` feeds dropout in the JAX step, and the LM has no dropout.
     """
     del seed
-    _single_device(strategy, guard)
+    strategy = _strategy(strategy, guard)
 
     def step(state: TrainState, batch):
         model = state.model
@@ -166,7 +197,8 @@ def make_lm_train_step(strategy=None, seed: int = 0,
         mask = batch.get("mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32, device=dev)
                 if mask is None else _on(mask, dev, torch.float32))
-        scale = 1.0 / mask.sum().clamp(min=1.0)
+        total = strategy.sum_sync(mask.sum())
+        scale = strategy.num_replicas / total.clamp(min=1.0)
 
         state.optimizer.zero_grad(set_to_none=True)
         if vocab_chunk_size:
@@ -191,7 +223,12 @@ def make_lm_train_step(strategy=None, seed: int = 0,
             loss = loss + moe_aux_weight * aux
             metrics["moe_aux_loss"] = aux.detach()
         loss.backward()
+        if strategy.mesh is not None:
+            strategy.grad_sync(_grads(model))
         state.apply_gradients()
-        return state, {"loss": loss.detach(), "accuracy": acc, **metrics}
+        with torch.no_grad():
+            metrics = strategy.metric_sync(
+                {"loss": loss.detach(), "accuracy": acc, **metrics})
+        return state, metrics
 
     return step

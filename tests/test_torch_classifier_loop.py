@@ -34,6 +34,9 @@ from dtdl_tpu_torch.data import loader as tloader
 from dtdl_tpu_torch.data.datasets import CIFAR10_MEAN, CIFAR10_STD
 from dtdl_tpu_torch.data.loader import DataLoader, LimitBatches
 from dtdl_tpu_torch.data.synthetic import synthetic_cifar10
+from dtdl_tpu_torch.parallel import DataParallel
+from dtdl_tpu_torch.parallel import SingleDevice as TorchSingleDevice
+from dtdl_tpu_torch.runtime import local_mesh
 from dtdl_tpu_torch.metrics.report import (Accumulator, JsonlSink, Reporter,
                                            StdoutSink, TensorBoardSink)
 from dtdl_tpu_torch.train.loop import evaluate, train_epoch
@@ -169,16 +172,24 @@ def test_refusals_name_their_roadmap_items():
     step = make_train_step()
     for kw, label in ((dict(unroll=2), "A5"), (dict(profile_dir="p"), "A13"),
                       (dict(observer=object()), "A13"),
-                      (dict(guard=object()), "A13"),
-                      (dict(strategy=SingleDevice()), "A9")):
+                      (dict(guard=object()), "A13")):
         with pytest.raises(NotImplementedError, match=label):
             train_epoch(step, tstate, train, **kw)
+    # the port's own strategies are accepted; a JAX strategy object is not
+    # one of them
+    train_epoch(step, tstate, train, strategy=TorchSingleDevice())
+    evaluate(make_eval_step(DataParallel(local_mesh())), tstate, train,
+             strategy=DataParallel(local_mesh()))
+    with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
+        train_epoch(step, tstate, train, strategy=SingleDevice())
     with pytest.raises(ValueError, match="unroll"):
         train_epoch(step, tstate, train, unroll=0)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         evaluate(make_eval_step(), tstate, train, strategy=SingleDevice())
     for make in (make_train_step, make_eval_step, make_predict_step):
-        with pytest.raises(NotImplementedError, match="A9"):
+        make(TorchSingleDevice())
+        make(DataParallel(local_mesh()))
+        with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
             make(SingleDevice())
     with pytest.raises(NotImplementedError, match="A13"):
         make_train_step(guard=object())

@@ -26,6 +26,7 @@ from dtdl_tpu.data import idx as jidx
 from dtdl_tpu.data import loader as jloader
 from dtdl_tpu.data import synthetic as jsynthetic
 from dtdl_tpu_torch.data import datasets, idx, loader, synthetic
+from test_data import _make_cifar_fixture
 
 torch.set_num_threads(1)
 
@@ -212,13 +213,20 @@ def test_offline_fallback_matches_jax(tmp_path, small_fallback, caplog):
 
 
 def test_download_is_refused_by_name(tmp_path, monkeypatch, small_fallback):
+    """The download is ported now: ``download=True`` (the default) fetches
+    the archive, here from a ``file://`` URL (never the network), and
+    reads the same arrays as the JAX package reads from what it wrote."""
+    tgz, md5 = _make_cifar_fixture(tmp_path)
     monkeypatch.delenv("DTDL_OFFLINE", raising=False)
-    with pytest.raises(NotImplementedError, match="A9"):
-        datasets.load_cifar10(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A9"):
-        datasets.load_dataset("cifar10", str(tmp_path), download=True)
+    monkeypatch.setattr(datasets, "CIFAR10_URL", tgz.as_uri())
+    monkeypatch.setattr(datasets, "CIFAR10_MD5", md5)
+    got = datasets.load_cifar10(str(tmp_path / "a"))
+    equal_trees(got, jdatasets.load_cifar10(str(tmp_path / "a"),
+                                            download=False))
+    equal_trees(datasets.load_dataset("cifar10", str(tmp_path / "b"),
+                                      download=True), got)
     # download=False takes the loud fallback without the environment flag
-    equal_trees(datasets.load_cifar10(str(tmp_path), download=False),
+    equal_trees(datasets.load_cifar10(str(tmp_path / "c"), download=False),
                 synthetic.synthetic_cifar10())
 
 

@@ -152,7 +152,7 @@ def test_engine_refuses_later_slices(models):
                    np.zeros((2, 2), np.int32), [2, 2], [True, True], *knobs,
                    np.zeros((2, eng.n_ptab), np.int32),
                    allowed=np.ones((2, 3, VOCAB), bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
+    with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         generate(tm, np.zeros((1, 3), np.int32), 2, strategy=object())
 
 

@@ -30,6 +30,7 @@ from dtdl_tpu_torch import bridge
 from dtdl_tpu_torch.device import NoCudaDeviceError
 from dtdl_tpu_torch.models.transformer import transformer_lm
 from dtdl_tpu_torch.obs import goodput
+from dtdl_tpu_torch.parallel import AutoSharded
 from dtdl_tpu_torch.train.optim import adam, adamw, sgd
 from dtdl_tpu_torch.train.state import init_state
 from dtdl_tpu_torch.train.step import make_lm_train_step
@@ -212,8 +213,12 @@ def test_lm_flops_match_jax():
 
 
 def test_unported_options_raise_by_name(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a strategy is the port's object, not its name; pjit-style
+    # partitioning is ROADMAP A11
+    with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         make_lm_train_step(strategy="dp")
+    with pytest.raises(NotImplementedError, match="A11"):
+        make_lm_train_step(strategy=AutoSharded())
     with pytest.raises(NotImplementedError, match="A13"):
         make_lm_train_step(guard=object())
     tm = transformer_lm("tiny", device="cpu", dtype=torch.float32)
