@@ -119,6 +119,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                weights, the weights loading back to every rank's digest,
                BatchNorm statistics equal across ranks, samples/s; (4) a
                launch in which one rank exits 3 returns 3 within 20 s;
+7g. resume   - snapshot and resume through the Trainer: (a) the train
+               phase's base LM recipe (8 x 4096, bf16, adamw) uninterrupted
+               to 8 iterations against a run that snapshots at 3 and stops
+               at 5, then a fresh Trainer and Checkpointer that resume
+               mid-epoch (12 batches an epoch) and run to 8: params, Adam
+               moments, step and LogReport records bitwise equal, K1, K2,
+               K3 once per layer and step in every run; (c) on the resumed
+               state, save() and at once a step: the restored snapshot is
+               bitwise the pre-step state; snapshot bytes, save() ms until
+               it returns, seconds until durable and committed, restore
+               seconds, the step overlapping the write against steps
+               without; (b) PyramidNet-110 bf16 at batch 64 with SGD +
+               momentum + StepLR the same at 6/3/4 iterations, bitwise
+               under cuDNN's deterministic algorithms (set for that check
+               only); (d) the mnist_single twin (2 epochs, load_latest,
+               evaluate) and the train_mnist twin (2 epochs, then --resume
+               of its snapshot) as subprocesses;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -152,7 +169,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
-          "classifycheck", "ddp", "timing")
+          "classifycheck", "ddp", "resume", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -2877,6 +2894,318 @@ def phase_ddp(torch, seed, card):
     log(f"ddp phase: {time.perf_counter() - t_phase:.1f}s")
 
 
+# ---- resume: snapshot and resume through the Trainer -------------------------
+
+# (a) the base LM at the train phase's recipe: run A uninterrupted to
+# RESUME_LM[0] iterations; run B snapshots at RESUME_LM[1] and stops at
+# RESUME_LM[2]; a fresh Trainer and Checkpointer resume from the latest
+# snapshot (mid-epoch: RESUME_LM_BATCHES batches an epoch) and run to A's
+# end.  (b) PyramidNet-110 the same at RESUME_PYR.  Final params,
+# optimizer state, step and LogReport records must be bitwise equal.
+RESUME_LM, RESUME_LM_BATCHES = (8, 3, 5), 12
+RESUME_PYR, RESUME_PYR_BATCHES = (6, 3, 4), 8
+RESUME_TIMED = 3     # steps timed without a write in flight
+# (d) the MNIST twins, as a user runs them
+TWIN_MNIST_EPOCHS = 2
+
+
+def host_tree(torch, state) -> dict:
+    """A state's snapshot tree (flat) as host copies."""
+    from dtdl_tpu_torch.bridge import flatten
+    from dtdl_tpu_torch.train.state import state_to_tree
+    return {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+                else v) for k, v in flatten(state_to_tree(state)).items()}
+
+
+def tree_diff(torch, a: dict, b: dict) -> list:
+    """Leaves of two flat trees that are not bitwise equal."""
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not (
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k])]
+
+
+def log_records(log_ext) -> list:
+    return [{k: v for k, v in r.items() if k != "elapsed_time"}
+            for r in log_ext.records]
+
+
+def lm_trainer(torch, seed, out, stop, snap=None, tokens=None):
+    """The train phase's recipe under a Trainer: transformer_lm("base",
+    max_seq=TRAIN_SEQ) in bf16 with f32 weights from ``seed``,
+    adamw(3e-4), batches of TRAIN_BATCH sequences through the DataLoader,
+    a LogReport every iteration, a snapshot every ``snap``."""
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.data.sharding import ShardedSampler
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel import SingleDevice
+    from dtdl_tpu_torch.train import (LogReport, Trainer, init_state,
+                                      make_lm_train_step, snapshot)
+    from dtdl_tpu_torch.train.optim import adamw
+    loader = DataLoader({"tokens": tokens}, TRAIN_BATCH,
+                        sampler=ShardedSampler(len(tokens), seed=seed),
+                        device=DEV)
+    model = transformer_lm("base", max_seq=TRAIN_SEQ, seed=None, device=DEV)
+    tr = Trainer(init_state(model, seed, adamw(3e-4), device=DEV),
+                 make_lm_train_step(), loader, SingleDevice(),
+                 stop_trigger=(stop, "iteration"), out=out)
+    log_ext = LogReport()
+    tr.extend(log_ext, trigger=(1, "iteration"))
+    if snap:
+        tr.extend(snapshot(), trigger=(snap, "iteration"))
+    return tr, log_ext
+
+
+def pyr_trainer(torch, seed, out, stop, snap=None):
+    """PyramidNet-110 (alpha 270) in bf16 with f32 weights, batch
+    LOOP_BATCH of synthetic CIFAR-10 through the train transform, the
+    reference's SGD + momentum + StepLR with a drop every 2 updates (so
+    the resumed run crosses one), a LogReport every iteration."""
+    from dtdl_tpu_torch.examples.common import sgd_steplr
+    from dtdl_tpu_torch.parallel import SingleDevice
+    from dtdl_tpu_torch.train import (LogReport, Trainer, init_state,
+                                      make_train_step, snapshot)
+    train, _ = loop_data(LOOP_BATCH * RESUME_PYR_BATCHES, LOOP_BATCH)
+    model = classifier("pyramidnet", dtype=torch.bfloat16, device=DEV,
+                       seed=None)
+    tx, _ = sgd_steplr(0.1, 0.9, 1e-4, steps_per_epoch=1, step_epochs=2)
+    tr = Trainer(init_state(model, seed, tx, device=DEV), make_train_step(),
+                 train, SingleDevice(), stop_trigger=(stop, "iteration"),
+                 out=out)
+    log_ext = LogReport()
+    tr.extend(log_ext, trigger=(1, "iteration"))
+    if snap:
+        tr.extend(snapshot(), trigger=(snap, "iteration"))
+    return tr, log_ext
+
+
+def ab_resume(torch, make, label, iters, batches_per_epoch, root, kernels,
+              per_step=lambda state: {}):
+    """Run A to iters[0]; run B with a snapshot at iters[1], stopped at
+    iters[2]; a fresh Trainer resumes B's latest snapshot and runs to
+    iters[0].  Bitwise gate, and each run's kernel launches against
+    ``per_step(state)`` launches a step; returns (the resumed trainer,
+    restore seconds, launches by run, leaves compared)."""
+    total, snap, stop = iters
+    launches = {}
+
+    def run(tag, tr):
+        kernels.reset_launches()
+        tr.run()
+        sync(torch)
+        launches[tag] = dict(kernels.LAUNCHES)
+
+    a, a_log = make(os.path.join(root, f"{label}_a"), total)
+    want_launches = per_step(a.state)
+    run("A", a)
+    want, want_log = host_tree(torch, a.state), log_records(a_log)
+    del a
+    b, _ = make(os.path.join(root, f"{label}_b"), stop, snap)
+    run("B", b)
+    del b
+    torch.cuda.empty_cache()
+    c, c_log = make(os.path.join(root, f"{label}_b"), total)
+    t0 = time.perf_counter()
+    if not c.resume():
+        raise AssertionError(f"resume {label}: no snapshot to resume")
+    sync(torch)
+    restore_s = time.perf_counter() - t0
+    if (c.iteration, c._skip_batches) != (snap, snap % batches_per_epoch):
+        raise AssertionError(f"resume {label}: resumed at iteration "
+                             f"{c.iteration}, skipping {c._skip_batches}")
+    run("resumed", c)
+    got = host_tree(torch, c.state)
+    bad = tree_diff(torch, want, got)
+    if bad or log_records(c_log) != want_log:
+        raise AssertionError(
+            f"resume {label}: {len(bad)} of {len(want)} leaves differ from "
+            f"the uninterrupted run ({bad[:8]}); LogReport records equal: "
+            f"{log_records(c_log) == want_log}")
+    for tag, steps in (("A", total), ("B", stop), ("resumed", total - snap)):
+        for name, per_step in want_launches.items():
+            if launches[tag][name] != per_step * steps:
+                raise AssertionError(
+                    f"resume {label} run {tag}: {name} launched "
+                    f"{launches[tag][name]} times in {steps} steps, want "
+                    f"{per_step * steps}")
+    return c, restore_s, launches, len(want)
+
+
+def resume_lm(torch, seed, card, root, kernels):
+    """(a) the base LM A/B resume, then (c) the async hazard and the
+    snapshot's costs on the resumed state."""
+    from dtdl_tpu_torch.ckpt import Checkpointer
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    tokens, _ = synthetic_lm(n_train=TRAIN_BATCH * RESUME_LM_BATCHES,
+                             n_test=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             vocab_size=32000, seed=seed)
+
+    def make(out, stop, snap=None):
+        return lm_trainer(torch, seed, out, stop, snap, tokens)
+
+    def per_step(state):      # K1, K2, K3 once per layer and step
+        n = state.model.cfg.n_layers
+        return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+    c, restore_s, launches, n_leaves = ab_resume(
+        torch, make, "lm", RESUME_LM, RESUME_LM_BATCHES, root, kernels,
+        per_step)
+    log(f"resume lm base bf16 (f32 weights) adamw(3e-4) {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}, {RESUME_LM_BATCHES} batches an epoch: A to "
+        f"{RESUME_LM[0]}, B snapshot at {RESUME_LM[1]} stopped at "
+        f"{RESUME_LM[2]}, a fresh Trainer resumed mid-epoch and ran to "
+        f"{RESUME_LM[0]}: params, Adam moments, step and LogReport records "
+        f"bitwise equal ({n_leaves} leaves); launches {launches} | {card}")
+
+    # (c) the async hazard and the snapshot's costs, on the resumed state
+    state, step = c.state, make_lm_train_step()
+    batches = iter(c.train_loader)
+    plain = []
+    for _ in range(RESUME_TIMED):
+        batch = next(batches)
+        sync(torch)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync(torch)
+        plain.append(1e3 * (time.perf_counter() - t0))
+    pre = host_tree(torch, state)
+    nbytes = sum(v.numel() * v.element_size() for v in pre.values()
+                 if isinstance(v, torch.Tensor))
+    ck = Checkpointer(os.path.join(root, "hazard"))
+    batch = next(batches)
+    sync(torch)
+    t0 = time.perf_counter()
+    ck.save(state.step, state)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    state, _ = step(state, batch)          # at once: the hazard
+    sync(torch)
+    overlap_ms = 1e3 * (time.perf_counter() - t0) - save_ms
+    ck.wait_until_finished()
+    durable_s = time.perf_counter() - t0
+    moved = tree_diff(torch, pre, host_tree(torch, state))
+    del c, state
+    torch.cuda.empty_cache()
+    fresh, _ = make(os.path.join(root, "fresh"), 1)
+    t0 = time.perf_counter()
+    restored, at = Checkpointer(os.path.join(root, "hazard")).restore(
+        fresh.state)
+    sync(torch)
+    restore2_s = time.perf_counter() - t0
+    bad = tree_diff(torch, pre, host_tree(torch, restored))
+    if at != pre["step"] or bad or not moved:
+        raise AssertionError(f"resume hazard: restored step {at}, "
+                             f"{len(bad)} leaves differ from the state "
+                             f"save() saw ({bad[:8]}); the step after save "
+                             f"moved {len(moved)} leaves")
+    log(f"resume lm hazard: a step issued right after save() left the "
+        f"snapshot bitwise the pre-step state ({len(pre)} leaves; the step "
+        f"moved {len(moved)}) | {card}")
+    log(f"resume lm snapshot: bytes={nbytes} save_ms={save_ms:.3f} "
+        f"durable_committed_s={durable_s:.3f} restore_s={restore2_s:.3f} "
+        f"(Trainer.resume {restore_s:.3f}) step_ms_overlapping_write="
+        f"{overlap_ms:.3f} step_ms_without="
+        f"{' '.join(f'{x:.3f}' for x in plain)} | {card}")
+    del fresh, restored
+    torch.cuda.empty_cache()
+
+
+def resume_pyramidnet(torch, seed, card, root, kernels):
+    """(b) PyramidNet-110 A/B resume under cuDNN's deterministic
+    algorithms (set for this check only: cudnn.benchmark may pick
+    algorithms whose weight gradients add in a run-dependent order)."""
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        c, restore_s, _, n_leaves = ab_resume(
+            torch, lambda out, stop, snap=None: pyr_trainer(
+                torch, seed, out, stop, snap),
+            "pyramidnet", RESUME_PYR, RESUME_PYR_BATCHES, root, kernels)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    group = c.state.optimizer.param_groups[0]
+    log(f"resume pyramidnet-110 bf16 (f32 weights) batch {LOOP_BATCH} sgd "
+        f"momentum 0.9 + StepLR (x0.1 every 2 updates), cudnn "
+        f"deterministic: A to {RESUME_PYR[0]}, B snapshot at "
+        f"{RESUME_PYR[1]} stopped at {RESUME_PYR[2]}, resumed to "
+        f"{RESUME_PYR[0]}: params, BN statistics, momentum buffers, count "
+        f"and LogReport records bitwise equal ({n_leaves} leaves), lr "
+        f"{group['lr']:.6g} at count {group['count']}; restore "
+        f"{restore_s:.3f}s | {card}")
+    del c
+    torch.cuda.empty_cache()
+
+
+def resume_twins(torch, card, root):
+    """(d) the Keras and Chainer MNIST twins as a user runs them."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    data = ["--dataset-dir", os.path.join(root, "datasets")]
+
+    def twin(name, *args):
+        cmd = [sys.executable, "-m", f"dtdl_tpu_torch.examples.{name}",
+               *data, *args]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        out = p.stdout + p.stderr
+        with open(os.path.join(ROOT, "build", f"resume_{name}.log"),
+                  "a") as f:
+            f.write(out)
+        if p.returncode != 0:
+            raise AssertionError(f"resume twin {name} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+        return out, time.perf_counter() - t0
+
+    out, secs = twin("mnist_single", "--epochs", str(TWIN_MNIST_EPOCHS),
+                     "--train_dir", os.path.join(root, "keras"))
+    ev = re.findall(r"Eval loss: \S+, Eval Accuracy: \S+", out)
+    if not ev or f"Epoch [{TWIN_MNIST_EPOCHS - 1}]" not in out:
+        raise AssertionError(f"mnist_single printed no report:\n"
+                             f"{out[-4000:]}")
+    log(f"resume twin mnist_single: {TWIN_MNIST_EPOCHS} epochs, "
+        f"ModelCheckpoint, load_latest, evaluate: {ev[-1]} ({secs:.1f} s) "
+        f"| {card}")
+    out_dir = os.path.join(root, "chainer")
+    out, secs = twin("train_mnist", "-e", str(TWIN_MNIST_EPOCHS), "-o",
+                     out_dir)
+    snaps = sorted(int(n.split("_")[1]) for n in os.listdir(out_dir)
+                   if re.fullmatch(r"snapshot_\d+", n))
+    if not snaps:
+        raise AssertionError(f"train_mnist left no snapshot:\n{out[-4000:]}")
+    out2, secs2 = twin("train_mnist", "-e", str(TWIN_MNIST_EPOCHS + 1), "-o",
+                       out_dir, "--resume",
+                       os.path.join(out_dir, f"snapshot_{snaps[-1]}"))
+    rows = [x for x in out2.splitlines()
+            if re.match(rf"\s+{TWIN_MNIST_EPOCHS + 1}\s+\d+\s", x)]
+    if not rows:
+        raise AssertionError(f"train_mnist --resume printed no epoch "
+                             f"{TWIN_MNIST_EPOCHS + 1} row:\n{out2[-4000:]}")
+    log(f"resume twin train_mnist: {TWIN_MNIST_EPOCHS} epochs ({secs:.1f} "
+        f"s), then --resume snapshot_{snaps[-1]} to epoch "
+        f"{TWIN_MNIST_EPOCHS + 1} ({secs2:.1f} s): {rows[-1].split()} "
+        f"| {card}")
+
+
+def phase_resume(torch, seed, card):
+    """Snapshot and resume: (a) the base LM through K1-K3 and (b)
+    PyramidNet-110, each A/B bitwise; (c) the async hazard and the
+    snapshot's costs; (d) the MNIST twins."""
+    import shutil
+    from dtdl_tpu_torch import kernels
+    root = os.path.join(ROOT, "build", "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        resume_lm(torch, seed, card, root, kernels)
+        resume_pyramidnet(torch, seed, card, root, kernels)
+        resume_twins(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_profile(torch, seed):
     """Where a serving run's time goes: host seconds inside prefill,
     decode dispatch and the harvest wait (wrapped timers), and device
@@ -3211,6 +3540,8 @@ def main(argv=None) -> int:
         phase_classifycheck(torch, args.seed)
     if "ddp" in phases:
         phase_ddp(torch, args.seed, card)
+    if "resume" in phases:
+        phase_resume(torch, args.seed, card)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)

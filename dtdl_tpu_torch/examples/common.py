@@ -1,6 +1,7 @@
 """Shared plumbing for the port's example scripts, the twin of
 examples/common.py: rendezvous and banner, the mesh from the flags,
-per-process CIFAR-10 loaders and the reference's SGD + StepLR.
+per-process CIFAR-10 loaders, the MNIST arrays and the reference's SGD +
+StepLR.
 
 Every script runs on the card unless ``--platform cpu`` asks for the
 CPU; the collective backend follows (nccl, gloo), and
@@ -109,6 +110,28 @@ def cifar_loaders(args, seed: int, device=None):
         transform=normalize_transform(CIFAR10_MEAN, CIFAR10_STD),
         drop_last=False, device=device)
     return train, val
+
+
+def mnist_arrays(args, flatten: bool = False):
+    return _limit(args, *load_dataset("mnist", args.dataset_dir,
+                                      flatten=flatten))
+
+
+def add_device_flags(parser):
+    """``--platform cpu`` and ``--dist-backend`` for the scripts whose
+    reference flag surface has no topology section."""
+    from dtdl_tpu_torch.utils.config import flag
+    flag(parser, "--platform", type=str, default="",
+         help="'cpu' runs on the CPU (gloo); the default is the CUDA card "
+              "(nccl)")
+    flag(parser, "--dist-backend", default="", choices=["", "nccl", "gloo"],
+         help="collective backend; empty follows the device")
+
+
+def device_kind(device) -> str:
+    """The device's name for a banner."""
+    import torch
+    return "cpu" if device == "cpu" else torch.cuda.get_device_name()
 
 
 def sgd_steplr(lr: float, momentum: float, weight_decay: float,

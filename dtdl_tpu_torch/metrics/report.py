@@ -5,14 +5,16 @@ pluggable sinks.
 payload as the reference's fixed-format line (:class:`StdoutSink`) or as
 JSON lines (:class:`JsonlSink`); :class:`Reporter` fans a payload out to
 its sinks and closes them on exit.  The JAX reporter is silent on every
-process but the leader; the port runs one process, which is the leader.
-TensorBoard event files (:class:`TensorBoardSink`) are ROADMAP queue A13
-(operations).
+process but the leader, and so is this one.  :class:`TensorBoardSink`
+writes TensorBoard event files when a writer imports
+(``torch.utils.tensorboard`` or ``tensorboardX``) and is otherwise a
+no-op with one warning per process, as the JAX sink.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 
@@ -100,13 +102,47 @@ class JsonlSink(_SinkContext):
         self._f.close()
 
 
+# module-level so the no-writer warning fires once per process, not once
+# per TensorBoardSink (fit() creates one per TensorBoard callback)
+_TB_WARNED = False
+
+
 class TensorBoardSink(_SinkContext):
-    """TensorBoard event files: not ported yet."""
+    """TensorBoard event files when a writer implementation imports
+    (TF2-track parity); without one, a no-op with a one-time warning —
+    the metrics bus does not hard-depend on a tensorboard package."""
 
     def __init__(self, logdir: str):
-        raise NotImplementedError(
-            "TensorBoardSink is ROADMAP queue A13 (operations); use "
-            "StdoutSink or JsonlSink")
+        global _TB_WARNED
+        self.logdir = logdir
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self._writer = SummaryWriter(logdir)
+        except Exception:
+            try:
+                from tensorboardX import SummaryWriter
+                self._writer = SummaryWriter(logdir)
+            except Exception:
+                if not _TB_WARNED:
+                    _TB_WARNED = True
+                    logging.getLogger("dtdl_tpu_torch").warning(
+                        "no tensorboard writer available; TensorBoardSink "
+                        "is a no-op (metrics still go to stdout/JSONL "
+                        "sinks)")
+
+    def write(self, payload: dict) -> None:
+        if self._writer is None:
+            return
+        step = int(payload.get("step", 0))
+        split = payload.get("split", "train")
+        for k, v in payload.items():
+            if isinstance(v, float):
+                self._writer.add_scalar(f"{split}/{k}", v, step)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
 
 
 class Reporter:

@@ -172,7 +172,8 @@ def axis_index(mesh: Mesh | None = None) -> int:
 def _host_bytes(x) -> bytes:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().contiguous()
-        return x.view(torch.uint8).numpy().tobytes() if x.numel() else b""
+        return x.reshape(-1).view(torch.uint8).numpy().tobytes() \
+            if x.numel() else b""
     if isinstance(x, np.ndarray):
         return np.ascontiguousarray(x).tobytes()
     return pickle.dumps(x)

@@ -17,10 +17,12 @@ its own ragged tail with mask 0, and a process with fewer batches than
 another runs all-masked ones, so the world's counts cover every example
 of every process's loader exactly once.
 
+``profile_dir`` traces the epoch with ``torch.profiler``
+(:mod:`dtdl_tpu_torch.utils.profiling`), each step annotated.
+
 Not ported yet, and refused by name: ``unroll > 1`` (JAX runs k steps as
 one ``lax.scan`` program; in PyTorch that meaning comes with CUDA-graph
-capture, ROADMAP queue A5), ``profile_dir``, ``observer`` and ``guard``
-(queue A13).
+capture, ROADMAP queue A5), ``observer`` and ``guard`` (queue A13).
 """
 
 from __future__ import annotations
@@ -33,17 +35,16 @@ import torch
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import Accumulator, Reporter
 from dtdl_tpu_torch.parallel.strategy import check_strategy
+from dtdl_tpu_torch.utils.profiling import maybe_trace, step_annotation
 from dtdl_tpu_torch.utils.timing import StepTimer
 
 
-def _refuse(unroll: int = 1, profile_dir=None, observer=None,
-            guard=None) -> None:
+def _refuse(unroll: int = 1, observer=None, guard=None) -> None:
     if unroll > 1:
         raise NotImplementedError(
             "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
             "(CUDA-graph capture)")
-    for name, val in (("profile_dir", profile_dir), ("observer", observer),
-                      ("guard", guard)):
+    for name, val in (("observer", observer), ("guard", guard)):
         if val is not None:
             raise NotImplementedError(f"{name} is ROADMAP queue A13 "
                                       f"(operations)")
@@ -79,7 +80,7 @@ def train_epoch(train_step, state, loader, strategy=None,
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     strategy = check_strategy(strategy)
-    _refuse(unroll, profile_dir, observer, guard)
+    _refuse(unroll, observer, guard)
     timer = timer or StepTimer(blocking=sync_every_step)
     timer.reset_epoch()
     acc = Accumulator()
@@ -87,9 +88,26 @@ def train_epoch(train_step, state, loader, strategy=None,
     steps_per_epoch = len(loader)
     it = _prefetch(map(strategy.shard_batch, loader), prefetch)
 
+    with maybe_trace(profile_dir):
+        state = _run_epoch(train_step, state, it, reporter, epoch, log_interval,
+                   timer, sync_every_step, lag, acc, steps_per_epoch)
+    if reporter is not None:
+        reporter.report({
+            "epoch": epoch, "split": "train_epoch", **acc.means(),
+            "epoch_time": timer.epoch_elapsed_s,
+            "avg_batch_time": timer.avg_step_s,
+        })
+    return state, acc.means()
+
+
+def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
+               sync_every_step, lag, acc, steps_per_epoch):
+    """The epoch's steps (the body of :func:`train_epoch`); returns the
+    state."""
     if sync_every_step:
         for i, batch in enumerate(it):
-            state, metrics = train_step(state, batch)
+            with step_annotation(i):
+                state, metrics = train_step(state, batch)
             timer.step(metrics["loss"])
             vals = {k: float(v) for k, v in metrics.items()}
             acc.add(vals)
@@ -105,7 +123,8 @@ def train_epoch(train_step, state, loader, strategy=None,
         next_log = 0
         step0 = 0
         for batch in it:
-            state, metrics = train_step(state, batch)
+            with step_annotation(step0):
+                state, metrics = train_step(state, batch)
             timer.step()
             popped = queue.push(metrics)
             for vals in popped:
@@ -131,13 +150,7 @@ def train_epoch(train_step, state, loader, strategy=None,
         for vals in queue.drain():
             acc.add(vals)
         timer.sync()
-    if reporter is not None:
-        reporter.report({
-            "epoch": epoch, "split": "train_epoch", **acc.means(),
-            "epoch_time": timer.epoch_elapsed_s,
-            "avg_batch_time": timer.avg_step_s,
-        })
-    return state, acc.means()
+    return state
 
 
 def _pad_and_mask(batch, target: int):

@@ -26,10 +26,15 @@ bias corrections m̂ = m / (1 - b1^t), v̂ = v / (1 - b2^t):
   wd·p to the gradient before the trace, and torch's ``SGD(weight_decay=
   wd)`` adds wd·p to the gradient before the momentum buffer.
 
+* ``rmsprop(lr, decay=0.9, eps=1e-8)``: optax's ``scale_by_rms``,
+  nu ← decay·nu + (1 - decay)·g², update g·rsqrt(nu + eps) (the port's
+  own :class:`RMSProp`: ``torch.optim.RMSprop`` is another function).
+
 A learning rate may be a schedule, a function of the update count
 (:func:`exponential_decay`, optax's): as optax's ``scale_by_schedule``,
 the n-th update (from 0) takes ``schedule(n)``, set on the optimizer's
-param groups just before each ``step()``.
+param groups just before each ``step()``; the count is the group's
+``"count"`` entry, which a snapshot saves and a restore sets.
 
 The optimizer state lives beside the parameters, on their device and in
 their dtype (f32 master weights keep f32 moments).
@@ -77,18 +82,62 @@ def sgd(learning_rate, momentum: float | None = None,
     if not callable(learning_rate):
         return Transform("sgd", lambda p: torch.optim.SGD(
             p, lr=learning_rate, **hp))
+    return Transform("sgd", lambda p: _scheduled(
+        torch.optim.SGD(p, lr=learning_rate(0), **hp), learning_rate))
 
-    def make(params):
-        opt = torch.optim.SGD(params, lr=learning_rate(0), **hp)
-        count = [0]
 
-        def set_lr(optimizer, args, kwargs):
-            for group in optimizer.param_groups:
-                group["lr"] = learning_rate(count[0])
-            count[0] += 1
-        opt.register_step_pre_hook(set_lr)
-        return opt
-    return Transform("sgd", make)
+def _scheduled(opt: torch.optim.Optimizer, schedule) -> torch.optim.Optimizer:
+    """Set each group's lr to ``schedule(count)`` just before every
+    ``step()``, ``count`` the group's update count (optax's
+    ``scale_by_schedule`` count).  The count lives in the param group,
+    so a snapshot carries it and a restored run continues the schedule
+    from it."""
+    for group in opt.param_groups:
+        group["count"] = 0
+
+    def set_lr(optimizer, args, kwargs):
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(group["count"])
+            group["count"] += 1
+    opt.register_step_pre_hook(set_lr)
+    return opt
+
+
+class RMSProp(torch.optim.Optimizer):
+    """optax's ``rmsprop`` (``scale_by_rms`` then ``-lr``): nu ← decay·nu
+    + (1 - decay)·g², p ← p - lr·g·rsqrt(nu + eps), nu starting at 0.
+    ``torch.optim.RMSprop`` is another function (alpha 0.99 by default,
+    eps outside the square root)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSProp takes no closure")
+        for group in self.param_groups:
+            decay, eps, lr = group["decay"], group["eps"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                g = p.grad
+                nu = state["nu"]
+                nu.mul_(decay).addcmul_(g, g, value=1.0 - decay)
+                p.addcmul_(g, (nu + eps).rsqrt(), value=-lr)
+
+
+def rmsprop(learning_rate: float, decay: float = 0.9,
+            eps: float = 1e-8) -> Transform:
+    """optax's ``rmsprop`` at its defaults (no momentum, not centered,
+    eps inside the square root): :class:`RMSProp`."""
+    return Transform("rmsprop", lambda p: RMSProp(p, learning_rate, decay,
+                                                  eps))
 
 
 def exponential_decay(init_value: float, transition_steps: int,

@@ -16,6 +16,8 @@ the JAX loop's; the eval of the ragged split exact against a direct
 forward over the 37 examples (accuracy) and within 1e-5 (loss).
 """
 
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -165,12 +167,12 @@ def test_evaluate_counts_a_ragged_tail_exactly_once():
             device="cpu")))
 
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(tmp_path):
     _, tstate, _ = pair("mlp", optax.sgd(LR), sgd(LR))
     train = DataLoader({"image": np.zeros((8, 784), np.float32),
                         "label": np.zeros(8, np.int32)}, 4, device="cpu")
     step = make_train_step()
-    for kw, label in ((dict(unroll=2), "A5"), (dict(profile_dir="p"), "A13"),
+    for kw, label in ((dict(unroll=2), "A5"),
                       (dict(observer=object()), "A13"),
                       (dict(guard=object()), "A13")):
         with pytest.raises(NotImplementedError, match=label):
@@ -193,8 +195,17 @@ def test_refusals_name_their_roadmap_items():
             make(SingleDevice())
     with pytest.raises(NotImplementedError, match="A13"):
         make_train_step(guard=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        TensorBoardSink("runs")
+    # profile_dir traces the epoch (utils.profiling); TensorBoardSink
+    # without a writer package (as on the card machine) is a no-op
+    train_epoch(step, tstate, train, profile_dir=str(tmp_path / "prof"))
+    trace = (tmp_path / "prof" / "trace.json").read_text()
+    assert "train_step#0" in trace and "train_step#1" in trace
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in ("torch.utils.tensorboard", "tensorboardX"):
+            mp.setitem(sys.modules, mod, None)
+        with TensorBoardSink(str(tmp_path / "runs")) as tb:
+            tb.write({"step": 0, "loss": 1.0})
+    assert not (tmp_path / "runs").exists()
 
 
 def test_reporter_sinks_timer_and_accumulator_match_jax(tmp_path, capsys):

@@ -60,7 +60,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for rel in ("models/norm.py", "models/layers.py", "models/mlp.py",
                 "models/cnn.py", "models/pyramidnet.py", "models/resnet.py",
                 "train/loop.py", "metrics/report.py", "utils/timing.py",
-                "data/idx.py", "data/datasets.py"):
+                "data/idx.py", "data/datasets.py", "resil/faults.py",
+                "resil/preempt.py", "train/fit.py", "train/trainer.py",
+                "utils/profiling.py", "ckpt/checkpoint.py",
+                "examples/mnist_single.py",
+                "examples/mnist_mirror_strategy.py",
+                "examples/mnist_multi_worker_strategy.py",
+                "examples/train_mnist.py", "examples/train_mnist_gpu.py",
+                "examples/train_mnist_multi.py"):
         assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
