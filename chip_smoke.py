@@ -136,6 +136,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                only); (d) the mnist_single twin (2 epochs, load_latest,
                evaluate) and the train_mnist twin (2 epochs, then --resume
                of its snapshot) as subprocesses;
+7h. faces    - the last example twins, each as a user runs it: (a)
+               serve_lm on base at full width, bf16, page 16 (16 requests
+               with a 256-token shared prefix, 32 new tokens, greedy):
+               tokens/s, TTFT, K4 launches (one per layer and attend),
+               greedy tokens identical to the same requests through the
+               serve phase's engine path with the plain attend (a parting
+               only at a bf16 near-tie, reported); (b) imagenet_resnet50
+               at 224 px, 1000 classes, batch 256, 40 steps over a
+               1024-image pool:
+               samples/s, ms/step and MFU, the train-pool accuracy; (c)
+               caffe_train on examples/caffe/lenet_solver.prototxt to 600
+               iterations, then --snapshot latest to 800 (the resume starts
+               at 600): iterations/s and MFU by netspec_flops; (d)
+               tf_estimator to 400 steps, then again (it restores 400 and
+               trains nothing); (e) mxnet_kvstore --kv-store device, one
+               epoch; (f) single_device and data_parallel, one epoch of 2560
+               images each; each twin's output in build/faces/<twin>.log;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -169,7 +186,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
-          "classifycheck", "ddp", "resume", "timing")
+          "classifycheck", "ddp", "resume", "faces", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -861,28 +878,33 @@ def phase_crosscheck(torch, seed, traffic):
 # phase 5b: speculative decoding
 # ---------------------------------------------------------------------------
 
+def prefill_logits(torch, model, seq):
+    """The last position's logits of an engine prefill of ``seq``."""
+    import numpy as np
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV)
+    row = np.zeros(eng.n_ptab, np.int32)
+    n_pg = -(-len(seq) // eng.page_size)
+    row[:n_pg] = np.arange(1, n_pg + 1)
+    _, _, logits = eng.prefill(eng.init_arena(), eng.init_last_tokens(), 0,
+                               list(seq), page_row=row)
+    return logits
+
+
 def logit_gap(torch, model, prompt, tokens, j) -> float:
     """The top-two logit gap where the plain run emitted ``tokens[j]``:
     the last position's logits of an engine prefill of prompt +
     tokens[:j] (a prefill, not the decode step itself, so it carries the
     same rounding differences as the thing it judges)."""
-    import numpy as np
-    from dtdl_tpu_torch.serve.engine import InferenceEngine
-    eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV)
-    seq = list(prompt) + list(tokens[:j])
-    row = np.zeros(eng.n_ptab, np.int32)
-    n_pg = -(-len(seq) // eng.page_size)
-    row[:n_pg] = np.arange(1, n_pg + 1)
-    _, _, logits = eng.prefill(eng.init_arena(), eng.init_last_tokens(), 0,
-                               seq, page_row=row)
-    top = torch.topk(logits, 2).values
+    top = torch.topk(prefill_logits(torch, model,
+                                    list(prompt) + list(tokens[:j])), 2).values
     return float(top[0] - top[1])
 
 
 def near_tie_divergences(torch, model, plain, spec, tau):
-    """Each request's first position where the speculative tokens part
-    from the plain ones, with the plain run's top-two gap there; raises
-    unless every such gap is within ``tau``."""
+    """Each request's first position where the speculative (or other)
+    tokens part from the plain ones, with the plain run's top-two gap
+    there; raises unless every such gap is within ``tau``."""
     out = []
     for a, b in zip(plain, spec):
         j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
@@ -895,7 +917,7 @@ def near_tie_divergences(torch, model, plain, spec, tau):
         out.append((j, logit_gap(torch, model, a.prompt, a.tokens, j)))
     far = [(j, g) for j, g in out if g > tau]
     if far:
-        raise AssertionError(f"speculative tokens part from plain decode "
+        raise AssertionError(f"tokens part from plain decode "
                              f"at (position, top-two gap) {far}, beyond "
                              f"the near-tie tau {tau:.3e}")
     return out
@@ -3139,25 +3161,32 @@ def resume_pyramidnet(torch, seed, card, root, kernels):
     torch.cuda.empty_cache()
 
 
+def twin_run(name, args, cwd, log_path, timeout=600):
+    """``python -m dtdl_tpu_torch.examples.<name> args`` from ``cwd``
+    (no dataset files there: the synthetic sets, no download); (output,
+    seconds).  The output is appended to ``log_path``; a non-zero exit
+    raises."""
+    cmd = [sys.executable, "-m", f"dtdl_tpu_torch.examples.{name}", *args]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                       timeout=timeout, env={**os.environ, "PYTHONPATH": ROOT,
+                                             "DTDL_OFFLINE": "1"})
+    out = p.stdout + p.stderr
+    with open(log_path, "a") as f:
+        f.write(out)
+    if p.returncode != 0:
+        raise AssertionError(f"twin {name} exited {p.returncode}:\n"
+                             f"{out[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
 def resume_twins(torch, card, root):
     """(d) the Keras and Chainer MNIST twins as a user runs them."""
-    env = {**os.environ, "PYTHONPATH": ROOT}
     data = ["--dataset-dir", os.path.join(root, "datasets")]
 
     def twin(name, *args):
-        cmd = [sys.executable, "-m", f"dtdl_tpu_torch.examples.{name}",
-               *data, *args]
-        t0 = time.perf_counter()
-        p = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                           text=True, timeout=600)
-        out = p.stdout + p.stderr
-        with open(os.path.join(ROOT, "build", f"resume_{name}.log"),
-                  "a") as f:
-            f.write(out)
-        if p.returncode != 0:
-            raise AssertionError(f"resume twin {name} exited "
-                                 f"{p.returncode}:\n{out[-4000:]}")
-        return out, time.perf_counter() - t0
+        return twin_run(name, [*data, *args], root, os.path.join(
+            ROOT, "build", f"resume_{name}.log"))
 
     out, secs = twin("mnist_single", "--epochs", str(TWIN_MNIST_EPOCHS),
                      "--train_dir", os.path.join(root, "keras"))
@@ -3204,6 +3233,328 @@ def phase_resume(torch, seed, card):
         resume_twins(torch, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# faces: the last example twins, each as a user runs it
+# ---------------------------------------------------------------------------
+
+FACES_SERVE = ["--model-size", "base", "--page-size", "16", "--n-slots", "8",
+               "--n-requests", "16", "--max-new-tokens", "32",
+               "--shared-prefix", "256", "--dtype", "bfloat16"]
+FACES_RESNET = ["--batch-size", "256", "--steps", "40", "--train-examples",
+                "1024", "--log-interval", "20", "--image-size", "224",
+                "--num-classes", "1000"]
+# the classify phase's ResNet-50 cell (bf16, batch 256, cudnn.benchmark
+# on), as PERF.md records it
+RESNET50_CLASSIFY_MS = 64.612
+FACES_CAFFE_ITERS = (600, 800)
+FACES_EST_STEPS = 400
+
+
+def faces_log(name) -> str:
+    return os.path.join(ROOT, "build", "faces", f"{name}.log")
+
+
+def in_process(main, argv, log_name):
+    """``main(argv)`` of a twin in this process, its standard output
+    appended to build/faces/<log_name>.log; (return value, output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    out = buf.getvalue()
+    with open(faces_log(log_name), "a") as f:
+        f.write(out)
+    return ret, out
+
+
+def faces_serve(torch, seed, card):
+    """(a) the serve_lm twin on base at full width, bf16, page 16: K4
+    launches, tokens/s, TTFT, and greedy tokens equal to the same
+    requests through phase_serve's engine path with the plain attend
+    (paged_kernel=False), any parting only at a bf16 near-tie."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.examples import serve_lm
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    argv = [*FACES_SERVE, "--seed", str(seed)]
+    in_process(serve_lm.main, argv + ["--n-requests", "2"],
+               "serve_lm_warmup")
+    sync(torch)
+    kernels.reset_launches()
+    (reqs, s, wall), _ = in_process(serve_lm.main, argv, "serve_lm")
+    sync(torch)
+    k4 = kernels.LAUNCHES["paged_attention"]
+    bad = [r for r in reqs if not r.done or r.error or len(r.tokens) != 32]
+    if bad:
+        raise AssertionError(f"faces serve_lm left unfinished requests: {bad}")
+    opt = dict(zip(FACES_SERVE[::2], FACES_SERVE[1::2]))
+    model = transformer_lm(opt["--model-size"], attn_impl="dense", seed=seed,
+                           dtype=getattr(torch, opt["--dtype"]), device=DEV)
+    n_layers = model.cfg.n_layers
+    if k4 <= 0 or k4 % n_layers:
+        raise AssertionError(f"faces serve_lm: K4 launched {k4} times, want "
+                             f"> 0 and {n_layers} a step")
+    _, _, plain, _ = serve(torch, model, [(list(r.prompt), r.max_new_tokens)
+                                          for r in reqs], paged_kernel=False)
+    # a parting is let pass only at a bf16 near-tie, as moe_serve's (d)
+    scale = float(prefill_logits(torch, model, reqs[0].prompt).abs().max())
+    tau = 2 * SPEC_DELTA_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    parts = near_tie_divergences(torch, model, plain, reqs, tau)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"faces serve_lm twin base bf16 page 16 (8 slots, 16 requests of "
+        f"{min(lens)}-{max(lens)} prompt tokens, shared prefix 256, 32 "
+        f"new, greedy): served {s['requests_finished']} requests wall_s={wall:.4f} tokens_per_s="
+        f"{n_tok / wall:.2f} decode_tokens_per_s="
+        f"{s['decode_tokens_per_sec']:.2f} ttft_p50_s={s['ttft_s_p50']:.4f} "
+        f"ttft_p99_s={s['ttft_s_p99']:.4f} prefix_hit_rate="
+        f"{s['prefix_hit_rate']:.4f} K4 launches={k4} ({k4 // n_layers} "
+        f"attends x {n_layers} layers) tokens identical to the plain "
+        f"attend's engine path: {len(reqs) - len(parts)}/{len(reqs)}, "
+        f"near-tie partings (position, top-two gap) {parts} (tau "
+        f"{tau:.4e}) | {card}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def faces_resnet(torch, seed, card, root):
+    """(b) imagenet_resnet50 at 224 px, 1000 classes, batch 256, bf16:
+    samples/s and ms/step of the second log window (steps 21-40), MFU by
+    classifier_train_flops, the closing train-pool accuracy."""
+    out, secs = twin_run("imagenet_resnet50", [
+        *FACES_RESNET, "--seed", str(seed), "--dataset-dir",
+        os.path.join(root, "datasets")], root,
+        faces_log("imagenet_resnet50"))
+    rows = re.findall(r"step (\d+)/\d+ loss ([\d.]+) acc ([\d.]+) \| "
+                      r"([\d,]+) samples/sec .*\| ([\d.]+) ms/step", out)
+    final = re.search(r"final: train-pool acc ([\d.]+)", out)
+    if len(rows) < 2 or not final:
+        raise AssertionError(f"faces imagenet_resnet50 printed no report:\n"
+                             f"{out[-4000:]}")
+    step, loss, acc, sps, ms = rows[-1]
+    model = classifier("resnet50", dtype=torch.bfloat16, device=DEV,
+                       seed=None)
+    flops = classifier_train_flops(torch, model, (224, 224, 3)) * 256
+    del model
+    torch.cuda.empty_cache()
+    mfu = flops / (float(ms) / 1e3) / PEAK_OPS["bfloat16"]
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"faces imagenet_resnet50: loss {loss}")
+    log(f"faces imagenet_resnet50 twin bf16 batch 256 224px 1000 classes "
+        f"(choose_strategy auto = single, warm-up cosine, Nesterov SGD "
+        f"0.9 + decay 1e-4; 40 steps over a 1024-image pool): steps 21-{step}"
+        f" samples/sec={sps.replace(',', '')} ms/step={ms} (the classify "
+        f"phase's cell in PERF.md: {RESNET50_CLASSIFY_MS} ms, cudnn.benchmark"
+        f" on there) "
+        f"mfu={mfu:.5f} (classifier_train_flops {flops:.4e} a step over "
+        f"989 TFLOP/s) first window {rows[0][3].replace(',', '')} samples/sec"
+        f" loss={loss} acc={acc} final train-pool acc={final[1]} "
+        f"({secs:.1f} s) | {card}")
+
+
+def faces_caffe(torch, card, root):
+    """(c) caffe_train on the LeNet solver to 600 iterations, then
+    --snapshot latest to 800: iterations/s of solve() with its test passes
+    taken out, MFU by netspec_flops (f32 peak: the net is f32)."""
+    from dtdl_tpu_torch.examples import caffe_train
+    from dtdl_tpu_torch.obs.goodput import netspec_flops
+    from dtdl_tpu_torch.train import solver as solver_mod
+    from dtdl_tpu_torch.utils.prototxt import parse_file
+    solver_path = os.path.join(ROOT, "examples", "caffe",
+                               "lenet_solver.prototxt")
+    out_dir = os.path.join(root, "caffe")
+    clock = {"solve": 0.0, "test": 0.0, "iters": 0, "inside": False}
+    solve, test = solver_mod.Solver.solve, solver_mod.Solver.test
+
+    def timed_test(self):
+        t0 = time.perf_counter()
+        res = test(self)
+        if clock["inside"]:
+            clock["test"] += time.perf_counter() - t0
+        return res
+
+    def timed_solve(self):
+        it0, t0 = self.iteration, time.perf_counter()
+        clock["inside"] = True
+        try:
+            res = solve(self)
+            sync(torch)
+        finally:
+            clock["inside"] = False
+        clock["solve"] += time.perf_counter() - t0
+        clock["iters"] += self.iteration - it0
+        return res
+
+    solver_mod.Solver.solve, solver_mod.Solver.test = timed_solve, timed_test
+    try:
+        outs = []
+        for n, extra in ((FACES_CAFFE_ITERS[0], []),
+                         (FACES_CAFFE_ITERS[1], ["--snapshot", "latest"])):
+            clock.update(solve=0.0, test=0.0, iters=0)
+            _, out = in_process(caffe_train.main, [
+                "--solver", solver_path, "--max-iter", str(n), "--out",
+                out_dir, "--dataset-dir", os.path.join(root, "datasets"),
+                "--no-download", *extra], f"caffe_train_{n}")
+            outs.append((out, dict(clock)))
+    finally:
+        solver_mod.Solver.solve, solver_mod.Solver.test = solve, test
+    first, resumed = outs
+    want = FACES_CAFFE_ITERS[0]
+    interval = int(parse_file(solver_path).get_scalar("test_interval"))
+    if f"resume: ok (iter {want})" not in resumed[0] or \
+            not re.search(rf"iter: {want} \| test_loss", resumed[0]):
+        raise AssertionError(f"faces caffe_train did not resume at {want}:\n"
+                             f"{resumed[0][-4000:]}")
+    tests = re.findall(r"iter: (\d+) \| test_loss: ([\d.]+) \| "
+                       r"test_accuracy: ([\d.]+)", first[0])
+    if [int(t[0]) for t in tests] != list(range(0, want + 1, interval)):
+        raise AssertionError(f"faces caffe_train tested at "
+                             f"{[t[0] for t in tests]}, want 0 and every "
+                             f"test_interval ({interval}):\n"
+                             f"{first[0][-4000:]}")
+    final = re.findall(r"test: \{'test_loss': ([\d.]+), 'test_accuracy': "
+                       r"([\d.]+)\}", resumed[0])
+    flops = netspec_flops(os.path.join(ROOT, "examples", "caffe",
+                                       "lenet_train_test.prototxt"),
+                          (28, 28, 1), backward=True) * 64
+    rates = []
+    for out, c in outs:
+        train_s = c["solve"] - c["test"]
+        rates.append((c["iters"] / train_s,
+                      flops * c["iters"] / train_s / PEAK_OPS["float32"]))
+    log(f"faces caffe_train twin LeNet f32 batch 64 (solver inv lr, SGD "
+        f"0.9, decay 5e-4): to {want} iterations {rates[0][0]:.2f} "
+        f"iterations/s mfu={rates[0][1]:.6f} (netspec_flops x3 {flops:.4e}"
+        f" a step over 67 TFLOP/s f32; test passes {outs[0][1]['test']:.2f}"
+        f" s taken out) tests at iterations {[int(t[0]) for t in tests]}: "
+        f"{tests[-1][2]}; --snapshot latest resumed at {want} (tested "
+        f"there) to {FACES_CAFFE_ITERS[1]}: {rates[1][0]:.2f} iterations/s"
+        f" final test accuracy {final[-1][1] if final else '?'} | {card}")
+
+
+def faces_estimator(torch, card, root):
+    """(d) tf_estimator to 400 steps checkpointing every 200, then the
+    same command again: it restores 400 and runs no train step (the
+    steps counted in this process)."""
+    from dtdl_tpu_torch.examples import tf_estimator
+    from dtdl_tpu_torch.train import estimator as est_mod
+    model_dir = os.path.join(root, "estimator")
+    args = ["--train_steps", str(FACES_EST_STEPS),
+            "--save_checkpoints_steps", str(FACES_EST_STEPS // 2),
+            "--model_dir", model_dir,
+            "--dataset-dir", os.path.join(root, "datasets")]
+    steps = [0]
+    make = est_mod.make_train_step
+
+    def counting(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch):
+            steps[0] += 1
+            return step(state, batch)
+        return run
+
+    est_mod.make_train_step = counting
+    try:
+        runs = []
+        for label in ("tf_estimator", "tf_estimator_again"):
+            steps[0], t0 = 0, time.perf_counter()
+            _, out = in_process(tf_estimator.main, args, label)
+            runs.append((out, steps[0], time.perf_counter() - t0))
+    finally:
+        est_mod.make_train_step = make
+    (out, n1, secs), (again, n2, secs2) = runs
+    evals = re.findall(r"final eval: \{'loss': ([\d.]+), 'accuracy': "
+                       r"([\d.]+), 'global_step': ([\d.]+)\}", out)
+    rates = re.findall(r"global_step/sec: ([\d.]+)", out)
+    if n1 != FACES_EST_STEPS or not evals or \
+            float(evals[-1][2]) != FACES_EST_STEPS:
+        raise AssertionError(f"faces tf_estimator ran {n1} steps, want "
+                             f"{FACES_EST_STEPS}:\n{out[-4000:]}")
+    snaps = sorted(int(n.split("_")[1]) for n in os.listdir(model_dir)
+                   if re.fullmatch(r"snapshot_\d+", n))
+    if n2 or "final eval: {}" not in again or snaps[-1] != FACES_EST_STEPS:
+        raise AssertionError(f"faces tf_estimator ran {n2} steps after "
+                             f"restoring {snaps}:\n{again[-4000:]}")
+    preds = re.search(r"predictions: (\[[\d, ]+\])", again)
+    log(f"faces tf_estimator twin MnistCNN f32 batch 128 adam(1e-3): "
+        f"{n1} steps in legs of {FACES_EST_STEPS // 2} ({secs:.1f} s), "
+        f"global_step/sec {rates}, final eval loss={evals[-1][0]} accuracy="
+        f"{evals[-1][1]}; the second run restored {snaps[-1]} (snapshots "
+        f"{snaps}) and ran {n2} train steps ({secs2:.1f} s), predictions "
+        f"{preds and preds[1]} | {card}")
+
+
+def faces_mxnet(torch, card, root):
+    """(e) mxnet_kvstore --kv-store device (width 1, SingleDevice), one
+    epoch of synthetic MNIST."""
+    out, secs = twin_run("mxnet_kvstore", [
+        "--kv-store", "device", "--num-epochs", "1", "--out",
+        os.path.join(root, "mx"), "--dataset-dir",
+        os.path.join(root, "datasets")], root, faces_log("mxnet_kvstore"))
+    speeds = re.findall(r"Speed: ([\d.]+) samples/sec", out)
+    val = re.search(r"Validation-accuracy=([\d.]+)", out)
+    head = re.search(r"kvstore: kind=device rank=0 num_workers=1 width=1",
+                     out)
+    if not (speeds and val and head):
+        raise AssertionError(f"faces mxnet_kvstore printed no report:\n"
+                             f"{out[-4000:]}")
+    log(f"faces mxnet_kvstore twin --kv-store device (width 1: "
+        f"SingleDevice) MnistCNN f32 batch 64 sgd(0.05, 0.9), 1 epoch "
+        f"(prefetch_to_device, a sync each step as Module.fit reads its "
+        f"metrics): Speedometer samples/sec median "
+        f"{sorted(float(s) for s in speeds)[len(speeds) // 2]:.2f} (last "
+        f"{speeds[-1]}) validation accuracy {val[1]} ({secs:.1f} s) | {card}")
+
+
+def faces_pyramidnet(torch, card, root):
+    """(f) single_device and data_parallel (world 1), one epoch over 2560
+    synthetic CIFAR-10 images, evaluate over 1000."""
+    for name in ("single_device", "data_parallel"):
+        out, secs = twin_run(name, [
+            "--epochs", "1", "--limit-train", "2560", "--limit-test", "1000",
+            "--out", os.path.join(root, name), "--no-download",
+            "--dataset-dir", os.path.join(root, "datasets")], root,
+            faces_log(name))
+        epoch = re.search(r"Epoch \[0\] \| loss: ([\d.]+) \| accuracy: "
+                          r"([\d.]+) \| epoch_time: ([\d.]+) \| "
+                          r"avg_batch_time: ([\d.]+)", out)
+        val = re.search(r"val_loss: ([\d.]+) \| val_accuracy: ([\d.]+)", out)
+        if not (epoch and val and os.path.exists(
+                os.path.join(root, name, "final.pt"))):
+            raise AssertionError(f"faces {name} printed no report:\n"
+                                 f"{out[-4000:]}")
+        strategy = {"single_device": "SingleDevice",
+                    "data_parallel": "DataParallel, world 1"}[name]
+        log(f"faces {name} twin PyramidNet-110 bf16 batch 64 (SGD + StepLR,"
+            f" {strategy}), 1 epoch of 40 steps: loss={epoch[1]} accuracy={epoch[2]} "
+            f"epoch_time_s={epoch[3]} avg_batch_time_s={epoch[4]} "
+            f"({64 / float(epoch[4]):.2f} samples/s, first step included), "
+            f"val_loss={val[1]} val_accuracy={val[2]}, final weights saved "
+            f"({secs:.1f} s) | {card}")
+
+
+def phase_faces(torch, seed, card):
+    """The last example twins on the card: (a) serve_lm through K4, (b)
+    imagenet_resnet50, (c) caffe_train and its resume, (d) tf_estimator
+    twice, (e) mxnet_kvstore, (f) single_device and data_parallel."""
+    import shutil
+    root = os.path.join(ROOT, "build", "faces", "work")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "datasets"))
+    t0 = time.perf_counter()
+    try:
+        faces_serve(torch, seed, card)
+        faces_resnet(torch, seed, card, root)
+        faces_caffe(torch, card, root)
+        faces_estimator(torch, card, root)
+        faces_mxnet(torch, card, root)
+        faces_pyramidnet(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"faces: {time.perf_counter() - t0:.1f} s | {card}")
 
 
 def phase_profile(torch, seed):
@@ -3542,6 +3893,8 @@ def main(argv=None) -> int:
         phase_ddp(torch, args.seed, card)
     if "resume" in phases:
         phase_resume(torch, args.seed, card)
+    if "faces" in phases:
+        phase_faces(torch, args.seed, card)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)

@@ -50,6 +50,7 @@ ResNet ``Conv_0`` or ``SpaceToDepthStem_0``     ``stem`` (either path)
 ``BottleneckBlock_{i}/Conv_{0,1,2}``            ``blocks.{i}.conv{1,2,3}``
 ``BottleneckBlock_{i}/BatchNorm_{0,1,2}``       ``blocks.{i}.bn{1,2,3}``
 ``BottleneckBlock_{i}/{Conv_3,BatchNorm_3}``    ``blocks.{i}.{proj,proj_bn}``
+CaffeNet ``<layer name>`` (Conv, Dense)         ``layers.<layer name>``
 ==============================================  ==========================
 
 A missing or extra leaf, or a shape or payload type that differs, raises
@@ -68,6 +69,7 @@ from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.models.cnn import MnistCNN
 from dtdl_tpu_torch.models.layers import Classifier, Conv
 from dtdl_tpu_torch.models.mlp import MLP
+from dtdl_tpu_torch.models.netspec import CaffeNet
 from dtdl_tpu_torch.models.norm import BatchNorm
 from dtdl_tpu_torch.models.pyramidnet import PyramidNet
 from dtdl_tpu_torch.models.resnet import ResNet
@@ -149,6 +151,8 @@ def _module_paths(model: Classifier, stem: str | None = None) -> dict:
     model's ``s2d_stem``)."""
     if isinstance(model, MLP):
         return {f"fc{i + 1}": f"Dense_{i}" for i in range(3)}
+    if isinstance(model, CaffeNet):
+        return {f"layers.{name}": name for name in model.layers}
     if isinstance(model, MnistCNN):
         return {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
                 "fc1": "Dense_0", "fc2": "Dense_1"}

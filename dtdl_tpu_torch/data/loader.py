@@ -16,6 +16,7 @@ horizontal flip and normalization, and normalization alone.
 from __future__ import annotations
 
 import itertools
+from collections import deque
 from typing import Callable
 
 import numpy as np
@@ -104,9 +105,29 @@ class LimitBatches:
     def batch_size(self):
         return self.loader.batch_size
 
+    def __len__(self) -> int:
+        n = len(self.loader)
+        return min(self.n, n) if self.n else n
+
     def __iter__(self):
         it = iter(self.loader)
         return itertools.islice(it, self.n) if self.n else it
+
+
+def prefetch_to_device(iterator, put: Callable, depth: int = 2):
+    """Issue ``put`` (e.g. ``strategy.shard_batch``) ``depth`` batches
+    ahead of the consumer, in order.  The port's loader has put each
+    batch on the device already (a non-blocking copy), so ``put`` runs on
+    device tensors and copies nothing again; pulling ahead queues batch
+    N+1's copy before batch N's step is consumed, as the JAX loader's
+    asynchronous ``device_put`` does."""
+    buf = deque()
+    for item in iterator:
+        buf.append(put(item))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
 
 
 def cifar10_train_transform(mean, std):

@@ -1,7 +1,8 @@
 """Analytic model FLOPs and the card's peak: the numerator and the
 denominator of a training run's MFU.  The port's copy of the LM part of
 dtdl_tpu/obs/goodput.py (``lm_forward_flops``, ``lm_train_flops``, MoE
-layers at their activated experts), a ``peak_flops_per_chip`` keyed on
+layers at their activated experts) and of its Caffe part
+(``netspec_flops``), a ``peak_flops_per_chip`` keyed on
 the CUDA device's name, and ``window_fields``, the per-window row fields
 of the JAX ``GoodputMeter`` (the meter itself, with the Observer, is
 ROADMAP queue A13).
@@ -78,3 +79,86 @@ def window_fields(steps: int, seconds: float, *,
         if peak_flops:
             out["mfu"] = round(achieved / peak_flops, 4)
     return out
+
+
+# ---------------------------------------------------------------------------
+# CNN FLOPs from a Caffe netspec
+# ---------------------------------------------------------------------------
+
+def _pair(param, key: str, default: int) -> tuple:
+    v = param.get_scalar(key, None)
+    if v is None:
+        return (int(param.get_scalar(key + "_h", default)),
+                int(param.get_scalar(key + "_w", default)))
+    return int(v), int(v)
+
+
+def _caffe_pool_out(size: int, k: int, s: int, pad: int) -> int:
+    # Caffe sizes pooling with CEIL (models/netspec.py pads to match)
+    out = -(-(size + 2 * pad - k) // s) + 1
+    if pad and (out - 1) * s >= size + pad:
+        out -= 1
+    return max(out, 1)
+
+
+def netspec_flops(specs, input_shape, phase: str = "TRAIN",
+                  backward: bool = False) -> float:
+    """Matmul/conv-only analytic FLOPs of one forward pass of one example
+    through a parsed Caffe net (``models.netspec.parse_net`` LayerSpecs,
+    or a prototxt path / Message).
+
+    ``input_shape`` is one example's (H, W, C).  Elementwise layers
+    (ReLU/LRN/Dropout/Softmax) and pooling count 0, the MFU-numerator
+    convention; ``backward=True`` adds the backward at twice the forward
+    (one train step = 3x forward).  Multiply by the batch size for a
+    step's total."""
+    from dtdl_tpu_torch.models.netspec import parse_net
+    from dtdl_tpu_torch.utils.prototxt import Message, parse_file
+
+    if isinstance(specs, str):
+        specs = parse_net(parse_file(specs))
+    elif isinstance(specs, Message):
+        specs = parse_net(specs)
+
+    h, w, c = (int(x) for x in input_shape)
+    flat = None                      # set once an InnerProduct flattens
+    total = 0.0
+    for spec in specs:
+        if not spec.in_phase(phase):
+            continue
+        p = spec.params
+        if spec.type == "Convolution":
+            cp = p.get_scalar("convolution_param", Message())
+            kh, kw = _pair(cp, "kernel_size", 3)
+            sh, sw = _pair(cp, "stride", 1)
+            ph, pw = _pair(cp, "pad", 0)
+            cout = int(cp.get_scalar("num_output"))
+            group = int(cp.get_scalar("group", 1))
+            oh = (h + 2 * ph - kh) // max(sh, 1) + 1
+            ow = (w + 2 * pw - kw) // max(sw, 1) + 1
+            total += 2.0 * kh * kw * (c // group) * cout * oh * ow
+            if bool(cp.get_scalar("bias_term", True)):
+                total += float(cout * oh * ow)
+            h, w, c, flat = oh, ow, cout, None
+        elif spec.type == "Pooling":
+            pp = p.get_scalar("pooling_param", Message())
+            if bool(pp.get_scalar("global_pooling", False)):
+                h = w = 1
+                continue
+            kh, kw = _pair(pp, "kernel_size", 2)
+            sh, sw = _pair(pp, "stride", 1)
+            ph, pw = _pair(pp, "pad", 0)
+            h = _caffe_pool_out(h, kh, max(sh, 1), ph)
+            w = _caffe_pool_out(w, kw, max(sw, 1), pw)
+        elif spec.type == "InnerProduct":
+            ip = p.get_scalar("inner_product_param", Message())
+            nin = flat if flat is not None else h * w * c
+            nout = int(ip.get_scalar("num_output"))
+            total += 2.0 * nin * nout
+            if bool(ip.get_scalar("bias_term", True)):
+                total += float(nout)
+            flat = nout
+        elif spec.type == "Flatten":
+            flat = h * w * c
+        # Data/ReLU/LRN/Dropout/Softmax/losses: 0 by convention
+    return total * (3.0 if backward else 1.0)

@@ -10,3 +10,8 @@ from dtdl_tpu_torch.train.trainer import (  # noqa: F401
 from dtdl_tpu_torch.train.fit import (  # noqa: F401
     Model, Callback, History, ModelCheckpoint, TensorBoard, PrintLR,
 )
+from dtdl_tpu_torch.train.solver import Solver  # noqa: F401
+from dtdl_tpu_torch.train.estimator import (  # noqa: F401
+    Estimator, EstimatorSpec, EvalSpec, ModeKeys, RunConfig, TrainSpec,
+    train_and_evaluate,
+)

@@ -21,7 +21,8 @@ from dtdl_tpu_torch.bridge import (_classifier_leaves, _flax_layout, _nest,
                                    batch_stats_view, flatten)
 from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.models.layers import Classifier
-from dtdl_tpu_torch.train.optim import RMSProp, Transform
+from dtdl_tpu_torch.train.optim import (MultiSteps, OwnOptimizer,
+                                         Transform)
 
 
 @dataclass
@@ -99,16 +100,20 @@ def _fresh_slots(optimizer, group, p) -> dict:
         return ({"momentum_buffer": torch.zeros_like(
             p, memory_format=torch.preserve_format)}
             if group["momentum"] else {})
-    if isinstance(optimizer, RMSProp):
-        return {"nu": torch.zeros_like(p, memory_format=torch.preserve_format)}
+    if isinstance(optimizer, OwnOptimizer):
+        return optimizer.fresh(p, group)
     raise TypeError(f"no snapshot view of {type(optimizer).__name__} state")
 
 
 def _opt_tree(state, install: bool) -> dict:
     """{slot: {flax path: tensor}} of the optimizer state (live tensors
     in flax layout; a slot torch has not created yet as its zeros, which
-    ``install`` puts into the optimizer), plus ``count``."""
-    opt = state.optimizer
+    ``install`` puts into the optimizer), plus ``count``; under
+    :class:`MultiSteps` also its accumulator (slot ``acc``) and
+    ``mini_step``."""
+    wrapper = state.optimizer
+    multi = isinstance(wrapper, MultiSteps)
+    opt = wrapper.inner if multi else wrapper
     group_of = {p: g for g in opt.param_groups for p in g["params"]}
     tree: dict = {}
     for path, p, kind in _param_paths(state.model):
@@ -119,6 +124,8 @@ def _opt_tree(state, install: bool) -> dict:
             live = _fresh_slots(opt, group_of[p], p)
             if install and live:
                 opt.state[p] = live
+        if multi:
+            live = {**live, "acc": wrapper.acc_of(p)}
         for slot, v in live.items():
             if not isinstance(v, torch.Tensor):
                 continue
@@ -130,6 +137,8 @@ def _opt_tree(state, install: bool) -> dict:
         raise ValueError(f"param groups at different update counts {counts}")
     if counts:
         tree["count"] = counts.pop()
+    if multi:
+        tree["mini_step"] = wrapper.mini_step
     return tree
 
 
@@ -173,4 +182,6 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     if count is not None:
         for group in state.optimizer.param_groups:
             group["count"] = int(count)
+    if isinstance(state.optimizer, MultiSteps):
+        state.optimizer.mini_step = int(tree["opt_state"]["mini_step"])
     return state

@@ -98,3 +98,34 @@ def test_data_loader_runs_on_the_card_by_default(monkeypatch):
         tloader.DataLoader({"tokens": tokens}, 2)
     with pytest.raises(ValueError, match="0 batches"):
         tloader.DataLoader({"tokens": tokens}, 16, device="cpu")
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_prefetch_to_device_keeps_the_jax_order_and_depth(depth):
+    """``put`` runs ``depth`` batches ahead of the consumer in both
+    packages, in order; the port's loader has its batches on the device
+    already, and the prefetch hands on the very tensors ``put`` returns
+    (no second copy)."""
+    def trace(module):
+        log = []
+
+        def put(b):
+            log.append(("put", b["i"]))
+            return b
+        out = []
+        for b in module.prefetch_to_device(iter([{"i": i} for i in range(5)]),
+                                           put, depth):
+            log.append(("got", b["i"]))
+            out.append(b)
+        return log, out
+
+    assert trace(tloader)[0] == trace(jloader)[0]
+    loader = tloader.DataLoader({"x": np.arange(12.0).reshape(6, 2)}, 2,
+                                shuffle=False, device="cpu")
+    seen = []
+    got = list(tloader.prefetch_to_device(
+        iter(loader), lambda b: seen.append(b["x"]) or b, depth))
+    assert len(got) == len(seen) == 3
+    assert all(a is b for a, b in zip((b["x"] for b in got), seen))
+    np.testing.assert_array_equal(torch.cat([b["x"] for b in got]).numpy(),
+                                  np.arange(12.0).reshape(6, 2))

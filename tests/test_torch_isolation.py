@@ -67,7 +67,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "examples/mnist_mirror_strategy.py",
                 "examples/mnist_multi_worker_strategy.py",
                 "examples/train_mnist.py", "examples/train_mnist_gpu.py",
-                "examples/train_mnist_multi.py"):
+                "examples/train_mnist_multi.py", "utils/prototxt.py",
+                "models/netspec.py", "train/solver.py", "train/estimator.py",
+                "parallel/kvstore.py", "examples/single_device.py",
+                "examples/data_parallel.py",
+                "examples/imagenet_resnet50.py", "examples/serve_lm.py",
+                "examples/tf_estimator.py", "examples/caffe_train.py",
+                "examples/mxnet_kvstore.py"):
         assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
@@ -110,6 +116,27 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda):
     assert generate(model, np.zeros((1, 3), np.int32), 2).device.type == "cpu"
     assert ModelDraft(model).propose(np.arange(4), 2).size == 2
     assert dtdl_tpu_torch.NoCudaDeviceError is NoCudaDeviceError
+
+
+def test_faces_refuse_to_run_without_a_card(no_cuda, tmp_path):
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.models.netspec import build_net
+    from dtdl_tpu_torch.train.solver import Solver
+    net = ('layer { name: "d" type: "Input" top: "data" } '
+           'layer { name: "ip" type: "InnerProduct" bottom: "data" '
+           'top: "ip" inner_product_param { num_output: 2 } }')
+    with pytest.raises(NoCudaDeviceError):
+        build_net(net, input_shape=(4,))
+    build_net(net, input_shape=(4,), device="cpu")
+    (tmp_path / "net.prototxt").write_text(net)
+    (tmp_path / "s.prototxt").write_text(
+        f'net: "net.prototxt" snapshot_prefix: "{tmp_path}/o"')
+    loader = DataLoader({"image": np.zeros((4, 4), np.float32),
+                         "label": np.zeros(4, np.int32)}, 2, device="cpu")
+    with pytest.raises(NoCudaDeviceError):
+        Solver(str(tmp_path / "s.prototxt"), loader)
+    assert Solver(str(tmp_path / "s.prototxt"), loader,
+                  device="cpu").net.device.type == "cpu"
 
 
 def test_classifiers_refuse_to_run_without_a_card(no_cuda):
