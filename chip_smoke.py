@@ -153,6 +153,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
                trains nothing); (e) mxnet_kvstore --kv-store device, one
                epoch; (f) single_device and data_parallel, one epoch of 2560
                images each; each twin's output in build/faces/<twin>.log;
+7i. fourd    - the 4D-parallel step (parallel/megatron.py) on the one-card
+               mesh (1, 1, 1, 1) through K1-K3: (a) base widths, bf16 on
+               f32 weights, adamw(3e-4), 8 x 4096, 1F1B over 2
+               microbatches, 3 + 10 steps (tokens/s, step ms, MFU; K1
+               2·M·L and K2, K3 M·L launches a step, the chunk forward
+               recomputed at its backward tick); (b) against the
+               single-device make_lm_train_step on to_flax_model with the
+               weights to_flax_params converts: one f32 sgd step at 2
+               layers and seq 512 (loss, every parameter) and (a)'s bf16
+               trajectory; (c) fuse_rope True (K1-K3) against False
+               (apply_rope, plain attend); (d) GPipe, interleaved 1F1B
+               (v=2) and a routed top-2 MoE (8 experts, capacity 1.25),
+               3 steps each, and ulysses_attention at axis size 1 against
+               plain attention; (e) the train_lm_4d twin at the base widths
+               (vocab 256) interrupted at 2 steps and resumed to 4 (final
+               loss and every snapshot leaf bitwise the uninterrupted
+               run's), then --generate-tokens 16;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -160,9 +177,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
                projections against the bf16 one, with CUDA events.
 
 ``--phases profile`` (not in the default set) adds a serving run, two
-training steps of base and of base-moe8, and one PyramidNet-110 batch-256
-step under torch.profiler (and host timers for serving and the
-classifier step): where the main paths' time goes.  ``--phases
+training steps of base and of base-moe8, one PyramidNet-110 batch-256
+step, and two 4D steps (dense and routed MoE) under torch.profiler (and
+host timers for serving and the classifier step): where the main paths'
+time goes.  ``--phases
 train,traincheck`` drives the training path alone.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
@@ -186,7 +204,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
-          "classifycheck", "ddp", "resume", "faces", "timing")
+          "classifycheck", "ddp", "resume", "faces", "fourd", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -3606,6 +3624,413 @@ def phase_profile(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 7i: fourd, the 4D-parallel step on the one-card mesh
+# ---------------------------------------------------------------------------
+
+# the 4D config at the base widths (vocab 32000, d_model 512, 4 heads of
+# 128, d_ff 1408, 8 layers), max_seq 4096, the train phase's batch
+FOURD_WIDTHS = dict(vocab_size=32000, d_model=512, n_heads=4, d_ff=1408,
+                    n_stages=1, layers_per_stage=8, max_seq=TRAIN_SEQ,
+                    n_microbatches=2)
+FOURD_CHECK_LAYERS, FOURD_CHECK_SEQ = 2, 512
+# (b) f32, the 4D step against the single-device step (summation order
+# only: the 4D step adds two microbatches' gradients, rounds the head in
+# another order): tests/test_megatron.py's loss bound and PARAM_TOL.
+# bf16, the 13-step trajectory: the 4D head takes f32 logits of the
+# bf16 hidden state where the single-device head rounds its logits to
+# bf16 (2^-8 of logits ~ 1 each), so each loss may differ by rounding of
+# that size, as traincheck's bf16 loss bound
+FOURD_TOL = dict(loss=(1e-5, 1e-5), param=(2e-4, 2e-4), bf16_loss=2e-2)
+# (e) the twin: the script's own vocab (256) at the base widths
+FOURD_TWIN = ["--mesh", "1,1,1,1", "--d-model", "512", "--n-heads", "4",
+              "--d-ff", "1408", "--layers-per-stage", "8", "--seq-len",
+              str(TRAIN_SEQ), "--batch-size", str(TRAIN_BATCH),
+              "--microbatches", "2", "--log-interval", "1"]
+FOURD_TWIN_STEPS = (2, 4)          # interrupted at 2, resumed to 4
+
+
+def fourd_cfg(torch, **kw):
+    from dtdl_tpu_torch.parallel import megatron as M
+    return M.MegatronConfig(**{**FOURD_WIDTHS, "dtype": torch.bfloat16,
+                               **kw})
+
+
+def fourd_batches(seed, n, batch, seq, vocab):
+    """``n`` host batches of synthetic Markov sequences of ``seq + 1``
+    tokens: (token rows, the 4D step's tokens/targets/mask)."""
+    import numpy as np
+
+    from dtdl_tpu_torch.data.synthetic import markov_tokens
+    toks = markov_tokens(n * batch, seq + 1, vocab, seed=seed + 3)
+    out = []
+    for i in range(n):
+        t = toks[i * batch:(i + 1) * batch]
+        out.append((t, {"tokens": t[:, :-1], "targets": t[:, 1:],
+                        "mask": np.ones((batch, seq), np.float32)}))
+    return out
+
+
+def fourd_run(torch, cfg, params, batches, tx, warmup=0, label=""):
+    """The 4D step on the one-card mesh from the global ``params``: the
+    losses and metrics of every batch, the launches and wall seconds of
+    the steps after ``warmup`` (counts set to 0 just before them), the
+    final shards."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.parallel import megatron as M
+    mesh = M.build_4d_mesh()
+    if mesh.size != 1:
+        raise AssertionError(f"fourd runs on one card, mesh {mesh.shape}")
+    p = M.place_params(mesh, cfg, params, device=DEV)
+    opt = M.init_optimizer(cfg, mesh, tx, p)
+    step = M.make_megatron_train_step(cfg, mesh, tx)
+    losses, metrics = [], []
+    for i, (_, host) in enumerate(batches):
+        if i == warmup:
+            sync(torch)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+        b = M.shard_lm_batch(mesh, host, device=DEV)
+        p, opt, loss, m = step(p, opt, b["tokens"], b["targets"], b["mask"])
+        losses.append(loss)
+        metrics.append(m)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(x) for x in losses]
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fourd {label}: non-finite loss {losses}")
+    return dict(losses=losses, metrics=metrics, launches=launches,
+                wall=wall, steps=len(batches) - warmup, params=p)
+
+
+def single_device_run(torch, cfg, params, batches, tx, attn="flash"):
+    """The port's single-device LM step (make_lm_train_step) on
+    to_flax_model with the weights to_flax_params converts: losses and
+    the final flax tree."""
+    from dtdl_tpu_torch.bridge import load_flax_params, state_dict_to_flax
+    from dtdl_tpu_torch.parallel import megatron as M
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    lm = M.to_flax_model(cfg, device=DEV, attn_impl=attn, dtype=cfg.dtype)
+    load_flax_params(lm, M.to_flax_params(cfg, params), device=DEV)
+    state = init_state(lm, None, tx, device=DEV)
+    step = make_lm_train_step()
+    losses = []
+    for toks, _ in batches:
+        state, m = step(state, {"tokens": toks})
+        losses.append(m["loss"])
+    sync(torch)
+    tree = dict(M._leaves(state_dict_to_flax(lm)))
+    del state, lm
+    return [float(x) for x in losses], tree
+
+
+def param_errs(torch, cfg, shards, want_flax, atol, rtol):
+    """(worst |got - want| / (atol + rtol·|want|), its path) over the
+    4D shards converted to the flax tree against ``want_flax``."""
+    import numpy as np
+
+    from dtdl_tpu_torch.parallel import megatron as M
+    worst, at = 0.0, ""
+    for path, got in M._leaves(M.to_flax_params(cfg, shards)):
+        want = want_flax[path]
+        r = float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+        if r > worst:
+            worst, at = r, path
+    return worst, at
+
+
+def phase_fourd(torch, seed, card):
+    """The 4D-parallel step (parallel/megatron.py) on the one-card mesh
+    (1, 1, 1, 1) through K1-K3: (a) the base widths, bf16 on f32 weights,
+    adamw(3e-4), 8 x 4096, 1F1B over 2 microbatches, 3 + 10 steps;
+    (b) against the single-device step (f32 at 2 layers and seq 512, one
+    sgd step; the (a) trajectory in bf16); (c) fused (K1-K3) against
+    unfused rope (plain attend); (d) GPipe, interleaved 1F1B (v=2) and a
+    routed top-2 MoE (8 experts, capacity 1.25), 3 steps each, and
+    Ulysses at axis size 1 against plain attention; (e) the train_lm_4d
+    twin interrupted, resumed (the final loss and snapshot bitwise) and
+    decoding 16 tokens."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.examples import train_lm_4d
+    from dtdl_tpu_torch.models.transformer import LMConfig
+    from dtdl_tpu_torch.obs.goodput import lm_train_flops, peak_flops_per_chip
+    from dtdl_tpu_torch.ops.attention import flash_attention_reference
+    from dtdl_tpu_torch.parallel import megatron as M
+    from dtdl_tpu_torch.parallel.sequence import ulysses_attention
+    from dtdl_tpu_torch.train.optim import adamw, sgd
+    t_phase = time.perf_counter()
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    out = {}
+
+    # (a) the run
+    cfg = fourd_cfg(torch)
+    params = M.init_params(cfg, seed)
+    batches = fourd_batches(seed, 13, B, S, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    a = fourd_run(torch, cfg, params, batches, adamw(3e-4), warmup=3,
+                  label="(a)")
+    L, Mb = cfg.n_layers, cfg.n_microbatches
+    want = {"flash_fwd": 2 * Mb * L, "flash_bwd_dq": Mb * L,
+            "flash_bwd_dkv": Mb * L}
+    per_step = {k: v / a["steps"] for k, v in a["launches"].items()}
+    lmcfg = LMConfig(vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                     n_layers=L, n_heads=cfg.n_heads, d_ff=cfg.d_ff)
+    flops = lm_train_flops(lmcfg, B, S + 1)
+    step_ms = 1e3 * a["wall"] / a["steps"]
+    peak = peak_flops_per_chip()
+    mfu = flops * a["steps"] / a["wall"] / peak if peak else None
+    out["a"] = dict(step_ms=step_ms, tokens_per_s=B * S * a["steps"]
+                    / a["wall"], mfu=mfu, launches_per_step=per_step)
+    log(f"fourd (a) 1F1B mesh (1,1,1,1) base widths bf16 (f32 weights) "
+        f"adamw(3e-4) {B}x{S}, {Mb} microbatches: steps={a['steps']} (after "
+        f"3 warm-up) step_ms={step_ms:.2f} tokens_per_s="
+        f"{out['a']['tokens_per_s']:.1f} flops_per_step={flops:.4e} mfu="
+        f"{mfu if mfu is None else round(mfu, 5)} peak_mem_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} loss_first="
+        f"{a['losses'][0]:.5f} loss_last={a['losses'][-1]:.5f}; launches per "
+        f"step {per_step} (predicted K1 2*M*L={want['flash_fwd']}, K2 and K3 "
+        f"M*L={want['flash_bwd_dq']})")
+    for name, n in want.items():
+        if a["launches"][name] != n * a["steps"]:
+            raise AssertionError(f"fourd (a): {name} launched "
+                                 f"{a['launches'][name]} times in "
+                                 f"{a['steps']} steps, want {n} a step")
+    if not a["losses"][-1] < a["losses"][0]:
+        raise AssertionError(f"fourd (a): the loss did not fall: "
+                             f"{a['losses']}")
+
+    # (b) against the single-device step: bf16, the (a) trajectory
+    sd_losses, _ = single_device_run(torch, cfg, params, batches,
+                                     adamw(3e-4))
+    d = [abs(x - y) for x, y in zip(a["losses"], sd_losses)]
+    ok = max(d) <= FOURD_TOL["bf16_loss"]
+    log(f"fourd (b) bf16 13-step trajectory, 4D vs single-device "
+        f"make_lm_train_step on to_flax_model: 4D "
+        f"{[round(x, 5) for x in a['losses']]} single "
+        f"{[round(x, 5) for x in sd_losses]} max |d|={max(d):.3e} (tol "
+        f"{FOURD_TOL['bf16_loss']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fourd (b): the bf16 trajectories part")
+    del a
+    torch.cuda.empty_cache()
+
+    # (b) f32 at 2 layers, seq 512, and (c) fused against unfused rope
+    small = dict(layers_per_stage=FOURD_CHECK_LAYERS,
+                 max_seq=FOURD_CHECK_SEQ, dtype=torch.float32)
+    cfg32 = fourd_cfg(torch, **small)
+    p32 = M.init_params(cfg32, seed + 1)
+    b32 = fourd_batches(seed + 1, 1, B, FOURD_CHECK_SEQ, cfg32.vocab_size)
+    fused = fourd_run(torch, cfg32, p32, b32, sgd(0.1), label="(b) f32")
+    sd_loss, sd_tree = single_device_run(torch, cfg32, p32, b32, sgd(0.1))
+    atol, rtol = FOURD_TOL["loss"]
+    ok_loss = abs(fused["losses"][0] - sd_loss[0]) <= \
+        atol + rtol * abs(sd_loss[0])
+    worst, at = param_errs(torch, cfg32, fused["params"], sd_tree,
+                           *FOURD_TOL["param"])
+    fl = fused["launches"]
+    ok = ok_loss and worst <= 1.0
+    log(f"fourd (b) f32 2-layer seq {FOURD_CHECK_SEQ} one sgd(0.1) step, 4D "
+        f"(K1-K3) vs single-device (K1-K3): loss {fused['losses'][0]:.6f} vs "
+        f"{sd_loss[0]:.6f} (atol {atol} rtol {rtol}); worst parameter "
+        f"{worst:.3f} of its bound (atol/rtol {FOURD_TOL['param']}) at {at}; "
+        f"4D launches {fl} {'ok' if ok else 'FAIL'}")
+    if not ok or fl["flash_fwd"] != 2 * Mb * FOURD_CHECK_LAYERS:
+        raise AssertionError("fourd (b): the f32 4D step disagrees with the "
+                             "single-device step")
+    unfused = fourd_run(torch, dataclasses.replace(cfg32, fuse_rope=False),
+                        p32, b32, sgd(0.1), label="(c) unfused")
+    shards = dict(M._leaves(unfused["params"]))
+    worst_c, at_c = 0.0, ""
+    for path, x in M._leaves(fused["params"]):
+        w = shards[path].detach().float().cpu().numpy()
+        r = float(np.max(np.abs(x.detach().float().cpu().numpy() - w)
+                         / (FOURD_TOL["param"][0] + FOURD_TOL["param"][1]
+                            * np.abs(w))))
+        if r > worst_c:
+            worst_c, at_c = r, path
+    ok = worst_c <= 1.0 and unfused["launches"]["flash_fwd"] == 0
+    log(f"fourd (c) f32 2-layer one step fuse_rope=True (K1-K3) vs False "
+        f"(apply_rope + plain attend): loss {fused['losses'][0]:.6f} vs "
+        f"{unfused['losses'][0]:.6f}; worst parameter {worst_c:.3f} of its "
+        f"bound at {at_c}; unfused launches {unfused['launches']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fourd (c): fused and unfused steps disagree")
+    del fused, unfused, shards
+    torch.cuda.empty_cache()
+
+    # (d) other schedules and the MoE at full width, 3 steps each
+    three = batches[:3]
+    for label, kw in (("gpipe", dict(schedule="gpipe")),
+                      ("1f1b v=2", dict(virtual_stages=2)),
+                      ("moe routed top-2 E=8 cf=1.25",
+                       dict(n_experts=8, moe_dispatch="routed",
+                            moe_top_k=2, capacity_factor=1.25))):
+        c = fourd_cfg(torch, **kw)
+        p = params if not c.n_experts else M.init_params(c, seed)
+        r = fourd_run(torch, c, p, three, adamw(3e-4), warmup=1,
+                      label=label)
+        moe = ""
+        if c.n_experts:
+            moe = " " + " ".join(
+                f"moe_dropped_frac={m['moe_dropped_frac']:.5f} "
+                f"moe_aux_loss={m['moe_aux_loss']:.5f}"
+                for m in r["metrics"])
+        log(f"fourd (d) {label}: losses {[round(x, 5) for x in r['losses']]} "
+            f"step_ms {1e3 * r['wall'] / r['steps']:.2f} (2 steps after 1) "
+            f"launches {r['launches']}{moe}")
+        if r["launches"]["flash_fwd"] == 0:
+            raise AssertionError(f"fourd (d) {label}: no K1 launch")
+        del r
+        torch.cuda.empty_cache()
+    mesh = M.build_4d_mesh()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn(B, cfg.n_heads, S, cfg.head_dim, generator=gen,
+                           device=DEV).to(torch.bfloat16) for _ in range(3))
+    kernels.reset_launches()
+    with torch.no_grad():
+        o = ulysses_attention(q, k, v, mesh=mesh, axis_name="seq",
+                              causal=True)
+        n_k1 = kernels.LAUNCHES["flash_fwd"]
+        want_o, _ = flash_attention_reference(q, k, v, causal=True)
+    err = max_err(o, want_o)
+    ok_u, msg = within(o, want_o, torch.bfloat16)
+    log(f"fourd (d) ulysses_attention axis size 1 bf16 {B}x{cfg.n_heads}x"
+        f"{S}x{cfg.head_dim} causal vs plain attention: max_abs_err "
+        f"{err:.3e} ({msg}); K1 launches {n_k1} {'ok' if ok_u else 'FAIL'}")
+    if not ok_u or n_k1 != 1:
+        raise AssertionError("fourd (d): ulysses disagrees with plain "
+                             "attention or skipped K1")
+    del q, k, v, o, want_o
+
+    # (e) the twin as a user runs it: uninterrupted, then interrupted and
+    # resumed from its snapshot, then --generate-tokens 16
+    root = os.path.join(ROOT, "build", "fourd_twin")
+    shutil.rmtree(root, ignore_errors=True)
+    mid, end = FOURD_TWIN_STEPS
+
+    def twin(*extra):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            loss, val = train_lm_4d.main(FOURD_TWIN + list(extra))
+        text = buf.getvalue()
+        with open(os.path.join(root, "twin.log"), "a") as f:
+            f.write(text)
+        return loss, val, text, time.perf_counter() - t0
+
+    os.makedirs(root, exist_ok=True)
+    kernels.reset_launches()
+    la, va, _, sa = twin("--steps", str(end), "--out",
+                         os.path.join(root, "a"))
+    launches_twin = dict(kernels.LAUNCHES)
+    twin("--steps", str(mid), "--out", os.path.join(root, "b"))
+    lb, vb, text, sb = twin("--steps", str(end), "--out",
+                            os.path.join(root, "b"), "--resume",
+                            "--generate-tokens", "16")
+    snap = [torch.load(os.path.join(root, r, "process_0",
+                                    f"snapshot_{end}", "state.pt"),
+                       weights_only=True) for r in ("a", "b")]
+    same = [p for p, x in M._leaves(snap[0]) if isinstance(x, torch.Tensor)
+            and torch.equal(x, dict(M._leaves(snap[1]))[p])]
+    n_leaves = sum(isinstance(x, torch.Tensor) for _, x in
+                   M._leaves(snap[0]))
+    gen_line = [ln for ln in text.splitlines() if ln.startswith("generated:")]
+    tokens = eval(gen_line[0].split(":", 1)[1]) if gen_line else []
+    ok = (la == lb and len(same) == n_leaves and va == vb
+          and f"resumed from snapshot at step {mid}" in text
+          and len(tokens) == 8 + 16 and all(0 <= t < 256 for t in tokens))
+    log(f"fourd (e) train_lm_4d twin --mesh 1,1,1,1 base widths vocab 256: "
+        f"{end} steps in {sa:.1f}s (final loss {la!r}, launches {launches_twin})"
+        f"; {mid} steps, then --resume to {end} in {sb:.1f}s (final loss "
+        f"{lb!r}); final loss bitwise {la == lb}, snapshot leaves bitwise "
+        f"{len(same)}/{n_leaves}, validation equal {va == vb}; generated "
+        f"{tokens} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fourd (e): the twin's resume is not bitwise or "
+                             "its decode failed")
+    log(f"fourd phase {time.perf_counter() - t_phase:.1f}s on {card}")
+    return out
+
+
+def phase_profile_fourd(torch, seed, steps: int = 2):
+    """Where the fourd phase's 4D step's device time goes (torch.profiler):
+    the dense base-width 1F1B step and the routed top-2 MoE one, each by
+    range (the head, the attention, the MLP or MoE layer: forwards and
+    recomputes, each wrapped in a record_function range here; the
+    backwards run inside autograd) and by kernel."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    from dtdl_tpu_torch.parallel import megatron as M
+    from dtdl_tpu_torch.train.optim import adamw
+    parts = {"head fwd": "_head_loss", "attention fwd": "_attention",
+             "dense MLP fwd": "_mlp_dense", "MoE layer fwd": "_mlp_moe_routed"}
+    saved = {name: getattr(M, attr) for name, attr in parts.items()}
+
+    def ranged(name, fn):
+        def wrapper(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapper
+    batches = fourd_batches(seed, steps + 2, TRAIN_BATCH, TRAIN_SEQ,
+                            FOURD_WIDTHS["vocab_size"])
+    for label, kw in (("dense", {}),
+                      ("moe routed top-2 E=8", dict(
+                          n_experts=8, moe_dispatch="routed", moe_top_k=2,
+                          capacity_factor=1.25))):
+        cfg = fourd_cfg(torch, **kw)
+        mesh = M.build_4d_mesh()
+        p = M.place_params(mesh, cfg, M.init_params(cfg, seed), device=DEV)
+        tx = adamw(3e-4)
+        opt = M.init_optimizer(cfg, mesh, tx, p)
+        step = M.make_megatron_train_step(cfg, mesh, tx)
+        hosts = [M.shard_lm_batch(mesh, h, device=DEV) for _, h in batches]
+        for b in hosts[:2]:
+            p, opt, _, _ = step(p, opt, b["tokens"], b["targets"], b["mask"])
+        sync(torch)
+        try:
+            for name, attr in parts.items():
+                setattr(M, attr, ranged(name, saved[name]))
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for b in hosts[2:]:
+                    p, opt, _, _ = step(p, opt, b["tokens"], b["targets"],
+                                        b["mask"])
+                sync(torch)
+            wall = time.perf_counter() - t0
+        finally:
+            for name, attr in parts.items():
+                setattr(M, attr, saved[name])
+        rows = prof.key_averages()
+        kernel_rows = [e for e in rows if "CUDA" in str(e.device_type)
+                       and e.key not in parts]
+        dev = sum(e.self_device_time_total for e in kernel_rows) / 1e3
+        log(f"profile fourd {label} {steps} steps: wall {wall:.4f}s (traced), "
+            f"device kernel time {dev / steps:.2f} ms per step, busy share "
+            f"{dev / 1e3 / wall:.3f}")
+        by_key = {e.key: e.device_time_total / 1e3 / steps for e in rows}
+        for name in parts:
+            if name in by_key:
+                log(f"  {by_key[name]:9.2f} ms/step  range {name}")
+        for e in sorted(kernel_rows,
+                        key=lambda e: -e.self_device_time_total)[:14]:
+            log(f"  {e.self_device_time_total / 1e3 / steps:9.2f} ms/step "
+                f"{e.count // steps:5d}x/step  {e.key[:70]}")
+        del p, opt, step, hosts
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
@@ -3895,12 +4320,15 @@ def main(argv=None) -> int:
         phase_resume(torch, args.seed, card)
     if "faces" in phases:
         phase_faces(torch, args.seed, card)
+    if "fourd" in phases:
+        phase_fourd(torch, args.seed, card)
 
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
         phase_profile_moe(torch, args.seed)
         phase_profile_classify(torch, args.seed)
+        phase_profile_fourd(torch, args.seed)
     if "timing" in phases:
         # K4 at the main path's decode shape: 8 slots, pool of the engine
         # (page 16, 128 pages per slot), positions spread as the traffic's

@@ -262,14 +262,20 @@ class Checkpointer:
     A context manager: ``with Checkpointer(...) as ck:`` flushes (every
     in-flight snapshot durable and committed) and closes on any exit,
     exceptions included.
+
+    ``per_process=True`` makes every process the writer of its own
+    ``directory`` (the 4D engine's shards, one directory a rank); the
+    barriers stay, so every process still saves and restores together.
     """
 
     _WEIGHT_RE = re.compile(r"weights_epoch_(\d+)\.pt$")
     _SNAP_RE = re.compile(r"snapshot_(\d+)$")
 
-    def __init__(self, directory: str, keep: int | None = None):
+    def __init__(self, directory: str, keep: int | None = None,
+                 per_process: bool = False):
         self.directory = directory
         self.keep = keep
+        self._writes = per_process or is_leader()
         self._last_saved_step = None   # protected from gc until superseded
         # rollback detection: _supersede (deleting entries ABOVE a save)
         # only after this run restored from THIS directory's timeline, and
@@ -280,7 +286,7 @@ class Checkpointer:
         self._pending_commit: set[int] = set()
         self._writer: threading.Thread | None = None
         self._write_error: BaseException | None = None
-        if is_leader():
+        if self._writes:
             os.makedirs(directory, exist_ok=True)
         barrier("ckpt_mkdir")
 
@@ -343,7 +349,7 @@ class Checkpointer:
             return
         for step in sorted(self._pending_commit):
             path = os.path.join(self.directory, f"snapshot_{step}")
-            if is_leader() and os.path.isdir(path):
+            if self._writes and os.path.isdir(path):
                 _fault("ckpt.pre_commit")   # torn-finalize window
                 marker = os.path.join(path, _COMMIT_MARKER)
                 tmp = marker + ".tmp"
@@ -366,7 +372,7 @@ class Checkpointer:
         """Move a corrupt artifact out of the regexes' sight
         (``<name>.corrupt``), keeping it for inspection; leader-gated."""
         log.warning("quarantining corrupt checkpoint %s: %s", victim, err)
-        if not is_leader():
+        if not self._writes:
             return
         for src in (victim, victim + ".manifest.json"):
             if os.path.exists(src):
@@ -418,24 +424,27 @@ class Checkpointer:
         # train/ imports this module (fit, trainer): import its state here
         from dtdl_tpu_torch.train.state import TrainState, state_to_tree
         self._join()
-        if is_leader():
+        writer = None
+        if self._writes:
             tree = state_to_tree(state) if isinstance(state, TrainState) \
                 else state
             flat, event = _stage(tree)
-            self._writer = threading.Thread(
+            writer = threading.Thread(
                 target=self._write, args=(path, flat, event),
                 name=f"ckpt-snapshot-{step}", daemon=True)
-            self._writer.start()
         self._last_saved_step = step
         self._pending_commit.add(step)
         # a save below existing ids after this run restored from this
         # directory is a rollback: the higher ids are a stale future
         if self._restored_snapshot:
             self._supersede(self._SNAP_RE, "snapshot_{}", step)
-        # the in-flight snapshot still has its tmp name: trimming over
-        # the durable list only keeps `keep` durable snapshots through
-        # the write window; the excess goes at wait_until_finished
+        # trimmed over the durable snapshots before the write starts, so
+        # `keep` durable ones stay through the write window however fast
+        # the writer renames; the excess goes at wait_until_finished
         self._gc(self._SNAP_RE, "snapshot_{}", protect=step)
+        if writer is not None:
+            self._writer = writer
+            writer.start()
         if wait:
             self.wait_until_finished()
         return path
@@ -550,7 +559,7 @@ class Checkpointer:
     def _gc(self, regex, fmt, protect: int | None = None) -> None:
         """Remove all but the ``keep`` newest entries; ``protect`` (the id
         just saved) is never a victim."""
-        if self.keep is None or not is_leader():
+        if self.keep is None or not self._writes:
             return
         for old in self._list(regex)[:-self.keep]:
             if old != protect:
@@ -562,7 +571,7 @@ class Checkpointer:
         Callers gate it on having restored this shape from THIS
         directory: a fresh run saving low ids into an existing directory,
         or one warm-started from another directory, is not a rollback."""
-        if not is_leader():
+        if not self._writes:
             return
         for old in self._list(regex):
             if old > just_saved:

@@ -8,7 +8,7 @@ drives one card (:mod:`dtdl_tpu_torch.runtime.mesh`), so here the
 at world 1; more cards are more processes, through the launcher and the
 ``distributed_data_parallel`` twin, and a larger count here raises
 rather than run on fewer cards than asked.  A count between 1 and the
-world's raises too: a sub-mesh is ROADMAP A11.
+world's raises too: a sub-mesh is ROADMAP A11b.
 
     python -m dtdl_tpu_torch.examples.data_parallel --batch-size 256
 
@@ -36,7 +36,7 @@ from dtdl_tpu_torch.utils.random import seed_everything
 def check_device_count(n: int, script: str) -> None:
     """A count of cards other than 0 (the world's) or the process world
     raises: each port process drives one card, so more cards are more
-    processes, and fewer than the world are a sub-mesh (ROADMAP A11)."""
+    processes, and fewer than the world are a sub-mesh (ROADMAP A11b)."""
     world = process_count()
     if n > world:
         raise NotImplementedError(
@@ -48,7 +48,7 @@ def check_device_count(n: int, script: str) -> None:
     if 0 < n < world:
         raise NotImplementedError(
             f"{n} devices asked for: data parallelism over {n} of this "
-            f"world's {world} processes (a sub-mesh) is ROADMAP queue A11; "
+            f"world's {world} processes (a sub-mesh) is ROADMAP queue A11b; "
             f"launch {n} processes")
 
 

@@ -20,6 +20,26 @@ typing of scan carries) has no counterpart.
 
 Host-level helpers run over the world's gloo host group:
 ``host_broadcast``, ``assert_same_across_hosts``, ``host_max``.
+
+The axis collectives are what ``shard_map`` code writes inside the 4D
+step (:mod:`dtdl_tpu_torch.parallel.megatron`), named after the ``lax``
+operations and run over a set of mesh axes (this process's line group,
+:meth:`~dtdl_tpu_torch.runtime.mesh.Mesh.axis_group`).  Each is a
+``torch.autograd.Function`` whose backward is the transpose JAX's
+VMA-typed autodiff takes:
+
+| operation | forward | backward |
+| --- | --- | --- |
+| ``ppermute(x, mesh, axis, perm)`` | send along ``perm`` | send along the inverse |
+| ``all_to_all(x, mesh, axis, split, concat)`` | all-to-all | the reverse all-to-all |
+| ``psum(x, mesh, axes)`` (a varying value made invariant; Megatron's *g*) | sum | identity |
+| ``copy_to(x, mesh, axes)`` (an invariant value used as varying, JAX's implicit ``pvary``; Megatron's *f*) | identity | sum |
+| ``pmax``, ``pmin`` | max, min | none (taken on detached values) |
+
+``axis_index`` and ``axis_size`` of a mesh are plain ints.  Over axes of
+size 1 (the card's one-process mesh) every one is an identity.  A ring
+hop runs as one ``batch_isend_irecv`` of its send and its receive, so
+neighbours cannot deadlock; gloo moves CUDA tensors through the host.
 """
 
 from __future__ import annotations
@@ -162,9 +182,170 @@ def broadcast_from(tree, root: int = 0, mesh: Mesh | None = None):
     return tree_unflatten(out, spec)
 
 
-def axis_index(mesh: Mesh | None = None) -> int:
-    """This process's position along the mesh's axis."""
-    return _mesh(mesh).ranks.index(process_index())
+def axis_index(mesh: Mesh | None = None, axes=None) -> int:
+    """This process's position along ``axes`` of the mesh (all of its
+    axes by default)."""
+    mesh = _mesh(mesh)
+    return mesh.axis_index(mesh.axis_names if axes is None else axes)
+
+
+def axis_size(mesh: Mesh, axes) -> int:
+    """The number of processes along ``axes`` of the mesh."""
+    return mesh.axis_size(axes)
+
+
+# ---- differentiable axis collectives (the shard_map vocabulary) ------------
+
+def _host_staged(x: torch.Tensor, group, run) -> torch.Tensor:
+    """``run(x)`` on the host when gloo must move a CUDA tensor."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return run(x.cpu()).to(x.device)
+    return run(x)
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    def run(t):
+        t = t.contiguous().clone()
+        dist.all_reduce(t, op=op, group=group)
+        return t
+    return _host_staged(x, group, run)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Sum over ``axes``; the gradient passes through unchanged (the
+    transpose of a psum whose result every rank uses alike)."""
+    group = mesh.axis_group(axes)
+    return x if group is None else _PSum.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Identity; the gradient is summed over ``axes`` (the transpose of
+    using one value on every rank of ``axes``)."""
+    group = mesh.axis_group(axes)
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Max over ``axes`` of a detached value."""
+    group = mesh.axis_group(axes)
+    x = x.detach()
+    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def pmin(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """Min over ``axes`` of a detached value."""
+    group = mesh.axis_group(axes)
+    x = x.detach()
+    return x if group is None else _all_reduce(x, group, dist.ReduceOp.MIN)
+
+
+def _permute(x: torch.Tensor, line, me: int, perm) -> torch.Tensor:
+    """Send ``x`` to ``line[perm[me]]`` and receive from the rank whose
+    pair ends at ``me`` in one ``batch_isend_irecv`` (zeros when none
+    does)."""
+    dst = dict(perm)
+    src = {d: s for s, d in perm}
+    x = x.contiguous()
+    if dst.get(me) == me:
+        return x.clone()
+    out = torch.zeros_like(x)
+    ops = []
+    if me in dst:
+        ops.append(dist.P2POp(dist.isend, x, line[dst[me]]))
+    if me in src:
+        ops.append(dist.P2POp(dist.irecv, out, line[src[me]]))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.perm = [(d, s) for s, d in perm]
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.mesh, ctx.axis, ctx.perm), None, None, None
+
+
+def _ppermute(x, mesh, axis, perm):
+    group = mesh.axis_group(axis)
+    line = mesh.line(axis)
+    me = mesh.axis_index(axis)
+    return _host_staged(x, group,
+                        lambda t: _permute(t, line, me, perm))
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm) -> torch.Tensor:
+    """``lax.ppermute``: ``perm`` is a list of (source, destination)
+    positions along ``axis``; a position that no pair reaches gets
+    zeros.  Differentiable (the backward sends along the inverse)."""
+    if mesh.axis_group(axis) is None:
+        return x
+    return _PPermute.apply(x, mesh, axis, [tuple(p) for p in perm])
+
+
+def _a2a(x: torch.Tensor, group, n: int, split: int, concat: int):
+    parts = torch.stack(x.chunk(n, dim=split)).contiguous()
+
+    def run(t):
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group)
+        return out
+    got = _host_staged(parts, group, run)
+    return torch.cat(list(got.unbind(0)), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split, concat):
+        ctx.args = (group, n, concat, split)
+        return _a2a(x, group, n, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` split into
+    ``axis_size`` parts along ``split_axis``, part j sent to position j,
+    the received parts concatenated along ``concat_axis`` in position
+    order.  Differentiable (the backward is the reverse all-to-all)."""
+    group = mesh.axis_group(axis)
+    if group is None:
+        return x
+    n = mesh.axis_size(axis)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of size "
+                         f"{x.shape[split_axis]} does not split over {n}")
+    return _AllToAll.apply(x, group, n, split_axis % x.dim(),
+                           concat_axis % x.dim())
 
 
 # ---- host-level utilities ---------------------------------------------------

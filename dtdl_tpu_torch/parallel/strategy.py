@@ -11,7 +11,7 @@ statistics), ``metric_sync`` / ``sum_sync`` (train means, eval sums),
 | single-device loop                            | ``SingleDevice``              | ``SingleDevice``              |
 | nn.DataParallel / MirroredStrategy            | ``DataParallel(local_mesh())``| one process per card: ``DataParallel(local_mesh())`` is one replica |
 | DistributedDataParallel / ChainerMN           | ``DataParallel(build_mesh())``| ``DataParallel(build_mesh())`` over the process world |
-| (compiler-partitioned, sync BN)               | ``AutoSharded``               | not ported (ROADMAP A11)      |
+| (compiler-partitioned, sync BN)               | ``AutoSharded``               | not ported (ROADMAP A11b)     |
 
 ``DataParallel`` keeps the JAX step's numbers, not torch DDP's: each
 replica computes on its own rows with per-replica BatchNorm statistics,
@@ -20,6 +20,12 @@ same update, and the new running statistics are mean-allreduced too, so
 the replicated state stays bitwise identical across replicas (torch DDP
 instead broadcasts rank 0's buffers).  The model is never wrapped in
 ``torch.nn.parallel.DistributedDataParallel``.
+
+``axis`` may be a tuple of mesh axes, hierarchical data parallelism
+over a :func:`~dtdl_tpu_torch.runtime.mesh.hybrid_mesh` (``('dcn',
+'data')``): the replicas are this process's line over those axes
+(``replicas``, a :class:`Mesh` of its own), and every collective runs in
+its group.
 
 ``grad_sync`` and ``stats_sync`` work in place on the tensors the model
 holds (its ``.grad`` and its statistic buffers) and return them;
@@ -96,23 +102,19 @@ class SingleDevice(Strategy):
 
 
 class MeshStrategy(Strategy):
-    """Shared mesh-bearing behavior.  ``axis`` names the mesh's axis; a
-    tuple of axes (hierarchical DP over a hybrid mesh) is ROADMAP A11."""
+    """Shared mesh-bearing behavior.  ``axis`` names the mesh axis the
+    replicas lie along, or a tuple of them (hierarchical DP over a hybrid
+    mesh); ``replicas`` is the mesh of this process's line over it."""
 
-    def __init__(self, mesh: Mesh | None = None, axis: str = DATA_AXIS):
-        if isinstance(axis, tuple):
-            raise NotImplementedError(
-                f"axis {axis}: data parallelism over several mesh axes "
-                f"(a hybrid mesh) is ROADMAP queue A11 (4D parallelism)")
+    def __init__(self, mesh: Mesh | None = None,
+                 axis: str | tuple[str, ...] = DATA_AXIS):
         self.mesh = mesh if mesh is not None else build_mesh()
-        if axis not in self.mesh.axis_names:
-            raise ValueError(f"mesh has no axis {axis!r} (axes: "
-                             f"{self.mesh.axis_names})")
+        self.replicas = self.mesh.along(axis)
         self.axis = axis
 
     @property
     def num_replicas(self) -> int:
-        return self.mesh.size
+        return self.replicas.size
 
 
 class DataParallel(MeshStrategy):
@@ -120,31 +122,32 @@ class DataParallel(MeshStrategy):
     ``local_mesh()``, DDP over ``build_mesh()``)."""
 
     def grad_sync(self, grads):
-        return collectives.grad_sync(grads, self.mesh)
+        return collectives.grad_sync(grads, self.replicas)
 
     def metric_sync(self, tree):
-        return collectives.all_reduce_mean(tree, self.mesh)
+        return collectives.all_reduce_mean(tree, self.replicas)
 
     def sum_sync(self, tree):
-        return collectives.all_reduce_sum(tree, self.mesh)
+        return collectives.all_reduce_sum(tree, self.replicas)
 
     def stats_sync(self, stats):
         stats = list(stats)
-        collectives.reduce_(stats, self.mesh, mean=True)
+        collectives.reduce_(stats, self.replicas, mean=True)
         return stats
 
     def max_sync(self, n: int) -> int:
-        return collectives.host_max(n) if self.mesh.group is not None else n
+        return collectives.host_max(n) if self.replicas.group is not None \
+            else n
 
     def fold_rank(self, seed: int) -> int:
         # each replica draws its own dropout mask, like per-rank DDP workers
         return int(np.random.SeedSequence(
-            [seed, collectives.axis_index(self.mesh)]).generate_state(1)[0])
+            [seed, collectives.axis_index(self.replicas)]).generate_state(1)[0])
 
     def replicate(self, state):
         """Replica 0's parameters, buffers (BatchNorm statistics),
         optimizer state and step on every replica, in place."""
-        if self.mesh.group is None:
+        if self.replicas.group is None:
             return state
         model, opt = state.model, state.optimizer
         tensors = [p.data for p in model.parameters()]
@@ -155,9 +158,9 @@ class DataParallel(MeshStrategy):
         on_dev = [t for t in tensors if t.device.type != "cpu"]
         on_host = [t for t in tensors if t.device.type == "cpu"]
         step = torch.tensor([state.step], dtype=torch.int64)
-        collectives.broadcast_(on_dev, 0, self.mesh)
+        collectives.broadcast_(on_dev, 0, self.replicas)
         for t in on_host + [step]:      # host tensors ride the gloo group
-            dist.broadcast(t, src=self.mesh.ranks[0], group=host_group())
+            dist.broadcast(t, src=self.replicas.ranks[0], group=host_group())
         state.step = int(step)
         return state
 
@@ -168,8 +171,8 @@ class AutoSharded(MeshStrategy):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "AutoSharded (pjit-style partitioning: global-batch sync "
-            "BatchNorm, per-leaf parameter sharding) is ROADMAP queue A11 "
-            "(4D parallelism); DataParallel is the port's DDP")
+            "BatchNorm, per-leaf parameter sharding) is ROADMAP queue A11b "
+            "(GSPMD rule sets); DataParallel is the port's DDP")
 
 
 def data_parallel_local() -> DataParallel:
@@ -184,7 +187,7 @@ def distributed_data_parallel() -> DataParallel:
 
 def choose_strategy(name: str = "auto", mesh: Mesh | None = None) -> Strategy:
     """'single' | 'dp' | 'ddp' | 'auto' (ddp with more than one process,
-    else single); 'pjit' is ROADMAP A11."""
+    else single); 'pjit' is ROADMAP A11b."""
     if name == "auto":
         name = "ddp" if process_count() > 1 else "single"
     if name == "single":

@@ -99,7 +99,7 @@ class InferenceEngine:
         self.kv_dtype = canon_kv_dtype(kv_dtype)
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel serving (mesh) is ROADMAP queue A11")
+                "tensor-parallel serving (mesh) is ROADMAP queue A11b")
         if lora_rank or lora_adapters:
             raise NotImplementedError(
                 "LoRA adapter banks are ROADMAP queue A12 (tenancy)")

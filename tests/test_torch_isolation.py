@@ -73,7 +73,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "examples/data_parallel.py",
                 "examples/imagenet_resnet50.py", "examples/serve_lm.py",
                 "examples/tf_estimator.py", "examples/caffe_train.py",
-                "examples/mxnet_kvstore.py"):
+                "examples/mxnet_kvstore.py", "parallel/megatron.py",
+                "parallel/sequence.py", "parallel/collectives.py",
+                "runtime/mesh.py", "examples/train_lm_4d.py"):
         assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)

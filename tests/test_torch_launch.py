@@ -190,11 +190,20 @@ def test_mesh_and_strategy_surface():
     assert local_mesh().size == 1
     with pytest.raises(ValueError, match="needs 2 devices"):
         build_mesh((2,))
-    for call in (lambda: build_mesh((1, 1)), lambda: local_mesh(("a", "b")),
-                 hybrid_mesh, AutoSharded,
-                 lambda: choose_strategy("pjit"),
-                 lambda: DataParallel(axis=("dcn", "data"))):
-        with pytest.raises(NotImplementedError, match="A11"):
+    # multi-axis meshes, the hybrid mesh and DP over a tuple of axes run;
+    # GSPMD partitioning stays a refusal (ROADMAP A11b)
+    grid = build_mesh((1, 1), ("data", "model"))
+    assert grid.shape == {"data": 1, "model": 1} and grid.group is None
+    assert grid.axis_group("model") is None and grid.line("model") == (0,)
+    assert local_mesh(("a", "b")).shape == {"a": 1, "b": 1}
+    hybrid = hybrid_mesh()
+    assert hybrid.axis_names == ("dcn", "data") and hybrid.size == 1
+    dp = DataParallel(hybrid, axis=("dcn", "data"))
+    assert dp.num_replicas == 1 and dp.replicas.axis_names == ("dcn", "data")
+    with pytest.raises(ValueError, match="mesh has no axis 'dcn'"):
+        DataParallel(axis=("dcn", "data"))
+    for call in (AutoSharded, lambda: choose_strategy("pjit")):
+        with pytest.raises(NotImplementedError, match="A11b"):
             call()
     with pytest.raises(NotImplementedError, match="A13"):
         shrink_mesh(mesh, [0])
