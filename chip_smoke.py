@@ -170,6 +170,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (vocab 256) interrupted at 2 steps and resumed to 4 (final
                loss and every snapshot leaf bitwise the uninterrupted
                run's), then --generate-tokens 16;
+7j. gspmd    - the GSPMD rule sets over two gloo ranks on the one card
+               (this script's --ddp-worker gspmd through the launcher):
+               (a) base bf16 and int8 served tensor-parallel (rules tp,
+               mesh (data 1, model 2), page 16, 8 slots, the serve phase's
+               16 requests) through K4 on each rank's pool of 2 of 4
+               heads, against the single-placement engine under the
+               near-tie rule, KV bytes a rank (half), tokens/s; (b) the
+               tp, tp_fsdp (1, 2) and fsdp (2, 1) steps at base widths,
+               bf16 on f32 weights, adamw(3e-4), 8 x 1024 (the sequence
+               cut from 4096 for the host staging), 3 steps each against
+               the single-device step, K1-K3 launches and ms a step a
+               rank; (c) ep on base-moe8 at capacity 8; (d) AutoSharded
+               PyramidNet-110 f32 at a global batch of 64 against the
+               single-device step, DataParallel's difference beside it;
+               (e) the train_lm_gspmd twin's main with --rules tp and ep;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -204,7 +219,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
-          "classifycheck", "ddp", "resume", "faces", "fourd", "timing")
+          "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
+          "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -896,11 +912,13 @@ def phase_crosscheck(torch, seed, traffic):
 # phase 5b: speculative decoding
 # ---------------------------------------------------------------------------
 
-def prefill_logits(torch, model, seq):
-    """The last position's logits of an engine prefill of ``seq``."""
+def prefill_logits(torch, model, seq, **engine_kw):
+    """The last position's logits of an engine prefill of ``seq``
+    (``engine_kw`` to the engine: ``quantize_weights``, ...)."""
     import numpy as np
     from dtdl_tpu_torch.serve.engine import InferenceEngine
-    eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV)
+    eng = InferenceEngine(model, n_slots=1, page_size=16, device=DEV,
+                          **engine_kw)
     row = np.zeros(eng.n_ptab, np.int32)
     n_pg = -(-len(seq) // eng.page_size)
     row[:n_pg] = np.arange(1, n_pg + 1)
@@ -909,20 +927,22 @@ def prefill_logits(torch, model, seq):
     return logits
 
 
-def logit_gap(torch, model, prompt, tokens, j) -> float:
+def logit_gap(torch, model, prompt, tokens, j, **engine_kw) -> float:
     """The top-two logit gap where the plain run emitted ``tokens[j]``:
     the last position's logits of an engine prefill of prompt +
     tokens[:j] (a prefill, not the decode step itself, so it carries the
     same rounding differences as the thing it judges)."""
     top = torch.topk(prefill_logits(torch, model,
-                                    list(prompt) + list(tokens[:j])), 2).values
+                                    list(prompt) + list(tokens[:j]),
+                                    **engine_kw), 2).values
     return float(top[0] - top[1])
 
 
-def near_tie_divergences(torch, model, plain, spec, tau):
+def near_tie_divergences(torch, model, plain, spec, tau, **engine_kw):
     """Each request's first position where the speculative (or other)
     tokens part from the plain ones, with the plain run's top-two gap
-    there; raises unless every such gap is within ``tau``."""
+    there (the gap through an engine of ``engine_kw``); raises unless
+    every such gap is within ``tau``."""
     out = []
     for a, b in zip(plain, spec):
         j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
@@ -932,7 +952,8 @@ def near_tie_divergences(torch, model, plain, spec, tau):
         if j is None:
             raise AssertionError(f"request {a.rid}: lengths "
                                  f"{len(a.tokens)} vs {len(b.tokens)}")
-        out.append((j, logit_gap(torch, model, a.prompt, a.tokens, j)))
+        out.append((j, logit_gap(torch, model, a.prompt, a.tokens, j,
+                                 **engine_kw)))
     far = [(j, g) for j, g in out if g > tau]
     if far:
         raise AssertionError(f"tokens part from plain decode "
@@ -2763,7 +2784,8 @@ def ddp_nccl_dup(torch, seed):
 
 
 DDP_WORKERS = {"nccl_lm": ddp_nccl_lm, "gloo_pair": ddp_gloo_pair,
-               "nccl_dup": ddp_nccl_dup}
+               "nccl_dup": ddp_nccl_dup,
+               "gspmd": lambda torch, seed: gspmd_worker(torch, seed)}
 
 
 def ddp_worker(args) -> int:
@@ -2773,10 +2795,12 @@ def ddp_worker(args) -> int:
     from dtdl_tpu_torch.runtime import initialize
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    backend = "gloo" if args.ddp_worker == "gloo_pair" else "nccl"
+    backend = "gloo" if args.ddp_worker in ("gloo_pair", "gspmd") \
+        else "nccl"
     try:
         initialize(args.coordinator, args.num_processes, args.process_id,
-                   backend=backend, timeout_s=120)
+                   backend=backend,
+                   timeout_s=600 if args.ddp_worker == "gspmd" else 120)
         result = DDP_WORKERS[args.ddp_worker](torch, args.seed)
     except Exception as e:
         if args.ddp_worker != "nccl_dup":
@@ -2947,6 +2971,9 @@ RESUME_PYR, RESUME_PYR_BATCHES = (6, 3, 4), 8
 RESUME_TIMED = 3     # steps timed without a write in flight
 # (d) the MNIST twins, as a user runs them
 TWIN_MNIST_EPOCHS = 2
+# the MNIST twins' epochs cut to 12000 of the 60000 images, which keeps
+# the default run's time with the gspmd phase in it
+TWIN_MNIST_LIMIT = ["--limit-train", "12000"]
 
 
 def host_tree(torch, state) -> dict:
@@ -3203,8 +3230,8 @@ def resume_twins(torch, card, root):
     data = ["--dataset-dir", os.path.join(root, "datasets")]
 
     def twin(name, *args):
-        return twin_run(name, [*data, *args], root, os.path.join(
-            ROOT, "build", f"resume_{name}.log"))
+        return twin_run(name, [*data, *TWIN_MNIST_LIMIT, *args], root,
+                        os.path.join(ROOT, "build", f"resume_{name}.log"))
 
     out, secs = twin("mnist_single", "--epochs", str(TWIN_MNIST_EPOCHS),
                      "--train_dir", os.path.join(root, "keras"))
@@ -3212,7 +3239,8 @@ def resume_twins(torch, card, root):
     if not ev or f"Epoch [{TWIN_MNIST_EPOCHS - 1}]" not in out:
         raise AssertionError(f"mnist_single printed no report:\n"
                              f"{out[-4000:]}")
-    log(f"resume twin mnist_single: {TWIN_MNIST_EPOCHS} epochs, "
+    log(f"resume twin mnist_single: {TWIN_MNIST_EPOCHS} epochs of 12000 "
+        f"images, "
         f"ModelCheckpoint, load_latest, evaluate: {ev[-1]} ({secs:.1f} s) "
         f"| {card}")
     out_dir = os.path.join(root, "chainer")
@@ -3507,9 +3535,11 @@ def faces_estimator(torch, card, root):
 
 def faces_mxnet(torch, card, root):
     """(e) mxnet_kvstore --kv-store device (width 1, SingleDevice), one
-    epoch of synthetic MNIST."""
+    epoch of 12800 synthetic MNIST images (of 60000: cut for the default
+    run's time)."""
     out, secs = twin_run("mxnet_kvstore", [
-        "--kv-store", "device", "--num-epochs", "1", "--out",
+        "--kv-store", "device", "--num-epochs", "1", "--limit-train",
+        "12800", "--out",
         os.path.join(root, "mx"), "--dataset-dir",
         os.path.join(root, "datasets")], root, faces_log("mxnet_kvstore"))
     speeds = re.findall(r"Speed: ([\d.]+) samples/sec", out)
@@ -3520,7 +3550,8 @@ def faces_mxnet(torch, card, root):
         raise AssertionError(f"faces mxnet_kvstore printed no report:\n"
                              f"{out[-4000:]}")
     log(f"faces mxnet_kvstore twin --kv-store device (width 1: "
-        f"SingleDevice) MnistCNN f32 batch 64 sgd(0.05, 0.9), 1 epoch "
+        f"SingleDevice) MnistCNN f32 batch 64 sgd(0.05, 0.9), 1 epoch of "
+        f"12800 images "
         f"(prefetch_to_device, a sync each step as Module.fit reads its "
         f"metrics): Speedometer samples/sec median "
         f"{sorted(float(s) for s in speeds)[len(speeds) // 2]:.2f} (last "
@@ -3962,6 +3993,357 @@ def phase_fourd(torch, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7j: the GSPMD rule sets (parallel/tensor.py, AutoSharded) over two
+# gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# (b), (c) the sequence, cut from the train phase's 4096 for the gloo host
+# staging of every activation collective (16 MiB a psum at 8 x 1024 x 512
+# f32, through the CPU)
+GSPMD_SEQ = 1024
+GSPMD_STEPS = 3
+GSPMD_TRAIN = (("tp", (1, 2)), ("tp_fsdp", (1, 2)), ("fsdp", (2, 1)))
+# (b), (c) bf16 trajectories against the single-device step: the sharded
+# step sums each row-parallel product's bf16 partials in f32 where the
+# single-device product rounds once, and combines the vocab-parallel
+# head's logsumexp from two f32 halves: rounding of the size fourd's
+# bf16 bound holds
+GSPMD_LOSS_TOL = FOURD_TOL["bf16_loss"]
+# (d) AutoSharded PyramidNet-110 f32, one SGD step, against the
+# single-device step at the same global batch: the statistics come from
+# E[x^2] - E[x]^2 over the whole batch (flax's formula) where the
+# single-device kernel takes the variance about the mean (Welford), an
+# f32 rounding of ~1e-7 relative a layer over 110 layers; the bounds are
+# absolute, on the loss, every parameter and every BatchNorm statistic
+GSPMD_AUTO_TOL = dict(loss=1e-4, param=1e-4, stats=1e-4)
+GSPMD_AUTO_BATCH = 64
+# (e) in the worker's world of two, as a user calls its main
+GSPMD_TWIN = ["--model-size", "base", "--seq-len", str(GSPMD_SEQ),
+              "--batch-size", "8", "--steps", "4", "--log-interval", "1",
+              "--eval-batches", "1"]
+GSPMD_TWINS = {"tp": ["--rules", "tp", "--mesh", "1,2"],
+               "ep": ["--rules", "ep", "--mesh", "1,2", "--n-experts", "4"]}
+
+
+def gspmd_serve(torch, seed, rank, mesh):
+    """(a) the base engine (bf16, page 16, 8 slots) tensor-parallel over
+    'model' and, on rank 0, the single-placement engine in turn, with
+    bf16 and int8 weights."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    host = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                          device="cpu")
+    traffic = make_traffic(seed, host.cfg.vocab_size)
+    out = {}
+    for label, kw in (("bf16", {}), ("int8", {"quantize_weights": True})):
+        serve(torch, host, traffic[:2], mesh=mesh, rules="tp", **kw)
+        sync(torch)
+        kernels.reset_launches()
+        eng, sched, reqs, wall = serve(torch, host, traffic, mesh=mesh,
+                                       rules="tp", **kw)
+        k4 = kernels.LAUNCHES["paged_attention"]
+        kv = [v for blk in sched.arena.values() if isinstance(blk, dict)
+              for v in blk["attn"].values()]
+        n_tok = sum(len(r.tokens) for r in reqs)
+        r = {"k4": k4, "n_layers": host.cfg.n_layers,
+             "pool_heads": sched.arena["block_0"]["attn"]["pages_key"]
+             .shape[1], "heads": host.cfg.n_heads,
+             "kv_bytes": sum(v.numel() * v.element_size() for v in kv),
+             "tokens_per_s": n_tok / wall, "wall_s": wall,
+             "digest": tree_digest([x.tokens for x in reqs]),
+             "done": all(x.done and not x.error and len(x.tokens) == 32
+                         for x in reqs)}
+        if rank == 0:
+            model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                                   device=DEV)
+            serve(torch, model, traffic[:2], **kw)
+            _, one, plain, wall1 = serve(torch, model, traffic, **kw)
+            scale = float(prefill_logits(torch, model, traffic[0][0],
+                                         **kw).abs().max())
+            tau = 2 * SPEC_DELTA_ULPS * 2.0 ** (math.floor(math.log2(scale))
+                                                - 7)
+            parts = near_tie_divergences(torch, model, plain, reqs, tau, **kw)
+            r.update(single_tokens_per_s=n_tok / wall1, tau=tau,
+                     partings=parts, identical=len(reqs) - len(parts),
+                     single_kv_bytes=sum(
+                         v.numel() * v.element_size()
+                         for blk in one.arena.values()
+                         if isinstance(blk, dict)
+                         for v in blk["attn"].values()))
+            del model, one, plain
+        out[label] = r
+        del eng, sched
+        torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_train_run(torch, mesh, rules, host, toks, label):
+    """One sharded trajectory: losses, launches of the timed steps (all
+    but the first), ms a step."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.parallel import tensor as T
+    from dtdl_tpu_torch.runtime.mesh import batch_sharded
+    from dtdl_tpu_torch.train.optim import adamw
+    params, opt, sh = T.init_sharded_lm(host, mesh, adamw(3e-4),
+                                        rules=rules, device=DEV)
+    step = T.make_sharded_lm_train_step(host, mesh, None, sh, rules)
+    losses = []
+    for i, t in enumerate(toks):
+        if i == 1:
+            sync(torch)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+        params, opt, loss = step(params, opt,
+                                 batch_sharded(mesh, t, device=DEV))
+        losses.append(float(loss))
+    sync(torch)
+    n = len(toks) - 1
+    out = {"losses": losses, "ms": 1e3 * (time.perf_counter() - t0) / n,
+           "launches": {k: v / n for k, v in kernels.LAUNCHES.items()},
+           "heads": host.cfg.n_heads // params.shard.heads_split,
+           "remat": params.cfg.remat, "mesh": list(mesh.dims)}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gspmd {label}: non-finite loss {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_single(torch, model, toks, **step_kw):
+    """The single-device make_lm_train_step's losses on ``toks``."""
+    from dtdl_tpu_torch.train.optim import adamw
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    state = init_state(model, None, adamw(3e-4), device=DEV)
+    step = make_lm_train_step(**step_kw)
+    losses = []
+    for t in toks:
+        state, m = step(state, {"tokens": t})
+        losses.append(float(m["loss"]))
+    del state
+    return losses
+
+
+def gspmd_auto(torch, seed, rank, mesh):
+    """(d) PyramidNet-110 f32 at a global batch of 64: one SGD step under
+    AutoSharded (global-batch BatchNorm) and under DataParallel
+    (per-replica BatchNorm), and on rank 0 the single-device step."""
+    import numpy as np
+    from dtdl_tpu_torch.bridge import flatten, state_dict_to_flax
+    from dtdl_tpu_torch.parallel import AutoSharded, DataParallel
+    from dtdl_tpu_torch.runtime.mesh import batch_sharded
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_train_step
+    rng = np.random.default_rng(seed)
+    batch = {"image": rng.normal(size=(GSPMD_AUTO_BATCH, 32, 32, 3))
+             .astype(np.float32),
+             "label": rng.integers(0, 10, GSPMD_AUTO_BATCH)}
+
+    def run(strategy):
+        model = classifier("pyramidnet", dtype=torch.float32, device=DEV,
+                           seed=seed)
+        state = init_state(model, None, sgd(0.1, momentum=0.9), device=DEV)
+        b = batch
+        if strategy is not None:
+            state = strategy.replicate(state)
+            b = {k: batch_sharded(mesh, v, device=DEV) for k, v in b.items()}
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = make_train_step(strategy)(state, b)
+        loss = float(m["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        return (loss, flatten(state_dict_to_flax(model)),
+                flatten(state_dict_to_flax(model, "batch_stats")), ms)
+
+    out = {}
+    got = {"auto": run(AutoSharded(mesh)), "dp": run(DataParallel(mesh))}
+    if rank == 0:
+        want = run(None)
+        for k, (loss, params, stats, ms) in got.items():
+            out[k] = {"loss_err": abs(loss - want[0]), "ms": ms,
+                      "param_err": max(float(np.abs(params[p] - want[1][p])
+                                             .max()) for p in want[1]),
+                      "stats_err": max(float(np.abs(stats[p] - want[2][p])
+                                             .max()) for p in want[2])}
+        out["single_ms"] = want[3]
+    torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_twin(seed, rank):
+    """(e) the train_lm_gspmd twin's main in this world, as a user calls
+    it: {label: (its last line on the leader, seconds)}; its output in
+    build/ddp/gspmd_twin_<label>_<rank>.log."""
+    import contextlib
+    import io
+
+    from dtdl_tpu_torch.examples import train_lm_gspmd
+    out = {}
+    for label, extra in GSPMD_TWINS.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_lm_gspmd.main(GSPMD_TWIN + extra + ["--seed", str(seed)])
+        text = buf.getvalue()
+        with open(os.path.join(ROOT, "build", "ddp",
+                               f"gspmd_twin_{label}_{rank}.log"), "w") as f:
+            f.write(text)
+        last = [ln for ln in text.splitlines() if ln.startswith("final loss")]
+        out[label] = (last[0] if last else None, time.perf_counter() - t0)
+    return out
+
+
+def gspmd_worker(torch, seed):
+    """Each of two gloo ranks on the one card: (a) TP serving, (b) the
+    sharded LM steps, (c) ep on base-moe8, (d) AutoSharded, (e) the twin;
+    rank 0 also runs the single-placement references and compares."""
+    from dtdl_tpu_torch.data.synthetic import markov_tokens
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.runtime import build_mesh, process_index
+    rank = process_index()
+    secs = {}
+    t0 = time.perf_counter()
+    out = {"serve": gspmd_serve(torch, seed, rank,
+                                build_mesh((1, 2), ("data", "model")))}
+    secs["a"] = time.perf_counter() - t0
+    toks = list(markov_tokens(GSPMD_STEPS * TRAIN_BATCH, GSPMD_SEQ + 1,
+                              32000, seed=seed + 3).reshape(
+        GSPMD_STEPS, TRAIN_BATCH, GSPMD_SEQ + 1))
+    out["train"] = {}
+    t0 = time.perf_counter()
+    for rules, shape in GSPMD_TRAIN:
+        host = transformer_lm("base", max_seq=GSPMD_SEQ, seed=seed,
+                              device="cpu")
+        out["train"][rules] = gspmd_train_run(
+            torch, build_mesh(shape, ("data", "model")), rules, host, toks,
+            rules)
+    moe = dict(max_seq=GSPMD_SEQ, seed=seed, capacity_factor=8.0)
+    out["ep"] = gspmd_train_run(
+        torch, build_mesh((1, 2), ("data", "model")), "ep",
+        transformer_lm("base-moe8", device="cpu", **moe), toks, "ep")
+    secs["b, c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rank == 0:
+        out["single"] = gspmd_single(
+            torch, transformer_lm("base", max_seq=GSPMD_SEQ, seed=seed,
+                                  device=DEV), toks)
+        out["single_moe"] = gspmd_single(
+            torch, transformer_lm("base-moe8", device=DEV, **moe), toks,
+            moe_aux_weight=0.0)
+        torch.cuda.empty_cache()
+    secs["references"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["auto"] = gspmd_auto(torch, seed, rank, build_mesh())
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["twin"] = gspmd_twin(seed, rank)
+    secs["e"] = time.perf_counter() - t0
+    out["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    return out
+
+
+def phase_gspmd(torch, seed, card):
+    """The GSPMD face over two gloo ranks on the one card (this script's
+    --ddp-worker gspmd through the launcher, one world for every part):
+    (a) tensor-parallel serving
+    through K4 on head-sharded pools, bf16 and int8, against the
+    single-placement engine; (b) tp, tp_fsdp and fsdp LM steps through
+    K1-K3 against the single-device step; (c) ep on base-moe8; (d)
+    AutoSharded's global-batch BatchNorm against the single-device step,
+    DataParallel's per-replica one beside it; (e) the train_lm_gspmd
+    twin's main with --rules tp and --rules ep in that world."""
+    t_phase = time.perf_counter()
+    # rank 1 waits in its next collective while rank 0 runs the
+    # references: the worker's gloo timeout is 600 s
+    rc, out, worker_s = launch([os.path.join(ROOT, "chip_smoke.py"),
+                                "--ddp-worker", "gspmd", "--seed",
+                                str(seed)], 2, 900, "gspmd")
+    got = launched_ok(rc, out, "gspmd", 2)
+    r0, r1 = got[0], got[1]
+    fails = []
+    for label in ("bf16", "int8"):
+        a = [r[label] for r in (r0["serve"], r1["serve"])]
+        x = a[0]
+        ok = (all(r["done"] and r["k4"] > 0 and r["k4"] % r["n_layers"] == 0
+                  and r["pool_heads"] * 2 == r["heads"] for r in a)
+              and a[0]["digest"] == a[1]["digest"]
+              and 2 * a[0]["kv_bytes"] == x["single_kv_bytes"])
+        log(f"gspmd (a) TP serving base {label} weights, page 16, 8 slots, "
+            f"rules tp mesh (data 1, model 2), two gloo ranks on the card: "
+            f"K4 launches per rank {[r['k4'] for r in a]} ({a[0]['k4'] // x['n_layers']} "
+            f"attends x {x['n_layers']} layers) over pools of "
+            f"{x['pool_heads']} of {x['heads']} heads; KV bytes per rank "
+            f"{[r['kv_bytes'] for r in a]} vs the single engine's "
+            f"{x['single_kv_bytes']}; tokens_per_s per rank "
+            f"{[round(r['tokens_per_s'], 2) for r in a]} (gloo-staged "
+            f"collectives) vs single {x['single_tokens_per_s']:.2f}; ranks "
+            f"token-identical {a[0]['digest'] == a[1]['digest']}; tokens "
+            f"identical to the single engine {x['identical']}/16, near-tie "
+            f"partings (position, top-two gap) {x['partings']} (tau "
+            f"{x['tau']:.4e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"(a) {label}")
+    single = r0["single"]
+    for rules, _ in GSPMD_TRAIN + (("ep", None),):
+        a = [r["train"][rules] if rules != "ep" else r["ep"]
+             for r in (r0, r1)]
+        want = single if rules != "ep" else r0["single_moe"]
+        d = max(abs(x - y) for x, y in zip(a[0]["losses"], want))
+        k = a[0]["launches"]
+        ok = (d <= GSPMD_LOSS_TOL and a[0]["losses"] == a[1]["losses"]
+              and all(r["launches"].get(n, 0) > 0 for r in a
+                      for n in ("flash_fwd", "flash_bwd_dq",
+                                "flash_bwd_dkv")))
+        what = "(c) ep base-moe8 (8 experts, 4 a rank, capacity 8: none " \
+            "drops)" if rules == "ep" else f"(b) {rules}"
+        log(f"gspmd {what} mesh (data, model) {tuple(a[0]['mesh'])} base "
+            f"widths bf16 (f32 weights) adamw(3e-4) {TRAIN_BATCH}x"
+            f"{GSPMD_SEQ} (seq cut from {TRAIN_SEQ} for the gloo staging), "
+            f"{a[0]['heads']} heads a rank, remat {a[0]['remat']}: losses "
+            f"{[round(x, 5) for x in a[0]['losses']]} vs single-device "
+            f"{[round(x, 5) for x in want]} max |d|={d:.3e} (tol "
+            f"{GSPMD_LOSS_TOL}); launches per step per rank "
+            f"{[{n: r['launches'].get(n, 0) for n in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'rope_rows')} for r in a]}; "
+            f"ms per step (gloo-staged) {[round(r['ms'], 2) for r in a]} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(what)
+    auto, dp = r0["auto"]["auto"], r0["auto"]["dp"]
+    ok = (auto["loss_err"] <= GSPMD_AUTO_TOL["loss"]
+          and auto["param_err"] <= GSPMD_AUTO_TOL["param"]
+          and auto["stats_err"] <= GSPMD_AUTO_TOL["stats"]
+          and dp["stats_err"] > auto["stats_err"])
+    log(f"gspmd (d) AutoSharded PyramidNet-110 f32 global batch "
+        f"{GSPMD_AUTO_BATCH} over two gloo ranks, one sgd(0.1, 0.9) step "
+        f"vs the single-device step at {GSPMD_AUTO_BATCH}: |d loss| "
+        f"{auto['loss_err']:.3e}, max |d param| {auto['param_err']:.3e}, "
+        f"max |d BN statistic| {auto['stats_err']:.3e} (tol "
+        f"{GSPMD_AUTO_TOL}); DataParallel (per-replica BatchNorm): |d loss| "
+        f"{dp['loss_err']:.3e}, max |d param| {dp['param_err']:.3e}, max "
+        f"|d BN statistic| {dp['stats_err']:.3e}; step ms auto "
+        f"{auto['ms']:.1f} dp {dp['ms']:.1f} single "
+        f"{r0['auto']['single_ms']:.1f} (first steps, cuDNN warm-up "
+        f"included) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append("(d)")
+    for label, extra in GSPMD_TWINS.items():
+        last, secs = r0["twin"][label]
+        ok = (last is not None and math.isfinite(float(last.split()[2]))
+              and r1["twin"][label][0] is None)   # the leader's line only
+        log(f"gspmd (e) train_lm_gspmd twin {' '.join(extra)} base widths "
+            f"vocab 256, main() in the two gloo ranks' world: {secs:.1f}s, "
+            f"last line {last!r} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"(e) {label}")
+    log(f"gspmd phase {time.perf_counter() - t_phase:.1f}s (worker "
+        f"{worker_s:.1f}s, its parts on rank 0 {r0['seconds']}) on {card}")
+    if fails:
+        raise AssertionError(f"gspmd: {fails} failed")
+
+
 def phase_profile_fourd(torch, seed, steps: int = 2):
     """Where the fourd phase's 4D step's device time goes (torch.profiler):
     the dense base-width 1F1B step and the routed top-2 MoE one, each by
@@ -4245,6 +4627,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     card = card_identity()
 
+    phase_s = {}
+    t_mark = time.perf_counter()
+
+    def ended(name):      # seconds of each phase run, logged at the end
+        nonlocal t_mark
+        if name in phases:
+            phase_s[name] = round(time.perf_counter() - t_mark, 1)
+        t_mark = time.perf_counter()
+
     if "build" in phases:
         t0 = time.perf_counter()
         kernels.build(verbose=True)
@@ -4267,11 +4658,13 @@ def main(argv=None) -> int:
         for s in spills[:8]:
             log(f"  ptxas: {s}")
         kernels.lib()
+    ended("build")
     if "identity" in phases:
         log(f"card: {card} (torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)})")
 
     errors = {}
+    ended("identity")
     if "kernels" in phases:
         check_rope(torch, errors)
         check_paged(torch, errors)
@@ -4282,53 +4675,76 @@ def main(argv=None) -> int:
     train_launches = {}
     traffic = None
     scoring_len = 1024
+    ended("kernels")
     if "serve" in phases:
         launches, traffic = phase_serve(torch, args.seed)
         k4_launches = launches["paged_attention"]
+    ended("serve")
     if "crosscheck" in phases:
         if traffic is None:
             traffic = make_traffic(args.seed, 32000)
         _, scoring_len = phase_crosscheck(torch, args.seed, traffic)
+    ended("crosscheck")
     if "spec" in phases:
         phase_spec(torch, args.seed)
     chunked = quant_launches = None
+    ended("spec")
     if "chunked" in phases:
         chunked = phase_chunked(torch, args.seed)
+    ended("chunked")
     if "quant" in phases:
         quant_launches = phase_quant(torch, args.seed)
+    ended("quant")
     if "contain" in phases:
         phase_contain(torch, args.seed)
+    ended("contain")
     if "dense" in phases:
         phase_dense(torch, args.seed)
+    ended("dense")
     if "moe_serve" in phases:
         phase_moe_serve(torch, args.seed)
+    ended("moe_serve")
     if "train" in phases:
         train_launches, _ = phase_train(torch, args.seed)
+    ended("train")
     if "traincheck" in phases:
         phase_traincheck(torch, args.seed)
+    ended("traincheck")
     if "moe_train" in phases:
         phase_train(torch, args.seed, size="base-moe8")
+    ended("moe_train")
     if "moe_traincheck" in phases:
         phase_traincheck(torch, args.seed, size="base-moe8")
+    ended("moe_traincheck")
     if "classify" in phases:
         phase_classify(torch, args.seed)
+    ended("classify")
     if "classifycheck" in phases:
         phase_classifycheck(torch, args.seed)
+    ended("classifycheck")
     if "ddp" in phases:
         phase_ddp(torch, args.seed, card)
+    ended("ddp")
     if "resume" in phases:
         phase_resume(torch, args.seed, card)
+    ended("resume")
     if "faces" in phases:
         phase_faces(torch, args.seed, card)
+    ended("faces")
     if "fourd" in phases:
         phase_fourd(torch, args.seed, card)
+    ended("fourd")
+    if "gspmd" in phases:
+        phase_gspmd(torch, args.seed, card)
 
+    ended("gspmd")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
         phase_profile_moe(torch, args.seed)
         phase_profile_classify(torch, args.seed)
         phase_profile_fourd(torch, args.seed)
+    ended("profile")
     if "timing" in phases:
         # K4 at the main path's decode shape: 8 slots, pool of the engine
         # (page 16, 128 pages per slot), positions spread as the traffic's
@@ -4412,6 +4828,8 @@ def main(argv=None) -> int:
         ]}
         log(json.dumps(line))
 
+    ended("timing")
+    log(f"phase seconds {phase_s}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(card)
     if set(PHASES) <= set(phases):

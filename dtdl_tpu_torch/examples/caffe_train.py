@@ -19,6 +19,7 @@ from dtdl_tpu_torch.examples.common import (bootstrap, mnist_arrays,
                                             per_process_loader)
 from dtdl_tpu_torch.examples.data_parallel import check_device_count
 from dtdl_tpu_torch.parallel import choose_strategy
+from dtdl_tpu_torch.runtime import process_count
 from dtdl_tpu_torch.train.solver import Solver
 from dtdl_tpu_torch.utils.config import (add_data_flags, add_topology_flags,
                                          flag, make_parser)
@@ -54,6 +55,14 @@ def main(argv=None):
         # caffe's -gpu 0,1 / count form
         n = len(args.gpu.split(",")) if "," in args.gpu else int(args.gpu)
         check_device_count(n, "caffe_train")
+        if 0 < n < process_count():
+            # the Solver's snapshots meet at barriers of the whole world,
+            # which ranks outside a sub-mesh would never reach
+            raise ValueError(
+                f"--gpu {args.gpu}: {n} of this world's {process_count()} "
+                f"processes; the Solver trains over the whole world, so "
+                f"launch {n}: python -m dtdl_tpu_torch.launch.local --nproc "
+                f"{n} -- -m dtdl_tpu_torch.examples.caffe_train --gpu all")
         strategy = choose_strategy("ddp")
 
     (x, y), (vx, vy) = mnist_arrays(args)

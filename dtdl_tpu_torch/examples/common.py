@@ -54,24 +54,28 @@ def build_mesh_from_args(args):
 
 
 def _host_batch_and_sampler(n_examples: int, global_batch: int, *,
-                            shuffle: bool, seed: int):
+                            shuffle: bool, seed: int, mesh=None):
     """(per-process batch, this process's ShardedSampler) — the one place
-    the global-batch split and dataset partition are decided."""
-    nproc = process_count()
+    the global-batch split and dataset partition are decided: over the
+    world, or over ``mesh``'s processes."""
+    nproc = process_count() if mesh is None else mesh.size
+    index = process_index() if mesh is None else mesh.axis_index(
+        mesh.axis_names)
     if global_batch % nproc:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{nproc} processes")
-    sampler = ShardedSampler(n_examples, nproc, process_index(),
+    sampler = ShardedSampler(n_examples, nproc, index,
                              shuffle=shuffle, seed=seed)
     return global_batch // nproc, sampler
 
 
 def per_process_loader(images, labels, global_batch: int, *, shuffle: bool,
                        seed: int, transform=None, drop_last: bool = True,
-                       device=None):
-    """Loader feeding this process's stripe of the global batch."""
+                       device=None, mesh=None):
+    """Loader feeding this process's stripe of the global batch (over the
+    world, or over ``mesh``'s processes)."""
     batch, sampler = _host_batch_and_sampler(
-        len(labels), global_batch, shuffle=shuffle, seed=seed)
+        len(labels), global_batch, shuffle=shuffle, seed=seed, mesh=mesh)
     return DataLoader({"image": images, "label": labels}, batch,
                       sampler=sampler, drop_last=drop_last,
                       transform=transform, device=device)
@@ -89,10 +93,10 @@ def _limit(args, train, test):
     return (xtr, ytr), (xte, yte)
 
 
-def cifar_loaders(args, seed: int, device=None):
+def cifar_loaders(args, seed: int, device=None, mesh=None):
     """CIFAR-10 train/val loaders with the reference's augmentation
-    (RandomCrop(32, pad 4) + flip + normalize), each process on its
-    stripe.  ``--num-workers > 0`` (the native C++ loader) is ROADMAP
+    (RandomCrop(32, pad 4) + flip + normalize), each process (of the
+    world, or of ``mesh``) on its stripe.  ``--num-workers > 0`` (the native C++ loader) is ROADMAP
     queue A13."""
     if getattr(args, "num_workers", 0) > 0:
         raise NotImplementedError(
@@ -104,11 +108,11 @@ def cifar_loaders(args, seed: int, device=None):
     train = per_process_loader(
         xtr, ytr, args.batch_size, shuffle=True, seed=seed,
         transform=cifar10_train_transform(CIFAR10_MEAN, CIFAR10_STD),
-        device=device)
+        device=device, mesh=mesh)
     val = per_process_loader(
         xte, yte, args.batch_size, shuffle=False, seed=seed,
         transform=normalize_transform(CIFAR10_MEAN, CIFAR10_STD),
-        drop_last=False, device=device)
+        drop_last=False, device=device, mesh=mesh)
     return train, val
 
 

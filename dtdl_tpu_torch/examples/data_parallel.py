@@ -4,16 +4,20 @@ examples/data_parallel.py (the reference's pytorch/data_parallel.py).
 
 The JAX script is one process over the local devices.  A port process
 drives one card (:mod:`dtdl_tpu_torch.runtime.mesh`), so here the
-``DataParallel`` mesh is the process world: ``--gpu-nums`` 0 or 1 runs
-at world 1; more cards are more processes, through the launcher and the
-``distributed_data_parallel`` twin, and a larger count here raises
-rather than run on fewer cards than asked.  A count between 1 and the
-world's raises too: a sub-mesh is ROADMAP A11b.
+``DataParallel`` mesh is the process world: ``--gpu-nums`` 0 runs over
+the whole world; more cards than the world's processes raise (more
+cards are more processes, through the launcher and the
+``distributed_data_parallel`` twin) rather than run on fewer cards than
+asked; a count below the world's trains over its first n processes (a
+sub-mesh, as the JAX script's mesh of n of its local devices), and the
+others leave before the loop.
 
     python -m dtdl_tpu_torch.examples.data_parallel --batch-size 256
 
 ``--platform cpu`` runs on the CPU.
 """
+
+import argparse
 
 import torch
 
@@ -24,7 +28,9 @@ from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
 from dtdl_tpu_torch.models import pyramidnet
 from dtdl_tpu_torch.parallel import DataParallel
-from dtdl_tpu_torch.runtime import build_mesh, process_count
+from dtdl_tpu_torch.runtime import (barrier, build_mesh, process_count,
+                                    process_index)
+from dtdl_tpu_torch.runtime.mesh import sub_mesh
 from dtdl_tpu_torch.train.loop import evaluate, train_epoch
 from dtdl_tpu_torch.train.state import init_state
 from dtdl_tpu_torch.train.step import make_eval_step, make_train_step
@@ -34,9 +40,10 @@ from dtdl_tpu_torch.utils.random import seed_everything
 
 
 def check_device_count(n: int, script: str) -> None:
-    """A count of cards other than 0 (the world's) or the process world
-    raises: each port process drives one card, so more cards are more
-    processes, and fewer than the world are a sub-mesh (ROADMAP A11b)."""
+    """A count of cards above the process world's raises: each port
+    process drives one card, so more cards are more processes.  0 (the
+    world's), the world's and any count below it (a sub-mesh of the first
+    n processes, :func:`device_mesh`) pass."""
     world = process_count()
     if n > world:
         raise NotImplementedError(
@@ -45,11 +52,18 @@ def check_device_count(n: int, script: str) -> None:
             f"dtdl_tpu_torch.launch.local --nproc {n} -- -m "
             f"dtdl_tpu_torch.examples.distributed_data_parallel (the "
             f"{script} twin runs on the cards of its world)")
-    if 0 < n < world:
-        raise NotImplementedError(
-            f"{n} devices asked for: data parallelism over {n} of this "
-            f"world's {world} processes (a sub-mesh) is ROADMAP queue A11b; "
-            f"launch {n} processes")
+
+
+def device_mesh(n: int, script: str):
+    """The data-parallel mesh of ``--gpu-nums n`` (checked by
+    :func:`check_device_count`): the world for 0 or the world's count,
+    else the first n processes; ``None`` on a process outside it (it
+    sits this run out).  Every process must call it (making a group is
+    collective over the world)."""
+    check_device_count(n, script)
+    if n == 0 or n == process_count():
+        return build_mesh()
+    return sub_mesh(range(n))
 
 
 def main(argv=None):
@@ -63,17 +77,36 @@ def main(argv=None):
               "other than the world's, one card per process, raises")
     flag(parser, "--dtype", default="bfloat16",
          choices=["float32", "bfloat16"])
+    # the launcher's rendezvous (python -m dtdl_tpu_torch.launch.local
+    # --nproc N -- -m dtdl_tpu_torch.examples.data_parallel ...)
+    for name, kind, default in (("--coordinator", str, ""),
+                                ("--num-processes", int, 1),
+                                ("--process-id", int, 0)):
+        parser.add_argument(name, type=kind, default=default,
+                            help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     device = bootstrap(args)
-    check_device_count(args.gpu_nums, "data_parallel")
+    mesh = device_mesh(args.gpu_nums, "data_parallel")
+    if mesh is None:
+        # outside the sub-mesh: meet the world's leader-gated steps (the
+        # dataset's, the weights write's) and leave before the loop
+        print(f"process {process_index()} sits out: --gpu-nums "
+              f"{args.gpu_nums} trains over the first {args.gpu_nums} of "
+              f"{process_count()}", flush=True)
+        cifar_loaders(args, args.seed, device)
+        if args.save_model:
+            Checkpointer(args.out)
+            barrier("save_weights")
+        return
     seed_everything(args.seed)
-    strategy = DataParallel(build_mesh())
+    strategy = DataParallel(mesh)
     print(f"DataParallel over {strategy.num_replicas} local device(s); "
           f"global batch {args.batch_size} -> "
           f"{strategy.per_replica_batch(args.batch_size)}/replica", flush=True)
 
-    train_loader, val_loader = cifar_loaders(args, args.seed, device)
+    train_loader, val_loader = cifar_loaders(args, args.seed, device,
+                                             mesh=mesh)
     tx, _ = sgd_steplr(args.lr, args.momentum, args.weight_decay,
                        len(train_loader))
     model = pyramidnet(dtype=getattr(torch, args.dtype), device=device,

@@ -62,6 +62,13 @@ The forward returns the MoE blocks' Switch load-balance values only when
 asked (``return_aux=True``, the train step): each block returns its value
 (a checkpointed block's recompute returns it again and records nothing),
 and serving computes none.  LoRA is not ported yet (ROADMAP A12).
+
+A placement by the GSPMD rule sets (:mod:`dtdl_tpu_torch.parallel.tensor`)
+runs these modules on a rank's shards: attention takes the heads its q/k/v
+kernels hold and the caches size their heads by :attr:`TransformerLM.
+kv_heads`; the collectives ride forward hooks on attention and SwiGLU and
+the ``shard`` objects of the LM (vocab-parallel embedding and head) and of
+a routed MoE (its groups and experts over ranks).
 """
 
 from __future__ import annotations
@@ -125,8 +132,10 @@ class RMSNorm(nn.Module):
                                              device=device))
 
     def forward(self, x):
-        # x·rsqrt(mean(x²) + eps)·scale in f32, one fused op
-        return F.rms_norm(x.float(), self.scale.shape, self.scale,
+        # x·rsqrt(mean(x²) + eps)·scale in f32, one fused op (the scale read
+        # once: a sharded placement gathers it at each read)
+        scale = self.scale
+        return F.rms_norm(x.float(), scale.shape, scale,
                           self.eps).to(self.dtype)
 
 
@@ -152,9 +161,11 @@ class Attention(nn.Module):
                            device=device)
 
     def _proj(self, x, w):
+        # the heads this module holds: all of them, or a tensor-parallel
+        # rank's share (parallel/tensor.py)
         b, s, _ = x.shape
         y = w(x, self.dtype)
-        return y.reshape(b, s, self.n_heads, self.head_dim).transpose(1, 2)
+        return y.reshape(b, s, -1, self.head_dim).transpose(1, 2)
 
     def forward(self, x, cos, sin, layer=None, step=None):
         q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
@@ -342,6 +353,9 @@ class MoE(nn.Module):
     over the unpadded tokens when ``want_aux``, else None."""
 
     EXPERT_WEIGHTS = ("wi", "wg", "wo")
+    # the tensor- or expert-parallel placement's dispatch
+    # (parallel/tensor.py); None on one device
+    shard = None
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *, dtype,
                  param_dtype, device, dispatch: str = "dense",
@@ -387,7 +401,8 @@ class MoE(nn.Module):
         return y
 
     def _experts(self, xe):
-        """SwiGLU of every expert over its rows ``xe`` [E, rows, D]."""
+        """SwiGLU of every expert this module holds over its rows ``xe``
+        [E, rows, D]."""
         return self._emm(F.silu(self._emm(xe, "wg"))
                          * self._emm(xe, "wi"), "wo")
 
@@ -428,14 +443,30 @@ class MoE(nn.Module):
         valid = (torch.arange(s_full + pad, device=x.device) < s_full)
         valid = valid.reshape(-1, g).repeat(b, 1)               # [G, g]
         C = min(g, int(math.ceil(self.capacity_factor * g * k / E)))
-        gates, dest = self._route(probs.reshape(n_groups, g, E), valid, C)
+        args = (x.reshape(n_groups, g, d), probs.reshape(n_groups, g, E),
+                valid, C)
+        out = (self._groups(*args) if self.shard is None
+               else self.shard.groups(self, *args))
+        return out.reshape(b, s_full + pad, d)[:, :s_full]
+
+    def _groups(self, x, probs, valid, C: int):
+        """Route, dispatch, the experts and combine over routing groups
+        ``x`` [G, g, D] with their ``probs`` [G, g, E] and ``valid``
+        [G, g] tokens at ``C`` slots per expert and group: [G, g, D] in
+        the compute dtype (an expert-parallel placement runs it on its
+        share of the groups)."""
+        n_groups, g, d = x.shape
+        E, k = self.n_experts, self.top_k
+        gates, dest = self._route(probs, valid, C)
         # dispatch: each kept (token, choice) to its slot of the expert
         # buffer, the dropped ones to its trash row
         trash = E * n_groups * C
         x = x.reshape(n_groups * g, d)
         xe = x.new_zeros(trash + 1, d).index_put(
             (dest.reshape(-1),), x.expand(k, -1, -1).reshape(-1, d))
-        y = self._experts(xe[:trash].view(E, n_groups * C, d))
+        experts = (self._experts if self.shard is None
+                   else lambda t: self.shard.experts(self, t))
+        y = experts(xe[:trash].view(E, n_groups * C, d))
         # combine: each token's k gated outputs (a dropped one reads the
         # zero row) summed in f32, the gates rounded to the compute dtype.
         # index_select, whose backward adds by atomics: the backward of
@@ -445,8 +476,7 @@ class MoE(nn.Module):
         gates = gates.reshape(-1, k).to(self.dtype).float()     # [G·g, k]
         out = sum(gates[:, j, None] * y.index_select(0, dest[j]).float()
                   for j in range(k))
-        out = out.to(self.dtype).reshape(b, s_full + pad, d)
-        return out[:, :s_full]
+        return out.to(self.dtype).reshape(n_groups, g, d)
 
     def _route(self, probs, valid, C: int):
         """Top-k choices of ``probs`` [G, g, E] over the ``valid`` [G, g]
@@ -593,6 +623,10 @@ class TransformerLM(nn.Module):
     weights and the embedding are held in ``param_dtype`` (f32, as flax
     holds them; :meth:`compute_copy` builds the serving twin)."""
 
+    # the tensor-parallel placement's vocab-parallel embedding and head
+    # (parallel/tensor.py); None on one device
+    shard = None
+
     def __init__(self, cfg: LMConfig, device=None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -612,7 +646,7 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.rope_cos.device
 
     @property
     def blocks(self):
@@ -685,7 +719,7 @@ class TransformerLM(nn.Module):
         advances by their count.  ``return_aux`` returns ``(out, aux)``:
         ``aux`` the MoE blocks' load-balance values, one 0-d tensor per
         MoE block in block order (empty for a dense model)."""
-        x = self.embed[tokens].to(self.cfg.dtype)
+        x = self.embed_tokens(tokens)
         step = None
         if cache is not None and pos is None:
             step = int(cache["index"])
@@ -705,7 +739,8 @@ class TransformerLM(nn.Module):
                 page_table if paged else None, active, pos,
                 s_new=tokens.shape[1],
                 page=layer["pages_key"].shape[2] if paged else 0,
-                n_heads=self.cfg.n_heads, rope_cos=self.rope_cos,
+                n_heads=layer["pages_key" if paged else "key"].shape[1],
+                rope_cos=self.rope_cos,
                 rope_sin=self.rope_sin, kernel=paged_kernel)
         # remat is a training-time memory/FLOPs trade: never under decode
         remat = self.cfg.remat and step is None and torch.is_grad_enabled()
@@ -723,8 +758,21 @@ class TransformerLM(nn.Module):
         out = x if return_hidden else self.head(x)
         return (out, aux) if return_aux else out
 
+    def embed_tokens(self, tokens):
+        """The embedding rows of ``tokens`` in the compute dtype."""
+        if self.shard is not None:
+            return self.shard.embed(self, tokens)
+        return self.embed[tokens].to(self.cfg.dtype)
+
     def head(self, x):
-        """Tied output head ``x @ embed.T`` in the compute dtype, as f32."""
+        """Tied output head ``x @ embed.T`` in the compute dtype, as f32
+        (over the whole vocab, under a vocab-parallel placement too)."""
+        if self.shard is not None:
+            return self.shard.head(self, x)
+        return self.local_head(x)
+
+    def local_head(self, x):
+        """``x @ embed.T`` over the embedding rows this module holds."""
         return torch.matmul(x, self.embed.to(self.cfg.dtype).t()).float()
 
     def _kv_leaves(self, shape, kv_dtype, names) -> dict:
@@ -738,8 +786,15 @@ class TransformerLM(nn.Module):
                         for n in names})
         return out
 
+    @property
+    def kv_heads(self) -> int:
+        """The heads whose K/V this module's attention computes: all of
+        them, or a tensor-parallel rank's share."""
+        return self.cfg.n_heads // (1 if self.shard is None
+                                    else self.shard.heads_split)
+
     def cache_shapes(self, batch_size: int, per_slot_index: bool = False,
-                     kv_dtype=None) -> dict:
+                     kv_dtype=None, n_heads: int | None = None) -> dict:
         """Shapes and dtypes of the dense cache for ``batch_size`` rows:
         per block a ``key``/``value`` buffer [B, H, max_seq, head_dim] in
         the compute dtype, plus one int32 ``index`` for all blocks (the
@@ -747,9 +802,11 @@ class TransformerLM(nn.Module):
         ``per_slot_index`` a [B] vector (the engine's dense arena, each
         row a slot at its own position).  ``kv_dtype`` 'int8' or 'fp8'
         stores the K/V quantized with ``key_scale``/``value_scale``
-        [B, H, max_seq] sidecars (f32 for int8, bf16 for fp8)."""
+        [B, H, max_seq] sidecars (f32 for int8, bf16 for fp8).  H is
+        ``n_heads``, by default :attr:`kv_heads`."""
         cfg = self.cfg
-        kv = self._kv_leaves((batch_size, cfg.n_heads, cfg.max_seq,
+        h = self.kv_heads if n_heads is None else n_heads
+        kv = self._kv_leaves((batch_size, h, cfg.max_seq,
                               cfg.head_dim), kv_dtype, ("key", "value"))
         out = {f"block_{i}": {"attn": dict(kv)} for i in range(cfg.n_layers)}
         out["index"] = (((batch_size,) if per_slot_index else ()),
@@ -769,7 +826,7 @@ class TransformerLM(nn.Module):
         return out
 
     def paged_cache_shapes(self, n_slots: int, n_pages: int, page_size: int,
-                           kv_dtype=None) -> dict:
+                           kv_dtype=None, n_heads: int | None = None) -> dict:
         """Shapes and dtypes of the block-paged serving arena: per block a
         ``pages_key``/``pages_value`` pool [n_pages, H, page_size,
         head_dim] (page 0 is the reserved garbage page), plus one
@@ -777,7 +834,8 @@ class TransformerLM(nn.Module):
         identical copy per block).  ``kv_dtype`` 'int8' or 'fp8' makes the
         pools int8 or float8_e4m3fn with ``pages_key_scale``/
         ``pages_value_scale`` [n_pages, H, page_size] sidecars (f32 for
-        int8, bf16 for fp8) that ride with their page."""
+        int8, bf16 for fp8) that ride with their page.  H is ``n_heads``,
+        by default :attr:`kv_heads`."""
         cfg = self.cfg
         if page_size < 1 or cfg.max_seq % page_size:
             raise ValueError(f"page_size must be >= 1 and divide max_seq="
@@ -785,7 +843,8 @@ class TransformerLM(nn.Module):
         if n_pages < 2:
             raise ValueError(f"n_pages must be >= 2 (page 0 is the reserved "
                              f"garbage page), got {n_pages}")
-        pools = self._kv_leaves((n_pages, cfg.n_heads, page_size,
+        h = self.kv_heads if n_heads is None else n_heads
+        pools = self._kv_leaves((n_pages, h, page_size,
                                  cfg.head_dim), kv_dtype,
                                 ("pages_key", "pages_value"))
         out = {f"block_{i}": {"attn": dict(pools)}

@@ -35,6 +35,9 @@ VMA-typed autodiff takes:
 | ``psum(x, mesh, axes)`` (a varying value made invariant; Megatron's *g*) | sum | identity |
 | ``copy_to(x, mesh, axes)`` (an invariant value used as varying, JAX's implicit ``pvary``; Megatron's *f*) | identity | sum |
 | ``pmax``, ``pmin`` | max, min | none (taken on detached values) |
+| ``all_gather(x, mesh, axis, dim)`` (an FSDP weight before its use) | gather | ``reduce_scatter`` |
+| ``all_gather(..., invariant=True)`` (a shard every rank uses alike) | gather | this rank's part |
+| ``reduce_scatter(x, mesh, axis, dim)`` | sum, this rank's part | gather |
 
 ``axis_index`` and ``axis_size`` of a mesh are plain ints.  Over axes of
 size 1 (the card's one-process mesh) every one is an identity.  A ring
@@ -348,6 +351,88 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
                            concat_axis % x.dim())
 
 
+def _tiled_gather(x: torch.Tensor, group, n: int, dim: int):
+    def run(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+    return _host_staged(x, group, run)
+
+
+def _tiled_scatter(x: torch.Tensor, group, n: int, dim: int, me: int):
+    """Part ``me`` (this rank's position) along ``dim`` of the sum over
+    ``group``."""
+    def run(t):
+        parts = [p.contiguous() for p in t.chunk(n, dim=dim)]
+        out = torch.empty_like(parts[0])
+        if t.device.type == "cpu":
+            # gloo has no reduce_scatter: the sum, then this rank's part
+            full = t.contiguous().clone()
+            dist.all_reduce(full, group=group)
+            return full.chunk(n, dim=dim)[me].contiguous()
+        dist.reduce_scatter(out, parts, group=group)
+        return out
+    return _host_staged(x, group, run)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim, me, invariant):
+        ctx.args = (group, n, dim, me, invariant)
+        return _tiled_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, dim, me, invariant = ctx.args
+        part = (g.chunk(n, dim=dim)[me].contiguous() if invariant
+                else _tiled_scatter(g, group, n, dim, me))
+        return part, None, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim, me):
+        ctx.args = (group, n, dim)
+        return _tiled_scatter(x, group, n, dim, me)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tiled_gather(g, *ctx.args), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0, *,
+               invariant: bool = False) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)`` along ``axis``: every rank's
+    ``x`` concatenated along ``dim`` in position order.  The backward is
+    :func:`reduce_scatter` (each rank's use of the whole differs, as an
+    FSDP weight's on its own rows); with ``invariant`` every rank uses
+    the whole alike (a replicated computation) and the backward takes
+    this rank's part of the cotangent, summing nothing."""
+    group = mesh.axis_group(axis)
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, mesh.axis_size(axis), dim % x.dim(),
+                            mesh.axis_index(axis), invariant)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0
+                   ) -> torch.Tensor:
+    """``lax.psum_scatter(..., tiled=True)``: the sum over ``axis``, this
+    rank's part of it along ``dim``.  The backward is :func:`all_gather`.
+    (The group's rank order is its position order: every line group is
+    made from its ranks in position order.)"""
+    group = mesh.axis_group(axis)
+    if group is None:
+        return x
+    n = mesh.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of size {x.shape[dim]} "
+                         f"does not split over {n}")
+    return _ReduceScatter.apply(x, group, n, dim % x.dim(),
+                                mesh.axis_index(axis))
+
+
 # ---- host-level utilities ---------------------------------------------------
 
 def _host_bytes(x) -> bytes:
@@ -399,6 +484,21 @@ def assert_same_across_hosts(tree, name: str = "value") -> None:
     dist.all_gather_object(digests, tree_digest(tree), group=host_group())
     if len(set(digests)) != 1:
         raise AssertionError(f"{name} diverged across hosts: {digests}")
+
+
+def host_op(t: torch.Tensor, mesh: Mesh, run) -> None:
+    """``run(t, group)`` for a host tensor ``t`` over ``mesh``'s processes,
+    in place: on the world's gloo host group when the mesh is the world,
+    else on the mesh's group (through the card when that group is
+    NCCL)."""
+    if mesh.size == process_count():
+        run(t, host_group())
+    elif dist.get_backend(mesh.group) == "gloo":
+        run(t, mesh.group)
+    else:
+        d = t.cuda()
+        run(d, mesh.group)
+        t.copy_(d.cpu())
 
 
 def host_max(value: int) -> int:

@@ -1025,19 +1025,23 @@ def serve_engine(cfg: MegatronConfig, params: dict, mesh: Mesh = None,
     converted model (:func:`to_flax_model` + :func:`to_flax_params` of the
     GLOBAL tree) in an ``InferenceEngine`` on this process's device.
     With ``mesh`` alone every process serves the whole model (the JAX
-    replicated placement); ``rules`` (tensor-parallel serving) is ROADMAP
-    queue A11b.  The engine options pass through; ``overrides`` reach
-    :func:`to_flax_model`."""
+    replicated placement); ``mesh`` and ``rules`` (say ``'tp'``) serve
+    tensor-parallel through the engine itself (``InferenceEngine(mesh=,
+    rules=)``: each process holds its shards and 1/tp of the KV heads).
+    ``rules`` without ``mesh`` raises.  The engine options pass through;
+    ``overrides`` reach :func:`to_flax_model`."""
     from dtdl_tpu_torch.bridge import load_flax_params
     from dtdl_tpu_torch.serve.engine import InferenceEngine
-    if rules is not None:
-        raise NotImplementedError(
-            f"rules={rules!r}: tensor-parallel serving (GSPMD rule sets) is "
-            f"ROADMAP queue A11b")
+    if rules is not None and mesh is None:
+        # dropping the requested sharding would serve the whole model on
+        # one card, far from the misconfiguration
+        raise ValueError(f"rules={rules!r} requires mesh=: tensor-parallel "
+                         f"serving needs the mesh the shards land on")
+    tp = {} if rules is None else {"mesh": mesh, "rules": rules}
     model = to_flax_model(cfg, device=device, **overrides)
     load_flax_params(model, to_flax_params(cfg, params), device=device)
     return InferenceEngine(model, n_slots=n_slots, buckets=buckets,
                            page_size=page_size, n_pages=n_pages,
                            quantize_weights=quantize_weights,
                            kv_dtype=kv_dtype, kv_pool_bytes=kv_pool_bytes,
-                           device=device)
+                           device=device, **tp)

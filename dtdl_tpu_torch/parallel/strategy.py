@@ -11,7 +11,7 @@ statistics), ``metric_sync`` / ``sum_sync`` (train means, eval sums),
 | single-device loop                            | ``SingleDevice``              | ``SingleDevice``              |
 | nn.DataParallel / MirroredStrategy            | ``DataParallel(local_mesh())``| one process per card: ``DataParallel(local_mesh())`` is one replica |
 | DistributedDataParallel / ChainerMN           | ``DataParallel(build_mesh())``| ``DataParallel(build_mesh())`` over the process world |
-| (compiler-partitioned, sync BN)               | ``AutoSharded``               | not ported (ROADMAP A11b)     |
+| (compiler-partitioned, sync BN)               | ``AutoSharded``               | ``AutoSharded``: DP over the global batch, BatchNorm statistics over it, parameters placed per leaf |
 
 ``DataParallel`` keeps the JAX step's numbers, not torch DDP's: each
 replica computes on its own rows with per-replica BatchNorm statistics,
@@ -26,6 +26,14 @@ over a :func:`~dtdl_tpu_torch.runtime.mesh.hybrid_mesh` (``('dcn',
 'data')``): the replicas are this process's line over those axes
 (``replicas``, a :class:`Mesh` of its own), and every collective runs in
 its group.
+
+``AutoSharded`` computes the JAX jit-over-the-global-batch function:
+each process computes its rows, BatchNorm takes its statistics over the
+*global* batch (``models/norm.py``, one differentiable all-reduce of the
+sums), and every parameter lives where ``param_spec`` places it (the
+rank's block of each sharded leaf, gathered at each read), so one step
+equals the single-device step on the global batch, where
+``DataParallel``'s BatchNorm normalizes by each replica's own rows.
 
 ``grad_sync`` and ``stats_sync`` work in place on the tensors the model
 holds (its ``.grad`` and its statistic buffers) and return them;
@@ -43,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 from dtdl_tpu_torch.parallel import collectives
-from dtdl_tpu_torch.runtime.bootstrap import host_group, process_count
+from dtdl_tpu_torch.runtime.bootstrap import process_count
 from dtdl_tpu_torch.runtime.mesh import (DATA_AXIS, Mesh, build_mesh,
                                          local_mesh)
 
@@ -80,6 +88,10 @@ class Strategy:
 
     def replicate(self, state):
         return state
+
+    def bind(self, state) -> None:
+        """Called by every step with its state (``AutoSharded`` places the
+        state on the first call)."""
 
     @property
     def num_replicas(self) -> int:
@@ -136,8 +148,12 @@ class DataParallel(MeshStrategy):
         return stats
 
     def max_sync(self, n: int) -> int:
-        return collectives.host_max(n) if self.replicas.group is not None \
-            else n
+        if self.replicas.group is None:
+            return n
+        t = torch.tensor([int(n)], dtype=torch.int64)
+        collectives.host_op(t, self.replicas, lambda x, g: dist.all_reduce(
+            x, op=dist.ReduceOp.MAX, group=g))
+        return int(t)
 
     def fold_rank(self, seed: int) -> int:
         # each replica draws its own dropout mask, like per-rank DDP workers
@@ -147,32 +163,191 @@ class DataParallel(MeshStrategy):
     def replicate(self, state):
         """Replica 0's parameters, buffers (BatchNorm statistics),
         optimizer state and step on every replica, in place."""
-        if self.replicas.group is None:
-            return state
-        model, opt = state.model, state.optimizer
-        tensors = [p.data for p in model.parameters()]
-        tensors += [b for b in model.buffers()]
-        for p in model.parameters():
-            tensors += [v for _, v in sorted(opt.state.get(p, {}).items())
-                        if isinstance(v, torch.Tensor)]
-        on_dev = [t for t in tensors if t.device.type != "cpu"]
-        on_host = [t for t in tensors if t.device.type == "cpu"]
-        step = torch.tensor([state.step], dtype=torch.int64)
-        collectives.broadcast_(on_dev, 0, self.replicas)
-        for t in on_host + [step]:      # host tensors ride the gloo group
-            dist.broadcast(t, src=self.replicas.ranks[0], group=host_group())
-        state.step = int(step)
+        if self.replicas.group is not None:
+            _broadcast_state(state, self.replicas)
         return state
 
 
-class AutoSharded(MeshStrategy):
-    """Compiler-partitioned strategy (pjit style): not ported."""
+def _broadcast_state(state, mesh: Mesh) -> None:
+    """The state of ``mesh``'s first process (parameters, buffers,
+    optimizer state, step) on every process of it, in place."""
+    model, opt = state.model, state.optimizer
+    tensors = [p.data for p in model.parameters()]
+    tensors += [b for b in model.buffers()]
+    for p in model.parameters():
+        tensors += [v for _, v in sorted(opt.state.get(p, {}).items())
+                    if isinstance(v, torch.Tensor)]
+    on_dev = [t for t in tensors if t.device.type != "cpu"]
+    on_host = [t for t in tensors if t.device.type == "cpu"]
+    step = torch.tensor([state.step], dtype=torch.int64)
+    collectives.broadcast_(on_dev, 0, mesh)
+    for t in on_host + [step]:      # host tensors ride the gloo group
+        collectives.host_op(t, mesh, lambda x, g: dist.broadcast(
+            x, src=mesh.ranks[0], group=g))
+    state.step = int(step)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AutoSharded (pjit-style partitioning: global-batch sync "
-            "BatchNorm, per-leaf parameter sharding) is ROADMAP queue A11b "
-            "(GSPMD rule sets); DataParallel is the port's DDP")
+
+class _DictKey:
+    """A jax ``DictKey`` path entry: ``.key``, printed ``['key']``."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __str__(self) -> str:
+        return f"[{self.key!r}]"
+
+    __repr__ = __str__
+
+
+class _GetAttrKey:
+    """A jax ``GetAttrKey`` path entry: ``.name``, printed ``.name``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __str__(self) -> str:
+        return f".{self.name}"
+
+    __repr__ = __str__
+
+
+class LeafShape:
+    """What a per-leaf ``param_spec`` sees of a leaf: its flax-layout
+    ``shape``, ``ndim`` and ``dtype`` (as a ``ShapeDtypeStruct``)."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+        self.ndim = len(self.shape)
+
+
+class AutoSharded(DataParallel):
+    """Compiler-partitioned strategy (pjit style), the port of the JAX
+    ``AutoSharded``: data parallelism over ``axis`` with the global-batch
+    function (BatchNorm statistics over the whole batch) and per-leaf
+    parameter placement on a mesh that may carry more axes (``model``).
+
+    ``param_spec`` is one ``PartitionSpec`` (a tuple of mesh axes or
+    ``None``, :class:`~dtdl_tpu_torch.parallel.tensor.PartitionSpec`) for
+    every parameter, or a callable ``(path, leaf) -> spec`` over the
+    TrainState tree's flax key paths (``.params``, ``['Dense_0']``,
+    ``['kernel']`` entries with ``.name``/``.key``) and flax-layout
+    leaves (:class:`LeafShape`), so a JAX rule works unchanged; the
+    optimizer state is made on each parameter's block and so follows it.
+    The placement binds on the first step, or at :meth:`replicate`, and
+    stays: the optimizer updates the blocks in place.  A sharded leaf is
+    gathered at each read (its gradient reduce-scattered over ``axis``,
+    or kept to this rank's part over another axis, where every rank
+    computes alike); BatchNorm statistics stay whole."""
+
+    def __init__(self, mesh: Mesh | None = None,
+                 axis: str = DATA_AXIS, param_spec=None):
+        super().__init__(mesh, axis)
+        self.param_spec = param_spec if param_spec is not None else ()
+        self._placed = None           # the model the placement is bound to
+        self._sharded_on_axis = []    # per parameter, in model order
+
+    @property
+    def _per_leaf(self) -> bool:
+        return callable(self.param_spec) and \
+            not isinstance(self.param_spec, tuple)
+
+    def _spec(self, keys, shape, dtype):
+        if not self._per_leaf:
+            return tuple(self.param_spec)
+        path = (_GetAttrKey(keys[0]),) + tuple(_DictKey(k) for k in keys[1:])
+        return tuple(self.param_spec(path, LeafShape(shape, dtype)))
+
+    def bind(self, state) -> None:
+        """Place ``state`` if it is not placed yet (once per model)."""
+        if self._placed is not state.model:
+            self.replicate(state)
+
+    def replicate(self, state):
+        """The mesh's first process's state on every process, then
+        each parameter cut to this rank's block of its spec and gathered
+        at each read; BatchNorm set to the global batch."""
+        from torch.nn.utils import parametrize
+
+        from dtdl_tpu_torch.bridge import _classifier_leaves, _flax_layout
+        from dtdl_tpu_torch.models.layers import Classifier
+        from dtdl_tpu_torch.models.norm import BatchNorm
+        from dtdl_tpu_torch.parallel.tensor import _Gather, block_of
+        if self._placed is state.model:
+            return state
+        model = state.model
+        if self.mesh.group is not None:
+            # one root over the whole mesh: the lines of the other axes
+            # hold the same state too
+            _broadcast_state(state, self.mesh)
+        if isinstance(model, Classifier):
+            leaves = {key: (coll, path, kind) for (coll, path), (key, kind)
+                      in _classifier_leaves(model).items()}
+        else:
+            leaves = {name: ("params", name.replace(".", "/"), None)
+                      for name, _ in model.named_parameters()}
+        own = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+        modules = dict(model.named_modules())
+        on_axis = set()
+        for name, p in list(model.named_parameters()):
+            coll, path, kind = leaves[name]
+            flax_spec = self._spec([coll] + path.split("/"),
+                                   _flax_layout(kind, tuple(p.shape)) if kind
+                                   else tuple(p.shape), p.dtype)
+            spec = [None] * p.dim()
+            order = (2, 3, 1, 0) if kind == "conv" else \
+                (1, 0) if kind == "dense" else tuple(range(p.dim()))
+            for i, axis in enumerate(flax_spec):
+                spec[order[i]] = axis
+            for d, a in enumerate(spec):
+                if a is not None and p.shape[d] % self.mesh.shape[a]:
+                    raise ValueError(
+                        f"param_spec places {coll}/{path} dim {d} (size "
+                        f"{p.shape[d]}) on {a!r} of size "
+                        f"{self.mesh.shape[a]}, which does not divide it")
+            dims = [(d, a, a != self.axis) for d, a in enumerate(spec)
+                    if a is not None and self.mesh.shape[a] > 1]
+            if any(not inv for _, _, inv in dims):
+                on_axis.add(id(p))
+            if dims:
+                with torch.no_grad():
+                    p.data = block_of(p.data, spec, self.mesh).contiguous()
+                owner, _, leaf = name.rpartition(".")
+                parametrize.register_parametrization(
+                    modules[owner], leaf, _Gather(self.mesh, dims),
+                    unsafe=True)
+        for key, (coll, path, _) in leaves.items():
+            if coll == "batch_stats" and any(self._spec(
+                    [coll] + path.split("/"), tuple(own[key].shape),
+                    own[key].dtype)):
+                raise ValueError(f"param_spec shards the BatchNorm "
+                                 f"statistic {path}; the port keeps them "
+                                 f"whole")
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.sync = (self.mesh, self.axis)
+        # in the order the steps list the gradients (parametrized leaves
+        # move to the end of their module's)
+        self._sharded_on_axis = [id(p) in on_axis for p in model.parameters()]
+        self._placed = model
+        return state
+
+    def grad_sync(self, grads):
+        """The mean over ``axis`` of each gradient: all-reduced for a leaf
+        held whole on it, divided for one that came back
+        reduce-scattered."""
+        grads = list(grads)
+        n = self.num_replicas
+        whole = [g for g, s in zip(grads, self._sharded_on_axis) if not s]
+        collectives.reduce_(whole, self.replicas, mean=True)
+        for g, s in zip(grads, self._sharded_on_axis):
+            if s:
+                g.div_(n)
+        return grads
+
+    def stats_sync(self, stats):
+        # the statistics were taken over the global batch already
+        return list(stats)
 
 
 def data_parallel_local() -> DataParallel:
@@ -186,8 +361,8 @@ def distributed_data_parallel() -> DataParallel:
 
 
 def choose_strategy(name: str = "auto", mesh: Mesh | None = None) -> Strategy:
-    """'single' | 'dp' | 'ddp' | 'auto' (ddp with more than one process,
-    else single); 'pjit' is ROADMAP A11b."""
+    """'single' | 'dp' | 'ddp' | 'pjit' | 'auto' (ddp with more than one
+    process, else single)."""
     if name == "auto":
         name = "ddp" if process_count() > 1 else "single"
     if name == "single":

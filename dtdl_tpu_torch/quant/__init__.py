@@ -12,6 +12,7 @@ variants.  :mod:`dtdl_tpu_torch.quant.core` holds the recipes,
 """
 
 from dtdl_tpu_torch.quant.core import (FP8_DTYPE, FP8_MAX, SCALE_SUFFIX,
+                                       Fp8UnsupportedError,
                                        canon_kv_dtype, canon_weight_quant,
                                        dequantize_params, kv_quantize,
                                        kv_scale_dtype, quantize_params,
@@ -19,7 +20,8 @@ from dtdl_tpu_torch.quant.core import (FP8_DTYPE, FP8_MAX, SCALE_SUFFIX,
                                        weight_dtypes)
 from dtdl_tpu_torch.quant.layers import QuantLinear
 
-__all__ = ["FP8_DTYPE", "FP8_MAX", "QuantLinear", "SCALE_SUFFIX",
+__all__ = ["FP8_DTYPE", "FP8_MAX", "Fp8UnsupportedError", "QuantLinear",
+           "SCALE_SUFFIX",
            "canon_kv_dtype", "canon_weight_quant", "dequantize_params",
            "kv_quantize", "kv_scale_dtype", "quantize_params",
            "quantize_tensor", "tree_bytes", "weight_dtypes"]

@@ -37,6 +37,12 @@ import torch
 #: suffix linking a quantized tensor to its scale
 SCALE_SUFFIX = "_scale"
 
+
+class Fp8UnsupportedError(ValueError):
+    """fp8 asked for in a configuration that cannot serve it (fp8 weights
+    under a mesh whose rules are not a named preset), raised by name at
+    engine construction."""
+
 FP8_DTYPE = torch.float8_e4m3fn
 FP8_MAX = 448.0
 

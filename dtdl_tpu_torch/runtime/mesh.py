@@ -17,6 +17,7 @@ and its collectives are identities.
 reference's allreduce world); ``build_mesh(shape, axes)`` is a multi-axis
 mesh (the 4D engine's ``('data', 'seq', 'pipe', 'model')``);
 ``local_mesh()`` is this process's own device, one replica;
+``sub_mesh(ranks)`` a data axis over some of the world's processes;
 ``hybrid_mesh`` leads with a ``dcn`` axis over launcher hosts or
 synthetic slices.  ``replicated`` and ``batch_sharded`` place a host
 array: each returns this process's part of it as a tensor.
@@ -230,6 +231,18 @@ def hybrid_mesh(ici_shape: tuple[int, ...] | None = None,
         return Mesh(ranks, axes, None, dims)
     return Mesh(ranks, axes, dist.group.WORLD, dims,
                 _line_groups(ranks, dims, axes))
+
+
+def sub_mesh(ranks, axis: str = DATA_AXIS) -> Mesh | None:
+    """The one-axis mesh of the world ``ranks`` (a data-parallel mesh
+    over fewer processes than the world): its group is made on every
+    process (``dist.new_group`` is collective over the world), and the
+    mesh comes back on its members, ``None`` on the others."""
+    ranks = tuple(int(r) for r in ranks)
+    group = dist.new_group(list(ranks)) if dist.is_initialized() else None
+    if process_index() not in ranks:
+        return None
+    return Mesh(ranks, (axis,), group if len(ranks) > 1 else None)
 
 
 def shrink_mesh(*args, **kwargs):

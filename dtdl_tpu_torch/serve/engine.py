@@ -38,9 +38,27 @@ with a scale per position.
 Every paged attend ends in kernel K4 on the card (``paged_kernel='auto'``
 resolves to the kernel on CUDA and to the plain version on the CPU;
 ``False`` asks for the plain version on any device).  The dense arena
-attends in plain torch, as the JAX one in plain jnp.  A device mesh,
-LoRA and grammar masks are later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+attends in plain torch, as the JAX one in plain jnp.  LoRA and grammar
+masks are later slices and raise ``NotImplementedError`` naming their
+ROADMAP item.
+
+``mesh`` and ``rules`` (a :mod:`dtdl_tpu_torch.parallel.tensor` preset,
+``'tp'`` by default) serve tensor-parallel: every process of the mesh
+runs one engine (and one :class:`~dtdl_tpu_torch.serve.scheduler.
+Scheduler`) over its shards of the weights (``place_lm``; quantized
+weights through ``quant_logical_shardings``) and its share of the KV
+heads (the arena is ``[n_pages, H/tp, page, D]`` per rank, 1/tp of the
+bytes), attending its own heads through K4 and summing the
+out-projection over ``model``; the vocab-sharded logits are gathered
+before sampling, so every rank samples the same tokens from
+bitwise-equal logits with its own identically seeded generator.  The
+ranks must make the same calls in the same order: every call first
+compares a digest of its host inputs across the processes
+(``collectives.assert_same_across_hosts``), so a rank that parts fails
+by name instead of hanging in a collective, and a decision a scheduler
+takes from its clock (deadlines) is the leader's (:meth:`agree`).  The
+byte receipts of ``compile_stats()`` stay the whole engine's, as the
+JAX engine's count its sharded arrays whole.
 """
 
 from __future__ import annotations
@@ -49,8 +67,9 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device, upload
-from dtdl_tpu_torch.quant.core import (canon_kv_dtype, canon_weight_quant,
-                                       quantize_params, tree_bytes)
+from dtdl_tpu_torch.quant.core import (Fp8UnsupportedError, canon_kv_dtype,
+                                       canon_weight_quant, quantize_params,
+                                       tree_bytes)
 from dtdl_tpu_torch.serve.sampling import (SampleParams, accept_resample,
                                            sample)
 
@@ -90,16 +109,31 @@ class InferenceEngine:
                  page_size: int = 16, n_pages: int | None = None,
                  paged_kernel="auto", device=None, quantize_weights=False,
                  kv_dtype=None, kv_pool_bytes: int | None = None, mesh=None,
-                 lora_rank: int = 0, lora_adapters: int = 0, observer=None):
+                 rules="tp", lora_rank: int = 0, lora_adapters: int = 0,
+                 observer=None):
         self.device = resolve_device(device)
-        if self.device != model.device:
+        # a tensor-parallel engine may take the whole model from the host
+        if self.device != model.device and (mesh is None
+                                            or model.device.type != "cpu"):
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"was asked for {self.device}")
         self.weight_mode = canon_weight_quant(quantize_weights)
         self.kv_dtype = canon_kv_dtype(kv_dtype)
+        self.mesh = mesh
+        self.rules = rules if mesh is not None else None
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is ROADMAP queue A11b")
+            from dtdl_tpu_torch.parallel.tensor import heads_axis_size
+            if self.weight_mode == "w8f" and not isinstance(rules, str):
+                raise Fp8UnsupportedError(
+                    "fp8 weights (quantize_weights='w8f') under a mesh need "
+                    "a named rule preset (parallel/tensor.py RULE_PRESETS): "
+                    "the quant rule map derives fp8 kernel and scale specs "
+                    "from the f32 twin per preset; got a raw rules sequence")
+            tp = heads_axis_size(mesh, rules)
+            if model.cfg.n_heads % tp:
+                raise ValueError(
+                    f"n_heads={model.cfg.n_heads} must divide by the mesh's "
+                    f"tensor-parallel axis size {tp} (rules={rules!r})")
         if lora_rank or lora_adapters:
             raise NotImplementedError(
                 "LoRA adapter banks are ROADMAP queue A12 (tenancy)")
@@ -122,7 +156,13 @@ class InferenceEngine:
         # the compute-dtype twin, taken once: the eager decode step must not
         # cast every f32 weight per call (the engine serves a snapshot, as
         # the JAX engine serves the params it was given)
-        self.model = model.compute_copy()
+        model = model.compute_copy()
+        self._param_bytes = tree_bytes(model.state_dict())
+        self._calls = 0
+        if mesh is not None:
+            from dtdl_tpu_torch.parallel.tensor import place_lm
+            model = place_lm(model, mesh, rules, self.device)
+        self.model = model
         self.n_slots = n_slots
         self.max_seq = model.cfg.max_seq
         self.buckets = (tuple(sorted(set(buckets))) if buckets
@@ -137,11 +177,12 @@ class InferenceEngine:
             self.n_ptab = self.max_seq // page_size
             # one page of K and V (scales included) across all blocks: the
             # 3-page arena minus the 2-page one, as the JAX engine counts
+            h = model.cfg.n_heads
             self.page_bytes = (
                 tree_bytes(self.model.paged_cache_shapes(
-                    1, 3, page_size, self.kv_dtype))
+                    1, 3, page_size, self.kv_dtype, n_heads=h))
                 - tree_bytes(self.model.paged_cache_shapes(
-                    1, 2, page_size, self.kv_dtype)))
+                    1, 2, page_size, self.kv_dtype, n_heads=h)))
             if kv_pool_bytes is not None:
                 if n_pages is not None:
                     raise ValueError("pass n_pages or kv_pool_bytes, not "
@@ -165,13 +206,16 @@ class InferenceEngine:
 
     # ---- state the caller threads ------------------------------------
 
-    def arena_shapes(self) -> dict:
-        """Shapes and dtypes of the engine's arena (nothing allocated)."""
+    def arena_shapes(self, whole: bool = False) -> dict:
+        """Shapes and dtypes of this rank's arena (nothing allocated), or
+        with ``whole`` of the whole engine's (every head)."""
+        h = self.model.cfg.n_heads if whole else None
         if self.paged:
             return self.model.paged_cache_shapes(
-                self.n_slots, self.n_pages, self.page_size, self.kv_dtype)
+                self.n_slots, self.n_pages, self.page_size, self.kv_dtype,
+                n_heads=h)
         return self.model.cache_shapes(self.n_slots, per_slot_index=True,
-                                       kv_dtype=self.kv_dtype)
+                                       kv_dtype=self.kv_dtype, n_heads=h)
 
     def init_arena(self) -> dict:
         """Fresh zeroed arena: the paged pools, or the dense
@@ -190,10 +234,12 @@ class InferenceEngine:
         """The geometry and byte receipts of the JAX engine's
         ``compile_stats()`` (its compiled-program counts have no
         counterpart in the eager port): ``paged`` the page geometry (None
-        for the dense arena) and ``quant`` the bytes: ``param_bytes`` (the served
+        for the dense arena), ``quant`` the bytes: ``param_bytes`` (the served
         weights, what every decode step reads), the arena split into K/V
         payload and scale sidecars, and ``decode_hbm_bytes_per_token``,
-        ``(param_bytes + kv_arena_bytes) / n_slots``."""
+        ``(param_bytes + kv_arena_bytes) / n_slots``, the whole engine's on
+        a mesh too; and ``tp``, ``{"rules", "mesh"}`` of a tensor-parallel
+        engine (None otherwise)."""
         payload = scales = 0
 
         def walk(node):
@@ -205,9 +251,11 @@ class InferenceEngine:
                     scales += tree_bytes(leaf)
                 elif name != "index":
                     payload += tree_bytes(leaf)
-        walk(self.arena_shapes())
-        param_bytes = tree_bytes(self.model.state_dict())
+        walk(self.arena_shapes(whole=True))
+        param_bytes = self._param_bytes
         return {
+            "tp": ({"rules": self.rules, "mesh": dict(self.mesh.shape)}
+                   if self.mesh is not None else None),
             "paged": ({"page_size": self.page_size, "n_pages": self.n_pages,
                        "pages_per_slot": self.n_ptab,
                        "page_bytes": self.page_bytes}
@@ -224,6 +272,27 @@ class InferenceEngine:
                 "decode_hbm_bytes_per_token": round(
                     (param_bytes + payload + scales) / self.n_slots),
             }}
+
+    def agree(self, value):
+        """``value`` as the mesh's leader (its first process) has it, on
+        every process of a tensor-parallel engine; ``value`` elsewhere."""
+        if self.mesh is None or self.mesh.group is None:
+            return value
+        from dtdl_tpu_torch.parallel.collectives import host_broadcast
+        from dtdl_tpu_torch.runtime.bootstrap import process_index
+        return host_broadcast(value, process_index() == self.mesh.ranks[0])
+
+    def _lockstep(self, *host) -> None:
+        """On a tensor-parallel engine: raise unless every process makes
+        this call (its kind and host inputs) as its n-th."""
+        self._calls += 1
+        if self.mesh is None or self.mesh.group is None:
+            return
+        from dtdl_tpu_torch.parallel.collectives import (
+            assert_same_across_hosts)
+        assert_same_across_hosts(
+            (self._calls,) + host,
+            f"tensor-parallel engine call {self._calls} ({host[0]})")
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -262,6 +331,8 @@ class InferenceEngine:
         prompt runs at position 0 into the slot's row, which it
         overwrites whole (zeros past the bucket)."""
         prompt = np.asarray(prompt, np.int32).ravel()
+        self._lockstep("prefill", slot, prompt, page_row, start,
+                       (sampling.temperature, sampling.top_k, sampling.top_p))
         if prompt.size < 1:
             raise ValueError("empty prompt")
         if not 0 <= slot < self.n_slots:
@@ -344,6 +415,7 @@ class InferenceEngine:
         arrays (data, re-supplied each call); ``temp``/``top_k``/``top_p``
         the per-slot sampling knobs.  Returns ``(arena, last_tokens,
         logits[n_slots, V])``."""
+        self._lockstep("decode", active, temp, top_k, top_p, page_tables)
         tables = self._tables_arg(page_tables)
         dev = self.device
         act = upload(np.asarray(active, bool), dev)
@@ -390,6 +462,8 @@ class InferenceEngine:
                 "verify(allowed=...) (grammar masks) is ROADMAP queue A12 "
                 "(tenancy)")
         draft_tokens = np.asarray(draft_tokens, np.int32)
+        self._lockstep("verify", draft_tokens, draft_len, active, temp,
+                       top_k, top_p, page_tables, forced, first_tok, pos_set)
         if draft_tokens.ndim != 2 or draft_tokens.shape[0] != self.n_slots:
             raise ValueError(f"draft_tokens must be [n_slots={self.n_slots}"
                              f", k], got {draft_tokens.shape}")

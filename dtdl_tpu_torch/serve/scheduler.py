@@ -436,12 +436,19 @@ class Scheduler:
         def expired(req):
             return req.deadline_at is not None and now >= req.deadline_at
 
-        for req in [r for r in self.queue if expired(r)]:
+        # by place in the queue and slot: a tensor-parallel engine's ranks
+        # take the leader's clock's decision
+        queued, slotted = self.engine.agree((
+            [i for i, r in enumerate(self.queue) if expired(r)],
+            [i for i, r in enumerate(self.slots)
+             if r is not None and expired(r)]))
+        for req in [self.queue[i] for i in queued]:
             self.queue.remove(req)
             self._finish_error(req, "deadline exceeded before admission",
                                self.metrics.on_expire, "expired")
-        for slot, req in enumerate(self.slots):
-            if req is not None and expired(req):
+        for slot in slotted:
+            req = self.slots[slot]
+            if req is not None:
                 self._finish_error(
                     req, f"deadline exceeded after {len(req.tokens)} tokens",
                     self.metrics.on_expire, "expired")

@@ -16,6 +16,11 @@ step puts the model in train mode (BatchNorm normalizes by the batch and
 updates its statistics); the eval and predict steps put it in eval mode
 (the stored statistics) and restore its mode after.
 
+Under :class:`AutoSharded` the steps bind its placement to the state on
+their first call and run as under ``DataParallel``, BatchNorm normalizing
+by the global batch's statistics (``models/norm.py``), which then need no
+sync.
+
 Under :class:`DataParallel` each process runs the step on its own rows,
 with the JAX step's semantics: the gradients are the mean of the
 per-replica gradients (``grad_sync``, before the update); BatchNorm
@@ -96,6 +101,7 @@ def make_train_step(strategy=None,
     strategy = _strategy(strategy, guard)
 
     def step(state: TrainState, batch):
+        strategy.bind(state)
         model = state.model
         dev = model.device
         images = _on(batch["image"], dev)
@@ -130,6 +136,7 @@ def make_eval_step(strategy=None,
     strategy = _strategy(strategy)
 
     def evaluate(state: TrainState, batch):
+        strategy.bind(state)
         model = state.model
         dev = model.device
         labels = _on(batch["label"], dev, torch.long)
@@ -152,9 +159,10 @@ def make_predict_step(strategy=None, probabilities: bool = False):
     their softmax with ``probabilities=True``; eval mode.  Under
     :class:`DataParallel` each process predicts its own rows (the JAX
     outputs stay sharded on the data axis, aligned with the batch)."""
-    _strategy(strategy)
+    strategy = _strategy(strategy)
 
     def predict(state: TrainState, batch):
+        strategy.bind(state)
         model = state.model
         with _eval_mode(model):
             logits = model(_on(batch["image"], model.device))
@@ -190,6 +198,7 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     strategy = _strategy(strategy, guard)
 
     def step(state: TrainState, batch):
+        strategy.bind(state)
         model = state.model
         dev = model.device
         tokens = _on(batch["tokens"], dev, torch.long)

@@ -190,8 +190,8 @@ def test_mesh_and_strategy_surface():
     assert local_mesh().size == 1
     with pytest.raises(ValueError, match="needs 2 devices"):
         build_mesh((2,))
-    # multi-axis meshes, the hybrid mesh and DP over a tuple of axes run;
-    # GSPMD partitioning stays a refusal (ROADMAP A11b)
+    # multi-axis meshes, the hybrid mesh, DP over a tuple of axes and the
+    # compiler-partitioned strategy run
     grid = build_mesh((1, 1), ("data", "model"))
     assert grid.shape == {"data": 1, "model": 1} and grid.group is None
     assert grid.axis_group("model") is None and grid.line("model") == (0,)
@@ -203,8 +203,8 @@ def test_mesh_and_strategy_surface():
     with pytest.raises(ValueError, match="mesh has no axis 'dcn'"):
         DataParallel(axis=("dcn", "data"))
     for call in (AutoSharded, lambda: choose_strategy("pjit")):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+        s = call()
+        assert isinstance(s, AutoSharded) and s.num_replicas == 1
     with pytest.raises(NotImplementedError, match="A13"):
         shrink_mesh(mesh, [0])
     assert isinstance(choose_strategy("auto"), SingleDevice)

@@ -159,8 +159,14 @@ def test_converted_model_logits_match_jax(n_experts, virtual):
 def test_refusals_and_validation():
     mesh = build_mesh((1, 1, 1, 1), TM.AXES)
     cfg = TM.MegatronConfig(n_stages=1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A11b"):
+    # tensor-parallel serving is ported; rules without the mesh the
+    # shards land on still raises, as the JAX serve_engine does
+    with pytest.raises(ValueError, match="mesh"):
         TM.serve_engine(cfg, TM.init_params(cfg), rules="tp", device="cpu")
+    eng = TM.serve_engine(cfg, TM.init_params(cfg), rules="tp", device="cpu",
+                          mesh=build_mesh((1, 1), ("data", "model")))
+    assert eng.compile_stats()["tp"] == {"rules": "tp",
+                                         "mesh": {"data": 1, "model": 1}}
     with pytest.raises(ValueError, match="must equal mesh 'pipe'"):
         TM.make_megatron_train_step(TM.MegatronConfig(n_stages=2), mesh,
                                     sgd(0.1))

@@ -32,6 +32,7 @@ from dtdl_tpu.serve import Request as JaxRequest
 from dtdl_tpu.serve import Scheduler as JaxScheduler
 from dtdl_tpu_torch import bridge
 from dtdl_tpu_torch.models.transformer import generate, transformer_lm
+from dtdl_tpu_torch.runtime.mesh import build_mesh
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
@@ -135,12 +136,17 @@ def test_decode_tokens_stay_on_device_until_harvest(models):
 
 def test_engine_refuses_later_slices(models):
     _, _, tm = models
-    # the dense arena, quantization and chunked prefill are ported; the
-    # fleet's, the tenants' and the operations' options still refuse
-    for kwargs in ({"mesh": object()}, {"observer": object()},
+    # the dense arena, quantization, chunked prefill and tensor-parallel
+    # serving are ported; the fleet's, the tenants' and the operations'
+    # options still refuse
+    for kwargs in ({"observer": object()},
                    {"lora_rank": 2, "lora_adapters": 3}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(tm, n_slots=2, device="cpu", **kwargs)
+    tp = InferenceEngine(tm, n_slots=2, device="cpu",
+                         mesh=build_mesh((1, 1), ("data", "model")))
+    assert tp.compile_stats()["tp"] == {"rules": "tp",
+                                        "mesh": {"data": 1, "model": 1}}
     eng = InferenceEngine(tm, n_slots=2, buckets=BUCKETS, page_size=PAGE,
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

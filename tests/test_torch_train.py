@@ -214,11 +214,18 @@ def test_lm_flops_match_jax():
 
 def test_unported_options_raise_by_name(monkeypatch):
     # a strategy is the port's object, not its name; pjit-style
-    # partitioning is ROADMAP A11
+    # partitioning is ported: on one process its step is the
+    # single-device step
     with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         make_lm_train_step(strategy="dp")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_lm_train_step(strategy=AutoSharded())
+    toks = {"tokens": np.random.default_rng(0).integers(0, 256, (2, 9))}
+    losses = []
+    for strategy in (AutoSharded(), None):
+        m = transformer_lm("tiny", device="cpu", dtype=torch.float32)
+        state = init_state(m, None, sgd(0.1), device="cpu")
+        _, metrics = make_lm_train_step(strategy=strategy)(state, toks)
+        losses.append(float(metrics["loss"]))
+    assert losses[0] == losses[1]
     with pytest.raises(NotImplementedError, match="A13"):
         make_lm_train_step(guard=object())
     tm = transformer_lm("tiny", device="cpu", dtype=torch.float32)
