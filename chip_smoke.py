@@ -185,6 +185,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
                PyramidNet-110 f32 at a global batch of 64 against the
                single-device step, DataParallel's difference beside it;
                (e) the train_lm_gspmd twin's main with --rules tp and ep;
+7k. fleet    - the serving fleet (serve/fleet.py) on the serve phase's
+               engine (base bf16, page 16, 8 slots; its 16 requests), all
+               replicas one engine in this process: (a) three replicas
+               token-identical to the single scheduler (prefix cache off
+               in (a)-(c); with it on, partings only at bf16 near-ties),
+               tokens/s of both, K4 launches by replica; (b) replica 0's
+               worker killed at
+               loop iteration 5 and replica 1's engine raising at its
+               call 20: every request as (a), evictions, retries,
+               restarts, seconds from each fault to HEALTHY; (c) a rolling
+               restart under the traffic, zero failures, memory before and
+               after; (d) roles [prefill, decode, decode] at a chunk budget
+               of 256 token-identical to the two halves through single
+               schedulers with that budget (prefill_only, then kv_inject),
+               and to one mixed chunked scheduler but at bf16 near-ties,
+               pages handed over, kv_handoff_s p50 and max, K4 launches on
+               each side; (e) two passes on a pool cut to 200 pages, evicted
+               pages spilled to a host tier of half the shared prefix and a
+               disk tier, token-identical to the two passes on the full
+               pool, restored pages, spill and restore bytes and seconds,
+               then one corrupt disk record quarantined and recomputed; (f)
+               the serve_fleet twin with --disagg --kill-replica-after 5,
+               zero requests lost;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -207,6 +230,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -220,7 +244,7 @@ PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
           "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
-          "timing")
+          "fleet", "timing")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -4344,6 +4368,386 @@ def phase_gspmd(torch, seed, card):
         raise AssertionError(f"gspmd: {fails} failed")
 
 
+# ---------------------------------------------------------------------------
+# phase 7k: the serving fleet and the KV tiers
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_CHUNK = 256                 # (d)'s chunk budget
+FLEET_CUT_PAGES = 201             # (e)'s pool: 200 usable pages of 16
+FLEET_DISK_BYTES = 1 << 30
+FLEET_TWIN = ["--model-size", "base", "--disagg", "--kill-replica-after",
+              "5"]
+# the Router's knobs on the card: a step of base at 8 slots takes
+# milliseconds, so a stall of seconds is a wedge and never a busy replica
+FLEET_KNOBS = dict(probe_interval_s=0.02, watchdog_s=2.0, retry_budget=3)
+
+
+def fleet_requests(traffic):
+    from dtdl_tpu_torch.serve.scheduler import Request
+    return [Request(list(p), m) for p, m in traffic]
+
+
+def fleet_single(torch, eng, traffic, **sched_kw):
+    """The traffic through one Scheduler (harvest lag 4) on ``eng``:
+    (requests, scheduler, wall s)."""
+    from dtdl_tpu_torch.serve.scheduler import Scheduler
+    sched = Scheduler(eng, harvest_lag=4, device=DEV, **sched_kw)
+    reqs = fleet_requests(traffic)
+    sync(torch)
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    sync(torch)
+    return reqs, sched, time.perf_counter() - t0
+
+
+def fleet_identical(label, got, want):
+    """Every request finished, with exactly the reference's tokens."""
+    bad = [(i, r.error) for i, r in enumerate(got) if not r.done or r.error]
+    if bad:
+        raise AssertionError(f"fleet {label}: requests lost or failed {bad}")
+    diff = [i for i, (a, b) in enumerate(zip(got, want))
+            if a.tokens != b.tokens]
+    if diff:
+        raise AssertionError(f"fleet {label}: tokens differ from the single "
+                             f"scheduler's on requests {diff}")
+
+
+def fleet_two_stage(torch, eng, traffic, chunk):
+    """The traffic's two halves through two single schedulers (chunk
+    budget ``chunk``): every request ``prefill_only`` through one, each
+    payload adopted (``kv_inject``) by the other.  The disaggregated
+    fleet computes each request as this does."""
+    from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+    first = Scheduler(eng, harvest_lag=4, device=DEV, chunk_tokens=chunk)
+    halves = [Request(list(p), m, prefill_only=True) for p, m in traffic]
+    first.run(halves)
+    second = Scheduler(eng, harvest_lag=4, device=DEV, chunk_tokens=chunk)
+    out = []
+    for h in halves:
+        r = Request(list(h.prompt), h.max_new_tokens, kv_inject=h.kv_handoff)
+        r.tokens = [h.kv_handoff["first_token"]]
+        out.append(r)
+    second.run(out)
+    return out
+
+
+def fleet_tau(torch, model, prompt):
+    """The near-tie rule's tau: SPEC_DELTA_ULPS bf16 ulps of the largest
+    prefill logit, twice (as faces (a) and moe_serve (d))."""
+    scale = float(prefill_logits(torch, model, prompt).abs().max())
+    return 2 * SPEC_DELTA_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def fleet_k4(n):
+    """K4 launches of each of the first ``n`` replicas' threads since the
+    last reset (a replica's restarts keep its thread name)."""
+    from dtdl_tpu_torch import kernels
+    return [kernels.LAUNCHES_BY_THREAD.get(f"serve-replica{i}", {}).get(
+        "paged_attention", 0) for i in range(n)]
+
+
+def fleet_run(torch, eng, traffic, *, during=None, settled=None, waves=1,
+              **router_kw):
+    """The traffic through a Router on ``eng`` (the Router's warm-up
+    first, then the launch counts reset), ``waves`` times one after the
+    other: (requests, router, summary, wall s, K4 launches by replica).
+    ``during(router, reqs)`` runs after the first wave's submits, before
+    the wait; ``settled(router)`` once every request is done, before the
+    Router shuts down."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.serve.fleet import Router
+    kw = {**FLEET_KNOBS, **router_kw}
+    sched_kwargs = {"harvest_lag": 4, **kw.pop("sched_kwargs", {})}
+    router = Router(eng, device=DEV, sched_kwargs=sched_kwargs, **kw)
+    reqs = []
+    with router:
+        sync(torch)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for wave in range(waves):
+            if wave:
+                time.sleep(0.05)     # the last receipts reach the directory
+            batch = fleet_requests(traffic)
+            for r in batch:
+                router.submit(r)
+            if during is not None and not wave:
+                during(router, batch)
+            if not router.wait(batch, timeout_s=300):
+                raise AssertionError(f"fleet did not settle (pump_error="
+                                     f"{router.pump_error})")
+            reqs += batch
+        sync(torch)
+        wall = time.perf_counter() - t0
+        if settled is not None:
+            settled(router)
+    s = router.summary()
+    if not s["fleet_accounting_ok"] or router.pump_error is not None:
+        raise AssertionError(f"fleet accounting broken or pump failed: "
+                             f"{router.pump_error}")
+    return reqs, router, s, wall, fleet_k4(len(router.replicas))
+
+
+def fleet_recovery_s(router, i):
+    """Seconds from replica ``i``'s first fault to its last HEALTHY edge:
+    the worker's death instant when the eviction log has it, else its
+    first SUSPECT edge."""
+    h = router.health[i]
+    t_ok = [t for t, _, b, _ in h.transitions if b == "healthy"]
+    ev = [e for e in router.evict_log if e["replica"] == i]
+    if ev and ev[0]["detect_latency_s"] is not None:
+        t0 = ev[0]["t"] - ev[0]["detect_latency_s"]
+    else:
+        t0 = next((t for t, _, b, _ in h.transitions if b == "suspect"),
+                  None)
+    if t0 is None or not t_ok:
+        return None
+    return round(t_ok[-1] - t0, 6)
+
+
+def fleet_tiers(torch, model, traffic, card):
+    """(e): two passes of the traffic on a pool cut to FLEET_CUT_PAGES,
+    evicted pages spilled to a host tier holding half the shared prefix's
+    pages and a disk tier, against the same two passes on the full pool
+    (every page stays resident: the run without spill).  Then one disk
+    record corrupted: its request recomputes, one quarantine."""
+    import mmap
+    import tempfile
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.serve.paged import page_chain_hashes
+    from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+    roomy = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    cut = InferenceEngine(model, n_slots=8, page_size=16,
+                          n_pages=FLEET_CUT_PAGES, device=DEV)
+    ref = Scheduler(roomy, harvest_lag=4, device=DEV)
+    want = []
+    for _ in range(2):
+        reqs = fleet_requests(traffic)
+        ref.run(reqs)
+        want.append(reqs)
+    shared_pages = 256 // 16
+    host_bytes = (shared_pages // 2) * cut.page_bytes
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        sched = Scheduler(cut, harvest_lag=4, device=DEV,
+                          spill_host_bytes=host_bytes, spill_dir=d,
+                          spill_disk_bytes=FLEET_DISK_BYTES)
+        got, walls = [], []
+        for _ in range(2):
+            reqs = fleet_requests(traffic)
+            sync(torch)
+            t0 = time.perf_counter()
+            sched.run(reqs)
+            sync(torch)
+            walls.append(time.perf_counter() - t0)
+            got.append(reqs)
+        s = sched.metrics.summary()
+        for k in range(2):
+            fleet_identical(f"(e) pass {k + 1} with spill", got[k], want[k])
+        if s["pages_restored"] < shared_pages or s["spill_disk_hits"] < 1:
+            raise AssertionError(f"fleet (e): the second pass restored "
+                                 f"{s['pages_restored']} pages "
+                                 f"({s['spill_disk_hits']} from disk); the "
+                                 f"cut pool must evict the shared prefix")
+        # corrupt one disk record that a prompt's chain walk will reach
+        disk = sched.spill.disk
+        pick = None
+        for p, _ in traffic:
+            hashes = page_chain_hashes(p, 16)[:(len(p) - 1) // 16]
+            if hashes and not sched.pages.match_prefix(p) \
+                    and sched.spill.holds(hashes[0]) == "disk":
+                pick = (p, hashes[0])
+                break
+        if pick is None:
+            raise AssertionError("fleet (e): no prompt's first page lies on "
+                                 "the disk tier only")
+        slot = disk._slots[pick[1]]
+        disk._mm[slot * disk.record_bytes + 5] ^= 0xFF
+        disk._mm.flush()
+        q0 = s["spill_quarantined"]
+        one = Request(list(pick[0]), 32)
+        sched.run([one])
+        s2 = sched.metrics.summary()
+        if one.error or len(one.tokens) != 32 \
+                or s2["spill_quarantined"] - q0 != 1 \
+                or disk.corrupt_entries != 1:
+            raise AssertionError(f"fleet (e): the corrupt record was not "
+                                 f"quarantined once and recomputed: "
+                                 f"{one!r}, quarantined "
+                                 f"{s2['spill_quarantined'] - q0}")
+        corrupt_log = str(disk.quarantine_log[0])
+    log(f"fleet (e) tiers base bf16 page 16, pool {FLEET_CUT_PAGES - 1} "
+        f"pages of {cut.page_bytes} bytes, host tier {host_bytes} bytes "
+        f"(half the shared prefix's {shared_pages} pages), disk tier: two "
+        f"passes token-identical to the same passes on the full pool "
+        f"(no eviction, no spill): pages_spilled={s['pages_spilled']} "
+        f"spill_bytes={s['spill_bytes']} spill_s={s['spill_s']:.6f} "
+        f"pages_restored={s['pages_restored']} restore_bytes="
+        f"{s['restore_bytes']} restore_s={s['restore_s']:.6f} "
+        f"host_hits={s['spill_host_hits']} disk_hits={s['spill_disk_hits']} "
+        f"pass_walls_s={[round(w, 4) for w in walls]}; one corrupt disk "
+        f"record: request recomputed ({len(one.tokens)} tokens), "
+        f"quarantined=1 ({corrupt_log[:120]}) | {card}")
+    return s
+
+
+def phase_fleet(torch, seed, card):
+    """The serving fleet and the KV tiers at base width (bf16, page 16, 8
+    slots, the serve phase's 16 requests), all replicas one engine on the
+    card: (a) three replicas against the single scheduler, (b) failover,
+    (c) a rolling restart, (d) disaggregation, (e) the tiers, (f) the
+    serve_fleet twin."""
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    traffic = make_traffic(seed, model.cfg.vocab_size)
+    eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    n_layers = model.cfg.n_layers
+    n_tok = sum(m for _, m in traffic)
+    tau = fleet_tau(torch, model, traffic[0][0])
+    # (a)-(c) serve without the prefix cache: a hit maps the pages that
+    # the first request of a prefix prefilled on that replica, and in
+    # bf16 a page computed inside another prompt can differ in its last
+    # bits, so a fleet that splits the traffic hits other pages than one
+    # scheduler does (held below under the near-tie rule instead)
+    nocache = {"prefix_cache": False}
+    fleet_single(torch, eng, traffic[:2])           # warm-up
+    single, _, single_wall = fleet_single(torch, eng, traffic, **nocache)
+    out = {}
+
+    # (a) three replicas
+    reqs, router, s, wall, k4 = fleet_run(torch, eng, traffic,
+                                          n_replicas=FLEET_REPLICAS,
+                                          sched_kwargs=nocache)
+    fleet_identical("(a) three replicas", reqs, single)
+    if min(k4) <= 0 or any(n % n_layers for n in k4):
+        raise AssertionError(f"fleet (a): K4 launches by replica {k4}")
+    out["three_replicas"] = k4
+    # prefix cache on, two waves: the second follows the directory
+    cached, _, _ = fleet_single(torch, eng, traffic + traffic)
+    creqs, _, c_sum, cwall, ck4 = fleet_run(torch, eng, traffic, waves=2,
+                                            n_replicas=FLEET_REPLICAS)
+    parts = near_tie_divergences(torch, model, cached, creqs, tau)
+    if c_sum["fleet_directory_hits"] < 1:
+        raise AssertionError("fleet (a): the second wave never followed "
+                             "the prefix directory")
+    log(f"fleet (a) {FLEET_REPLICAS} replicas base bf16 page 16 (8 slots "
+        f"each, one engine), prefix cache off: 16 requests token-identical "
+        f"to the single scheduler; fleet tokens_per_s={n_tok / wall:.2f} "
+        f"(wall_s={wall:.4f}) single tokens_per_s="
+        f"{n_tok / single_wall:.2f} (wall_s={single_wall:.4f}); K4 "
+        f"launches by replica {k4}.  Prefix cache on, two waves: "
+        f"{len(creqs) - len(parts)}/32 identical to one scheduler's two "
+        f"waves, partings (position, top-two gap) {parts} within tau "
+        f"{tau:.4e}; tokens_per_s={2 * n_tok / cwall:.2f}, directory hits "
+        f"{c_sum['fleet_directory_hits']} (tokens saved "
+        f"{c_sum['fleet_directory_tokens_saved']}), K4 by replica {ck4} | "
+        f"{card}")
+
+    # (b) failover: replica 0's worker dies, replica 1's engine raises
+    plan = (FaultPlan().at(replica_site(0, "loop"), 5)
+            .at(replica_site(1, "engine"), 20))
+    reqs, router, s, wall, k4 = fleet_run(torch, eng, traffic, plan=plan,
+                                          n_replicas=FLEET_REPLICAS,
+                                          sched_kwargs=nocache)
+    fleet_identical("(b) failover", reqs, single)
+    fired = [site for site, _, _ in plan.log]
+    if len(fired) != 2 or s["fleet_evictions"] < 1:
+        raise AssertionError(f"fleet (b): faults fired {plan.log}, "
+                             f"evictions {s['fleet_evictions']}")
+    log(f"fleet (b) failover (replica 0's worker killed at loop iteration "
+        f"5, replica 1's engine raising at its call 20; fired {fired}): 16 "
+        f"requests token-identical to (a), lost 0; evictions="
+        f"{s['fleet_evictions']} failovers={s['fleet_failovers']} retries="
+        f"{s['fleet_retries']} restarts={s['fleet_restarts']}; seconds "
+        f"from fault to HEALTHY: replica 0 {fleet_recovery_s(router, 0)}, "
+        f"replica 1 {fleet_recovery_s(router, 1)}; health "
+        f"{s['replica_health']} wall_s={wall:.4f} | {card}")
+
+    # (c) a rolling restart under the same traffic; the memory the
+    # Router's replicas hold before it and once the traffic is served
+    mem = []
+
+    def held(router):
+        gc.collect()         # the Router and its replicas form cycles
+        sync(torch)
+        mem.append(torch.cuda.memory_allocated())
+
+    def restart(router, _):
+        held(router)
+        router.rolling_restart(timeout_s=120)
+    reqs, router, s, wall, k4 = fleet_run(
+        torch, eng, traffic, n_replicas=FLEET_REPLICAS, sched_kwargs=nocache,
+        during=restart, settled=held)
+    mem0, mem1 = mem
+    fleet_identical("(c) rolling restart", reqs, single)
+    if s["fleet_requests_failed"] or s["fleet_requests_aborted"] \
+            or s["fleet_restarts"] != FLEET_REPLICAS:
+        raise AssertionError(f"fleet (c): failed {s['fleet_requests_failed']}"
+                             f" aborted {s['fleet_requests_aborted']} "
+                             f"restarts {s['fleet_restarts']}")
+    log(f"fleet (c) rolling restart of {FLEET_REPLICAS} replicas under the "
+        f"traffic: failures 0, restarts {s['fleet_restarts']}, tokens as "
+        f"(a); memory_allocated with the traffic submitted, before the "
+        f"restarts {mem0}, once it is served {mem1} bytes (an arena "
+        f"{eng.page_bytes * eng.n_pages} bytes a replica) wall_s="
+        f"{wall:.4f} | {card}")
+
+    # (d) disaggregation, held exactly to the two halves through single
+    # schedulers, and by the near-tie rule to one mixed chunked scheduler
+    # (whose decode rows ride the chunk windows, and whose chunk
+    # boundaries follow its own admissions)
+    halves = fleet_two_stage(torch, eng, traffic, FLEET_CHUNK)
+    chunked, _, _ = fleet_single(torch, eng, traffic,
+                                 chunk_tokens=FLEET_CHUNK)
+    reqs, router, s, wall, k4 = fleet_run(
+        torch, eng, traffic, roles=["prefill", "decode", "decode"],
+        sched_kwargs={"chunk_tokens": FLEET_CHUNK})
+    fleet_identical("(d) disaggregation", reqs, halves)
+    parts = near_tie_divergences(torch, model, chunked, reqs, tau)
+    pre = s["replicas"][0]
+    if s["fleet_migrations"] != len(traffic) or k4[0] <= 0 \
+            or sum(k4[1:]) <= 0 or pre["decode_tokens"] \
+            or any(r["prefill_tokens"] for r in s["replicas"][1:]):
+        raise AssertionError(f"fleet (d): migrations {s['fleet_migrations']}"
+                             f", K4 by replica {k4}")
+    out["disagg_prefill"], out["disagg_decode"] = k4[0], k4[1:]
+    log(f"fleet (d) disaggregation [prefill, decode, decode], chunk budget "
+        f"{FLEET_CHUNK}: 16 requests token-identical to the two halves "
+        f"through single schedulers with that budget; against one mixed "
+        f"chunked scheduler {len(reqs) - len(parts)}/16 identical, "
+        f"partings (position, top-two gap) {parts} within tau {tau:.4e}; "
+        f"migrations {s['fleet_migrations']}, pages "
+        f"handed over {s['fleet_kv_handoff_pages']}, kv_handoff_s on the "
+        f"prefill replica p50 {pre.get('kv_handoff_s_p50')} max "
+        f"{pre.get('kv_handoff_s_max')} (count {pre.get('kv_handoff_s_count')}"
+        f"), K4 launches prefill replica {k4[0]} decode replicas {k4[1:]}; "
+        f"tokens_per_s={n_tok / wall:.2f} | {card}")
+
+    # (e) the tiers
+    fleet_tiers(torch, model, traffic, card)
+    del eng, router
+    torch.cuda.empty_cache()
+
+    # (f) the twin
+    path = os.path.join(ROOT, "build", "fleet", "serve_fleet.log")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    text, secs = twin_run("serve_fleet", [*FLEET_TWIN, "--seed", str(seed)],
+                          ROOT, path)
+    lost = re.search(r"requests lost: (\d+)", text)
+    evict = re.search(r"evicted replica 0 \(([\d.]+)ms", text)
+    if lost is None or int(lost[1]) != 0 or evict is None \
+            or "[OK]" not in text:
+        raise AssertionError(f"fleet (f): serve_fleet twin:\n{text[-3000:]}")
+    served = re.search(r"served .*", text)
+    log(f"fleet (f) twin serve_fleet {' '.join(FLEET_TWIN)}: exit 0, "
+        f"requests lost 0, eviction {evict[1]} ms after the worker's death; "
+        f"{served[0] if served else ''} ({secs:.1f} s, log {path}) | {card}")
+    return out
+
+
 def phase_profile_fourd(torch, seed, steps: int = 2):
     """Where the fourd phase's 4D step's device time goes (torch.profiler):
     the dense base-width 1F1B step and the routed top-2 MoE one, each by
@@ -4736,8 +5140,11 @@ def main(argv=None) -> int:
     ended("fourd")
     if "gspmd" in phases:
         phase_gspmd(torch, args.seed, card)
-
     ended("gspmd")
+    fleet_launches = None
+    if "fleet" in phases:
+        fleet_launches = phase_fleet(torch, args.seed, card)
+    ended("fleet")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
@@ -4822,6 +5229,7 @@ def main(argv=None) -> int:
              "source": "dtdl_tpu_torch/csrc/paged_attention.cu",
              "replaces": "dtdl_tpu/ops/paged_attention.py:88",
              "launches": k4_launches,
+             "launches_fleet": fleet_launches,
              "max_abs_err": errors.get("decode S=1 bf16"),
              **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},

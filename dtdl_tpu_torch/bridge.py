@@ -56,6 +56,17 @@ CaffeNet ``<layer name>`` (Conv, Dense)         ``layers.<layer name>``
 A missing or extra leaf, or a shape or payload type that differs, raises
 :class:`BridgeError` naming the path.  Nothing here imports JAX: the
 caller hands over numpy arrays (``jax.device_get`` of the tree).
+
+KV page payloads (what the engines' ``extract_pages`` return and their
+``inject_pages`` take) cross in both directions by
+:func:`jax_pages_to_torch` and :func:`torch_pages_to_jax`.  Both packages
+key a payload as the arena, ``block_{i}/attn/pages_key`` (and
+``pages_value``, ``pages_key_scale``, ``pages_value_scale``), and both
+lay each leaf out ``[n_pages, H, page_size, head_dim]`` (scales
+``[n_pages, H, page_size]``), so no leaf is transposed: the converters
+change only how a dtype numpy lacks is carried.  The JAX payload holds
+ml_dtypes ``bfloat16``/``float8_e4m3fn`` arrays, the port's their bits
+(uint16, uint8).
 """
 
 from __future__ import annotations
@@ -299,3 +310,47 @@ def load_flax_params(model, params, batch_stats=None, device=None):
     model.load_state_dict(flax_to_state_dict(model, params, batch_stats),
                           strict=True)
     return model
+
+
+# KV page payloads: dtypes numpy lacks, by ml_dtypes name -> the port's
+# carrier of their bits
+_PAYLOAD_BITS = {"bfloat16": np.uint16, "float8_e4m3fn": np.uint8}
+
+
+def _map_payload(tree, fn, path=()):
+    if not isinstance(tree, Mapping):
+        return fn("/".join(path), tree)
+    return {k: _map_payload(v, fn, path + (str(k),)) for k, v in tree.items()}
+
+
+def jax_pages_to_torch(data) -> dict:
+    """A JAX engine's ``extract_pages`` payload (host numpy leaves, as
+    ``jax.device_get`` gives them) as the port's: bf16 and fp8 leaves as
+    their bits, every other leaf as it is."""
+    def conv(path, arr):
+        arr = np.asarray(arr)
+        bits = _PAYLOAD_BITS.get(arr.dtype.name)
+        return (np.ascontiguousarray(arr).view(bits) if bits is not None
+                else arr)
+    return _map_payload(data, conv)
+
+
+def torch_pages_to_jax(data, like) -> dict:
+    """The port's page payload as a JAX engine's: ``like`` is a tree with
+    the JAX leaves' dtypes at the same paths (a JAX payload, or the JAX
+    arena's leaves); bit carriers are viewed back as those dtypes, other
+    leaves must match them already."""
+    flat_like = flatten(like)
+
+    def conv(path, arr):
+        if path not in flat_like:
+            raise BridgeError(f"{path}: the JAX tree has no such leaf")
+        want = np.asarray(flat_like[path]).dtype
+        arr = np.asarray(arr)
+        if arr.dtype == want:
+            return arr
+        if _PAYLOAD_BITS.get(want.name) == arr.dtype.type:
+            return np.ascontiguousarray(arr).view(want)
+        raise BridgeError(f"{path}: payload {arr.dtype.name} cannot carry "
+                          f"the JAX leaf's {want.name}")
+    return _map_payload(data, conv)

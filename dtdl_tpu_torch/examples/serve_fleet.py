@@ -1,0 +1,206 @@
+#!/usr/bin/env python
+"""Serving fleet demo, the twin of examples/serve_fleet.py: a
+health-checked Router over N replicas of one engine (a ``transformer_lm``
+with random weights from ``--seed``), the JAX script's synthetic traffic,
+and its report: least-loaded dispatch, failure detection, failover with
+retries, hedging, rolling restarts and prefill/decode disaggregation.
+
+    python -m dtdl_tpu_torch.examples.serve_fleet                # 2 replicas
+    python -m dtdl_tpu_torch.examples.serve_fleet --n-replicas 3 \\
+        --n-requests 64
+    # live failover: replica 0's worker dies at its 5th iteration
+    python -m dtdl_tpu_torch.examples.serve_fleet --kill-replica-after 5
+    python -m dtdl_tpu_torch.examples.serve_fleet --rolling-restart
+    python -m dtdl_tpu_torch.examples.serve_fleet --hedge-after 0.05
+    python -m dtdl_tpu_torch.examples.serve_fleet --model-size base \\
+        --disagg --kill-replica-after 5
+
+It runs on the card (every paged attend through the paged-attention
+kernel) unless ``--platform cpu``.  Not ported yet, and refused by name:
+``--lora``, ``--json-schema`` and ``--stream`` (ROADMAP queue A12b,
+tenancy); ``--trace``, ``--metrics-jsonl``, ``--metrics-port``,
+``--slo-ttft-p99`` and ``--slo-availability`` (queue A13, operations).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from dtdl_tpu_torch.examples.common import add_device_flags, bootstrap
+from dtdl_tpu_torch.models import transformer_lm
+from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
+from dtdl_tpu_torch.serve import InferenceEngine, Request, Router
+from dtdl_tpu_torch.utils.config import flag, make_parser
+from dtdl_tpu_torch.utils.random import seed_everything
+
+_A12B = "ROADMAP queue A12b (tenancy)"
+_A13 = "ROADMAP queue A13 (operations)"
+# flags whose modules are not ported yet -> (the value that means off,
+# the ROADMAP item that ports them)
+REFUSED = {
+    "lora": ("", _A12B), "json_schema": ("", _A12B), "stream": (False, _A12B),
+    "trace": (None, _A13), "metrics_jsonl": (None, _A13),
+    "metrics_port": (-1, _A13), "slo_ttft_p99": (0.0, _A13),
+    "slo_availability": (0.0, _A13),
+}
+
+
+def parser():
+    p = make_parser("dtdl_tpu_torch: replicated LM serving fleet")
+    flag(p, "--model-size", default="tiny", choices=["tiny", "small", "base"])
+    flag(p, "--n-replicas", type=int, default=2)
+    flag(p, "--n-slots", type=int, default=4,
+         help="decode batch width per replica")
+    flag(p, "--n-requests", type=int, default=32)
+    flag(p, "--max-new-tokens", type=int, default=24)
+    flag(p, "--retry-budget", type=int, default=3,
+         help="re-dispatches per request after a replica failure")
+    flag(p, "--hedge-after", type=float, default=0.0,
+         help="re-submit a straggler to a second replica after this many "
+              "seconds (0 = hedging off); first completion wins")
+    flag(p, "--kill-replica-after", type=int, default=-1,
+         help="fault injection: kill replica 0's worker thread at its K-th "
+              "iteration (-1 = off), the live failover demo")
+    flag(p, "--rolling-restart", action="store_true",
+         help="drain and restart every replica mid-traffic")
+    flag(p, "--watchdog", type=float, default=0.25,
+         help="seconds of stale worker heartbeat (with work outstanding) "
+              "before the stall signal fires")
+    flag(p, "--trace", default=None,
+         help="request-correlated Chrome trace: ROADMAP queue A13")
+    flag(p, "--metrics-jsonl", default=None,
+         help="continuous metric snapshots: ROADMAP queue A13")
+    flag(p, "--metrics-port", type=int, default=-1,
+         help="GET /metrics on this port: ROADMAP queue A13")
+    flag(p, "--metrics-interval", type=float, default=0.25,
+         help="minimum seconds between exported snapshots (with "
+              "--metrics-jsonl or --metrics-port)")
+    flag(p, "--slo-ttft-p99", type=float, default=0.0,
+         help="SLO on router-clock TTFT p99: ROADMAP queue A13")
+    flag(p, "--slo-availability", type=float, default=0.0,
+         help="SLO availability floor: ROADMAP queue A13")
+    flag(p, "--disagg", action="store_true",
+         help="prefill/decode disaggregation: replica 0 serves only prompt "
+              "prefills (chunked), the rest only decode; completed "
+              "prefills migrate by page handoff (a paged engine)")
+    flag(p, "--chunk-tokens", type=int, default=0,
+         help="chunked prefill on every replica: per-step prompt token "
+              "budget (0 = whole-prompt; 16 under --disagg)")
+    flag(p, "--lora", default="",
+         help="multi-tenant LoRA adapters: ROADMAP queue A12b")
+    flag(p, "--lora-rank", type=int, default=8,
+         help="adapter rank for --lora")
+    flag(p, "--json-schema", default="",
+         help="grammar-constrained decoding: ROADMAP queue A12b")
+    flag(p, "--stream", action="store_true",
+         help="per-request token streams: ROADMAP queue A12b")
+    flag(p, "--seed", type=int, default=0)
+    flag(p, "--dtype", default="float32", choices=["float32", "bfloat16"],
+         help="the model's compute dtype (the JAX script serves f32)")
+    add_device_flags(p)
+    return p
+
+
+def main(argv=None):
+    """Run the demo; returns ``(requests, router summary, wall s)``."""
+    ap = parser()
+    args = ap.parse_args(argv)
+    for name, (off, item) in REFUSED.items():
+        if getattr(args, name) != off:
+            ap.error(f"--{name.replace('_', '-')} is {item}")
+    roles = None
+    if args.disagg:
+        if args.n_replicas < 2:
+            ap.error("--disagg needs >= 2 replicas")
+        roles = ["prefill"] + ["decode"] * (args.n_replicas - 1)
+        if not args.chunk_tokens:
+            args.chunk_tokens = 16
+    device = bootstrap(args)
+    seed_everything(args.seed)
+
+    model = transformer_lm(args.model_size, attn_impl="dense",
+                           dtype=getattr(torch, args.dtype), device=device,
+                           seed=args.seed)
+    engine = InferenceEngine(model, n_slots=args.n_slots, buckets=(64,),
+                             page_size=16 if args.disagg else 0,
+                             device=device)
+    plan = None
+    if args.kill_replica_after >= 0:
+        plan = FaultPlan().at(replica_site(0, "loop"),
+                              args.kill_replica_after)
+        print(f"fault armed: replica 0's worker dies at loop iteration "
+              f"{args.kill_replica_after}")
+
+    rng = np.random.default_rng(args.seed)
+    hi = min(64, model.cfg.max_seq // 2)
+    reqs = [Request(rng.integers(0, model.cfg.vocab_size,
+                                 int(rng.integers(4, hi))).tolist(),
+                    args.max_new_tokens)
+            for _ in range(args.n_requests)]
+
+    t0 = time.perf_counter()
+    with Router(engine, n_replicas=args.n_replicas, plan=plan,
+                retry_budget=args.retry_budget,
+                hedge_after_s=args.hedge_after or None,
+                watchdog_s=args.watchdog, roles=roles, device=device,
+                sched_kwargs={"harvest_lag": 4,
+                              "chunk_tokens": args.chunk_tokens or None}
+                ) as router:
+        for r in reqs:
+            router.submit(r)
+        if args.rolling_restart:
+            router.rolling_restart(timeout_s=120)
+            print(f"rolling restart done at "
+                  f"{time.perf_counter() - t0:.2f}s — traffic continued")
+        if not router.wait(reqs, timeout_s=600):
+            print("WARNING: fleet did not settle "
+                  f"(pump_error={router.pump_error})")
+        dt = time.perf_counter() - t0
+        evicts = list(router.evict_log)
+    # after shutdown: the books are settled
+    s = router.summary()
+
+    n_ok = sum(1 for r in reqs if r.done and r.error is None)
+    n_err = sum(1 for r in reqs if r.error is not None)
+    print(f"served {s['fleet_requests_finished']}/{len(reqs)} requests "
+          f"over {args.n_replicas} replicas in {dt:.2f}s  "
+          f"({s['fleet_decode_tokens_per_sec']:.2f} tok/s fleet-wide; "
+          f"{n_ok} clean, {n_err} with named errors)")
+    if "fleet_ttft_s_p50" in s:
+        print(f"  ttft p50/p95/p99 (router clock, queue+failover "
+              f"included): {s['fleet_ttft_s_p50'] * 1e3:.1f} / "
+              f"{s['fleet_ttft_s_p95'] * 1e3:.1f} / "
+              f"{s['fleet_ttft_s_p99'] * 1e3:.1f} ms")
+    print(f"  resilience: retries {s['fleet_retries']}  evictions "
+          f"{s['fleet_evictions']}  failovers {s['fleet_failovers']}  "
+          f"restarts {s['fleet_restarts']}  hedges "
+          f"{s['fleet_hedges']} (won {s['fleet_hedges_won']})")
+    if roles is not None:
+        print(f"  disaggregation ({'/'.join(roles)}): migrations "
+              f"{s['fleet_migrations']}  kv pages moved "
+              f"{s['fleet_kv_handoff_pages']}")
+    for ev in evicts:
+        lat = (f"{ev['detect_latency_s'] * 1e3:.1f}ms after worker "
+               f"death" if ev["detect_latency_s"] is not None
+               else "passive signals")
+        print(f"  evicted replica {ev['replica']} ({lat}); "
+              f"{ev['failovers']} in-flight requests failed over: "
+              f"{ev['reason'][:80]}")
+    acc = (s["fleet_requests_finished"] + s["fleet_requests_rejected"]
+           + s["fleet_requests_expired"] + s["fleet_requests_failed"]
+           + s["fleet_requests_aborted"])
+    print(f"  accounting: submitted {s['fleet_requests_submitted']} == "
+          f"finished {s['fleet_requests_finished']} + rejected "
+          f"{s['fleet_requests_rejected']} + expired "
+          f"{s['fleet_requests_expired']} + failed "
+          f"{s['fleet_requests_failed']} + aborted "
+          f"{s['fleet_requests_aborted']}  "
+          f"[{'OK' if s['fleet_accounting_ok'] and acc else 'VIOLATED'}]"
+          f"  requests lost: {s['fleet_requests_submitted'] - acc}")
+    print(f"  replica health: {s['replica_health']}", flush=True)
+    return reqs, s, dt
+
+
+if __name__ == "__main__":
+    main()

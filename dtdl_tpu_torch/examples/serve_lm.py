@@ -10,11 +10,12 @@ paged-attention kernel on the card.
     python -m dtdl_tpu_torch.examples.serve_lm --model-size base \\
         --page-size 16 --shared-prefix 256 --dtype bfloat16
 
-``--platform cpu`` runs on the CPU.  Not ported yet, and refused by name:
-the KV spill tiers (``--spill-host-mb``, ``--spill-dir``), LoRA tenants
-(``--lora``), grammar masks (``--json-schema``) and token streams
-(``--stream``), ROADMAP queue A12; ``--trace``, queue A13; ``--restore``
-of flax msgpack weights, queue A8b's remainder.  The JAX
+``--spill-host-mb`` (with ``--spill-dir``) puts the KV spill tiers behind
+the prefix cache of a paged arena.  ``--platform cpu`` runs on the CPU.
+Not ported yet, and refused by name: LoRA tenants (``--lora``), grammar
+masks (``--json-schema``) and token streams (``--stream``), ROADMAP queue
+A12b; ``--trace``, queue A13; ``--restore`` of flax msgpack weights,
+queue A8b's remainder.  The JAX
 script's Observer counts recompiles; the eager port compiles nothing,
 so the twin builds none (a capture count is queue A5's).
 """
@@ -34,11 +35,9 @@ from dtdl_tpu_torch.utils.random import seed_everything
 
 # flags whose modules are not ported yet -> the ROADMAP item that ports them
 REFUSED = {
-    "spill_host_mb": "queue A12 (the KV hierarchy)",
-    "spill_dir": "queue A12 (the KV hierarchy)",
-    "lora": "queue A12 (tenancy: LoRA)",
-    "json_schema": "queue A12 (tenancy: grammar masks)",
-    "stream": "queue A12 (tenancy: token streams)",
+    "lora": "queue A12b (tenancy: LoRA)",
+    "json_schema": "queue A12b (tenancy: grammar masks)",
+    "stream": "queue A12b (tenancy: token streams)",
     "trace": "queue A13 (operations: the Observer's trace)",
     "restore": "queue A8b's remainder (reading flax msgpack weights)",
 }
@@ -78,9 +77,12 @@ def parser():
          help="synthetic traffic: this many common leading tokens in "
               "every request (a system prompt)")
     flag(p, "--spill-host-mb", type=int, default=0,
-         help="host-DRAM KV spill budget: ROADMAP queue A12")
+         help="KV spill tiers: host-DRAM budget in MiB for evicted prefix "
+              "pages, restored on a prefix miss instead of recomputed "
+              "(paged arena only)")
     flag(p, "--spill-dir", default="",
-         help="disk KV spill tier: ROADMAP queue A12")
+         help="disk spill tier for --spill-host-mb: the directory of the "
+              "checksummed spill file (host overflow demotes there)")
     flag(p, "--spill-disk-mb", type=int, default=256,
          help="disk spill budget for --spill-dir")
     flag(p, "--chunk-tokens", type=int, default=0,
@@ -88,13 +90,13 @@ def parser():
               "whole-prompt prefill)")
     flag(p, "--quantize", default="none", choices=["none", "w8", "w8kv8"],
          help="int8 serving: w8 = int8 weights, w8kv8 = + int8 KV arena")
-    flag(p, "--lora", default="", help="LoRA adapters: ROADMAP queue A12")
+    flag(p, "--lora", default="", help="LoRA adapters: ROADMAP queue A12b")
     flag(p, "--lora-rank", type=int, default=8,
          help="adapter rank for --lora")
     flag(p, "--json-schema", default="",
-         help="grammar-constrained decoding: ROADMAP queue A12")
+         help="grammar-constrained decoding: ROADMAP queue A12b")
     flag(p, "--stream", action="store_true",
-         help="per-request token streams: ROADMAP queue A12")
+         help="per-request token streams: ROADMAP queue A12b")
     flag(p, "--seed", type=int, default=0)
     flag(p, "--trace", default="",
          help="Chrome-trace JSON of the scheduler phases: ROADMAP queue A13")
@@ -153,7 +155,11 @@ def main(argv=None):
         draft = ModelDraft(dm, warmup=args.speculate)
     sched = Scheduler(engine, seed=args.seed, harvest_lag=args.harvest_lag,
                       draft=draft, prefix_cache=args.prefix_cache,
-                      chunk_tokens=args.chunk_tokens or None, device=device)
+                      chunk_tokens=args.chunk_tokens or None, device=device,
+                      spill_host_bytes=args.spill_host_mb << 20 or None,
+                      spill_dir=args.spill_dir or None,
+                      spill_disk_bytes=(args.spill_disk_mb << 20
+                                        if args.spill_dir else None))
     reqs = traffic(model, args, np.random.default_rng(args.seed))
 
     t0 = time.perf_counter()
@@ -179,6 +185,15 @@ def main(argv=None):
               f"{s['pages_in_use_last']}/{s['page_capacity']} "
               f"(peak {s['pages_in_use_peak']})  shed "
               f"{s['requests_shed']}")
+    if args.spill_host_mb:
+        # pages that left the arena and came back instead of being
+        # recomputed, by the tier that held them
+        print(f"  kv spill: spilled {s['pages_spilled']} pages "
+              f"({s['spill_bytes'] >> 10} KiB)  restored "
+              f"{s['pages_restored']} (host {s['spill_host_hits']} / "
+              f"disk {s['spill_disk_hits']} hits, "
+              f"{s['restore_s'] * 1e3:.1f}ms)  quarantined "
+              f"{s['spill_quarantined']}")
     if args.quantize != "none":
         # decode bytes/token, KV capacity at fixed memory, and the logits
         # drift of int8 rounding on a probe prompt

@@ -34,10 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # Launch counts per kernel: each wrapper adds one where it launches its
-# kernel, and nowhere else, so a run can show that its path went through
-# the kernels (reset with reset_launches()).
+# kernel (count_launch), and nowhere else, so a run can show that its path
+# went through the kernels (reset with reset_launches()).  The same counts
+# by the name of the launching thread: a serving fleet's replicas are
+# threads named serve-replica<i>, so a fleet run reads its launches by
+# replica.  Threads count under one lock.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "rope_rows": 0, "paged_attention": 0}
+LAUNCHES_BY_THREAD: dict[str, dict[str, int]] = {}
+_COUNT_LOCK = threading.Lock()
 
 # Element codes of the C interface (csrc/attn_common.cuh ElemKind).
 F32, BF16, INT8, FP8_E4M3 = 0, 1, 2, 3
@@ -56,8 +61,20 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        LAUNCHES_BY_THREAD.clear()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``, in :data:`LAUNCHES` and under the
+    calling thread's name in :data:`LAUNCHES_BY_THREAD`."""
+    thread = threading.current_thread().name
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        per = LAUNCHES_BY_THREAD.setdefault(thread, dict.fromkeys(LAUNCHES, 0))
+        per[name] += 1
 
 
 _NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"

@@ -61,7 +61,7 @@ applies the key scale to the logits and the value scale to the weights.
 The forward returns the MoE blocks' Switch load-balance values only when
 asked (``return_aux=True``, the train step): each block returns its value
 (a checkpointed block's recompute returns it again and records nothing),
-and serving computes none.  LoRA is not ported yet (ROADMAP A12).
+and serving computes none.  LoRA is not ported yet (ROADMAP A12b).
 
 A placement by the GSPMD rule sets (:mod:`dtdl_tpu_torch.parallel.tensor`)
 runs these modules on a rank's shards: attention takes the heads its q/k/v

@@ -140,7 +140,7 @@ def rope_rotate(x, c, s):
         x.data_ptr(), c.data_ptr(), s.data_ptr(), y.data_ptr(), bh, sq, d,
         _kind(x), stream)
     kernels.check("rope_rows", code)
-    kernels.LAUNCHES["rope_rows"] += 1
+    kernels.count_launch("rope_rows")
     return y
 
 
@@ -213,7 +213,7 @@ def flash_fwd(q, k, v, tabs, *, scale: float, causal: bool):
         lse.data_ptr(), bh, sq, k.shape[1], d, _kind(q), int(causal),
         float(scale), stream)
     kernels.check("flash_fwd", code)
-    kernels.LAUNCHES["flash_fwd"] += 1
+    kernels.count_launch("flash_fwd")
     return o, lse
 
 
@@ -306,7 +306,7 @@ def _launch_dq(args, *, scale, causal):
         lse.data_ptr(), delta.data_ptr(), *ptrs, dq.data_ptr(), bh, sq,
         k.shape[1], d, _kind(q), int(causal), float(scale), stream)
     kernels.check("flash_bwd_dq", code)
-    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    kernels.count_launch("flash_bwd_dq")
     return dq
 
 
@@ -321,7 +321,7 @@ def _launch_dkv(args, *, scale, causal):
         dv.data_ptr(), bh, sq, k.shape[1], d, _kind(q), int(causal),
         float(scale), stream)
     kernels.check("flash_bwd_dkv", code)
-    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    kernels.count_launch("flash_bwd_dkv")
     return dk, dv
 
 

@@ -203,5 +203,5 @@ def paged_attention(q, pages_k, pages_v, page_table, pos, active, *,
         kernels.BF16 if q.dtype == torch.bfloat16 else kernels.F32,
         kind, scale_kind, n_splits, float(scale), stream)
     kernels.check("paged_attention", code)
-    kernels.LAUNCHES["paged_attention"] += 1
+    kernels.count_launch("paged_attention")
     return out

@@ -15,7 +15,11 @@ the caller (:class:`~dtdl_tpu_torch.serve.scheduler.Scheduler`) keeps:
 * :meth:`InferenceEngine.verify` scores each slot's draft tokens in one
   forward of width k+1 and commits an accepted prefix plus one token per
   slot (speculative decoding; a ``forced`` row is a prompt chunk riding
-  the same pass: chunked prefill).
+  the same pass: chunked prefill);
+* :meth:`InferenceEngine.extract_pages` and :meth:`InferenceEngine.
+  inject_pages` (and their batch forms) hand a prompt's K/V pages between
+  engines as host numpy trees: prefill/decode disaggregation, and the
+  spill tiers' eviction and restore.
 
 The arena comes in two layouts.  Paged (``page_size > 0``): a pool of
 ``n_pages`` pages of ``page_size`` tokens per block (page 0 the garbage
@@ -67,9 +71,14 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device, upload
+
+# pool dtypes numpy cannot hold travel in a page payload as their bits
+_BITS = {torch.bfloat16: (torch.int16, np.uint16),
+         torch.float8_e4m3fn: (torch.uint8, np.uint8)}
 from dtdl_tpu_torch.quant.core import (Fp8UnsupportedError, canon_kv_dtype,
                                        canon_weight_quant, quantize_params,
                                        tree_bytes)
+from dtdl_tpu_torch.serve.paged import concat_payloads
 from dtdl_tpu_torch.serve.sampling import (SampleParams, accept_resample,
                                            sample)
 
@@ -136,7 +145,7 @@ class InferenceEngine:
                     f"tensor-parallel axis size {tp} (rules={rules!r})")
         if lora_rank or lora_adapters:
             raise NotImplementedError(
-                "LoRA adapter banks are ROADMAP queue A12 (tenancy)")
+                "LoRA adapter banks are ROADMAP queue A12b (tenancy)")
         if observer is not None:
             raise NotImplementedError(
                 "the observer facade is ROADMAP queue A13 (operations)")
@@ -456,10 +465,10 @@ class InferenceEngine:
         ``index + k + 1 <= max_seq``: the attend clamps a row's position
         to ``max_seq - (k + 1)``, which would shift the window back over
         committed K/V.  ``allowed`` (grammar masks) is ROADMAP queue
-        A12."""
+        A12b."""
         if allowed is not None:
             raise NotImplementedError(
-                "verify(allowed=...) (grammar masks) is ROADMAP queue A12 "
+                "verify(allowed=...) (grammar masks) is ROADMAP queue A12b "
                 "(tenancy)")
         draft_tokens = np.asarray(draft_tokens, np.int32)
         self._lockstep("verify", draft_tokens, draft_len, active, temp,
@@ -504,3 +513,195 @@ class InferenceEngine:
         tokens = torch.where(act[:, None], tokens, torch.zeros_like(tokens))
         return arena, last, tokens, torch.where(act, n_em,
                                                 torch.zeros_like(n_em))
+
+    # ---- prefill/decode disaggregation: the page-granular KV handoff --
+
+    def _pool_leaves(self, arena, prefix=()):
+        """``[(path, pool tensor)]`` of every page-pool leaf (K/V pages
+        and, on int8/fp8 arenas, their scale siblings), the per-slot
+        ``index`` left out."""
+        out = []
+        for name, node in arena.items():
+            if name == "index":
+                continue
+            if isinstance(node, dict):
+                out.extend(self._pool_leaves(node, prefix + (name,)))
+            else:
+                out.append((prefix + (name,), node))
+        return out
+
+    def _check_handoff(self):
+        if not self.paged:
+            raise ValueError("KV handoff requires a paged engine "
+                             "(page_size > 0)")
+
+    def _extract_chunks(self, arena, chunks) -> list:
+        """Gather each chunk of page ids from every pool leaf and start
+        its copy into pinned host memory; one event after the last copy
+        is the only wait.  Returns one numpy tree per chunk."""
+        leaves = self._pool_leaves(arena)
+        cuda = self.device.type == "cuda"
+        staged = []
+        for ids in chunks:
+            idx = upload(np.asarray(ids, np.int64), self.device)
+            got = []
+            for path, pool in leaves:
+                bits = _BITS.get(pool.dtype)
+                t = self._bits_view(pool).index_select(0, idx)
+                if cuda:
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    host.copy_(t, non_blocking=True)
+                    t = host
+                got.append((path, t, bits))
+            staged.append(got)
+        if cuda:
+            # the gathers follow the prefill that wrote the pages on this
+            # stream, so one event after the last copy is enough: the one
+            # deliberate sync of a handoff (kv_handoff_s, spill_s)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        out = []
+        for got in staged:
+            tree: dict = {}
+            for path, t, bits in got:
+                arr = t.numpy()
+                if bits is not None:
+                    arr = arr.view(bits[1])
+                if cuda:
+                    # out of the pinned staging: spilled payloads may
+                    # live long, and pinned host memory is scarce
+                    arr = arr.copy()
+                node = tree
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = arr
+            out.append(tree)
+        return out
+
+    @torch.no_grad()
+    def extract_pages(self, arena, page_ids) -> dict:
+        """Export ``page_ids`` (a slot's prompt pages, in logical order) to
+        host memory: the source half of prefill/decode disaggregation.
+        Returns a tree of numpy arrays keyed as the arena (``block_i/attn/
+        pages_key`` ..., the ``index`` left home), each leaf
+        ``[len(page_ids), H, page_size, ...]``; bf16 and fp8 leaves carry
+        their bits (uint16, uint8).  The one wait for the card is an event
+        after the copies, behind the prefill that wrote the pages."""
+        self._check_handoff()
+        n = len(page_ids)
+        if not 0 < n <= self.n_ptab:
+            raise ValueError(f"need 1..{self.n_ptab} pages, got {n}")
+        self._lockstep("extract_pages", np.asarray(page_ids, np.int64))
+        return self._extract_chunks(arena, [list(page_ids)])[0]
+
+    @torch.no_grad()
+    def extract_pages_batch(self, arena, page_ids) -> dict:
+        """Export any number of pages in one sync, the spill-on-evict
+        primitive: ``page_ids`` goes in chunks of ``n_ptab``, every
+        chunk's gather and copy is dispatched before the one wait, and the
+        tree's leaves hold ``len(page_ids)`` pages in input order."""
+        self._check_handoff()
+        n = len(page_ids)
+        if n < 1:
+            raise ValueError("need at least one page id")
+        self._lockstep("extract_pages_batch", np.asarray(page_ids, np.int64))
+        page_ids = list(page_ids)
+        trees = self._extract_chunks(
+            arena, [page_ids[i:i + self.n_ptab]
+                    for i in range(0, n, self.n_ptab)])
+        return trees[0] if len(trees) == 1 else concat_payloads(trees)
+
+    def _payload_tensor(self, path, arr, pool, n):
+        """One payload leaf uploaded as a tensor of ``pool``'s dtype: bits
+        viewed back (uint16 into bf16, uint8 into fp8), anything else
+        cast."""
+        arr = np.asarray(arr)
+        want = (n,) + tuple(pool.shape[1:])
+        if arr.shape != want:
+            if self.mesh is not None and arr.ndim == pool.ndim \
+                    and arr.shape[0] == n:
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: a payload of {arr.shape[1]} heads "
+                    f"into a tensor-parallel rank's {pool.shape[1]}: the "
+                    f"cross-rank handoff is ROADMAP queue A12a's follow-up "
+                    f"(each rank hands over its own heads' pages)")
+            raise ValueError(f"{'/'.join(path)}: payload leaf "
+                             f"{arr.shape}, the arena wants {want}")
+        bits = _BITS.get(pool.dtype)
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:     # a disk record read back
+            arr = arr.copy()
+        if bits is not None and arr.dtype == bits[1]:
+            raw = arr.view(np.int16) if bits[1] == np.uint16 else arr
+            return upload(raw, self.device).view(pool.dtype)
+        return upload(arr, self.device).to(pool.dtype)
+
+    @staticmethod
+    def _bits_view(t):
+        """A bf16 or fp8 tensor as its integer bits (the copies of a
+        handoff move bits; index_copy_ has no fp8 kernel on the CPU)."""
+        bits = _BITS.get(t.dtype)
+        return t if bits is None else t.view(bits[0])
+
+    @torch.no_grad()
+    def inject_pages(self, arena, last_tokens, data, page_ids, slot: int,
+                     index: int, first_token: int):
+        """Adopt extracted prompt pages into this engine's pool: write
+        ``data`` (an :meth:`extract_pages` tree) into ``page_ids`` (pages
+        the target scheduler allocated, never the garbage page 0), set
+        slot ``slot``'s cache index to ``index`` (the prompt length) and
+        its ``last_tokens`` entry to ``first_token``; the slot then
+        decodes through :meth:`decode`/:meth:`verify` as if this engine
+        had prefilled the prompt.  The payload goes up by
+        :func:`~dtdl_tpu_torch.device.upload` and into place by
+        ``index_copy_``: nothing waits for the card.  Returns ``(arena,
+        last_tokens)``."""
+        self._check_handoff()
+        n = len(page_ids)
+        leaves = self._pool_leaves(data)
+        if not leaves or any(np.shape(a)[0] != n for _, a in leaves):
+            raise ValueError(f"data leaves must carry {n} pages "
+                             f"(one per page id)")
+        if not 0 < n <= self.n_ptab:
+            raise ValueError(f"need 1..{self.n_ptab} pages, got {n}")
+        if any(not 0 < p < self.n_pages for p in page_ids):
+            raise ValueError(f"page ids must be in [1, {self.n_pages}), "
+                             f"got {list(page_ids)}")
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} out of range "
+                             f"[0, {self.n_slots})")
+        if not 0 < index < self.max_seq:
+            raise ValueError(f"index {index} must be in (0, "
+                             f"{self.max_seq}) — a full-to-the-brim "
+                             f"sequence has nothing left to decode")
+        self._lockstep("inject_pages", np.asarray(page_ids, np.int64), slot,
+                       index, first_token)
+        pools = dict(self._pool_leaves(arena))
+        given = {path for path, _ in leaves}
+        if given != set(pools):
+            missing = sorted("/".join(p) for p in set(pools) - given)
+            extra = sorted("/".join(p) for p in given - set(pools))
+            raise ValueError(f"payload leaves do not match the arena: "
+                             f"missing {missing}, extra {extra}")
+        ids = upload(np.asarray(page_ids, np.int64), self.device)
+        for path, arr in leaves:
+            pool = pools[path]
+            self._bits_view(pool).index_copy_(
+                0, ids, self._bits_view(self._payload_tensor(path, arr, pool,
+                                                             n)))
+        arena["index"][slot] = int(index)
+        last = last_tokens.clone()
+        last[slot] = int(first_token)
+        return arena, last
+
+    def inject_pages_batch(self, arena, last_tokens, items):
+        """Adopt several extracted page groups, ``items`` of ``(data,
+        page_ids, slot, index, first_token)``, one :meth:`inject_pages`
+        each; no sync.  Returns ``(arena, last_tokens)``."""
+        for data, page_ids, slot, index, first_token in items:
+            arena, last_tokens = self.inject_pages(
+                arena, last_tokens, data, page_ids, slot, index,
+                first_token)
+        return arena, last_tokens

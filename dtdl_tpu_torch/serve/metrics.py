@@ -1,6 +1,7 @@
-"""Serving telemetry, the port of dtdl_tpu/serve/metrics.py for the
-counters the ported scheduler touches (the fleet's, the spill tiers' and
-the tenants' wait for their slices).
+"""Serving telemetry, the port of dtdl_tpu/serve/metrics.py: the
+scheduler's counters, the KV handoff and spill-tier ledgers the fleet and
+the tiers feed, and :meth:`ServeMetrics.window`, the delta feed (the
+tenants' adapter, grammar and stream counters wait for their slice).
 
 Nothing here reads the device.  Dispatch-side counters (admissions,
 steps, occupancy) are host state the scheduler already has; request
@@ -22,6 +23,43 @@ from dtdl_tpu_torch.obs.hist import LogHistogram
 # accounting invariant: submitted == finished + rejected + expired +
 # failed + aborted + shed, every request counted once
 ERROR_KINDS = ("rejected", "expired", "failed", "aborted", "shed")
+
+# the kinds that count against availability: failed (engine or replica
+# health) and expired (the service blew the deadline) are service faults;
+# rejected and shed are load management, aborted a caller's decision
+UNAVAILABLE_KINDS = ("failed", "expired")
+
+
+def error_kind(error) -> str | None:
+    """The kind prefix of a terminal ``req.error`` (one of
+    :data:`ERROR_KINDS`), or None for no error or an unprefixed string."""
+    if not error:
+        return None
+    kind = error.split(":", 1)[0]
+    return kind if kind in ERROR_KINDS else None
+
+
+def _window_delta(summary: dict, counters, prev: dict) -> dict:
+    """Flatten ``summary`` to numeric scalars, each field in ``counters``
+    replaced by its increment since the last call (state in ``prev``,
+    updated in place).  Gauges and tails pass through at their current
+    value, bools become 0/1, nested dicts and lists are dropped but for a
+    dict-valued counter, which flattens to ``<field>.<key>`` deltas."""
+    out = {}
+    for k, v in summary.items():
+        if isinstance(v, bool):
+            out[k] = int(v)
+        elif isinstance(v, (int, float)):
+            out[k] = v - prev.get(k, 0) if k in counters else v
+        elif isinstance(v, dict) and k in counters:
+            for kk, vv in v.items():
+                if isinstance(vv, (int, float)):
+                    fk = f"{k}.{kk}"
+                    out[fk] = vv - prev.get(fk, 0)
+                    prev[fk] = vv
+    prev.update({k: summary[k] for k in counters
+                 if isinstance(summary.get(k), (int, float))})
+    return out
 
 
 class ServeMetrics:
@@ -61,6 +99,26 @@ class ServeMetrics:
         self.pages_in_use_peak = 0
         self.pages_in_use_last = 0
         self.page_capacity = 0
+        # prefill/decode disaggregation: pages handed over (extracted on
+        # a prefill replica, injected on a decode one) and the host
+        # seconds of each side, the extract's one sync included
+        self.n_kv_handoff_pages = 0
+        self.kv_handoff_s = 0.0
+        self.kv_handoff_hist = LogHistogram()
+        # the spill tiers: pages extracted to host or disk on eviction,
+        # pages restored on a prefix miss, their bytes and host seconds,
+        # hits by tier, disk records quarantined; fleet affinity hits
+        self.pages_spilled = 0
+        self.spill_bytes = 0
+        self.spill_s = 0.0
+        self.pages_restored = 0
+        self.restore_bytes = 0
+        self.restore_s = 0.0
+        self.spill_host_hits = 0
+        self.spill_disk_hits = 0
+        self.spill_quarantined = 0
+        self.directory_hits = 0
+        self._win_prev: dict = {}
         self.ttft_hist = LogHistogram()
         self.tok_latency_hist = LogHistogram()
         self._t_start = None
@@ -104,6 +162,44 @@ class ServeMetrics:
         ``n_decoding`` slots were mid-decode, each of which waits for it;
         zero under chunked prefill."""
         self.n_decode_steps_delayed += n_decoding
+
+    def on_kv_handoff(self, pages: int, seconds: float):
+        """One side of a prefill-to-decode page migration: ``pages`` moved
+        (extracted at the source or injected at the target) in
+        ``seconds`` of host time; the extract's wait for the card is the
+        one deliberate sync of the disaggregation path."""
+        self.n_kv_handoff_pages += pages
+        self.kv_handoff_s += seconds
+        self.kv_handoff_hist.add(seconds)
+
+    def on_spill(self, pages: int, nbytes: int, seconds: float):
+        """One batched spill on eviction: ``pages`` evicted pages
+        extracted to the host tier in one sync of ``seconds``, ``nbytes``
+        moved."""
+        self.pages_spilled += pages
+        self.spill_bytes += nbytes
+        self.spill_s += seconds
+
+    def on_restore(self, pages: int, nbytes: int, seconds: float,
+                   host_hits: int = 0, disk_hits: int = 0):
+        """One admission's restore from the spill tiers: ``pages`` pages
+        re-entered the arena by inject (no sync), their prompt tokens not
+        recomputed; ``host_hits``/``disk_hits`` split them by tier."""
+        self.pages_restored += pages
+        self.restore_bytes += nbytes
+        self.restore_s += seconds
+        self.spill_host_hits += host_hits
+        self.spill_disk_hits += disk_hits
+
+    def on_spill_quarantine(self, n: int):
+        """``n`` disk spill records failed their integrity check and were
+        quarantined by name (their prefixes are recomputed)."""
+        self.spill_quarantined += n
+
+    def on_directory_hit(self):
+        """The fleet's prefix directory routed a request here, to the
+        replica holding its prefix."""
+        self.directory_hits += 1
 
     def on_prefix(self, hit_pages: int, full_pages: int, tokens_saved: int):
         self.prefix_hit_pages += hit_pages
@@ -194,6 +290,18 @@ class ServeMetrics:
                                 if self.prefix_full_pages else 0.0),
             "prefix_hit_pages": self.prefix_hit_pages,
             "prefill_tokens_saved": self.prefill_tokens_saved,
+            "kv_handoff_pages": self.n_kv_handoff_pages,
+            "kv_handoff_s": self.kv_handoff_s,
+            "pages_spilled": self.pages_spilled,
+            "pages_restored": self.pages_restored,
+            "spill_bytes": self.spill_bytes,
+            "restore_bytes": self.restore_bytes,
+            "spill_s": self.spill_s,
+            "restore_s": self.restore_s,
+            "spill_host_hits": self.spill_host_hits,
+            "spill_disk_hits": self.spill_disk_hits,
+            "spill_quarantined": self.spill_quarantined,
+            "directory_hits": self.directory_hits,
             "pages_in_use_peak": self.pages_in_use_peak,
             "pages_in_use_last": self.pages_in_use_last,
             "page_capacity": self.page_capacity,
@@ -208,4 +316,28 @@ class ServeMetrics:
             "ttft_s_mean": 0.0, "tok_latency_s_mean": 0.0,
             **self.ttft_hist.summary("ttft_s_"),
             **self.tok_latency_hist.summary("tok_latency_s_"),
+            **self.kv_handoff_hist.summary("kv_handoff_s_"),
         }
+
+    # the monotonic summary fields window() diffs; rates, occupancy,
+    # tails and page gauges pass through at their current value
+    _WINDOW_COUNTERS = frozenset({
+        "requests_submitted", "requests_rejected", "requests_expired",
+        "requests_failed", "requests_aborted", "requests_finished",
+        "requests_shed", "prefill_tokens", "decode_steps",
+        "decode_tokens", "prefill_tokens_saved", "spec_drafted_tokens",
+        "spec_accepted_tokens", "spec_steps", "draft_s", "prefill_chunks",
+        "chunk_tokens", "decode_steps_delayed_by_prefill",
+        "kv_handoff_pages", "kv_handoff_s", "pages_spilled",
+        "pages_restored", "spill_bytes", "restore_bytes", "spill_s",
+        "restore_s", "spill_host_hits", "spill_disk_hits",
+        "spill_quarantined", "directory_hits",
+    })
+
+    def window(self) -> dict:
+        """Counters since the last :meth:`window` call (increments) with
+        the numeric gauges, rates and tails at their current value,
+        non-scalar fields dropped: the delta feed an exporter samples at
+        the drain and harvest boundaries.  :meth:`summary` is untouched."""
+        return _window_delta(self.summary(), self._WINDOW_COUNTERS,
+                             self._win_prev)

@@ -127,7 +127,7 @@ def filter_logits_sorted(logits, temperature, top_k, top_p):
                        torch.full_like(scaled, float("-inf")))
 
 
-_GRAMMARS = "grammar masks are ROADMAP queue A12 (tenancy), not in this slice"
+_GRAMMARS = "grammar masks are ROADMAP queue A12b (tenancy), not in this slice"
 
 
 def sample(logits, generator, temperature, top_k, top_p, allowed=None):
@@ -171,7 +171,7 @@ def accept_resample(logits, draft, draft_len, generator, temperature, top_k,
       commit ``draft_len`` unconditionally and draw the plain bonus;
     * ``allowed`` [B, k+1, V] bool masks each position's logits to -inf
       before everything else.  A packed uint32 mask (``pack_mask``) is
-      ROADMAP queue A12 and raises.
+      ROADMAP queue A12b and raises.
     """
     if allowed is not None:
         if allowed.dtype != torch.bool:

@@ -1,6 +1,7 @@
 """Slot-based continuous batcher over the InferenceEngine, the port of
 dtdl_tpu/serve/scheduler.py (its continuous-batching core, speculative
-decoding, chunked prefill and containment).
+decoding, chunked prefill, containment, prefill/decode disaggregation and
+the KV spill tiers).
 
 A request is admitted into the first free slot (one bucketed prefill of
 its uncached suffix), decodes in lockstep with whatever else is in
@@ -51,10 +52,27 @@ request, ``shutdown(drain=)`` stops intake and drains or aborts what is
 in flight.  Every terminal error is ``"<kind>: <reason>"`` with a kind of
 :data:`~dtdl_tpu_torch.serve.metrics.ERROR_KINDS`.
 
+**Disaggregation**: a ``prefill_only`` request finishes at its first
+token with ``req.kv_handoff``, the host payload of its prompt's pages
+(:meth:`InferenceEngine.extract_pages`, the one sync of the handoff); a
+``kv_inject`` request adopts such a payload into fresh pages
+(:meth:`InferenceEngine.inject_pages`) and decodes as if it had prefilled
+here.  The fleet Router (:mod:`dtdl_tpu_torch.serve.fleet`) carries the
+payload between replicas.
+
+**The spill tiers** (``spill_host_bytes``, ``spill_dir``,
+``spill_disk_bytes``): refcount-0 cached pages that the allocator evicts
+are extracted in one batched sync to a host LRU
+(:class:`~dtdl_tpu_torch.serve.paged.HostPageStore`), which demotes to an
+mmap'd disk file (:class:`~dtdl_tpu_torch.serve.paged.DiskPageStore`); a
+prefix miss at admission continues the chain walk into them and restores
+the pages by inject instead of recomputing them.  A disk record that
+fails its check is quarantined and recomputed.  ``kv_receipts`` tells the
+Router's prefix directory what this scheduler holds.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): KV spill tiers, the exporter and observer, LoRA adapters,
-grammars, streams, and prefill/decode disaggregation (``prefill_only``,
-``kv_inject``).
+item): the exporter and observer (A13), LoRA adapters, grammars and
+streams (A12b).
 """
 
 from __future__ import annotations
@@ -72,8 +90,11 @@ from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.serve.draft import NGramDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
 from dtdl_tpu_torch.serve.metrics import ERROR_KINDS, ServeMetrics
-from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, PageAllocator,
-                                        PagePoolExhaustedError)
+from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, DiskPageStore,
+                                        HostPageStore, PageAllocator,
+                                        PagePoolExhaustedError,
+                                        concat_payloads, payload_nbytes,
+                                        slice_payload)
 from dtdl_tpu_torch.serve.sampling import GREEDY, SampleParams
 
 _ids = itertools.count()
@@ -91,8 +112,16 @@ class Request:
     ``failed:``, ``aborted:``, ``shed:``).  ``deadline_s`` is a budget
     from this scheduler's submit, ``deadline_at`` an absolute
     ``time.perf_counter()`` instant.  ``speculate`` is the request's
-    largest draft length (0: plain decode).  The remaining fields belong
-    to later slices and must stay at their defaults here.
+    largest draft length (0: plain decode).
+
+    ``origin_rid``/``lineage`` are stamped by the fleet Router on each
+    replica-local attempt: the user request's rid and how the attempt
+    came to be (``primary``, ``retry:N``, ``requeue``, ``hedge``,
+    ``migrate``).  ``prefill_only`` asks for the prefill half only: the
+    request finishes at its first token with ``kv_handoff`` set to the
+    page payload that a decode replica's ``kv_inject`` admission adopts
+    (both need a paged engine).  ``adapter``, ``grammar`` and ``stream``
+    belong to a later slice and must stay at their defaults here.
     """
     prompt: Sequence[int]
     max_new_tokens: int
@@ -101,8 +130,11 @@ class Request:
     speculate: int = 0
     deadline_s: Optional[float] = None
     deadline_at: Optional[float] = None
+    origin_rid: Optional[int] = None
+    lineage: str = "primary"
     prefill_only: bool = False
     kv_inject: Optional[dict] = dataclasses.field(default=None, repr=False)
+    kv_handoff: Optional[dict] = dataclasses.field(default=None, repr=False)
     adapter: Optional[str] = None
     grammar: Any = dataclasses.field(default=None, repr=False)
     stream: Any = dataclasses.field(default=None, repr=False)
@@ -135,14 +167,10 @@ class Request:
 
 
 _LATER = (
-    ("prefill_only", False, "prefill/decode disaggregation is ROADMAP "
-                            "queue A12 (fleet)"),
-    ("kv_inject", None, "prefill/decode disaggregation is ROADMAP queue "
-                        "A12 (fleet)"),
-    ("adapter", None, "LoRA adapters are ROADMAP queue A12 (tenancy)"),
-    ("grammar", None, "grammar-constrained decoding is ROADMAP queue A12 "
+    ("adapter", None, "LoRA adapters are ROADMAP queue A12b (tenancy)"),
+    ("grammar", None, "grammar-constrained decoding is ROADMAP queue A12b "
                       "(tenancy)"),
-    ("stream", None, "token streams are ROADMAP queue A12 (tenancy)"),
+    ("stream", None, "token streams are ROADMAP queue A12b (tenancy)"),
 )
 
 
@@ -259,9 +287,13 @@ class Scheduler:
     finished and returns the finished requests in completion order.
     ``draft`` is the draft source of requests with ``speculate > 0``; a
     draft model must share the served model's vocab.  ``chunk_tokens``
-    turns on chunked prefill with that many prompt tokens per step.  Used
-    as a context manager it shuts down on exit: draining on a clean exit,
-    aborting on an exception."""
+    turns on chunked prefill with that many prompt tokens per step.
+    ``spill_host_bytes`` (and ``spill_dir`` with ``spill_disk_bytes``)
+    put the spill tiers behind the prefix cache of a paged engine.
+    ``metrics`` lets a caller keep one :class:`ServeMetrics` across
+    schedulers (a fleet replica's restarts).  Used as a context manager it
+    shuts down on exit: draining on a clean exit, aborting on an
+    exception."""
 
     def __init__(self, engine: InferenceEngine, seed: int = 0,
                  harvest_lag: int = 4, max_queue: Optional[int] = None,
@@ -270,15 +302,12 @@ class Scheduler:
                  chunk_tokens: Optional[int] = None,
                  spill_host_bytes: Optional[int] = None,
                  spill_dir: Optional[str] = None,
-                 spill_disk_bytes: Optional[int] = None):
+                 spill_disk_bytes: Optional[int] = None,
+                 metrics: Optional[ServeMetrics] = None):
         dev = resolve_device(device)
         if dev != engine.device:
             raise ValueError(f"the engine runs on {engine.device}, the "
                              f"scheduler was asked for {dev}")
-        if spill_host_bytes is not None or spill_dir is not None \
-                or spill_disk_bytes is not None:
-            raise NotImplementedError(
-                "KV spill tiers are ROADMAP queue A12 (KV hierarchy)")
         if observer is not None or exporter is not None:
             raise NotImplementedError(
                 "the observer and the metrics exporter are ROADMAP queue "
@@ -305,7 +334,7 @@ class Scheduler:
         self.last_tokens = engine.init_last_tokens()
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[Request]] = [None] * engine.n_slots
-        self.metrics = ServeMetrics(n_slots=engine.n_slots)
+        self.metrics = metrics or ServeMetrics(n_slots=engine.n_slots)
         self.finished: list[Request] = []
         self._reqs: dict[int, Request] = {}
         self._active = np.zeros(engine.n_slots, bool)
@@ -330,6 +359,14 @@ class Scheduler:
         # chunk; a dense engine has none of these
         self.pages: Optional[PageAllocator] = None
         self._slot_hashes: list = [None] * engine.n_slots
+        # the spill tiers behind the prefix cache, and the receipts the
+        # fleet's prefix directory drains: ("add", hash) when a prefix page
+        # is published in any tier, ("drop", hash) when the last tier
+        # forgets it, ("reset", 0) on containment.  A receipt lost to the
+        # deque's bound only makes the directory stale, which costs a
+        # recompute, never a wrong token
+        self.spill: Optional[HostPageStore] = None
+        self.kv_receipts: deque = deque(maxlen=65536)
         if engine.paged:
             self.pages = PageAllocator(engine.n_pages, engine.page_size,
                                        prefix_cache=prefix_cache)
@@ -337,6 +374,22 @@ class Scheduler:
                                  GARBAGE_PAGE, np.int32)
             self._slot_pages: list[list[int]] = [[] for _ in
                                                  range(engine.n_slots)]
+            if spill_host_bytes is not None or spill_dir is not None:
+                if not prefix_cache:
+                    raise ValueError("spill tiers require "
+                                     "prefix_cache=True (spilled pages "
+                                     "are keyed by chain hash)")
+                disk = (DiskPageStore(spill_dir, spill_disk_bytes)
+                        if spill_dir is not None else None)
+                self.spill = HostPageStore(
+                    spill_host_bytes if spill_host_bytes is not None
+                    else 0,
+                    disk=disk,
+                    on_drop=lambda h: self.kv_receipts.append(("drop", h)))
+                self.pages.record_evictions = True
+        elif spill_host_bytes is not None or spill_dir is not None:
+            raise ValueError("spill_host_bytes/spill_dir require a paged "
+                             "engine with prefix_cache=True")
 
     # ---- intake -------------------------------------------------------
 
@@ -359,8 +412,9 @@ class Scheduler:
         """Enqueue ``req``; one the scheduler cannot serve comes back
         rejected (``req.error`` set, ``req.done`` True): a shut-down
         scheduler or one in containment, a full admission queue, a prompt
-        past the largest prefill bucket, or a prompt whose pages exceed
-        the whole pool."""
+        past the largest prefill bucket, a prompt whose pages exceed the
+        whole pool, a disaggregation half on a dense engine, or a
+        ``kv_inject`` payload that does not fit the prompt."""
         for field, default, why in _LATER:
             if getattr(req, field) != default:
                 raise NotImplementedError(f"Request.{field}: {why}")
@@ -376,6 +430,39 @@ class Scheduler:
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return self._reject(req, f"admission queue full ({self.max_queue}"
                                      f" waiting); retry later")
+        if req.prefill_only and req.kv_inject is not None:
+            raise ValueError("prefill_only and kv_inject are mutually "
+                             "exclusive (one request is one half of a "
+                             "disaggregated flight)")
+        if (req.prefill_only or req.kv_inject is not None) \
+                and self.pages is None:
+            return self._reject(
+                req, "prefill/decode disaggregation needs a paged "
+                     "engine (page_size > 0): the KV handoff is "
+                     "page-granular")
+        if req.kv_inject is not None:
+            # the decode half of a migrated flight runs no prefill, so the
+            # bucket check does not apply: the payload must fit the prompt
+            # and decoding must have room
+            pg = self.engine.page_size
+            n_pg = int(req.kv_inject.get("n_pages", 0))
+            if n_pg != -(-prompt_len // pg):
+                return self._reject(
+                    req, f"kv_inject payload carries {n_pg} pages but "
+                         f"the prompt needs {-(-prompt_len // pg)} "
+                         f"(page_size={pg})")
+            if prompt_len >= self.engine.max_seq:
+                return self._reject(
+                    req, f"adopted prompt of {prompt_len} tokens "
+                         f"leaves no room to decode "
+                         f"(max_seq={self.engine.max_seq})")
+            need = (prompt_len + 1 + pg - 1) // pg
+            if need > self.pages.capacity:
+                return self._reject(
+                    req, f"page pool exhausted: adopted prompt needs "
+                         f"{need} pages (page_size={pg}) but the pool "
+                         f"has only {self.pages.capacity}")
+            return self._enqueue(req)
         try:
             self.engine.bucket_for(prompt_len)
         except PromptTooLongError as e:
@@ -388,6 +475,9 @@ class Scheduler:
                     req, f"page pool exhausted: prompt needs {need} pages "
                          f"(page_size={pg}) but the pool has only "
                          f"{self.pages.capacity}")
+        return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> Request:
         if req.deadline_at is None and req.deadline_s is not None:
             req.deadline_at = req.t_submit + req.deadline_s
         if req.deadline_at is not None:
@@ -530,6 +620,9 @@ class Scheduler:
                 self.pages.reset()
                 self._ptab[:] = GARBAGE_PAGE
                 self._slot_pages = [[] for _ in range(self.engine.n_slots)]
+                # every page this replica advertised in the arena is gone
+                # (spilled host and disk copies survive)
+                self.kv_receipts.append(("reset", 0))
         finally:
             self._containing = False
 
@@ -544,31 +637,61 @@ class Scheduler:
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
+            if req.kv_inject is not None:
+                # the decode half of a disaggregated flight adopts its
+                # pages instead of prefilling
+                if self._admit_inject(slot, req):
+                    continue
+                break                  # pool backpressure: FIFO waits
             prompt = [int(t) for t in req.prompt]
-            start, row, hits, fresh, hashes = 0, None, [], [], []
+            start, row, hits, fresh, hashes, restored = 0, None, [], [], [], []
             if self.pages is not None:
                 pg = eng.page_size
                 hits = self.pages.match_prefix(prompt)
                 hashes = (self.pages.page_hashes(prompt)
                           if self.pages.prefix_cache else [])
+                if self.spill is not None:
+                    # restore on miss: the chain walk goes on into the
+                    # spill tiers; each payload found there is a page of
+                    # prefill not recomputed
+                    for i in range(len(hits), (len(prompt) - 1) // pg):
+                        tier = self.spill.holds(hashes[i])
+                        payload = (self.spill.get(hashes[i])
+                                   if tier is not None else None)
+                        if payload is None:
+                            if tier == "disk":
+                                # held by the manifest, failed its check:
+                                # quarantined by the store, recomputed here
+                                self.metrics.on_spill_quarantine(1)
+                            break
+                        restored.append((payload, tier))
+
+                def resident() -> int:
+                    # prompt pages already materialized in any tier
+                    return len(hits) + len(restored)
+
+                def drop_one() -> None:
+                    # trailing resident pages go first: the restored ones
+                    # (their payloads stay in the spill store)
+                    (restored if restored else hits).pop()
                 if chunked:
                     # chunks write exact positions (no padded bucket); the
                     # one rule is never to strand a 1-token final chunk at
                     # max_seq - 1 (a window there would clamp back over
                     # the cached pages)
-                    while hits and len(prompt) == eng.max_seq \
-                            and len(prompt) - len(hits) * pg < 2:
-                        hits.pop()
+                    while resident() and len(prompt) == eng.max_seq \
+                            and len(prompt) - resident() * pg < 2:
+                        drop_one()
                 else:
                     # the suffix's padded bucket must fit max_seq too;
-                    # dropping trailing hit pages grows the suffix until
-                    # it does
-                    while hits and (len(hits) * pg
-                                    + eng.bucket_for(len(prompt)
-                                                     - len(hits) * pg)
-                                    > eng.max_seq):
-                        hits.pop()
-                start = len(hits) * pg
+                    # dropping trailing resident pages grows the suffix
+                    # until it does
+                    while resident() and (resident() * pg
+                                          + eng.bucket_for(len(prompt)
+                                                           - resident() * pg)
+                                          > eng.max_seq):
+                        drop_one()
+                start = resident() * pg
                 n_prompt_pages = -(-len(prompt) // pg)
                 need = n_prompt_pages - len(hits)
                 # pinning an evictable (refcount-0) hit consumes a page too
@@ -579,12 +702,38 @@ class Scheduler:
                 for p in hits:         # pin BEFORE alloc can evict them
                     self.pages.acquire(p)
                 fresh = [self.pages.alloc() for _ in range(need)]
+                # the allocations may have evicted cached pages: extract
+                # them before the inject or prefill below rewrites them
+                self._spill_evicted()
                 row = np.full(eng.n_ptab, GARBAGE_PAGE, np.int32)
                 row[:len(hits)] = hits
                 row[len(hits):n_prompt_pages] = fresh
             suffix = prompt[start:]
             self.queue.popleft()
             sp = req.sampling
+            if restored:
+                # the spilled payloads re-enter the arena by inject into
+                # fresh[:n]; the suffix's prefill or chunks that follow
+                # on the stream overwrite its index and last-token seeding
+                t0 = time.perf_counter()
+                payloads = [p for p, _ in restored]
+                data = (payloads[0] if len(payloads) == 1
+                        else concat_payloads(payloads))
+                try:
+                    self.arena, self.last_tokens = eng.inject_pages(
+                        self.arena, self.last_tokens, data,
+                        fresh[:len(restored)], slot, start, 0)
+                except Exception as e:
+                    self._contain(e)
+                    self._finish_error(
+                        req, f"engine failure: {self.last_engine_error}",
+                        self.metrics.on_failure, "failed")
+                    return
+                self.metrics.on_restore(
+                    len(restored), sum(payload_nbytes(p) for p in payloads),
+                    time.perf_counter() - t0,
+                    host_hits=sum(1 for _, t in restored if t == "host"),
+                    disk_hits=sum(1 for _, t in restored if t == "disk"))
             if not chunked:
                 # a blocking whole-prompt prefill: every decoding slot
                 # waits for it
@@ -604,15 +753,21 @@ class Scheduler:
             if self.pages is not None:
                 self._ptab[slot] = row
                 self._slot_pages[slot] = list(hits) + list(fresh)
+                n_res = len(restored)
+                # restored pages are complete at the inject: publish them
+                # back into the arena's cache whichever prefill follows
+                for i in range(len(hits), len(hits) + n_res):
+                    self._publish(hashes[i], int(row[i]))
                 if chunked:
                     # published at the final chunk, once fully written
-                    self._slot_hashes[slot] = (hashes, len(hits))
+                    self._slot_hashes[slot] = (hashes, len(hits) + n_res)
                 else:
                     # same tokens at the same positions give identical
                     # K/V, so first-writer-wins is sound
-                    for i in range(len(hits), len(hashes)):
-                        self.pages.register(hashes[i], int(row[i]))
-                self.metrics.on_prefix(len(hits), len(hashes), start)
+                    for i in range(len(hits) + n_res, len(hashes)):
+                        self._publish(hashes[i], int(row[i]))
+                # HBM hits and spill restores both skipped recompute
+                self.metrics.on_prefix(len(hits) + n_res, len(hashes), start)
             self.slots[slot] = req
             self._active[slot] = True
             st = _SlotState(req.rid, start if chunked else len(prompt),
@@ -635,6 +790,70 @@ class Scheduler:
                                   ((slot, req.rid, 0, 0),)))
             if req._guaranteed >= self._budget(req):
                 self._retire(slot)
+            elif req.prefill_only:
+                # a prefill-role slot parks (no decode step) until its
+                # first token harvests and its pages are extracted
+                self._active[slot] = False
+
+    def _publish(self, h: int, page: int) -> None:
+        """Register a fully written prompt page under its chain hash and
+        tell the fleet's prefix directory."""
+        self.pages.register(h, page)
+        self.kv_receipts.append(("add", h))
+
+    def _admit_inject(self, slot: int, req: Request) -> bool:
+        """Admit a migrated (``kv_inject``) request: fresh pages, the
+        extracted prompt K/V written into them, the slot's cache index and
+        last token seeded; the slot then decodes as if this scheduler had
+        prefilled it.  False when the pool cannot map the payload yet
+        (FIFO backpressure, as for a prefill)."""
+        payload = req.kv_inject
+        n_pg = int(payload["n_pages"])
+        if n_pg > self.pages.available:
+            return False
+        self.queue.popleft()
+        fresh = [self.pages.alloc() for _ in range(n_pg)]
+        # evictions of the allocations spill before the inject rewrites
+        self._spill_evicted()
+        row = np.full(self.engine.n_ptab, GARBAGE_PAGE, np.int32)
+        row[:n_pg] = fresh
+        t0 = time.perf_counter()
+        try:
+            self.arena, self.last_tokens = self.engine.inject_pages(
+                self.arena, self.last_tokens, payload["data"], fresh, slot,
+                len(req.prompt), int(payload["first_token"]))
+        except Exception as e:
+            self._contain(e)
+            self._finish_error(
+                req, f"engine failure: {self.last_engine_error}",
+                self.metrics.on_failure, "failed")
+            return True
+        self._ptab[slot] = row
+        self._slot_pages[slot] = list(fresh)
+        # the migrated full prompt pages join this scheduler's prefix
+        # cache (first writer wins, as at prefill)
+        if self.pages.prefix_cache:
+            prompt = [int(t) for t in req.prompt]
+            for h, p in zip(self.pages.page_hashes(prompt), fresh):
+                self._publish(h, int(p))
+        self.metrics.on_kv_handoff(n_pg, time.perf_counter() - t0)
+        sp = req.sampling
+        self.slots[slot] = req
+        self._active[slot] = True
+        self._state[slot] = _SlotState(req.rid, len(req.prompt),
+                                       req.speculate)
+        self._temp[slot] = sp.temperature
+        self._topk[slot] = sp.top_k
+        self._topp[slot] = sp.top_p
+        req.t_admit = time.perf_counter()
+        req.admit_step = self.step_count
+        # the prefill half delivered the first token (seeded in req.tokens
+        # by the Router); this slot owes the rest
+        req._guaranteed = max(1, req._guaranteed)
+        self.metrics.on_admit(req, slot, 0)
+        if req._guaranteed >= self._budget(req):
+            self._retire(slot)
+        return True
 
     def _grow_pages(self, step_act, lens=None):
         """Map pages covering every stepped slot's worst-case write window
@@ -663,6 +882,35 @@ class Scheduler:
                     req, f"{e} (shed after {len(req.tokens)} harvested "
                          f"tokens)", self.metrics.on_shed, "shed")
                 self._retire(slot)
+        # growth may have evicted cached pages: spill them before the
+        # caller's dispatch rewrites them
+        self._spill_evicted()
+
+    def _spill_evicted(self) -> None:
+        """Drain the allocator's pending evictions into the spill store
+        with one batched extract.  Runs after every allocation burst and
+        before the next dispatch rewrites the evicted pages (the extract's
+        sync puts the payloads on the host first).  Best effort: a failure
+        drops the payloads (their prefixes are recomputed later) and never
+        breaks an admission or a decode."""
+        if self.spill is None or self.pages is None \
+                or not self.pages.pending_spills:
+            return
+        evs = self.pages.pending_spills
+        self.pages.pending_spills = []
+        t0 = time.perf_counter()
+        try:
+            data = self.engine.extract_pages_batch(self.arena,
+                                                   [p for _, p in evs])
+        except Exception:
+            return
+        dt = time.perf_counter() - t0
+        nbytes = 0
+        for i, (h, _) in enumerate(evs):
+            payload = slice_payload(data, i)
+            nbytes += payload_nbytes(payload)
+            self.spill.put(h, payload)
+        self.metrics.on_spill(len(evs), nbytes, dt)
 
     # ---- drafting and chunk planning ---------------------------------
 
@@ -882,8 +1130,7 @@ class Scheduler:
                     # (one stream orders any later hit after these writes)
                     hashes, n_hits = self._slot_hashes[slot]
                     for i in range(n_hits, len(hashes)):
-                        self.pages.register(hashes[i],
-                                            int(self._ptab[slot, i]))
+                        self._publish(hashes[i], int(self._ptab[slot, i]))
                     self._slot_hashes[slot] = None
         else:
             entries = tuple((slot, req.rid, 0, 0)
@@ -903,6 +1150,10 @@ class Scheduler:
             req._guaranteed += 1
             if req._guaranteed >= self._budget(req):
                 self._retire(slot)
+            elif kind == 2 and req.prefill_only:
+                # a prefill-role slot parks until its first token
+                # harvests and its pages are extracted
+                self._active[slot] = False
 
     # ---- harvest ------------------------------------------------------
 
@@ -947,8 +1198,37 @@ class Scheduler:
             # every generated token counts once; the first is the prefill's
             self.metrics.on_harvest_tokens(
                 delivered - (1 if first_window and delivered else 0))
+            if req.prefill_only and not req.done and req.tokens:
+                # the prefill half is done with generation still owed:
+                # export the prompt's pages for the decode half
+                self._handoff_out(slot, req)
             if req.done and self.slots[slot] is req:
                 self._retire(slot)
+
+    def _handoff_out(self, slot: int, req: Request):
+        """Finish a ``prefill_only`` request by exporting its prompt's K/V
+        pages to the host (the one deliberate sync of the handoff,
+        ``kv_handoff_s``) into ``req.kv_handoff``, the payload a decode
+        replica's ``kv_inject`` admission adopts.  The slot's pages are
+        released only after the extract (the caller's retire), so an
+        expiry mid-handoff cannot free them early."""
+        pg = self.engine.page_size
+        n_pg = -(-len(req.prompt) // pg)
+        pages = self._slot_pages[slot][:n_pg]
+        t0 = time.perf_counter()
+        data = self.engine.extract_pages(self.arena, pages)
+        self.metrics.on_kv_handoff(n_pg, time.perf_counter() - t0)
+        req.kv_handoff = {
+            "prompt": [int(t) for t in req.prompt],
+            "first_token": int(req.tokens[0]),
+            "n_pages": n_pg,
+            "data": data,
+            "t_first": req.t_first,
+        }
+        req.done = True
+        req.t_done = time.perf_counter()
+        self.finished.append(req)
+        self.metrics.on_finish(req)
 
     def drain(self):
         """Harvest everything still in flight (the boundary sync)."""

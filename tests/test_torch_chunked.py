@@ -17,7 +17,8 @@ its engine host arrays (page tables, sampling knobs, ``pos_set``,
 ``forced``, ``first_tok``, drafts) that it goes on to rewrite, and on the
 CPU ``jnp.asarray`` can alias them, so a step still running may read the
 rewritten values (ROADMAP C1).  The wrapper copies each of them before the
-call.
+call, and the page ids and payload trees that the KV handoff and the spill
+tiers hand ``extract_pages``/``inject_pages`` and their batch forms.
 """
 
 import jax
@@ -55,6 +56,12 @@ def _copy(x):
     return None if x is None else np.array(x, copy=True)
 
 
+def _copy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    return _copy(tree)
+
+
 class CopyingJaxEngine(JaxEngine):
     """The JAX engine with every host array copied before its call."""
 
@@ -77,6 +84,23 @@ class CopyingJaxEngine(JaxEngine):
             _copy(active), key, _copy(temp), _copy(top_k), _copy(top_p),
             page_tables=_copy(page_tables), forced=_copy(forced),
             first_tok=_copy(first_tok), pos_set=_copy(pos_set), **kw)
+
+    def extract_pages(self, arena, page_ids):
+        return super().extract_pages(arena, _copy(page_ids))
+
+    def extract_pages_batch(self, arena, page_ids):
+        return super().extract_pages_batch(arena, _copy(page_ids))
+
+    def inject_pages(self, arena, last_tokens, data, page_ids, slot, index,
+                     first_token):
+        return super().inject_pages(arena, last_tokens, _copy_tree(data),
+                                    _copy(page_ids), slot, index,
+                                    first_token)
+
+    def inject_pages_batch(self, arena, last_tokens, items):
+        return super().inject_pages_batch(
+            arena, last_tokens, [(_copy_tree(d), _copy(p), s, i, f)
+                                 for d, p, s, i, f in items])
 
 
 def jax_pair(**cfg):

@@ -28,6 +28,7 @@ from dtdl_tpu_torch.ops.attention import flash_bwd, flash_fwd, rope_rotate
 from dtdl_tpu_torch.ops.paged_attention import kv_splits, paged_attention
 from dtdl_tpu_torch.serve.draft import ModelDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine
+from dtdl_tpu_torch.serve.fleet import Router
 from dtdl_tpu_torch.serve.scheduler import Scheduler
 
 # small shapes: one intra-op thread each leaves the cores to the other
@@ -75,7 +76,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "examples/tf_estimator.py", "examples/caffe_train.py",
                 "examples/mxnet_kvstore.py", "parallel/megatron.py",
                 "parallel/sequence.py", "parallel/collectives.py",
-                "runtime/mesh.py", "examples/train_lm_4d.py"):
+                "runtime/mesh.py", "examples/train_lm_4d.py",
+                "serve/fleet.py", "serve/health.py", "serve/paged.py",
+                "examples/serve_fleet.py"):
         assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
@@ -110,6 +113,12 @@ def test_entry_points_refuse_to_run_without_a_card(no_cuda):
     with pytest.raises(NoCudaDeviceError):
         Scheduler(engine)
     Scheduler(engine, device="cpu")
+    with pytest.raises(NoCudaDeviceError):
+        Router(engine, n_replicas=1)
+    Router(engine, n_replicas=1, device="cpu", warmup=False).shutdown()
+    from dtdl_tpu_torch.examples import serve_fleet
+    with pytest.raises(NoCudaDeviceError):
+        serve_fleet.main(["--n-requests", "1"])
     with pytest.raises(NoCudaDeviceError):
         bridge.load_flax_params(model, bridge.state_dict_to_flax(model))
     bridge.load_flax_params(model, bridge.state_dict_to_flax(model),

@@ -216,16 +216,46 @@ def test_twin_parses_help_with_the_jax_examples_flags(twin, monkeypatch):
                          f"--{w.replace('_', '-')}" in got for w in words)
 
 
+# the spill flags (flag0, flag1) are ported now, tested below; the other
+# cases keep their ids
 @pytest.mark.parametrize("flag,item", [
-    (["--spill-host-mb", "64"], "A12"), (["--spill-dir", "/tmp/x"], "A12"),
     (["--lora", "a.pt"], "A12"), (["--json-schema", "s.json"], "A12"),
     (["--stream"], "A12"), (["--trace", "t.json"], "A13"),
     (["--restore", "w.msgpack"], "A8b's remainder"),
-])
+], ids=["flag2-A12", "flag3-A12", "flag4-A12", "flag5-A13",
+        "flag6-A8b's remainder"])
 def test_serve_lm_refuses_unported_flags_by_item(flag, item):
     from dtdl_tpu_torch.examples import serve_lm
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         serve_lm.main(["--platform", "cpu", *flag])
+
+
+def test_serve_lm_spills_to_the_host_tier(capsys):
+    """--spill-host-mb on a pool too small for the traffic: the evicted
+    pages spill to the host tier and the twin prints the JAX script's kv
+    spill line.  Every request shares the prefix, so the next request
+    always pins it and nothing comes back (restores: tests/
+    test_torch_kv_tiers.py)."""
+    from dtdl_tpu_torch.examples import serve_lm
+    reqs, s, _ = serve_lm.main(
+        ["--platform", "cpu", "--page-size", "16", "--n-pages", "8",
+         "--shared-prefix", "32", "--n-requests", "10", "--n-slots", "1",
+         "--max-new-tokens", "4", "--spill-host-mb", "64"])
+    assert all(r.done and r.error is None for r in reqs)
+    assert s["pages_spilled"] > 0 and s["spill_bytes"] > 0
+    assert s["pages_restored"] == 0 and s["prefill_tokens_saved"] > 0
+    assert re.search(r"kv spill: spilled \d+ pages \(\d+ KiB\)  restored "
+                     r"0 \(host 0 / disk 0 hits",
+                     capsys.readouterr().out)
+
+
+def test_serve_lm_spill_needs_the_prefix_cache():
+    from dtdl_tpu_torch.examples import serve_lm
+    with pytest.raises(ValueError, match="prefix_cache=True"):
+        serve_lm.main(["--platform", "cpu", "--page-size", "16",
+                       "--no-prefix-cache", "--spill-host-mb", "64"])
+    with pytest.raises(ValueError, match="paged engine"):
+        serve_lm.main(["--platform", "cpu", "--spill-host-mb", "64"])
 
 
 def test_device_counts_above_the_world_raise():

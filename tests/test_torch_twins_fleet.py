@@ -1,0 +1,98 @@
+"""The port's ``serve_fleet`` twin (examples/serve_fleet.py's), on the CPU
+as a user runs it: the tiny LM over a health-checked Router.
+
+* Run as its own process with ``--kill-replica-after`` (and with
+  ``--disagg``): exit 0, the eviction line, zero requests lost, the
+  accounting invariant.
+* ``main(argv)`` in-process for the rolling restart and hedging: every
+  request served, none failed.
+* ``--help`` lists every flag of the JAX script in both spellings; each
+  flag whose module is not ported (tenancy, A12b; operations, A13) fails
+  with a parser error naming its ROADMAP item.
+"""
+
+import importlib
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from test_torch_twins import _help
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(args, timeout=300):
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
+    p = subprocess.run([sys.executable, "-m",
+                        "dtdl_tpu_torch.examples.serve_fleet", "--platform",
+                        "cpu", *args], cwd=REPO, env=env, text=True,
+                       capture_output=True, timeout=timeout)
+    assert p.returncode == 0, (p.stdout + p.stderr)[-4000:]
+    return p.stdout
+
+
+@pytest.mark.parametrize("extra", [[], ["--disagg", "--n-replicas", "3"]],
+                         ids=["mixed", "disagg"])
+def test_twin_fails_over_with_zero_lost(extra):
+    out = _run(["--n-requests", "8", "--max-new-tokens", "6",
+                "--kill-replica-after", "3", *extra])
+    assert "fault armed: replica 0's worker dies at loop iteration 3" in out
+    assert re.search(r"evicted replica 0 \([\d.]+ms after worker death\)",
+                     out), out
+    assert "requests lost: 0" in out and "[OK]" in out
+    assert re.search(r"served 8/8 requests over \d replicas", out), out
+    if extra:
+        assert "disaggregation (prefill/decode/decode): migrations" in out
+
+
+@pytest.mark.parametrize("extra", [["--rolling-restart"],
+                                   ["--hedge-after", "0.0001"]],
+                         ids=["rolling", "hedge"])
+def test_twin_main_restarts_and_hedges(extra, capsys):
+    from dtdl_tpu_torch.examples import serve_fleet
+    reqs, s, _ = serve_fleet.main(["--platform", "cpu", "--n-requests", "6",
+                                   "--max-new-tokens", "4", *extra])
+    assert all(r.done and r.error is None and len(r.tokens) == 4
+               for r in reqs)
+    assert s["fleet_accounting_ok"] and s["fleet_requests_failed"] == 0
+    if extra[0] == "--rolling-restart":
+        assert s["fleet_restarts"] == 2
+        assert "rolling restart done" in capsys.readouterr().out
+    else:
+        assert s["fleet_hedges"] >= 1
+
+
+def test_twin_parses_help_with_the_jax_examples_flags(monkeypatch):
+    monkeypatch.setenv("COLUMNS", "1000")
+    port = importlib.import_module("dtdl_tpu_torch.examples.serve_fleet")
+    got = set(re.findall(r"--[\w-]+", _help(port, "serve_fleet")))
+    monkeypatch.syspath_prepend(os.path.join(REPO, "examples"))
+    jax_twin = importlib.import_module("serve_fleet")
+    want = set(re.findall(r"--[\w-]+", _help(jax_twin, "serve_fleet")))
+    assert want <= got, sorted(want - got)
+    words = [f[2:] for f in got if ("_" in f[2:] or "-" in f[2:])
+             and not f.startswith("--no-")]
+    assert words and all(f"--{w.replace('-', '_')}" in got and
+                         f"--{w.replace('_', '-')}" in got for w in words)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--lora", "a.pt"], "A12b"), (["--json-schema", "s.json"], "A12b"),
+    (["--stream"], "A12b"), (["--trace", "t.json"], "A13"),
+    (["--metrics-jsonl", "m.jsonl"], "A13"), (["--metrics-port", "0"], "A13"),
+    (["--slo-ttft-p99", "0.5"], "A13"), (["--slo-availability", "0.999"],
+                                         "A13"),
+])
+def test_twin_refuses_unported_flags_by_item(flag, item, capsys):
+    from dtdl_tpu_torch.examples import serve_fleet
+    with pytest.raises(SystemExit) as e:
+        serve_fleet.main(["--platform", "cpu", *flag])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"--{flag[0][2:]} is ROADMAP queue {item}" in err, err
