@@ -208,6 +208,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
                then one corrupt disk record quarantined and recomputed; (f)
                the serve_fleet twin with --disagg --kill-replica-after 5,
                zero requests lost;
+7l. tenant   - tenancy (serve/tenant/): (a) base bf16, page 16, 8 slots,
+               a LoRA bank of rank 16 with 3 loadable rows, five adapters
+               saved through save_weights (each delta ~10% of its
+               projection's output RMS, measured), the serve phase's 16
+               requests round-robin over [base, A-E] in two waves: paired
+               with an engine without a bank (plain, lora, lora, plain:
+               tokens/s, TTFT p50/p99), bank loads and evictions (>= 2),
+               K4 launches, prefix-hit pages by adapter (hits only within
+               one adapter), every request against a plain engine serving
+               merge_adapter(model, its adapter) under the near-tie rule;
+               (b) at 2 layers in f32 the same traffic exactly the merged
+               oracle, paged and dense, plain, chunked (256) and
+               speculate=4; (c) a JSON schema over byte_vocab(32000): 8
+               constrained and 8 free requests at base bf16 (every token
+               legal, every EOS-ended output parsing), constrained against
+               free tokens/s, mask bytes packed and dense, and at 2 layers
+               f32 the eager masked argmax exactly, plain, speculate=4 and
+               chunked, K4 once per layer in every step; (d) every request
+               streamed (closed, not divergent, equal to its tokens), then
+               a Router of 3 replicas of the LoRA engine with the fleet
+               phase's faults: 0 lost, 0 divergent streams; (e) the
+               serve_lm and serve_fleet twins with --lora/--stream
+               (serve_lm with --json-schema), exit 0;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -244,7 +267,7 @@ PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
           "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
-          "fleet", "timing")
+          "fleet", "timing", "tenant")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -4748,6 +4771,554 @@ def phase_fleet(torch, seed, card):
     return out
 
 
+TENANT_RANK = 16
+TENANT_ROWS = 4                   # row 0 the base, 3 loadable rows
+TENANT_NAMES = ("A", "B", "C", "D", "E")
+# each adapter's delta as a share of its projection's output RMS
+TENANT_SHARE = 0.1
+TENANT_CHUNK = 256
+TENANT_EOS = 31999
+TENANT_SCHEMA = {"type": "object", "properties": {
+    "id": {"type": "integer"}, "name": {"type": "string"},
+    "ok": {"type": "boolean"}}}
+# the fleet twin at base width takes the fleet phase's watchdog (2 s): its
+# replica threads' admission steps (4 prefills) take up to ~0.3 s of host
+# time there with the LoRA path on, past the twin's default of 0.25 s,
+# which is sized for its tiny model
+TENANT_TWINS = (
+    ("serve_lm", ["--model-size", "base", "--dtype", "bfloat16",
+                  "--page-size", "16", "--n-slots", "8", "--n-requests",
+                  "12", "--stream"]),
+    ("serve_fleet", ["--model-size", "base", "--dtype", "bfloat16",
+                     "--stream", "--kill-replica-after", "3",
+                     "--watchdog", str(FLEET_KNOBS["watchdog_s"])]),
+)
+
+
+def tenant_dir(*parts) -> str:
+    path = os.path.join(ROOT, "build", "tenant", *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def tenant_activations(torch, model, prompt) -> dict:
+    """The inputs of every attention's q and out projections over one
+    cacheless forward of ``prompt``: ``{(block, "q" | "out"): [S, in]}``
+    f32 (k and v read q's input)."""
+    acts, hooks = {}, []
+    for i, block in enumerate(model.blocks):
+        for name in ("q", "out"):
+            def grab(mod, args, key=(i, name)):
+                acts[key] = args[0].reshape(-1, args[0].shape[-1]).float()
+            hooks.append(getattr(block.attn, name)
+                         .register_forward_pre_hook(grab))
+    with torch.no_grad():
+        model(torch.tensor([prompt], device=DEV))
+    for h in hooks:
+        h.remove()
+    return acts
+
+
+def tenant_ratio(torch, model, acts, tree, i, proj) -> float:
+    """RMS of adapter ``tree``'s delta over RMS of the projection's output
+    on the captured inputs of block ``i``'s ``proj``."""
+    x = acts[(i, "out" if proj == "out" else "q")]
+    w = getattr(model.blocks[i].attn, proj).kernel.detach().reshape(
+        x.shape[1], -1).float()
+    leaves = tree[f"block_{i}"]["attn"]
+    a = torch.as_tensor(leaves[f"{proj}_a"], device=DEV).reshape(
+        x.shape[1], -1)
+    b = torch.as_tensor(leaves[f"{proj}_b"], device=DEV).reshape(
+        a.shape[1], -1)
+    return float(((x @ a) @ b).pow(2).mean().sqrt()
+                 / (x @ w).pow(2).mean().sqrt())
+
+
+def tenant_adapters(torch, model, seed, calib, probe):
+    """Five rank-16 adapters from ``seed``: A ~ N(0, 1/fan_in), B ~
+    N(0, 1/r), each B then scaled so that its delta is TENANT_SHARE of its
+    projection's output RMS on the activations of the prompt ``calib``;
+    saved through the port's save_weights into build/tenant/adapters.
+    Returns ({name: (path, tree)}, the ratios measured on another prompt,
+    ``probe``)."""
+    import numpy as np
+    from dtdl_tpu_torch.ckpt.checkpoint import save_weights
+    from dtdl_tpu_torch.serve.tenant import adapter_template
+    rng = np.random.default_rng(seed + 17)
+    tpl = adapter_template(model, TENANT_RANK)
+    cal = tenant_activations(torch, model, calib)
+    out = {}
+    for name in TENANT_NAMES:
+        tree = {b: {"attn": {n: (rng.normal(0, 1, z.shape)
+                                 / math.sqrt(z.size / z.shape[-1]
+                                             if n.endswith("_a")
+                                             else TENANT_RANK))
+                             .astype(np.float32)
+                             for n, z in sub["attn"].items()}}
+                for b, sub in tpl.items()}
+        for i in range(model.cfg.n_layers):
+            for proj in ("q", "k", "v", "out"):
+                r = tenant_ratio(torch, model, cal, tree, i, proj)
+                tree[f"block_{i}"]["attn"][f"{proj}_b"] *= np.float32(
+                    TENANT_SHARE / r)
+        path = os.path.join(tenant_dir("adapters"), f"{name}.pt")
+        save_weights(path, tree)
+        out[name] = (path, tree)
+    pro = tenant_activations(torch, model, probe)
+    ratios = [tenant_ratio(torch, model, pro, tree, i, proj)
+              for _, tree in out.values()
+              for i in range(model.cfg.n_layers)
+              for proj in ("q", "k", "v", "out")]
+    return out, ratios
+
+
+def tenant_shallow(adapters, n_layers):
+    """The first ``n_layers`` blocks of each adapter, saved beside the
+    full ones (build/tenant/adapters_<n>)."""
+    from dtdl_tpu_torch.ckpt.checkpoint import save_weights
+    out = {}
+    for name, (_, tree) in adapters.items():
+        sub = {f"block_{i}": tree[f"block_{i}"] for i in range(n_layers)}
+        path = os.path.join(tenant_dir(f"adapters_{n_layers}"), f"{name}.pt")
+        save_weights(path, sub)
+        out[name] = (path, sub)
+    return out
+
+
+def tenant_waves(n):
+    """Tenants round-robin over [base, A, B, C, D, E] (None the base) and
+    two waves that keep at most 3 adapters in flight, as the bank's 3
+    loadable rows hold them (a full bank sheds): the second wave's D and
+    E evict two of A-C."""
+    tenants = [((None,) + TENANT_NAMES)[i % 6] for i in range(n)]
+    return tenants, [[i for i in range(n) if i % 6 < 4],
+                     [i for i in range(n) if i % 6 >= 4]]
+
+
+def tenant_serve(torch, eng, traffic, tenants, waves, adapters=None,
+                 grammar=None, constrained=(), record=None, speculate=0,
+                 **sched_kw):
+    """The traffic through one Scheduler (harvest lag 4) on ``eng``, wave
+    after wave: request i under adapter ``adapters[tenants[i]]`` (the
+    base for None, or for every request when ``adapters`` is None),
+    under ``grammar`` when i is in ``constrained``, each with a
+    TokenStream.  ``record`` receives (adapter, prompt, prefix-hit pages)
+    of every admission's prefix match.  (requests, scheduler, wall s)."""
+    from dtdl_tpu_torch.serve import Request, Scheduler, TokenStream
+    sched = Scheduler(eng, harvest_lag=4, device=DEV, **sched_kw)
+    if record is not None:
+        match = sched.pages.match_prefix
+
+        def spy(prompt, adapter=None):
+            hits = match(prompt, adapter)
+            record.append((adapter, list(prompt), len(hits)))
+            return hits
+        sched.pages.match_prefix = spy
+    reqs = []
+    for i, (p, m) in enumerate(traffic):
+        g = grammar if i in constrained else None
+        reqs.append(Request(
+            list(p), m, speculate=speculate,
+            adapter=(None if adapters is None or tenants[i] is None
+                     else adapters[tenants[i]][0]),
+            grammar=g, eos_id=TENANT_EOS if g is not None else None,
+            stream=TokenStream()))
+    sync(torch)
+    t0 = time.perf_counter()
+    for wave in waves:
+        sched.run([reqs[i] for i in wave])
+    sync(torch)
+    return reqs, sched, time.perf_counter() - t0
+
+
+def tenant_streams_ok(label, reqs):
+    """Every request finished without error, its stream closed, not
+    divergent and equal to its tokens."""
+    bad = [(r.rid, r.error) for r in reqs if not r.done or r.error]
+    div = [(r.rid, r.stream.closed, r.stream.divergent,
+            len(r.stream.tokens), len(r.tokens)) for r in reqs
+           if not r.stream.closed or r.stream.divergent
+           or r.stream.tokens != r.tokens]
+    if bad or div:
+        raise AssertionError(f"tenant {label}: failed {bad}, streams open "
+                             f"or parted (rid, closed, divergent, streamed,"
+                             f" tokens) {div}")
+
+
+def tenant_oracle(torch, model, traffic, tenants, adapters, **engine_kw):
+    """The merged-weights oracle: each tenant's requests on a plain engine
+    (8 slots, no bank) serving ``merge_adapter(model, its adapter)``, the
+    base's on ``model``.  (requests in traffic order, {tenant: model})."""
+    from dtdl_tpu_torch.serve import (InferenceEngine, Request, Scheduler,
+                                      merge_adapter)
+    out, models = [None] * len(traffic), {}
+    for tenant in (None,) + TENANT_NAMES:
+        idx = [i for i, t in enumerate(tenants) if t == tenant]
+        if not idx:
+            continue
+        m = model if tenant is None else merge_adapter(model,
+                                                       adapters[tenant][1])
+        models[tenant] = m
+        eng = InferenceEngine(m, n_slots=8, device=DEV, **engine_kw)
+        reqs = [Request(list(traffic[i][0]), traffic[i][1]) for i in idx]
+        Scheduler(eng, harvest_lag=4, device=DEV).run(reqs)
+        for i, r in zip(idx, reqs):
+            out[i] = r
+    return out, models
+
+
+def tenant_exact(label, got, want, idx=None):
+    """``got[i]`` carries exactly ``want[i]``'s tokens for every i (of
+    ``idx``)."""
+    idx = range(len(got)) if idx is None else idx
+    diff = [i for i in idx if got[i].error or got[i].tokens != want[i]]
+    if diff:
+        first = [(got[i].tokens, want[i]) for i in diff[:2]]
+        raise AssertionError(f"tenant {label}: requests {diff} differ from "
+                             f"the oracle: {first}")
+
+
+def tenant_step_launches(eng):
+    """Wrap ``eng.decode``/``eng.verify``: each call's K4 launches are
+    appended to the returned list."""
+    from dtdl_tpu_torch import kernels
+    sink = []
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            before = kernels.LAUNCHES["paged_attention"]
+            out = fn(*args, **kwargs)
+            sink.append(kernels.LAUNCHES["paged_attention"] - before)
+            return out
+        return wrapper
+    eng.decode, eng.verify = counted(eng.decode), counted(eng.verify)
+    return sink
+
+
+def masked_oracle(torch, model, prompt, n_new, dfa):
+    """Eager masked argmax: the cacheless forward's last logits masked
+    by the automaton's state, one token at a time, to EOS or
+    ``n_new``."""
+    import numpy as np
+    q, out, seq = dfa.start, [], list(prompt)
+    with torch.no_grad():
+        for _ in range(n_new):
+            lg = model(torch.tensor([seq], device=DEV))[0, -1]
+            keep = torch.from_numpy(dfa.mask(q)).to(DEV)
+            t = int(torch.where(keep, lg, torch.full_like(lg, -np.inf))
+                    .argmax())
+            out.append(t)
+            q = dfa.step(q, t)
+            seq.append(t)
+            if t == dfa.eos_id:
+                break
+    return out
+
+
+def json_ok(tokens) -> bool:
+    """``tokens`` (EOS last) spell a JSON object of TENANT_SCHEMA."""
+    try:
+        obj = json.loads("".join(chr(t) for t in tokens[:-1]))
+    except ValueError:
+        return False
+    return (isinstance(obj, dict) and list(obj) == ["id", "name", "ok"]
+            and type(obj["id"]) is int and isinstance(obj["name"], str)
+            and isinstance(obj["ok"], bool))
+
+
+def phase_tenant(torch, seed, card):
+    """Tenancy at base width: (a) LoRA in bf16 against a bank-free engine
+    and the merged oracle, (b) LoRA at 2 layers in f32 exactly, (c)
+    grammars, (d) streams and a faulted fleet, (e) the twins."""
+    import numpy as np
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
+    from dtdl_tpu_torch.serve import (InferenceEngine, Request, Router,
+                                      TokenStream, byte_vocab,
+                                      compile_json_schema, mask_words)
+    import shutil
+    shutil.rmtree(os.path.join(ROOT, "build", "tenant"), ignore_errors=True)
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    n_layers, vocab = model.cfg.n_layers, model.cfg.vocab_size
+    traffic = make_traffic(seed, vocab)
+    n_tok = sum(m for _, m in traffic)
+    adapters, ratios = tenant_adapters(torch, model, seed,
+                                       traffic[1][0][:512],
+                                       traffic[3][0][:512])
+    tenants, waves = tenant_waves(len(traffic))
+    out = {}
+
+    # (a) LoRA at full width in bf16, paired with the same requests on an
+    # engine without a bank (plain, lora, lora, plain)
+    lora_eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV,
+                               lora_rank=TENANT_RANK,
+                               lora_adapters=TENANT_ROWS)
+    plain_eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    tenant_serve(torch, lora_eng, traffic[:2], tenants, [[0, 1]],
+                 adapters)                                        # warm-up
+    bank = lora_eng.adapter_bank
+    runs, record = {"plain": [], "lora": []}, []
+    for kind in ("plain", "lora", "lora", "plain"):
+        first = kind == "lora" and not runs["lora"]
+        if first:
+            kernels.reset_launches()
+            counts0 = (bank.n_loads, bank.n_evictions)
+        runs[kind].append(tenant_serve(
+            torch, lora_eng if kind == "lora" else plain_eng, traffic,
+            tenants, waves, adapters if kind == "lora" else None,
+            record=record if first else None))
+        if first:
+            k4 = kernels.LAUNCHES["paged_attention"]
+            loads, evictions = (bank.n_loads - counts0[0],
+                                bank.n_evictions - counts0[1])
+    for kind, got in runs.items():
+        for reqs, _, _ in got:
+            tenant_streams_ok(f"(a) {kind}", reqs)
+    if k4 <= 0 or k4 % n_layers or evictions < 2:
+        raise AssertionError(f"tenant (a): K4 launches {k4}, evictions "
+                             f"{evictions}")
+    out["lora"] = k4
+    # prefix hits only between requests of one adapter; a prefix shared
+    # with another adapter's earlier request maps nothing
+    hits_by, cross = {}, 0
+    for j, (adapter, prompt, n) in enumerate(record):
+        seen = record[:j]
+        if n and not any(a == adapter and p[:16 * n] == prompt[:16 * n]
+                         for a, p, _ in seen):
+            raise AssertionError(f"tenant (a): {n} prefix-hit pages with no "
+                                 f"earlier request of {adapter}")
+        if not n and any(a != adapter and p[:16] == prompt[:16]
+                         for a, p, _ in seen):
+            cross += 1
+        name = "base" if adapter is None else os.path.basename(adapter)
+        hits_by[name] = hits_by.get(name, 0) + n
+    if not cross or not sum(hits_by.values()):
+        raise AssertionError(f"tenant (a): prefix-hit pages by adapter "
+                             f"{hits_by}, cross-adapter misses {cross}")
+    lora_reqs = runs["lora"][0][0]
+    tau = fleet_tau(torch, model, traffic[0][0])
+    oracle, merged = tenant_oracle(torch, model, traffic, tenants, adapters,
+                                   page_size=16)
+    parts = []
+    for tenant, m in merged.items():
+        idx = [i for i, t in enumerate(tenants) if t == tenant]
+        parts += near_tie_divergences(torch, m, [oracle[i] for i in idx],
+                                      [lora_reqs[i] for i in idx], tau)
+    del merged, oracle
+
+    def rate(run):
+        s = run[1].metrics.summary()
+        return n_tok / run[2], s["ttft_s_p50"], s["ttft_s_p99"]
+    st = {k: [rate(r) for r in v] for k, v in runs.items()}
+    out["lora_tokens_per_s"] = [r[0] for r in st["lora"]]
+    out["plain_tokens_per_s"] = [r[0] for r in st["plain"]]
+    bank_bytes = lora_eng.compile_stats()["lora"]["bank_bytes"]
+    log(f"tenant (a) LoRA base bf16 page 16 (8 slots), rank {TENANT_RANK}, "
+        f"{TENANT_ROWS} bank rows ({bank_bytes} bytes), tenants [base, A-E] round-robin over the serve phase's 16 "
+        f"requests in two waves: delta/projection RMS on a probe prompt mean "
+        f"{np.mean(ratios):.4f} min {min(ratios):.4f} max {max(ratios):.4f};"
+        f" tokens_per_s (plain, lora, lora, plain) {st['plain'][0][0]:.2f} "
+        f"{st['lora'][0][0]:.2f} {st['lora'][1][0]:.2f} "
+        f"{st['plain'][1][0]:.2f}; ttft_s p50/p99 lora "
+        f"{st['lora'][0][1]:.4f}/{st['lora'][0][2]:.4f} plain "
+        f"{st['plain'][0][1]:.4f}/{st['plain'][0][2]:.4f}; bank loads "
+        f"{loads} evictions {evictions}; K4 launches {k4}; prefix-hit pages "
+        f"by adapter {hits_by}, cross-adapter shared-prefix misses {cross}; "
+        f"{len(traffic) - len(parts)}/16 identical to the merged oracle, "
+        f"partings (position, top-two gap) {parts} within tau {tau:.4e} | "
+        f"{card}")
+    del plain_eng
+
+    # (b) LoRA at 2 layers in f32: exactly the merged oracle, paged and
+    # dense, plain, chunked and speculative
+    t_b = time.perf_counter()
+    m2 = transformer_lm("base", n_layers=2, seed=seed, dtype=torch.float32,
+                        device=DEV)
+    ad2 = tenant_shallow(adapters, 2)
+    modes = (("plain", {}, 0), ("chunked", {"chunk_tokens": TENANT_CHUNK}, 0),
+             ("spec", {}, 4))
+    spec_steps = {}
+    for arena, geo in (("paged", {"page_size": 16}),
+                       ("dense", {"page_size": 0})):
+        oracle, _ = tenant_oracle(torch, m2, traffic, tenants, ad2, **geo)
+        eng = InferenceEngine(m2, n_slots=8, device=DEV,
+                              lora_rank=TENANT_RANK,
+                              lora_adapters=TENANT_ROWS, **geo)
+        for mode, kw, spec in modes:
+            got, sched, _ = tenant_serve(torch, eng, traffic, tenants, waves,
+                                         ad2, speculate=spec, **kw)
+            tenant_exact(f"(b) {arena} {mode}", got,
+                         [r.tokens for r in oracle])
+            tenant_streams_ok(f"(b) {arena} {mode}", got)
+            if spec:
+                spec_steps[arena] = sched.metrics.summary()["spec_steps"]
+        del eng
+    if not all(spec_steps.values()):
+        raise AssertionError(f"tenant (b): no verify step {spec_steps}")
+    log(f"tenant (b) LoRA base widths, 2 layers, f32, the same requests and "
+        f"waves (requests 0 on the base and 2 under B share a 256-token "
+        f"prefix): token-identical to the merged oracle on the paged and "
+        f"the dense arena, plain, chunked ({TENANT_CHUNK}) and speculate=4 "
+        f"(verify steps {spec_steps}) ({time.perf_counter() - t_b:.1f} s) | "
+        f"{card}")
+
+    # (c) grammars: the schema over the byte vocabulary, compiled on the
+    # host outside every timed window
+    t0 = time.perf_counter()
+    dfa = compile_json_schema(TENANT_SCHEMA, byte_vocab(vocab), TENANT_EOS)
+    compile_s = time.perf_counter() - t0
+    constrained = set(range(0, len(traffic), 2))
+    free = [i for i in range(len(traffic)) if i not in constrained]
+    kernels.reset_launches()
+    mixed, msched, _ = tenant_serve(torch, lora_eng, traffic, tenants,
+                                    [list(range(len(traffic)))],
+                                    grammar=dfa, constrained=constrained)
+    out["grammar"] = kernels.LAUNCHES["paged_attention"]
+    tenant_streams_ok("(c) mixed", mixed)
+    illegal = [i for i in constrained if dfa.walk(mixed[i].tokens) < 0]
+    ended = [i for i in constrained if mixed[i].tokens[-1] == TENANT_EOS]
+    bad_json = [i for i in ended if not json_ok(mixed[i].tokens)]
+    if illegal or bad_json or out["grammar"] <= 0:
+        raise AssertionError(f"tenant (c): illegal tokens in {illegal}, "
+                             f"EOS-ended requests that do not parse "
+                             f"{bad_json}, K4 launches {out['grammar']}")
+    alone = {}
+    for label, idx in (("constrained", sorted(constrained)),
+                       ("free", free)):
+        reqs, _, wall = tenant_serve(
+            torch, lora_eng, [traffic[i] for i in idx], tenants, [
+                list(range(len(idx)))], grammar=dfa,
+            constrained=set(range(len(idx))) if label == "constrained"
+            else ())
+        alone[label] = sum(len(r.tokens) for r in reqs) / wall
+    # at 2 layers in f32: the eager masked-argmax oracle, plain, with
+    # n-gram speculation (each verify window masked position by
+    # position) and chunked (the final chunk's bonus token masked)
+    e2 = InferenceEngine(m2, n_slots=8, page_size=16, device=DEV)
+    steps = tenant_step_launches(e2)
+    want = {i: masked_oracle(torch, m2, traffic[i][0], traffic[i][1], dfa)
+            for i in constrained}
+    rejected = {}
+    for mode, kw, spec in modes:
+        got, sched, _ = tenant_serve(torch, e2, traffic, tenants,
+                                     [list(range(len(traffic)))],
+                                     grammar=dfa, constrained=constrained,
+                                     speculate=spec, **kw)
+        tenant_exact(f"(c) 2 layers f32 {mode}", got, want,
+                     sorted(constrained))
+        rejected[mode] = sched.metrics.summary()["grammar_rejected_tokens"]
+    if any(n != 2 for n in steps):
+        raise AssertionError(f"tenant (c): K4 launches a step {set(steps)}, "
+                             f"want one per layer (2)")
+    words = mask_words(vocab)
+    log(f"tenant (c) grammar: {json.dumps(TENANT_SCHEMA)} over "
+        f"byte_vocab({vocab}) (EOS {TENANT_EOS}): {dfa.n_states} states, "
+        f"{dfa.nbytes()} bytes of tables, compiled in {compile_s:.3f} s on "
+        f"the host; base bf16, 8 constrained + 8 free requests mixed: every "
+        f"constrained token legal, {len(ended)}/8 ended by EOS, all parsing "
+        f"as the schema; K4 launches {out['grammar']}; tokens_per_s "
+        f"constrained alone {alone['constrained']:.2f} free alone "
+        f"{alone['free']:.2f} (ratio "
+        f"{alone['constrained'] / alone['free']:.3f}); mask bytes a decode "
+        f"step packed {8 * words * 4} dense {8 * vocab} (a verify step of "
+        f"width 5: {40 * words * 4} / {40 * vocab}); 2 layers f32: "
+        f"constrained tokens identical to the eager masked argmax, plain, "
+        f"speculate=4 and chunked ({TENANT_CHUNK}), K4 once per layer in "
+        f"all {len(steps)} steps; grammar_rejected_tokens {rejected} | "
+        f"{card}")
+    del e2, m2
+
+    # (d) streams through a faulted fleet: three replicas of the LoRA
+    # engine, replica 0's worker killed, replica 1's engine raising, run
+    # with the prefix cache on (recorded) and off (held).  Off, a retry on
+    # another replica computes its request as the failed attempt did; on,
+    # a hit on pages another prompt computed can part it at a bf16
+    # near-tie, which its stream rightly reports as divergent (the fleet
+    # phase holds (a)-(c) without the cache for the same reason)
+    names = (None, "A", "B")
+
+    def faulted_fleet(prefix_cache):
+        plan = (FaultPlan().at(replica_site(0, "loop"), 5)
+                .at(replica_site(1, "engine"), 20))
+        reqs = [Request(list(p), m, stream=TokenStream(),
+                        adapter=(None if names[i % 3] is None
+                                 else adapters[names[i % 3]][0]),
+                        grammar=dfa if i % 4 == 1 else None,
+                        eos_id=TENANT_EOS if i % 4 == 1 else None)
+                for i, (p, m) in enumerate(traffic)]
+        kernels.reset_launches()
+        with Router(lora_eng, n_replicas=FLEET_REPLICAS, device=DEV,
+                    plan=plan, sched_kwargs={"harvest_lag": 4,
+                                             "prefix_cache": prefix_cache},
+                    **FLEET_KNOBS) as router:
+            for r in reqs:
+                router.submit(r)
+            if not router.wait(reqs, timeout_s=300):
+                raise AssertionError(f"tenant (d): the fleet did not settle "
+                                     f"(pump_error={router.pump_error})")
+        s = router.summary()
+        lost = s["fleet_requests_submitted"] - (
+            s["fleet_requests_finished"] + s["fleet_requests_rejected"]
+            + s["fleet_requests_expired"] + s["fleet_requests_failed"]
+            + s["fleet_requests_aborted"])
+        bad = [r.rid for r in reqs if not r.done or r.error]
+        if lost or bad or len(plan.log) != 2 \
+                or not s["fleet_accounting_ok"]:
+            raise AssertionError(f"tenant (d): lost {lost}, failed {bad}, "
+                                 f"faults fired {plan.log}")
+        return reqs, s, sum(r.stream.divergent for r in reqs)
+    _, s_on, div_on = faulted_fleet(True)
+    reqs, s, _ = faulted_fleet(False)
+    out["fleet"] = fleet_k4(FLEET_REPLICAS)
+    tenant_streams_ok("(d) fleet", reqs)
+    by_adapter = {os.path.basename(k): v
+                  for k, v in s["fleet_tokens_by_adapter"].items()}
+    log(f"tenant (d) streams: every request of (a) and (c) streamed, each "
+        f"stream closed, not divergent, equal to its tokens; a Router of "
+        f"{FLEET_REPLICAS} replicas of the LoRA engine (replica 0's worker "
+        f"killed at loop iteration 5, replica 1's engine raising at call "
+        f"20) over the 16 requests (tenants base/A/B, every 4th "
+        f"constrained), prefix cache off: requests lost 0, divergent "
+        f"streams 0, retries {s['fleet_retries']}, evictions "
+        f"{s['fleet_evictions']}, stream deliveries "
+        f"{s['fleet_stream_deliveries']}, fleet_tokens_by_adapter "
+        f"{by_adapter}, K4 by replica {out['fleet']}; prefix cache on: lost 0, "
+        f"divergent streams {div_on} (retries {s_on['fleet_retries']}) | "
+        f"{card}")
+    del lora_eng
+
+    # (e) the twins, each as a user runs it
+    d = tenant_dir("twins")
+    schema = os.path.join(d, "schema.json")
+    with open(schema, "w") as f:
+        json.dump(TENANT_SCHEMA, f)
+    lora = f"{os.path.join(d, 'a.pt')},{os.path.join(d, 'b.pt')}"
+    for name, args in TENANT_TWINS:
+        extra = ["--lora", lora, "--seed", str(seed)]
+        if name == "serve_lm":
+            extra += ["--json-schema", schema]
+        text, secs = twin_run(name, [*args, *extra], ROOT,
+                              os.path.join(d, f"{name}.log"))
+        served = re.search(r"served (\d+)/(\d+) requests", text)
+        if name == "serve_fleet" and (
+                "requests lost: 0" not in text
+                or "divergent streams: 0" not in text
+                or not served or served[1] != served[2]
+                or "0 with named errors" not in text):
+            raise AssertionError(f"tenant (e): {name}:\n{text[-3000:]}")
+        if "multi-lora (2 adapters" not in text:
+            raise AssertionError(f"tenant (e): {name}:\n{text[-3000:]}")
+        lines = [x.strip() for x in text.splitlines()
+                 if re.match(r"\s*(served|multi-lora|constrained|streaming)",
+                             x)]
+        log(f"tenant (e) twin {name} {' '.join(args)} --lora a,b"
+            f"{' --json-schema' if name == 'serve_lm' else ''}: exit 0 "
+            f"({secs:.1f} s): {' / '.join(lines)} | {card}")
+    return out
+
+
 def phase_profile_fourd(torch, seed, steps: int = 2):
     """Where the fourd phase's 4D step's device time goes (torch.profiler):
     the dense base-width 1F1B step and the routed top-2 MoE one, each by
@@ -5141,10 +5712,15 @@ def main(argv=None) -> int:
     if "gspmd" in phases:
         phase_gspmd(torch, args.seed, card)
     ended("gspmd")
-    fleet_launches = None
+    fleet_launches = tenant_launches = None
     if "fleet" in phases:
         fleet_launches = phase_fleet(torch, args.seed, card)
     ended("fleet")
+    # tenancy before the timing phase, whose kernels line reports its K4
+    # launches
+    if "tenant" in phases:
+        tenant_launches = phase_tenant(torch, args.seed, card)
+    ended("tenant")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
@@ -5230,6 +5806,7 @@ def main(argv=None) -> int:
              "replaces": "dtdl_tpu/ops/paged_attention.py:88",
              "launches": k4_launches,
              "launches_fleet": fleet_launches,
+             "launches_tenant": tenant_launches,
              "max_abs_err": errors.get("decode S=1 bf16"),
              **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},

@@ -147,3 +147,69 @@ def sgd_steplr(lr: float, momentum: float, weight_decay: float,
                                  staircase=True)
     return sgd(schedule, momentum=momentum,
                weight_decay=weight_decay), schedule
+
+
+def demo_adapters(model, lora: str, rank: int) -> list:
+    """The adapter paths of ``--lora`` (comma-separated); a path that does
+    not exist yet gets a random demo adapter saved there (normal, std
+    0.02, from a seed that is a stable digest of the path), as the JAX
+    serving examples do."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from dtdl_tpu_torch.ckpt.checkpoint import save_weights
+    from dtdl_tpu_torch.serve.tenant import adapter_template
+    paths = [p for p in lora.split(",") if p]
+    for p in paths:
+        if os.path.exists(p):
+            continue
+        seed = int.from_bytes(hashlib.blake2b(p.encode(),
+                                              digest_size=4).digest(),
+                              "little")
+        rng = np.random.default_rng(seed)
+        tpl = adapter_template(model, rank)
+        save_weights(p, {b: {"attn": {n: rng.normal(0, 0.02, a.shape)
+                                         .astype(np.float32)
+                                         for n, a in sub["attn"].items()}}
+                         for b, sub in tpl.items()})
+        print(f"  --lora: saved demo adapter to {p}")
+    return paths
+
+
+def json_schema_dfa(model, path: str, ap):
+    """``(dfa, eos)`` for ``--json-schema``: the schema file compiled over
+    the byte vocabulary (token i is ``chr(i)``), EOS the last token."""
+    import json
+
+    from dtdl_tpu_torch.serve.tenant import byte_vocab, compile_json_schema
+    vocab = model.cfg.vocab_size
+    if vocab < 128:
+        ap.error("--json-schema needs a vocab covering ASCII (>= 128); "
+                 f"this model has {vocab}")
+    with open(path) as f:
+        schema = json.load(f)
+    eos = vocab - 1
+    return compile_json_schema(schema, byte_vocab(vocab), eos_id=eos), eos
+
+
+def json_report(reqs, eos: int) -> tuple[int, int]:
+    """``(complete, cut)`` over constrained requests with the byte
+    vocabulary: how many ended in EOS with a body that parses as JSON,
+    and how many finished cleanly without EOS (the token budget ran out
+    mid-structure)."""
+    import json
+    complete = cut = 0
+    for r in reqs:
+        if r.error is not None:
+            continue
+        if not r.tokens or r.tokens[-1] != eos:
+            cut += 1
+            continue
+        try:
+            json.loads("".join(chr(t) for t in r.tokens[:-1]))
+        except ValueError:
+            continue
+        complete += 1
+    return complete, cut

@@ -14,12 +14,17 @@ retries, hedging, rolling restarts and prefill/decode disaggregation.
     python -m dtdl_tpu_torch.examples.serve_fleet --hedge-after 0.05
     python -m dtdl_tpu_torch.examples.serve_fleet --model-size base \\
         --disagg --kill-replica-after 5
+    # tenants: base + two LoRA adapters, token streams, JSON output
+    python -m dtdl_tpu_torch.examples.serve_fleet --lora a.pt,b.pt \\
+        --stream --json-schema schema.json --kill-replica-after 3
 
 It runs on the card (every paged attend through the paged-attention
-kernel) unless ``--platform cpu``.  Not ported yet, and refused by name:
-``--lora``, ``--json-schema`` and ``--stream`` (ROADMAP queue A12b,
-tenancy); ``--trace``, ``--metrics-jsonl``, ``--metrics-port``,
-``--slo-ttft-p99`` and ``--slo-availability`` (queue A13, operations).
+kernel) unless ``--platform cpu``.  With ``--stream`` it reports the
+streams that parted from their request's tokens (``divergent streams``,
+0 unless a loser of a retry or hedge streamed).  Not ported yet, and
+refused by name: ``--trace``, ``--metrics-jsonl``, ``--metrics-port``,
+``--slo-ttft-p99`` and ``--slo-availability`` (ROADMAP queue A13,
+operations).
 """
 
 import time
@@ -27,19 +32,20 @@ import time
 import numpy as np
 import torch
 
-from dtdl_tpu_torch.examples.common import add_device_flags, bootstrap
+from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
+                                            demo_adapters, json_report,
+                                            json_schema_dfa)
 from dtdl_tpu_torch.models import transformer_lm
 from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
-from dtdl_tpu_torch.serve import InferenceEngine, Request, Router
+from dtdl_tpu_torch.serve import (InferenceEngine, Request, Router,
+                                  TokenStream)
 from dtdl_tpu_torch.utils.config import flag, make_parser
 from dtdl_tpu_torch.utils.random import seed_everything
 
-_A12B = "ROADMAP queue A12b (tenancy)"
 _A13 = "ROADMAP queue A13 (operations)"
 # flags whose modules are not ported yet -> (the value that means off,
 # the ROADMAP item that ports them)
 REFUSED = {
-    "lora": ("", _A12B), "json_schema": ("", _A12B), "stream": (False, _A12B),
     "trace": (None, _A13), "metrics_jsonl": (None, _A13),
     "metrics_port": (-1, _A13), "slo_ttft_p99": (0.0, _A13),
     "slo_availability": (0.0, _A13),
@@ -88,13 +94,19 @@ def parser():
          help="chunked prefill on every replica: per-step prompt token "
               "budget (0 = whole-prompt; 16 under --disagg)")
     flag(p, "--lora", default="",
-         help="multi-tenant LoRA adapters: ROADMAP queue A12b")
+         help="multi-tenant LoRA across the fleet: comma-separated "
+              "adapter checkpoint paths; requests round-robin over base + "
+              "adapters (a missing path gets a random demo adapter saved "
+              "there)")
     flag(p, "--lora-rank", type=int, default=8,
-         help="adapter rank for --lora")
+         help="adapter rank for --lora (must match saved adapters)")
     flag(p, "--json-schema", default="",
-         help="grammar-constrained decoding: ROADMAP queue A12b")
+         help="grammar-constrained decoding: a JSON-schema file; every "
+              "request's output is masked to valid JSON for it")
     flag(p, "--stream", action="store_true",
-         help="per-request token streams: ROADMAP queue A12b")
+         help="attach a TokenStream per request; delivery stays "
+              "prefix-stable across retries and hedges (only the winning "
+              "attempt streams)")
     flag(p, "--seed", type=int, default=0)
     flag(p, "--dtype", default="float32", choices=["float32", "bfloat16"],
          help="the model's compute dtype (the JAX script serves f32)")
@@ -122,8 +134,12 @@ def main(argv=None):
     model = transformer_lm(args.model_size, attn_impl="dense",
                            dtype=getattr(torch, args.dtype), device=device,
                            seed=args.seed)
+    lora_paths = demo_adapters(model, args.lora, args.lora_rank)
     engine = InferenceEngine(model, n_slots=args.n_slots, buckets=(64,),
                              page_size=16 if args.disagg else 0,
+                             lora_rank=args.lora_rank if lora_paths else 0,
+                             lora_adapters=(len(lora_paths) + 1
+                                            if lora_paths else 0),
                              device=device)
     plan = None
     if args.kill_replica_after >= 0:
@@ -132,12 +148,19 @@ def main(argv=None):
         print(f"fault armed: replica 0's worker dies at loop iteration "
               f"{args.kill_replica_after}")
 
+    dfa = eos = None
+    if args.json_schema:
+        dfa, eos = json_schema_dfa(model, args.json_schema, ap)
     rng = np.random.default_rng(args.seed)
     hi = min(64, model.cfg.max_seq // 2)
+    tenants = [None] + lora_paths
+    streams = [TokenStream() if args.stream else None
+               for _ in range(args.n_requests)]
     reqs = [Request(rng.integers(0, model.cfg.vocab_size,
                                  int(rng.integers(4, hi))).tolist(),
-                    args.max_new_tokens)
-            for _ in range(args.n_requests)]
+                    args.max_new_tokens, adapter=tenants[i % len(tenants)],
+                    grammar=dfa, eos_id=eos, stream=streams[i])
+            for i in range(args.n_requests)]
 
     t0 = time.perf_counter()
     with Router(engine, n_replicas=args.n_replicas, plan=plan,
@@ -180,6 +203,24 @@ def main(argv=None):
         print(f"  disaggregation ({'/'.join(roles)}): migrations "
               f"{s['fleet_migrations']}  kv pages moved "
               f"{s['fleet_kv_handoff_pages']}")
+    if lora_paths:
+        mix = "  ".join(f"{k.rsplit('/', 1)[-1]}={v}" for k, v in
+                        sorted(s["fleet_tokens_by_adapter"].items()))
+        print(f"  multi-lora ({len(lora_paths)} adapters, rank "
+              f"{args.lora_rank}): tokens by tenant: {mix}")
+    if dfa is not None:
+        n_json, n_cut = json_report(reqs, eos)
+        print(f"  constrained ({args.json_schema}): {n_json}/{len(reqs)} "
+              f"valid JSON, {n_cut} cut by the token budget; illegal "
+              f"draft tokens trimmed {s['fleet_grammar_rejected_tokens']}")
+    if args.stream:
+        n_div = sum(1 for st in streams if st.divergent)
+        n_match = sum(1 for r, st in zip(reqs, streams)
+                      if r.error is None and st.closed
+                      and st.tokens == r.tokens)
+        print(f"  streaming: {s['fleet_stream_deliveries']} deliveries; "
+              f"{n_match}/{n_ok} clean streams token-exact; divergent "
+              f"streams: {n_div} (losers never stream)")
     for ev in evicts:
         lat = (f"{ev['detect_latency_s'] * 1e3:.1f}ms after worker "
                f"death" if ev["detect_latency_s"] is not None

@@ -11,11 +11,13 @@ paged-attention kernel on the card.
         --page-size 16 --shared-prefix 256 --dtype bfloat16
 
 ``--spill-host-mb`` (with ``--spill-dir``) puts the KV spill tiers behind
-the prefix cache of a paged arena.  ``--platform cpu`` runs on the CPU.
-Not ported yet, and refused by name: LoRA tenants (``--lora``), grammar
-masks (``--json-schema``) and token streams (``--stream``), ROADMAP queue
-A12b; ``--trace``, queue A13; ``--restore`` of flax msgpack weights,
-queue A8b's remainder.  The JAX
+the prefix cache of a paged arena.  Tenancy: ``--lora a,b`` round-robins
+the requests over the base model and the adapters (a missing path gets a
+random demo adapter saved there), ``--json-schema FILE`` masks every
+output to JSON of that schema, ``--stream`` attaches a token stream to
+each request.  ``--platform cpu`` runs on the CPU.  Not ported yet, and
+refused by name: ``--trace``, ROADMAP queue A13; ``--restore`` of flax
+msgpack weights, queue A8b's remainder.  The JAX
 script's Observer counts recompiles; the eager port compiles nothing,
 so the twin builds none (a capture count is queue A5's).
 """
@@ -26,18 +28,17 @@ import time
 import numpy as np
 import torch
 
-from dtdl_tpu_torch.examples.common import add_device_flags, bootstrap
+from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
+                                            demo_adapters, json_report,
+                                            json_schema_dfa)
 from dtdl_tpu_torch.models import transformer_lm
 from dtdl_tpu_torch.serve import (InferenceEngine, ModelDraft, Request,
-                                  SampleParams, Scheduler)
+                                  SampleParams, Scheduler, TokenStream)
 from dtdl_tpu_torch.utils.config import flag, make_parser
 from dtdl_tpu_torch.utils.random import seed_everything
 
 # flags whose modules are not ported yet -> the ROADMAP item that ports them
 REFUSED = {
-    "lora": "queue A12b (tenancy: LoRA)",
-    "json_schema": "queue A12b (tenancy: grammar masks)",
-    "stream": "queue A12b (tenancy: token streams)",
     "trace": "queue A13 (operations: the Observer's trace)",
     "restore": "queue A8b's remainder (reading flax msgpack weights)",
 }
@@ -90,13 +91,20 @@ def parser():
               "whole-prompt prefill)")
     flag(p, "--quantize", default="none", choices=["none", "w8", "w8kv8"],
          help="int8 serving: w8 = int8 weights, w8kv8 = + int8 KV arena")
-    flag(p, "--lora", default="", help="LoRA adapters: ROADMAP queue A12b")
+    flag(p, "--lora", default="",
+         help="multi-tenant LoRA: comma-separated adapter checkpoint "
+              "paths; requests round-robin over base + adapters in the "
+              "same steps (a missing path gets a random demo adapter "
+              "saved there)")
     flag(p, "--lora-rank", type=int, default=8,
-         help="adapter rank for --lora")
+         help="adapter rank for --lora (must match saved adapters)")
     flag(p, "--json-schema", default="",
-         help="grammar-constrained decoding: ROADMAP queue A12b")
+         help="grammar-constrained decoding: a JSON-schema file; every "
+              "request's output is masked to valid JSON for it (vocab "
+              "must cover ASCII, i.e. >= 128)")
     flag(p, "--stream", action="store_true",
-         help="per-request token streams: ROADMAP queue A12b")
+         help="attach a TokenStream per request and echo the first "
+              "requests' tokens as the lag-harvest windows deliver them")
     flag(p, "--seed", type=int, default=0)
     flag(p, "--trace", default="",
          help="Chrome-trace JSON of the scheduler phases: ROADMAP queue A13")
@@ -106,9 +114,20 @@ def parser():
     return p
 
 
-def traffic(model, args, rng):
+def _stream(args, i):
+    if not args.stream:
+        return None
+    if i >= 2:                  # echo only the first requests
+        return TokenStream()
+    return TokenStream(callback=lambda new, i=i: print(
+        f"    stream req {i}: +{new}"))
+
+
+def traffic(model, args, rng, tenants=(None,), dfa=None, eos=None):
     """The JAX script's synthetic requests: prompts of 4..hi tokens after
-    ``--shared-prefix`` common ones."""
+    ``--shared-prefix`` common ones, round-robin over ``tenants`` (None:
+    the base model), each under the grammar ``dfa`` and with a stream
+    when asked."""
     hi = min(64, model.cfg.max_seq // 2)
     common = rng.integers(0, model.cfg.vocab_size,
                           args.shared_prefix).tolist()
@@ -118,7 +137,10 @@ def traffic(model, args, rng):
     return [Request(common + rng.integers(0, model.cfg.vocab_size,
                                           n).tolist(),
                     args.max_new_tokens, sampling=sp,
-                    speculate=args.speculate) for n in lens]
+                    speculate=args.speculate,
+                    adapter=tenants[i % len(tenants)], grammar=dfa,
+                    eos_id=eos, stream=_stream(args, i))
+            for i, n in enumerate(lens)]
 
 
 def main(argv=None):
@@ -138,12 +160,16 @@ def main(argv=None):
     if not 0 <= args.shared_prefix <= model.cfg.max_seq - hi - 1:
         ap.error(f"--shared-prefix must be in [0, "
                  f"{model.cfg.max_seq - hi - 1}] for this model")
+    lora_paths = demo_adapters(model, args.lora, args.lora_rank)
     engine = InferenceEngine(model, n_slots=args.n_slots,
                              page_size=args.page_size,
                              n_pages=args.n_pages or None,
                              quantize_weights=args.quantize != "none",
                              kv_dtype=("int8" if args.quantize == "w8kv8"
                                        else None),
+                             lora_rank=args.lora_rank if lora_paths else 0,
+                             lora_adapters=(len(lora_paths) + 1
+                                            if lora_paths else 0),
                              device=device)
     draft = None
     if args.speculate and args.draft == "model":
@@ -160,7 +186,15 @@ def main(argv=None):
                       spill_dir=args.spill_dir or None,
                       spill_disk_bytes=(args.spill_disk_mb << 20
                                         if args.spill_dir else None))
-    reqs = traffic(model, args, np.random.default_rng(args.seed))
+    dfa = eos = None
+    if args.json_schema:
+        t_dfa = time.perf_counter()
+        dfa, eos = json_schema_dfa(model, args.json_schema, ap)
+        print(f"  --json-schema: {dfa.n_states}-state token DFA "
+              f"({dfa.nbytes():,} bytes of masks, compiled in "
+              f"{time.perf_counter() - t_dfa:.2f}s)")
+    reqs = traffic(model, args, np.random.default_rng(args.seed),
+                   tenants=[None] + lora_paths, dfa=dfa, eos=eos)
 
     t0 = time.perf_counter()
     sched.run(reqs)
@@ -230,6 +264,28 @@ def main(argv=None):
               f"tokens/step {s['tokens_per_step_mean']:.2f}  "
               f"accepted-tok/s p50/p95: {pct(0.5):.1f} / {pct(0.95):.1f}  "
               f"draft overhead {s['draft_s'] * 1e3:.1f}ms")
+    if lora_paths:
+        # delivered tokens by tenant, all through the same steps (the
+        # adapter ids are data)
+        mix = "  ".join(f"{k.rsplit('/', 1)[-1]}={v}"
+                        for k, v in sorted(s["tokens_by_adapter"].items()))
+        print(f"  multi-lora ({len(lora_paths)} adapters, rank "
+              f"{args.lora_rank}): tokens by tenant: {mix}  bank loads "
+              f"{engine.adapter_bank.n_loads} evictions "
+              f"{engine.adapter_bank.n_evictions}")
+    if dfa is not None:
+        n_json, n_cut = json_report(reqs, eos)
+        print(f"  constrained ({args.json_schema}): {n_json}/{len(reqs)} "
+              f"requests completed valid JSON, {n_cut} cut by the token "
+              f"budget mid-structure; illegal draft tokens trimmed "
+              f"{s['grammar_rejected_tokens']}")
+        for r in reqs[:2]:
+            body = r.tokens[:-1] if r.tokens and r.tokens[-1] == eos \
+                else r.tokens
+            print(f"    req {r.rid}: {''.join(chr(t) for t in body)!r}")
+    if args.stream:
+        print(f"  streaming: {s['stream_deliveries']} incremental "
+              f"deliveries across {len(reqs)} requests")
     print("compiled programs:", engine.compile_stats(), flush=True)
     return reqs, s, dt
 

@@ -61,7 +61,9 @@ applies the key scale to the logits and the value scale to the weights.
 The forward returns the MoE blocks' Switch load-balance values only when
 asked (``return_aux=True``, the train step): each block returns its value
 (a checkpointed block's recompute returns it again and records nothing),
-and serving computes none.  LoRA is not ported yet (ROADMAP A12b).
+and serving computes none.  A forward given ``lora=(bank, aids)`` adds each
+row's LoRA delta, gathered from an adapter bank by the row's adapter id,
+to the q/k/v and output projections (the engine's multi-LoRA serving).
 
 A placement by the GSPMD rule sets (:mod:`dtdl_tpu_torch.parallel.tensor`)
 runs these modules on a rank's shards: attention takes the heads its q/k/v
@@ -160,15 +162,29 @@ class Attention(nn.Module):
                            quantize=quantize, param_dtype=param_dtype,
                            device=device)
 
-    def _proj(self, x, w):
+    def _proj(self, x, w, lora=None, name=None):
         # the heads this module holds: all of them, or a tensor-parallel
         # rank's share (parallel/tensor.py)
         b, s, _ = x.shape
         y = w(x, self.dtype)
+        if lora is not None:
+            a, bb = lora[name + "_a"], lora[name + "_b"]      # [B, d, r]
+            t = torch.bmm(x.to(a.dtype), a)                   # [B, S, r]
+            y = y + torch.bmm(t, bb.reshape(b, bb.shape[1], -1)).to(y.dtype)
         return y.reshape(b, s, -1, self.head_dim).transpose(1, 2)
 
-    def forward(self, x, cos, sin, layer=None, step=None):
-        q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
+    def forward(self, x, cos, sin, layer=None, step=None, lora=None):
+        """``lora``: this layer's adapter rows gathered by the batch rows'
+        adapter ids (``{leaf: [B, ...]}``, :func:`_lora_rows`), or None.
+        Each q/k/v projection then gains ``(x @ A) @ B`` and the output
+        projection ``(o @ out_A) @ out_B``, computed in the factors' dtype
+        (f32) and cast to the projection's, as the JAX package's
+        ``lo_delta`` (a quantized projection takes it on its output)."""
+        if lora is None:
+            q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
+        else:
+            q, k, v = (self._proj(x, w, lora, name) for w, name in
+                       ((self.q, "q"), (self.k, "k"), (self.v, "v")))
         if isinstance(step, SlotStep):
             attend = (self.paged_attend if step.page_table is not None
                       else self.slots_attend)
@@ -181,7 +197,13 @@ class Attention(nn.Module):
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             o = mha_reference(q, k, v, causal=True).to(self.dtype)
         b, _, s, _ = o.shape
-        return self.out(o.transpose(1, 2).reshape(b, s, -1), self.dtype)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        out = self.out(o, self.dtype)
+        if lora is not None:
+            a = lora["out_a"]                                # [B, H, D, r]
+            t = torch.bmm(o.to(a.dtype), a.reshape(b, -1, a.shape[-1]))
+            out = out + torch.bmm(t, lora["out_b"]).to(out.dtype)
+        return out
 
     @staticmethod
     def _write(layer, names, step, k, v):
@@ -535,10 +557,12 @@ class Block(nn.Module):
                               quantize=cfg.quantize)
 
     def forward(self, x, cos, sin, layer=None, step=None,
-                want_aux: bool = False):
+                want_aux: bool = False, lora=None):
         """(the block's output, its MoE load-balance value when
-        ``want_aux``, else None; always None for a dense block)."""
-        x = x + self.attn(self.ln_attn(x), cos, sin, layer, step)
+        ``want_aux``, else None; always None for a dense block).  ``lora``
+        is this block's gathered adapter rows (see :meth:`Attention.
+        forward`)."""
+        x = x + self.attn(self.ln_attn(x), cos, sin, layer, step, lora)
         aux = None
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln_mlp(x), want_aux)
@@ -706,7 +730,8 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, *, return_hidden: bool = False, pos=None,
                 cache=None, page_table=None, active=None,
-                paged_kernel: bool = True, return_aux: bool = False):
+                paged_kernel: bool = True, return_aux: bool = False,
+                lora=None):
         """Cacheless forward (no ``cache``); a per-slot forward (``pos``
         [B] the rows' write positions): on the engine's paged arena
         (:meth:`init_paged_cache`) with ``page_table`` [B, n_ptab],
@@ -718,7 +743,14 @@ class TransformerLM(nn.Module):
         ``pos``): the tokens are written at the cache's host index, which
         advances by their count.  ``return_aux`` returns ``(out, aux)``:
         ``aux`` the MoE blocks' load-balance values, one 0-d tensor per
-        MoE block in block order (empty for a dense model)."""
+        MoE block in block order (empty for a dense model).
+
+        ``lora`` = ``(bank, aids)`` serves each batch row under its own
+        LoRA adapter: ``bank`` an adapter bank (:func:`~dtdl_tpu_torch.
+        serve.tenant.lora.init_bank`, ``{"block_i": {"attn": {leaf:
+        [n_adapters, ...]}}}``), ``aids`` [B] int row ids on the model's
+        device (row 0 the all-zeros base).  Per-call data, not module
+        state, so one model serves a batch that mixes adapters."""
         x = self.embed_tokens(tokens)
         step = None
         if cache is not None and pos is None:
@@ -748,6 +780,8 @@ class TransformerLM(nn.Module):
         for i, block in enumerate(self.blocks):
             layer = None if step is None else cache[f"block_{i}"]["attn"]
             args = (x, self.rope_cos, self.rope_sin, layer, step, return_aux)
+            if lora is not None:
+                args += (_lora_rows(lora, i),)
             x, a = (checkpoint(block, *args, use_reentrant=False) if remat
                     else block(*args))
             if a is not None:
@@ -857,6 +891,15 @@ class TransformerLM(nn.Module):
         """A zeroed paged arena on the model's device."""
         return _alloc(self.paged_cache_shapes(n_slots, n_pages, page_size,
                                               kv_dtype), self.device)
+
+
+def _lora_rows(lora, i: int) -> dict:
+    """Block ``i``'s adapter rows of ``lora = (bank, aids)``: each leaf of
+    the bank gathered at the batch rows' adapter ids, ``{leaf: [B, ...]}``
+    (the JAX package's ``jnp.take`` along the adapter axis)."""
+    bank, aids = lora
+    return {name: leaf.index_select(0, aids)
+            for name, leaf in bank[f"block_{i}"]["attn"].items()}
 
 
 def _alloc(node, device):

@@ -1,6 +1,7 @@
 """The port's serving stack: engine, scheduler, sampling and drafts, the
-page allocator and its spill tiers, and the fleet (Router, replicas,
-health, the prefix directory)."""
+page allocator and its spill tiers, the fleet (Router, replicas, health,
+the prefix directory), and tenancy (batched multi-LoRA, grammar DFAs,
+token streams; :mod:`dtdl_tpu_torch.serve.tenant`)."""
 
 from dtdl_tpu_torch.serve.draft import DraftSource, ModelDraft, NGramDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
@@ -14,17 +15,28 @@ from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, DiskPageStore,
                                         HostPageStore, PageAllocator,
                                         PagePoolExhaustedError,
                                         SpillCorruptEntryError,
-                                        page_chain_hashes)
+                                        adapter_salt, page_chain_hashes)
 from dtdl_tpu_torch.serve.sampling import (GREEDY, SampleParams,
                                            accept_resample, filter_logits,
-                                           sample)
+                                           mask_words, pack_mask, sample,
+                                           unpack_mask)
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+from dtdl_tpu_torch.serve.tenant import (AdapterBank, AdapterBankFullError,
+                                         TokenDFA, TokenStream,
+                                         adapter_template, byte_vocab,
+                                         compile_json_schema, compile_regex,
+                                         json_schema_to_regex, merge_adapter)
 
-__all__ = ["DRAINING", "DiskPageStore", "DraftSource", "ERROR_KINDS",
-           "EVICTED", "FleetMetrics", "GARBAGE_PAGE", "GREEDY", "HEALTHY",
+__all__ = ["AdapterBank", "AdapterBankFullError", "DRAINING",
+           "DiskPageStore", "DraftSource", "ERROR_KINDS", "EVICTED",
+           "FleetMetrics", "GARBAGE_PAGE", "GREEDY", "HEALTHY",
            "HostPageStore", "InferenceEngine", "ModelDraft", "NGramDraft",
            "PageAllocator", "PagePoolExhaustedError", "PrefixDirectory",
            "PromptTooLongError", "Replica", "ReplicaHealth", "Request",
            "Router", "SUSPECT", "SampleParams", "Scheduler", "ServeMetrics",
-           "SpillCorruptEntryError", "UNAVAILABLE_KINDS", "accept_resample",
-           "error_kind", "filter_logits", "page_chain_hashes", "sample"]
+           "SpillCorruptEntryError", "TokenDFA", "TokenStream",
+           "UNAVAILABLE_KINDS", "accept_resample", "adapter_salt",
+           "adapter_template", "byte_vocab", "compile_json_schema",
+           "compile_regex", "error_kind", "filter_logits",
+           "json_schema_to_regex", "mask_words", "merge_adapter",
+           "pack_mask", "page_chain_hashes", "sample", "unpack_mask"]

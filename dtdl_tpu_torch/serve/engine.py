@@ -42,9 +42,19 @@ with a scale per position.
 Every paged attend ends in kernel K4 on the card (``paged_kernel='auto'``
 resolves to the kernel on CUDA and to the plain version on the CPU;
 ``False`` asks for the plain version on any device).  The dense arena
-attends in plain torch, as the JAX one in plain jnp.  LoRA and grammar
-masks are later slices and raise ``NotImplementedError`` naming their
-ROADMAP item.
+attends in plain torch, as the JAX one in plain jnp.
+
+Tenancy.  ``lora_rank``/``lora_adapters`` give the engine an adapter bank
+(:mod:`dtdl_tpu_torch.serve.tenant.lora`): ``adapter_id=`` on
+:meth:`~InferenceEngine.prefill` and ``adapter_ids=`` [n_slots] on
+:meth:`~InferenceEngine.decode` and :meth:`~InferenceEngine.verify` serve
+each slot under its own adapter in one step (row 0 is the base model).
+``allowed=`` on all three is a grammar mask (dense bools, or the packed
+words of ``sampling.pack_mask``), packed on the host and uploaded through
+the pinned staging as int32 words.  The neutral inputs cost nothing: a
+step whose ids are all 0 skips the delta (which is exactly zero), and a
+step without a mask uploads and applies none, where the JAX engine feeds
+its compiled programs cached all-zero ids and all-true masks.
 
 ``mesh`` and ``rules`` (a :mod:`dtdl_tpu_torch.parallel.tensor` preset,
 ``'tp'`` by default) serve tensor-parallel: every process of the mesh
@@ -79,8 +89,11 @@ from dtdl_tpu_torch.quant.core import (Fp8UnsupportedError, canon_kv_dtype,
                                        canon_weight_quant, quantize_params,
                                        tree_bytes)
 from dtdl_tpu_torch.serve.paged import concat_payloads
-from dtdl_tpu_torch.serve.sampling import (SampleParams, accept_resample,
+from dtdl_tpu_torch.serve.sampling import (SampleParams, _masked,
+                                           accept_resample, pack_mask,
                                            sample)
+from dtdl_tpu_torch.serve.tenant.lora import (AdapterBank, adapter_template,
+                                              bank_nbytes, init_bank)
 
 
 class PromptTooLongError(ValueError):
@@ -143,9 +156,20 @@ class InferenceEngine:
                 raise ValueError(
                     f"n_heads={model.cfg.n_heads} must divide by the mesh's "
                     f"tensor-parallel axis size {tp} (rules={rules!r})")
-        if lora_rank or lora_adapters:
+        if lora_rank < 0 or lora_adapters < 0:
+            raise ValueError("lora_rank/lora_adapters must be >= 0")
+        if bool(lora_rank) != bool(lora_adapters):
+            raise ValueError("pass lora_rank AND lora_adapters together "
+                             "(both 0 disables the adapter bank)")
+        if lora_adapters == 1:
+            raise ValueError("lora_adapters must be >= 2: row 0 is the "
+                             "reserved all-zeros base adapter")
+        if lora_rank and mesh is not None:
             raise NotImplementedError(
-                "LoRA adapter banks are ROADMAP queue A12b (tenancy)")
+                "a LoRA adapter bank on a tensor-parallel engine (each rank "
+                "holding its heads' rows of q_b/k_b/v_b/out_a) is ROADMAP "
+                "queue A12a's follow-up (tensor-parallel tenancy and "
+                "handoff)")
         if observer is not None:
             raise NotImplementedError(
                 "the observer facade is ROADMAP queue A13 (operations)")
@@ -212,6 +236,16 @@ class InferenceEngine:
             raise ValueError("kv_pool_bytes requires page_size > 0")
         self.paged_kernel = (_resolve_paged_kernel(paged_kernel, self.device)
                              and self.paged)
+        # the adapter bank (f32 factors on the card, row 0 the base) and
+        # its refcounted host registry
+        self.lora_rank = lora_rank
+        self.lora_adapters = lora_adapters
+        self.adapter_bank = None
+        if lora_rank:
+            self.adapter_bank = AdapterBank(
+                init_bank(model, lora_rank, lora_adapters,
+                          device=self.device),
+                adapter_template(model, lora_rank))
 
     # ---- state the caller threads ------------------------------------
 
@@ -248,7 +282,8 @@ class InferenceEngine:
         payload and scale sidecars, and ``decode_hbm_bytes_per_token``,
         ``(param_bytes + kv_arena_bytes) / n_slots``, the whole engine's on
         a mesh too; and ``tp``, ``{"rules", "mesh"}`` of a tensor-parallel
-        engine (None otherwise)."""
+        engine (None otherwise); ``lora``, the adapter bank's rank, rows
+        and bytes (None without a bank)."""
         payload = scales = 0
 
         def walk(node):
@@ -265,6 +300,12 @@ class InferenceEngine:
         return {
             "tp": ({"rules": self.rules, "mesh": dict(self.mesh.shape)}
                    if self.mesh is not None else None),
+            # the bank is one fixed [n_adapters, ...] allocation whatever
+            # the load and evict traffic
+            "lora": ({"rank": self.lora_rank,
+                      "n_adapters": self.lora_adapters,
+                      "bank_bytes": bank_nbytes(self.adapter_bank.bank)}
+                     if self.adapter_bank is not None else None),
             "paged": ({"page_size": self.page_size, "n_pages": self.n_pages,
                        "pages_per_slot": self.n_ptab,
                        "page_bytes": self.page_bytes}
@@ -312,10 +353,13 @@ class InferenceEngine:
             f"{self.buckets[-1]} (buckets={self.buckets}, "
             f"max_seq={self.max_seq})")
 
-    def _sample(self, logits, generator, temp, top_k, top_p):
-        """Greedy rows take the raw argmax; the filtered draw runs only
-        when some row samples (decided from the host-side knobs)."""
+    def _sample(self, logits, generator, temp, top_k, top_p, allowed=None):
+        """Greedy rows take the raw argmax (of the masked logits under a
+        grammar mask); the filtered draw runs only when some row samples
+        (decided from the host-side knobs)."""
         if np.all(np.asarray(temp) <= 0.0):
+            if allowed is not None:
+                logits = _masked(logits, allowed)
             return torch.argmax(logits, dim=-1).to(torch.int32)
         if generator is None:
             raise ValueError("sampled requests need a torch.Generator on "
@@ -323,14 +367,44 @@ class InferenceEngine:
         return sample(logits, generator,
                       upload(np.asarray(temp, np.float32), self.device),
                       upload(np.asarray(top_k, np.int32), self.device),
-                      upload(np.asarray(top_p, np.float32), self.device))
+                      upload(np.asarray(top_p, np.float32), self.device),
+                      allowed=allowed)
+
+    def _lora_args(self, adapter_ids, n: int):
+        """``(bank, ids on the card)`` for the model's forward, or None
+        when every id is 0 (the base row: a zero delta, skipped) or the
+        engine has no bank.  Ids without a bank raise."""
+        if self.adapter_bank is None:
+            if adapter_ids is not None:
+                raise ValueError("adapter ids require an adapter bank "
+                                 "(lora_rank/lora_adapters > 0)")
+            return None
+        if adapter_ids is None:
+            return None
+        ids = np.asarray(adapter_ids, np.int64).reshape(-1)
+        if ids.size != n:
+            raise ValueError(f"adapter ids must be [{n}], got {ids.size}")
+        if not ids.any():
+            return None
+        if ids.min() < 0 or ids.max() >= self.lora_adapters:
+            raise ValueError(f"adapter ids must be in [0, "
+                             f"{self.lora_adapters}), got {ids.tolist()}")
+        return self.adapter_bank.bank, upload(ids, self.device)
+
+    def _mask_arg(self, allowed):
+        """A grammar mask packed on the host (``pack_mask``) and uploaded
+        as int32 words (the same bits), or None."""
+        if allowed is None:
+            return None
+        return upload(pack_mask(allowed).view(np.int32), self.device)
 
     # ---- the two entry points ----------------------------------------
 
     @torch.no_grad()
     def prefill(self, arena, last_tokens, slot: int, prompt,
                 sampling: SampleParams = SampleParams(), generator=None,
-                page_row=None, start: int = 0):
+                page_row=None, start: int = 0, adapter_id=None,
+                allowed=None):
         """Admit ``prompt`` (the uncached suffix) into ``slot``; returns
         ``(arena, last_tokens, logits[V])`` with ``last_tokens[slot]`` the
         first sampled token.  Paged: ``page_row`` is the slot's [n_ptab]
@@ -338,10 +412,17 @@ class InferenceEngine:
         the prompt, garbage page 0 beyond) and ``start`` the page-aligned
         number of prefix-cached tokens already resident.  Dense: the
         prompt runs at position 0 into the slot's row, which it
-        overwrites whole (zeros past the bucket)."""
+        overwrites whole (zeros past the bucket).  ``adapter_id`` is the
+        request's row in the adapter bank (None or 0: the base model);
+        ``allowed`` ([1, V] bool or packed words) masks the sampled first
+        token (a grammar's start state)."""
         prompt = np.asarray(prompt, np.int32).ravel()
+        words = None if allowed is None else pack_mask(allowed)
         self._lockstep("prefill", slot, prompt, page_row, start,
-                       (sampling.temperature, sampling.top_k, sampling.top_p))
+                       (sampling.temperature, sampling.top_k, sampling.top_p),
+                       adapter_id, words)
+        lora = self._lora_args(None if adapter_id is None else [adapter_id],
+                               1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
         if not 0 <= slot < self.n_slots:
@@ -382,7 +463,7 @@ class InferenceEngine:
                 pos=upload(np.asarray([start], np.int32), dev),
                 cache=arena, page_table=upload(page_row[None], dev),
                 active=torch.ones(1, dtype=torch.bool, device=dev),
-                paged_kernel=self.paged_kernel)
+                paged_kernel=self.paged_kernel, lora=lora)
         else:
             # the slot's row as a one-row dense cache at index 0 (views
             # into the arena, so the forward writes the arena itself)
@@ -390,11 +471,13 @@ class InferenceEngine:
                                    for leaf, buf in node["attn"].items()}}
                    for name, node in arena.items() if name != "index"}
             row["index"] = torch.zeros((), dtype=torch.int32)
-            hidden = self.model(tokens, return_hidden=True, cache=row)
+            hidden = self.model(tokens, return_hidden=True, cache=row,
+                                lora=lora)
         # logits of the last real suffix position only
         logits = self.model.head(hidden[:, prompt.size - 1])      # [1, V]
         tok = self._sample(logits, generator, [sampling.temperature],
-                           [sampling.top_k], [sampling.top_p])
+                           [sampling.top_k], [sampling.top_p],
+                           self._mask_arg(words))
         arena["index"][slot] = start + int(prompt.size)
         last = last_tokens.clone()
         last[slot] = tok[0]
@@ -418,29 +501,37 @@ class InferenceEngine:
 
     @torch.no_grad()
     def decode(self, arena, last_tokens, active, temp, top_k, top_p,
-               page_tables=None, generator=None):
+               page_tables=None, generator=None, adapter_ids=None,
+               allowed=None):
         """One token for every active slot.  ``active`` [n_slots] bool and
         (paged engines) ``page_tables`` [n_slots, n_ptab] int32 are host
         arrays (data, re-supplied each call); ``temp``/``top_k``/``top_p``
-        the per-slot sampling knobs.  Returns ``(arena, last_tokens,
+        the per-slot sampling knobs; ``adapter_ids`` [n_slots] each slot's
+        adapter row and ``allowed`` [n_slots, V] (or packed) its grammar
+        mask, host arrays too.  Returns ``(arena, last_tokens,
         logits[n_slots, V])``."""
-        self._lockstep("decode", active, temp, top_k, top_p, page_tables)
+        words = None if allowed is None else pack_mask(allowed)
+        self._lockstep("decode", active, temp, top_k, top_p, page_tables,
+                       adapter_ids, words)
         tables = self._tables_arg(page_tables)
+        lora = self._lora_args(adapter_ids, self.n_slots)
         dev = self.device
         act = upload(np.asarray(active, bool), dev)
         pos = arena["index"]
         logits = self.model(
             last_tokens[:, None].long(), pos=pos, cache=arena,
             page_table=tables, active=act,
-            paged_kernel=self.paged_kernel)[:, 0]                  # [B, V]
+            paged_kernel=self.paged_kernel, lora=lora)[:, 0]       # [B, V]
         arena["index"] = torch.where(act, pos + 1, pos)
-        tok = self._sample(logits, generator, temp, top_k, top_p)
+        tok = self._sample(logits, generator, temp, top_k, top_p,
+                           self._mask_arg(words))
         return arena, torch.where(act, tok, last_tokens), logits
 
     @torch.no_grad()
     def verify(self, arena, last_tokens, draft_tokens, draft_len, active,
                temp, top_k, top_p, page_tables=None, generator=None,
-               forced=None, first_tok=None, pos_set=None, allowed=None):
+               forced=None, first_tok=None, pos_set=None, adapter_ids=None,
+               allowed=None):
         """One speculative verify pass over every slot: score slot b's
         ``draft_len[b]`` candidates (``draft_tokens[b]``, zero-padded to
         the pass's width k) in one forward of width k+1, accept a
@@ -464,15 +555,15 @@ class InferenceEngine:
         guarantees every active slot room for the whole window,
         ``index + k + 1 <= max_seq``: the attend clamps a row's position
         to ``max_seq - (k + 1)``, which would shift the window back over
-        committed K/V.  ``allowed`` (grammar masks) is ROADMAP queue
-        A12b."""
-        if allowed is not None:
-            raise NotImplementedError(
-                "verify(allowed=...) (grammar masks) is ROADMAP queue A12b "
-                "(tenancy)")
+        committed K/V.  ``adapter_ids`` [n_slots] are the slots' adapter
+        rows; ``allowed`` [n_slots, k+1, V] bools (or packed words) mask
+        each window position's logits (the scheduler walks a grammar
+        along the draft)."""
         draft_tokens = np.asarray(draft_tokens, np.int32)
+        words = None if allowed is None else pack_mask(allowed)
         self._lockstep("verify", draft_tokens, draft_len, active, temp,
-                       top_k, top_p, page_tables, forced, first_tok, pos_set)
+                       top_k, top_p, page_tables, forced, first_tok, pos_set,
+                       adapter_ids, words)
         if draft_tokens.ndim != 2 or draft_tokens.shape[0] != self.n_slots:
             raise ValueError(f"draft_tokens must be [n_slots={self.n_slots}"
                              f", k], got {draft_tokens.shape}")
@@ -484,6 +575,7 @@ class InferenceEngine:
             raise ValueError(f"draft width {k} cannot fit "
                              f"max_seq={self.max_seq}")
         tables = self._tables_arg(page_tables)
+        lora = self._lora_args(adapter_ids, self.n_slots)
         dev = self.device
         act = upload(np.asarray(active, bool), dev)
         drafts = upload(draft_tokens, dev, torch.int64)
@@ -500,10 +592,12 @@ class InferenceEngine:
         x = torch.cat([x0[:, None].long(), drafts], dim=1)      # [B, k+1]
         logits = self.model(
             x, pos=pos, cache=arena, page_table=tables,
-            active=act, paged_kernel=self.paged_kernel)        # [B, k+1, V]
+            active=act, paged_kernel=self.paged_kernel,
+            lora=lora)                                         # [B, k+1, V]
         tokens, n_acc = accept_resample(
             logits, drafts, upload(np.asarray(draft_len, np.int32), dev),
-            generator, temp, top_k, top_p, forced=forced_t)
+            generator, temp, top_k, top_p, forced=forced_t,
+            allowed=self._mask_arg(words))
         n_em = n_acc + 1
         # the model wrote k+1 positions; the index keeps the committed
         # n_accepted + 1 (K/V past it are overwritten before attended)

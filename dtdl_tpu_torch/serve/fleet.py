@@ -50,8 +50,15 @@ builds the kernels in the calling thread before any worker starts.
 
 Not in this slice: the Router's ``observer``, ``exporter`` and ``slos``
 and ``default_fleet_slos`` (ROADMAP queue A13) raise naming it; the fleet
-emits its events to a private no-op observer that A13 replaces.  Requests
-with ``adapter``, ``grammar`` or ``stream`` (A12b) are refused at intake.
+emits its events to a private no-op observer that A13 replaces.
+
+Tenant requests ride every attempt: the clones carry the user request's
+``adapter``, ``grammar`` and ``stream``.  The stream is shared by the
+attempts, and its ownership protocol keeps it prefix-stable: the first
+attempt to offer owns it, an attempt that ends in error releases it, and
+the Router closes it at the user request's terminal with the winning
+attempt's tokens.  The prefix directory looks prompts up under the
+adapter's salt, as the replicas' allocators publish them.
 """
 
 from __future__ import annotations
@@ -68,8 +75,8 @@ from dtdl_tpu_torch.resil.faults import FaultPlan, InjectedFault, replica_site
 from dtdl_tpu_torch.serve.health import (DRAINING, EVICTED, HEALTHY, SUSPECT,
                                          ReplicaHealth)
 from dtdl_tpu_torch.serve.metrics import ServeMetrics, _window_delta, error_kind
-from dtdl_tpu_torch.serve.paged import page_chain_hashes
-from dtdl_tpu_torch.serve.scheduler import _LATER, Request, Scheduler
+from dtdl_tpu_torch.serve.paged import adapter_salt, page_chain_hashes
+from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["DRAINING", "EVICTED", "HEALTHY", "SUSPECT", "FleetMetrics",
            "PrefixDirectory", "Replica", "Router"]
@@ -227,6 +234,10 @@ class Replica:
         with self._cv:
             self._inbox.clear()
             self._cancels.clear()
+        if not self._thread.is_alive():
+            # the abandoned generation's adapter rows go back to the
+            # engine's bank (a wedged worker still owns its own)
+            self.sched.release_adapters()
         self.sched = self._make_sched()
         self.dead_error = None
         self.dead_at = None
@@ -500,6 +511,13 @@ class FleetMetrics:
             "fleet_decode_tokens": decode_tokens,
             "fleet_decode_tokens_per_sec": (decode_tokens / wall
                                             if wall > 0 else 0.0),
+            # the tenants' ledgers, summed over the replica books
+            "fleet_tokens_by_adapter": _merge_counts(
+                r.get("tokens_by_adapter", {}) for r in replicas),
+            "fleet_grammar_rejected_tokens": sum(
+                r.get("grammar_rejected_tokens", 0) for r in replicas),
+            "fleet_stream_deliveries": sum(
+                r.get("stream_deliveries", 0) for r in replicas),
             "fleet_pages_spilled": sum(
                 r.get("pages_spilled", 0) for r in replicas),
             "fleet_pages_restored": sum(
@@ -526,7 +544,9 @@ class FleetMetrics:
         "fleet_retries", "fleet_hedges", "fleet_hedges_won",
         "fleet_evictions", "fleet_failovers", "fleet_restarts",
         "fleet_migrations", "fleet_kv_handoff_pages",
-        "fleet_decode_tokens", "fleet_pages_spilled",
+        "fleet_decode_tokens", "fleet_tokens_by_adapter",
+        "fleet_grammar_rejected_tokens", "fleet_stream_deliveries",
+        "fleet_pages_spilled",
         "fleet_pages_restored", "fleet_spill_bytes", "fleet_restore_s",
         "fleet_directory_hits", "fleet_directory_tokens_saved",
         "fleet_directory_invalidations",
@@ -539,6 +559,38 @@ class FleetMetrics:
         dropped)."""
         return _window_delta(self.summary(replicas, health),
                              self._WINDOW_COUNTERS, self._win_prev)
+
+
+def _warm_tenancy(eng) -> None:
+    """One prefill, decode and verify of ``eng`` through its LoRA path
+    (bank row 1, whatever it holds) under all-true grammar masks, on a
+    scratch arena whose writes land in the garbage page: the tenant
+    paths' first calls happen before any worker's watchdog runs."""
+    import numpy as np
+    n, vocab = eng.n_slots, eng.model.cfg.vocab_size
+    arena, last = eng.init_arena(), eng.init_last_tokens()
+    tables = (np.zeros((n, eng.n_ptab), np.int32) if eng.paged else None)
+    knobs = (np.zeros(n, np.float32), np.zeros(n, np.int32),
+             np.ones(n, np.float32))
+    ids, active = np.ones(n, np.int32), np.ones(n, bool)
+    arena, last, _ = eng.prefill(
+        arena, last, 0, [0], page_row=None if tables is None else tables[0],
+        adapter_id=1, allowed=np.ones((1, vocab), bool))
+    arena, last, _ = eng.decode(arena, last, active, *knobs, tables,
+                                adapter_ids=ids,
+                                allowed=np.ones((n, vocab), bool))
+    eng.verify(arena, last, np.zeros((n, 1), np.int32), np.ones(n, np.int32),
+               active, *knobs, tables, adapter_ids=ids,
+               allowed=np.ones((n, 2, vocab), bool))
+
+
+def _merge_counts(dicts) -> dict:
+    """Sum dict-valued counters key by key (the per-adapter tokens)."""
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 @dataclasses.dataclass
@@ -727,6 +779,8 @@ class Router:
                 from dtdl_tpu_torch import kernels
                 kernels.lib()
             Scheduler(eng, device=self.device, **wk).run([Request([0], 2)])
+            if eng.adapter_bank is not None:
+                _warm_tenancy(eng)
             if ct:
                 ks, k = [], 1
                 while True:
@@ -749,9 +803,6 @@ class Router:
         """Enqueue ``req`` for the fleet; rejections come back with a
         named ``req.error`` (shut-down router, full admission queue), as
         :meth:`Scheduler.submit`'s do."""
-        for field, default, why in _LATER:
-            if getattr(req, field) != default:
-                raise NotImplementedError(f"Request.{field}: {why}")
         now = time.perf_counter()
         req.t_submit = now
         if req.deadline_at is None and req.deadline_s is not None:
@@ -785,6 +836,8 @@ class Router:
         req.done = True
         req.t_done = time.perf_counter()
         hook()
+        if req.stream is not None:
+            req.stream.finish(req.tokens, req.error)
         self.finished.append(req)
         self.observer.event("request_done", rid=req.rid,
                             kind=error_kind(error), attempts=0)
@@ -813,6 +866,11 @@ class Router:
                 user.done = True
                 user.t_done = time.perf_counter()
                 hook()
+            if user.stream is not None:
+                # the Router owns the user's stream terminal: reconcile
+                # the winning attempt's tokens (prefix-guarded) and close;
+                # an error closes it undelivered
+                user.stream.finish(user.tokens, user.error)
             self._flights.pop(user.rid, None)
             losers = list(fl.live.items())
             fl.live.clear()
@@ -913,7 +971,8 @@ class Router:
         if len(prompt) <= self._hash_pg:
             return None
         owner, n = self.prefix_dir.lookup(
-            page_chain_hashes(prompt[:len(prompt) - 1], self._hash_pg))
+            page_chain_hashes(prompt[:len(prompt) - 1], self._hash_pg,
+                              adapter_salt(fl.req.adapter)))
         if owner is None:
             return None
         saved = n * self._hash_pg
@@ -1258,13 +1317,18 @@ class Router:
 
     def _clone(self, user: Request, lineage: str = "primary") -> Request:
         """A fresh replica-local attempt for a user request: the same
-        generation parameters, its own rid and lifecycle, the USER's
-        absolute deadline, and ``origin_rid``/``lineage``."""
+        generation parameters and tenant fields, its own rid and
+        lifecycle, the USER's absolute deadline, and
+        ``origin_rid``/``lineage``."""
         return Request(list(user.prompt), user.max_new_tokens,
                        sampling=user.sampling, eos_id=user.eos_id,
                        speculate=user.speculate,
                        deadline_at=user.deadline_at,
-                       origin_rid=user.rid, lineage=lineage)
+                       origin_rid=user.rid, lineage=lineage,
+                       # the tenant fields ride every attempt; the shared
+                       # stream's protocol keeps the siblings prefix-stable
+                       adapter=user.adapter, grammar=user.grammar,
+                       stream=user.stream)
 
     def _hedge(self) -> None:
         if self.hedge_after_s is None:

@@ -1,7 +1,8 @@
 """Serving telemetry, the port of dtdl_tpu/serve/metrics.py: the
 scheduler's counters, the KV handoff and spill-tier ledgers the fleet and
-the tiers feed, and :meth:`ServeMetrics.window`, the delta feed (the
-tenants' adapter, grammar and stream counters wait for their slice).
+the tiers feed, the tenants' ledgers (delivered tokens by adapter, draft
+tokens a grammar trimmed, stream deliveries), and
+:meth:`ServeMetrics.window`, the delta feed.
 
 Nothing here reads the device.  Dispatch-side counters (admissions,
 steps, occupancy) are host state the scheduler already has; request
@@ -118,6 +119,12 @@ class ServeMetrics:
         self.spill_disk_hits = 0
         self.spill_quarantined = 0
         self.directory_hits = 0
+        # tenancy: delivered generated tokens keyed by adapter name
+        # ("base" = no adapter), draft tokens the grammar automaton
+        # trimmed before verify, tokens pushed through TokenStreams
+        self.tokens_by_adapter: dict[str, int] = {}
+        self.grammar_rejected_tokens = 0
+        self.stream_deliveries = 0
         self._win_prev: dict = {}
         self.ttft_hist = LogHistogram()
         self.tok_latency_hist = LogHistogram()
@@ -211,6 +218,23 @@ class ServeMetrics:
         self.pages_in_use_peak = max(self.pages_in_use_peak, pages_in_use)
         self.page_capacity = capacity
 
+    def on_adapter_tokens(self, adapter: str, n: int):
+        """``n`` generated tokens harvested for a request served under
+        ``adapter`` (``"base"`` when none): the per-tenant split of the
+        same harvested-truth accounting as :meth:`on_harvest_tokens`."""
+        self.tokens_by_adapter[adapter] = \
+            self.tokens_by_adapter.get(adapter, 0) + n
+
+    def on_grammar_reject(self, n: int):
+        """``n`` draft tokens trimmed at dispatch because the grammar
+        automaton refuses them."""
+        self.grammar_rejected_tokens += n
+
+    def on_stream(self, n: int):
+        """``n`` tokens delivered through a request's TokenStream at one
+        lag-harvest boundary."""
+        self.stream_deliveries += n
+
     def on_harvest_tokens(self, n: int):
         """``n`` generated tokens delivered at harvest (the request's
         first token, sampled by prefill, excluded): every generated token
@@ -302,6 +326,9 @@ class ServeMetrics:
             "spill_disk_hits": self.spill_disk_hits,
             "spill_quarantined": self.spill_quarantined,
             "directory_hits": self.directory_hits,
+            "tokens_by_adapter": dict(self.tokens_by_adapter),
+            "grammar_rejected_tokens": self.grammar_rejected_tokens,
+            "stream_deliveries": self.stream_deliveries,
             "pages_in_use_peak": self.pages_in_use_peak,
             "pages_in_use_last": self.pages_in_use_last,
             "page_capacity": self.page_capacity,
@@ -331,7 +358,8 @@ class ServeMetrics:
         "kv_handoff_pages", "kv_handoff_s", "pages_spilled",
         "pages_restored", "spill_bytes", "restore_bytes", "spill_s",
         "restore_s", "spill_host_hits", "spill_disk_hits",
-        "spill_quarantined", "directory_hits",
+        "spill_quarantined", "directory_hits", "tokens_by_adapter",
+        "grammar_rejected_tokens", "stream_deliveries",
     })
 
     def window(self) -> dict:

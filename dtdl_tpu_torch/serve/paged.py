@@ -50,13 +50,31 @@ import numpy as np
 GARBAGE_PAGE = 0
 
 
-def page_chain_hashes(tokens: Sequence[int], page_size: int) -> list[int]:
+def adapter_salt(adapter: Optional[str]) -> Optional[int]:
+    """The chain salt of the pages a LoRA ``adapter`` computes (None for
+    the base model): a stable 64-bit digest of its name, the same in
+    every process, so the disk tier's records stay findable."""
+    if adapter is None:
+        return None
+    return int.from_bytes(hashlib.blake2b(adapter.encode(),
+                                          digest_size=8).digest(), "little")
+
+
+def page_chain_hashes(tokens: Sequence[int], page_size: int,
+                      salt: Optional[int] = None) -> list[int]:
     """Chained hashes of every FULL page of ``tokens`` — entry i keys
     tokens [0, (i+1)·page_size), so equal hash i means equal whole
     prefix, which is exactly the K/V-reuse condition.  Module-level so
     the fleet Router can compute the SAME keys its replicas' allocators
-    publish (the prefix directory speaks this hash space)."""
-    out, h = [], 0
+    publish (the prefix directory speaks this hash space).
+
+    ``salt`` (:func:`adapter_salt`) starts the chain of a request served
+    under a LoRA adapter: its k/v deltas make its K/V differ from another
+    adapter's on the same tokens, so pages are shared only between
+    requests of one adapter.  The JAX package keys by tokens alone and
+    maps pages across adapters (ROADMAP C5).  Without a salt the hashes
+    are the JAX package's."""
+    out, h = [], (0 if salt is None else salt)
     for i in range(len(tokens) // page_size):
         h = hash((h, tuple(int(t)
                            for t in tokens[i * page_size:(i + 1) * page_size])))
@@ -173,23 +191,28 @@ class PageAllocator:
 
     # ---- the prefix cache ---------------------------------------------
 
-    def page_hashes(self, tokens: Sequence[int]) -> list[int]:
-        """Chained hashes of every FULL page of ``tokens`` (see
+    def page_hashes(self, tokens: Sequence[int],
+                    adapter: Optional[str] = None) -> list[int]:
+        """Chained hashes of every FULL page of ``tokens`` computed under
+        LoRA ``adapter`` (None: the base model; see
         :func:`page_chain_hashes` — one hash space shared with the
         fleet prefix directory)."""
-        return page_chain_hashes(tokens, self.page_size)
+        return page_chain_hashes(tokens, self.page_size,
+                                 adapter_salt(adapter))
 
-    def match_prefix(self, prompt: Sequence[int]) -> list[int]:
-        """Longest cached run of full prompt pages from page 0, capped
-        at ``(len(prompt) - 1) // page_size`` so at least one prompt
-        token is always prefilled (the write frontier stays private and
-        the first output token has a program to come from).  Returns the
-        physical pages WITHOUT acquiring them."""
+    def match_prefix(self, prompt: Sequence[int],
+                     adapter: Optional[str] = None) -> list[int]:
+        """Longest cached run of full prompt pages from page 0 computed
+        under the same ``adapter``, capped at ``(len(prompt) - 1) //
+        page_size`` so at least one prompt token is always prefilled (the
+        write frontier stays private and the first output token has a
+        program to come from).  Returns the physical pages WITHOUT
+        acquiring them."""
         if not self.prefix_cache:
             return []
         cap = (len(prompt) - 1) // self.page_size
         pages = []
-        for h in self.page_hashes(prompt)[:cap]:
+        for h in self.page_hashes(prompt, adapter)[:cap]:
             page = self._cached.get(h)
             if page is None:
                 break

@@ -22,6 +22,12 @@ it takes the verify pass's k+1 positions of logits per slot and commits a
 prefix of the drafts plus one final token, losslessly (greedy rows emit
 exactly the argmax prefix; sampling rows emit tokens distributed exactly
 as plain samples from their filtered distribution).
+
+Grammar masks (``allowed``) reach both as dense ``[..., V]`` bools or
+packed: :func:`pack_mask` packs host bools into the JAX package's uint32
+words bit for bit (token v at bit ``v % 32`` of word ``v // 32``), and
+the engine uploads those words as int32 (the same bits: torch's uint32
+shifts are thin), which :func:`unpack_mask` expands on the device.
 """
 
 from __future__ import annotations
@@ -127,15 +133,67 @@ def filter_logits_sorted(logits, temperature, top_k, top_p):
                        torch.full_like(scaled, float("-inf")))
 
 
-_GRAMMARS = "grammar masks are ROADMAP queue A12b (tenancy), not in this slice"
+MASK_WORD_BITS = 32
+
+
+def mask_words(vocab: int) -> int:
+    """Words one packed mask row spends on ``vocab`` tokens."""
+    return -(-vocab // MASK_WORD_BITS)
+
+
+def pack_mask(allowed) -> np.ndarray:
+    """Pack a host [..., V] bool grammar mask into [..., ceil(V/32)]
+    uint32 words, token v at bit ``v % 32`` of word ``v // 32`` (the JAX
+    package's words, bit for bit).  Host numpy, before the upload;
+    uint32 input passes through unchanged."""
+    a = np.asarray(allowed)
+    if a.dtype == np.uint32:
+        return a
+    a = a.astype(bool)
+    vocab = a.shape[-1]
+    pad = mask_words(vocab) * MASK_WORD_BITS - vocab
+    if pad:
+        a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), bool)],
+                           axis=-1)
+    bits = a.reshape(a.shape[:-1] + (mask_words(vocab), MASK_WORD_BITS))
+    shifts = np.arange(MASK_WORD_BITS, dtype=np.uint32)
+    return (bits.astype(np.uint32) << shifts).sum(axis=-1, dtype=np.uint32)
+
+
+def unpack_mask(packed, vocab: int):
+    """Expand packed [..., W] words (int32 carrying the uint32 bits) to a
+    [..., vocab] bool mask on their device: each token's word gathered,
+    shifted and tested.  The arithmetic shift of a negative word still
+    leaves the right bit under ``& 1``."""
+    v = torch.arange(vocab, device=packed.device)
+    return ((packed[..., v // MASK_WORD_BITS] >> (v % MASK_WORD_BITS))
+            & 1).bool()
+
+
+def _as_dense_mask(allowed, vocab: int):
+    """Dense [..., vocab] bool view of a grammar mask given dense (bool)
+    or packed (int32 words): the one detection point :func:`sample` and
+    :func:`accept_resample` share."""
+    if allowed.dtype == torch.bool:
+        return allowed
+    return unpack_mask(allowed, vocab)
+
+
+def _masked(logits, allowed):
+    """``logits`` with the tokens ``allowed`` refuses at -inf."""
+    keep = _as_dense_mask(allowed.to(logits.device), logits.shape[-1])
+    return torch.where(keep, logits, torch.full_like(logits, float("-inf")))
 
 
 def sample(logits, generator, temperature, top_k, top_p, allowed=None):
     """One token per slot: [B, V] f32 logits -> [B] int32.  Rows with
     temperature 0 take the raw argmax; the others draw from their
-    filtered distribution with ``generator`` (on the logits' device)."""
+    filtered distribution with ``generator`` (on the logits' device).
+    ``allowed`` ([B, V] bool, or [B, ceil(V/32)] packed words) drops the
+    tokens a grammar refuses to -inf before the argmax and the
+    truncation; an all-true mask changes nothing."""
     if allowed is not None:
-        raise NotImplementedError(_GRAMMARS)
+        logits = _masked(logits, allowed)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     masked = filter_logits(logits, temperature, top_k, top_p)
     drawn = torch.multinomial(torch.softmax(masked, dim=-1), 1,
@@ -169,16 +227,13 @@ def accept_resample(logits, draft, draft_len, generator, temperature, top_k,
       distributed exactly as a plain sample from p;
     * ``forced`` [B] bool rows are ground truth (a prompt chunk): they
       commit ``draft_len`` unconditionally and draw the plain bonus;
-    * ``allowed`` [B, k+1, V] bool masks each position's logits to -inf
-      before everything else.  A packed uint32 mask (``pack_mask``) is
-      ROADMAP queue A12b and raises.
+    * ``allowed`` [B, k+1, V] bool, or [B, k+1, ceil(V/32)] packed
+      words, masks each position's logits to -inf before everything else
+      (the scheduler walks each grammar along the draft for position i's
+      mask); packed and dense masks give the same tokens.
     """
     if allowed is not None:
-        if allowed.dtype != torch.bool:
-            raise NotImplementedError(
-                f"packed grammar masks (pack_mask): {_GRAMMARS}")
-        logits = torch.where(allowed, logits,
-                             torch.full_like(logits, float("-inf")))
+        logits = _masked(logits, allowed)
     B, k1, V = logits.shape
     k = k1 - 1
     dev = logits.device

@@ -1,7 +1,7 @@
 """Slot-based continuous batcher over the InferenceEngine, the port of
 dtdl_tpu/serve/scheduler.py (its continuous-batching core, speculative
-decoding, chunked prefill, containment, prefill/decode disaggregation and
-the KV spill tiers).
+decoding, chunked prefill, containment, prefill/decode disaggregation,
+the KV spill tiers and tenancy).
 
 A request is admitted into the first free slot (one bucketed prefill of
 its uncached suffix), decodes in lockstep with whatever else is in
@@ -70,9 +70,24 @@ the pages by inject instead of recomputing them.  A disk record that
 fails its check is quarantined and recomputed.  ``kv_receipts`` tells the
 Router's prefix directory what this scheduler holds.
 
+**Tenancy**: a request may name a LoRA ``adapter`` (a checkpoint path the
+engine's :class:`~dtdl_tpu_torch.serve.tenant.lora.AdapterBank` hot-loads
+at admission and releases at retirement; a full bank sheds the request,
+a corrupt file fails it), carry a ``grammar`` (a
+:class:`~dtdl_tpu_torch.serve.tenant.grammar.TokenDFA`: every sampled
+token is masked to the automaton's legal set, advanced at harvest, and
+a constrained slot dispatches only with nothing of its own in flight,
+since its mask is a function of harvested truth; drafts are trimmed at
+their first illegal token and the verify window's masks walk the DFA
+along the draft), and a ``stream`` (a
+:class:`~dtdl_tpu_torch.serve.tenant.stream.TokenStream` offered the
+harvested tokens, closed at the request's terminal).  A request's prefix
+pages are keyed by its adapter as well as its tokens
+(:func:`~dtdl_tpu_torch.serve.paged.adapter_salt`), so no request maps
+K/V that another adapter computed (ROADMAP C5).
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the exporter and observer (A13), LoRA adapters, grammars and
-streams (A12b).
+item): the exporter and observer (A13).
 """
 
 from __future__ import annotations
@@ -96,6 +111,7 @@ from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, DiskPageStore,
                                         concat_payloads, payload_nbytes,
                                         slice_payload)
 from dtdl_tpu_torch.serve.sampling import GREEDY, SampleParams
+from dtdl_tpu_torch.serve.tenant.lora import AdapterBankFullError
 
 _ids = itertools.count()
 
@@ -120,8 +136,11 @@ class Request:
     ``migrate``).  ``prefill_only`` asks for the prefill half only: the
     request finishes at its first token with ``kv_handoff`` set to the
     page payload that a decode replica's ``kv_inject`` admission adopts
-    (both need a paged engine).  ``adapter``, ``grammar`` and ``stream``
-    belong to a later slice and must stay at their defaults here.
+    (both need a paged engine).  ``adapter`` names a LoRA checkpoint the
+    engine's adapter bank hot-loads (None: the base weights); ``grammar``
+    is a compiled ``TokenDFA`` constraining every emitted token (it needs
+    ``eos_id``, the EOS it was compiled for); ``stream`` is a
+    ``TokenStream`` delivering tokens as they harvest.
     """
     prompt: Sequence[int]
     max_new_tokens: int
@@ -149,6 +168,8 @@ class Request:
     admit_step: int = -1
     _guaranteed: int = dataclasses.field(default=0, repr=False)
     _retired: bool = dataclasses.field(default=False, repr=False)
+    # the grammar automaton's state over the harvested tokens
+    _gq: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
@@ -164,14 +185,6 @@ class Request:
         return (f"Request(rid={self.rid}, prompt_len={len(self.prompt)}, "
                 f"max_new_tokens={self.max_new_tokens}, "
                 f"tokens={len(self.tokens)}, {state}{err})")
-
-
-_LATER = (
-    ("adapter", None, "LoRA adapters are ROADMAP queue A12b (tenancy)"),
-    ("grammar", None, "grammar-constrained decoding is ROADMAP queue A12b "
-                      "(tenancy)"),
-    ("stream", None, "token streams are ROADMAP queue A12b (tenancy)"),
-)
 
 
 class _SlotState:
@@ -342,6 +355,9 @@ class Scheduler:
         self._temp = np.zeros(engine.n_slots, np.float32)
         self._topk = np.zeros(engine.n_slots, np.int32)
         self._topp = np.ones(engine.n_slots, np.float32)
+        # each slot's adapter-bank row (0: the base), the [B] ids every
+        # step takes as data; acquired at admission, released at retirement
+        self._aids = np.zeros(engine.n_slots, np.int32)
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         # lag harvest: (tokens on their way to the host, the emitted counts
         # of a verify step or None, ((slot, rid, draft_len, kind), ...))
@@ -400,6 +416,7 @@ class Scheduler:
         req.done = True
         req.t_done = time.perf_counter()
         self.finished.append(req)
+        self._stream_terminal(req)
         metric_hook(req)
         return req
 
@@ -408,16 +425,62 @@ class Scheduler:
         return self._finish_error(req, reason, self.metrics.on_reject,
                                   "rejected")
 
+    def _stream_terminal(self, req: Request) -> None:
+        """Close out a streaming request's TokenStream at its terminal: a
+        standalone request (``origin_rid`` None) owns the user's stream,
+        so success delivers any suffix not offered yet and closes it, an
+        error closes it undelivered.  A fleet attempt only releases its
+        claim, and only on an error, so a retry or hedge can take over;
+        the Router closes the user's stream."""
+        if req.stream is None:
+            return
+        if req.origin_rid is None:
+            req.stream.finish(req.tokens, req.error)
+        elif req.error is not None:
+            req.stream.drop(req.rid)
+
+    def _acquire_adapter(self, req: Request) -> Optional[int]:
+        """Pin ``req``'s adapter in the engine's bank at admission (a cold
+        one loads through the manifest-checked checkpoint path).  Returns
+        the bank row (0: the base weights), or None after finishing the
+        request: a bank with every row pinned sheds it with the
+        :class:`AdapterBankFullError` message, a corrupt or unreadable
+        adapter fails it."""
+        if req.adapter is None:
+            return 0
+        try:
+            return self.engine.adapter_bank.acquire(req.adapter)
+        except AdapterBankFullError as e:
+            self.queue.remove(req)
+            self._finish_error(req, str(e), self.metrics.on_shed, "shed")
+        except Exception as e:
+            self.queue.remove(req)
+            self._finish_error(
+                req, f"adapter {req.adapter!r} failed to load: {e}",
+                self.metrics.on_failure, "failed")
+        return None
+
+    def _release_adapter(self, aid: int) -> None:
+        if aid:
+            self.engine.adapter_bank.release(aid)
+
+    def release_adapters(self) -> None:
+        """Release every slot's adapter row without retiring the slots:
+        the fleet abandons a dead worker's scheduler this way, so its
+        pinned rows do not fill a shared bank."""
+        for slot in range(self.engine.n_slots):
+            self._release_adapter(int(self._aids[slot]))
+            self._aids[slot] = 0
+
     def submit(self, req: Request) -> Request:
         """Enqueue ``req``; one the scheduler cannot serve comes back
         rejected (``req.error`` set, ``req.done`` True): a shut-down
         scheduler or one in containment, a full admission queue, a prompt
         past the largest prefill bucket, a prompt whose pages exceed the
-        whole pool, a disaggregation half on a dense engine, or a
-        ``kv_inject`` payload that does not fit the prompt."""
-        for field, default, why in _LATER:
-            if getattr(req, field) != default:
-                raise NotImplementedError(f"Request.{field}: {why}")
+        whole pool, a disaggregation half on a dense engine, a
+        ``kv_inject`` payload that does not fit the prompt, an adapter
+        without a bank, or a grammar without its EOS or of another
+        vocabulary."""
         prompt_len = len(req.prompt)
         if prompt_len < 1:
             raise ValueError("empty prompt")
@@ -430,6 +493,28 @@ class Scheduler:
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return self._reject(req, f"admission queue full ({self.max_queue}"
                                      f" waiting); retry later")
+        if req.adapter is not None and self.engine.adapter_bank is None:
+            return self._reject(
+                req, "adapter requests need an engine built with an "
+                     "adapter bank (lora_rank/lora_adapters)")
+        if req.grammar is not None:
+            # the automaton legalizes EOS only in accepting states, which
+            # is how a constrained request stops on a complete structure
+            if req.eos_id is None:
+                return self._reject(
+                    req, "grammar-constrained requests need eos_id (the "
+                         "automaton legalizes EOS in accepting states)")
+            if req.grammar.eos_id != req.eos_id:
+                return self._reject(
+                    req, f"grammar was compiled for eos_id="
+                         f"{req.grammar.eos_id} but the request has "
+                         f"eos_id={req.eos_id}")
+            vocab = self.engine.model.cfg.vocab_size
+            if req.grammar.allow.shape[1] != vocab:
+                return self._reject(
+                    req, f"grammar was compiled over a vocab of "
+                         f"{req.grammar.allow.shape[1]} tokens; the "
+                         f"engine serves {vocab}")
         if req.prefill_only and req.kv_inject is not None:
             raise ValueError("prefill_only and kv_inject are mutually "
                              "exclusive (one request is one half of a "
@@ -501,6 +586,10 @@ class Scheduler:
         self.slots[slot] = None
         self._active[slot] = False
         self._temp[slot], self._topk[slot], self._topp[slot] = 0.0, 0, 1.0
+        # the slot's claim on its bank row: at refcount 0 the row is
+        # LRU-evictable, its weights resident for a warm re-acquire
+        self._release_adapter(int(self._aids[slot]))
+        self._aids[slot] = 0
         if self.pages is not None:
             # release the slot's pages (cached prefix pages become
             # evictable) and point the stale table row at the garbage page;
@@ -643,12 +732,16 @@ class Scheduler:
                 if self._admit_inject(slot, req):
                     continue
                 break                  # pool backpressure: FIFO waits
+            aid = self._acquire_adapter(req)
+            if aid is None:
+                continue               # shed or failed, by name
             prompt = [int(t) for t in req.prompt]
             start, row, hits, fresh, hashes, restored = 0, None, [], [], [], []
             if self.pages is not None:
                 pg = eng.page_size
-                hits = self.pages.match_prefix(prompt)
-                hashes = (self.pages.page_hashes(prompt)
+                # keyed by the adapter too: its k/v deltas change the K/V
+                hits = self.pages.match_prefix(prompt, req.adapter)
+                hashes = (self.pages.page_hashes(prompt, req.adapter)
                           if self.pages.prefix_cache else [])
                 if self.spill is not None:
                     # restore on miss: the chain walk goes on into the
@@ -698,7 +791,10 @@ class Scheduler:
                 evictable = sum(1 for p in hits
                                 if self.pages.refcount(p) == 0)
                 if need + evictable > self.pages.available:
-                    break              # FIFO backpressure: wait for pages
+                    # FIFO backpressure: wait for pages, the adapter row
+                    # unpinned meanwhile (re-acquired warm)
+                    self._release_adapter(aid)
+                    break
                 for p in hits:         # pin BEFORE alloc can evict them
                     self.pages.acquire(p)
                 fresh = [self.pages.alloc() for _ in range(need)]
@@ -728,6 +824,7 @@ class Scheduler:
                     self._finish_error(
                         req, f"engine failure: {self.last_engine_error}",
                         self.metrics.on_failure, "failed")
+                    self._release_adapter(aid)   # not slotted yet
                     return
                 self.metrics.on_restore(
                     len(restored), sum(payload_nbytes(p) for p in payloads),
@@ -738,10 +835,18 @@ class Scheduler:
                 # a blocking whole-prompt prefill: every decoding slot
                 # waits for it
                 self.metrics.on_prefill_block(int(self._active.sum()))
+                # the prefill's sample is the first output token: it draws
+                # under the grammar's start-state mask (the prompt never
+                # advances the automaton)
+                g0 = (req.grammar.mask(req.grammar.start)[None, :]
+                      if req.grammar is not None else None)
                 try:
                     self.arena, self.last_tokens, _ = eng.prefill(
                         self.arena, self.last_tokens, slot, suffix, sp,
-                        self._gen, page_row=row, start=start)
+                        self._gen, page_row=row, start=start,
+                        adapter_id=(aid if eng.adapter_bank is not None
+                                    else None),
+                        allowed=g0)
                 except Exception as e:
                     # this request is not slotted yet: _contain frees the
                     # pages it mapped with the pool reset
@@ -749,6 +854,7 @@ class Scheduler:
                     self._finish_error(
                         req, f"engine failure: {self.last_engine_error}",
                         self.metrics.on_failure, "failed")
+                    self._release_adapter(aid)
                     return
             if self.pages is not None:
                 self._ptab[slot] = row
@@ -770,6 +876,9 @@ class Scheduler:
                 self.metrics.on_prefix(len(hits) + n_res, len(hashes), start)
             self.slots[slot] = req
             self._active[slot] = True
+            self._aids[slot] = aid
+            if req.grammar is not None:
+                req._gq = req.grammar.start
             st = _SlotState(req.rid, start if chunked else len(prompt),
                             req.speculate,
                             fill_end=len(prompt) if chunked else None)
@@ -811,6 +920,20 @@ class Scheduler:
         n_pg = int(payload["n_pages"])
         if n_pg > self.pages.available:
             return False
+        aid = self._acquire_adapter(req)
+        if aid is None:
+            return True            # finished with a named reason
+        if req.grammar is not None:
+            # the automaton catches up over the tokens the prefill half
+            # delivered (the seeded first token)
+            req._gq = req.grammar.walk(req.tokens)
+            if req._gq < 0:
+                self.queue.remove(req)
+                self._finish_error(
+                    req, "migrated tokens violate the request's grammar",
+                    self.metrics.on_failure, "failed")
+                self._release_adapter(aid)
+                return True
         self.queue.popleft()
         fresh = [self.pages.alloc() for _ in range(n_pg)]
         # evictions of the allocations spill before the inject rewrites
@@ -827,6 +950,7 @@ class Scheduler:
             self._finish_error(
                 req, f"engine failure: {self.last_engine_error}",
                 self.metrics.on_failure, "failed")
+            self._release_adapter(aid)
             return True
         self._ptab[slot] = row
         self._slot_pages[slot] = list(fresh)
@@ -834,12 +958,14 @@ class Scheduler:
         # cache (first writer wins, as at prefill)
         if self.pages.prefix_cache:
             prompt = [int(t) for t in req.prompt]
-            for h, p in zip(self.pages.page_hashes(prompt), fresh):
+            for h, p in zip(self.pages.page_hashes(prompt, req.adapter),
+                            fresh):
                 self._publish(h, int(p))
         self.metrics.on_kv_handoff(n_pg, time.perf_counter() - t0)
         sp = req.sampling
         self.slots[slot] = req
         self._active[slot] = True
+        self._aids[slot] = aid
         self._state[slot] = _SlotState(req.rid, len(req.prompt),
                                        req.speculate)
         self._temp[slot] = sp.temperature
@@ -961,7 +1087,9 @@ class Scheduler:
     def _draft(self, desires: dict, k_prog: int, drafts, lens) -> int:
         """Fill ``drafts``/``lens`` rows of the desiring slots, each from
         the slot's harvested context, skipping the ``gap_est`` tokens
-        already in flight; returns the number of tokens drafted."""
+        already in flight, a constrained slot's draft cut at its first
+        token the grammar refuses; returns the number of tokens
+        drafted."""
         t0 = time.perf_counter()
         n_drafted = 0
         for slot, des in desires.items():
@@ -971,6 +1099,20 @@ class Scheduler:
             ctx = np.asarray(list(req.prompt) + req.tokens, np.int32)
             pred = np.asarray(self.draft.propose(ctx, gap + want), np.int32)
             cand = pred[gap:gap + want]
+            if req.grammar is not None:
+                # trim at the first illegal token: the verify masks would
+                # refuse everything from there on.  gap is 0 here (the
+                # grammar gate dispatches with nothing in flight), so
+                # ``req._gq`` is the state the draft continues from
+                q, keep = req._gq, 0
+                for t in cand:
+                    q = req.grammar.step(q, int(t))
+                    if q < 0:
+                        break
+                    keep += 1
+                if keep < cand.size:
+                    self.metrics.on_grammar_reject(int(cand.size) - keep)
+                    cand = cand[:keep]
             drafts[slot, :cand.size] = cand
             lens[slot] = cand.size
             n_drafted += int(cand.size)
@@ -1025,7 +1167,26 @@ class Scheduler:
             st = self._state[slot]
             if step_act[slot] and st.prefilling and slot not in chunk_plan:
                 step_act[slot] = False
+        # the grammar gate: a constrained slot dispatches only with nothing
+        # of its own in flight, since its mask is a function of the
+        # automaton's state over harvested truth.  Prompt chunks are
+        # exempt; speculation wins back what the gate costs (one verify
+        # step commits up to k+1 masked tokens)
+        gated = False
+        for slot in range(B):
+            req, st = self.slots[slot], self._state[slot]
+            if req is None or req.grammar is None or not step_act[slot] \
+                    or st.prefilling:
+                continue
+            if st.inflight:
+                step_act[slot] = False
+                desires.pop(slot, None)
+                gated = True
         if not step_act.any():
+            if gated and self._pending:
+                # settle the oldest window so the gated automata advance:
+                # a lone constrained slot never reaches the lag threshold
+                self._harvest_one()
             return
         # the room bound covers every active slot, stepped or not: the
         # window of k+1 positions is written for every row (a dense row
@@ -1111,7 +1272,10 @@ class Scheduler:
                     self.arena, self.last_tokens, drafts, lens, step_act,
                     self._temp, self._topk, self._topp, tables,
                     generator=self._gen, forced=forced,
-                    first_tok=first_tok, pos_set=pos_set)
+                    first_tok=first_tok, pos_set=pos_set,
+                    adapter_ids=self._adapter_ids(),
+                    allowed=self._grammar_masks(step_act, chunk_plan,
+                                                drafts, lens, k_prog))
             self._pending.append((_HostTokens(window), _HostTokens(counts),
                                   entries))
             if n_drafted:
@@ -1136,9 +1300,19 @@ class Scheduler:
             entries = tuple((slot, req.rid, 0, 0)
                             for slot, req in enumerate(self.slots)
                             if step_act[slot])
+            g_rows = [s for s in range(B) if step_act[s]
+                      and self.slots[s].grammar is not None]
+            allowed = None
+            if g_rows:
+                allowed = np.ones((B, self.engine.model.cfg.vocab_size),
+                                  bool)
+                for s in g_rows:
+                    r = self.slots[s]
+                    allowed[s] = r.grammar.mask(r._gq)
             self.arena, self.last_tokens, _ = self.engine.decode(
                 self.arena, self.last_tokens, step_act, self._temp,
-                self._topk, self._topp, tables, generator=self._gen)
+                self._topk, self._topp, tables, generator=self._gen,
+                adapter_ids=self._adapter_ids(), allowed=allowed)
             self._pending.append((_HostTokens(self.last_tokens), None,
                                   entries))
             for slot, _, _, _ in entries:
@@ -1154,6 +1328,42 @@ class Scheduler:
                 # a prefill-role slot parks until its first token
                 # harvests and its pages are extracted
                 self._active[slot] = False
+
+    def _adapter_ids(self):
+        """The slots' adapter rows for a step, None without a bank."""
+        return self._aids if self.engine.adapter_bank is not None else None
+
+    def _grammar_masks(self, step_act, chunk_plan, drafts, lens, k_prog):
+        """Per-position allowed-token masks [B, k_prog + 1, V] for one
+        verify step, or None when no stepped slot is constrained.  A
+        decode or speculative row masks position 0 from the harvested
+        state and position i + 1 from the state after draft token i (the
+        drafts were trimmed legal); a chunk row constrains only the final
+        chunk's bonus position (the first output token, the start
+        state), prompt positions stay all-true."""
+        B = self.engine.n_slots
+        rows = [s for s in range(B) if step_act[s]
+                and self.slots[s] is not None
+                and self.slots[s].grammar is not None]
+        if not rows:
+            return None
+        allowed = np.ones((B, k_prog + 1, self.engine.model.cfg.vocab_size),
+                          bool)
+        for slot in rows:
+            req = self.slots[slot]
+            dfa = req.grammar
+            if slot in chunk_plan:
+                st = self._state[slot]
+                w = chunk_plan[slot]
+                if st.fill_next + w == st.fill_end:
+                    allowed[slot, w - 1] = dfa.mask(dfa.start)
+                continue
+            q = req._gq
+            allowed[slot, 0] = dfa.mask(q)
+            for i in range(int(lens[slot])):
+                q = dfa.step(q, int(drafts[slot, i]))
+                allowed[slot, i + 1] = dfa.mask(q)
+        return allowed
 
     # ---- harvest ------------------------------------------------------
 
@@ -1185,6 +1395,20 @@ class Scheduler:
             for t in toks:
                 req.tokens.append(int(t))
                 delivered += 1
+                if req.grammar is not None:
+                    # the state every later dispatch masks from.  An
+                    # illegal token here (the masks make it unreachable)
+                    # fails the request and is never delivered
+                    q = req.grammar.step(req._gq, int(t))
+                    if q < 0:
+                        req.tokens.pop()
+                        delivered -= 1
+                        self._finish_error(
+                            req, f"grammar violation: token {int(t)} is "
+                                 f"illegal in automaton state {req._gq}",
+                            self.metrics.on_failure, "failed")
+                        break
+                    req._gq = q
                 if len(req.tokens) == 1:
                     req.t_first = now
                     self.metrics.on_first_token(req)
@@ -1198,10 +1422,23 @@ class Scheduler:
             # every generated token counts once; the first is the prefill's
             self.metrics.on_harvest_tokens(
                 delivered - (1 if first_window and delivered else 0))
+            if delivered:
+                self.metrics.on_adapter_tokens(req.adapter or "base",
+                                               delivered)
+                if req.stream is not None and req.error is None:
+                    # the first offerer owns the stream (a hedge's loser
+                    # delivers nothing); extensions are prefix-guarded
+                    n = req.stream.offer(req.rid, req.tokens)
+                    if n:
+                        self.metrics.on_stream(n)
             if req.prefill_only and not req.done and req.tokens:
                 # the prefill half is done with generation still owed:
                 # export the prompt's pages for the decode half
                 self._handoff_out(slot, req)
+            if req.done and req.error is None:
+                # a standalone request's success closes its stream here,
+                # with any suffix not offered yet
+                self._stream_terminal(req)
             if req.done and self.slots[slot] is req:
                 self._retire(slot)
 

@@ -18,7 +18,8 @@ its engine host arrays (page tables, sampling knobs, ``pos_set``,
 CPU ``jnp.asarray`` can alias them, so a step still running may read the
 rewritten values (ROADMAP C1).  The wrapper copies each of them before the
 call, and the page ids and payload trees that the KV handoff and the spill
-tiers hand ``extract_pages``/``inject_pages`` and their batch forms.
+tiers hand ``extract_pages``/``inject_pages`` and their batch forms, and
+the slots' adapter ids and grammar masks of the tenant paths.
 """
 
 import jax
@@ -56,6 +57,13 @@ def _copy(x):
     return None if x is None else np.array(x, copy=True)
 
 
+def _copy_kw(kw):
+    """The keyword host arrays a tenant step passes (adapter ids, grammar
+    masks), copied."""
+    return {k: (_copy(v) if k in ("adapter_ids", "allowed") else v)
+            for k, v in kw.items()}
+
+
 def _copy_tree(tree):
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
@@ -68,13 +76,14 @@ class CopyingJaxEngine(JaxEngine):
     def prefill(self, arena, last_tokens, slot, prompt, *args, page_row=None,
                 **kw):
         return super().prefill(arena, last_tokens, slot, _copy(prompt),
-                               *args, page_row=_copy(page_row), **kw)
+                               *args, page_row=_copy(page_row),
+                               **_copy_kw(kw))
 
     def decode(self, arena, last_tokens, active, key, temp, top_k, top_p,
                page_tables=None, **kw):
         return super().decode(arena, last_tokens, _copy(active), key,
                               _copy(temp), _copy(top_k), _copy(top_p),
-                              page_tables=_copy(page_tables), **kw)
+                              page_tables=_copy(page_tables), **_copy_kw(kw))
 
     def verify(self, arena, last_tokens, draft_tokens, draft_len, active,
                key, temp, top_k, top_p, page_tables=None, forced=None,
@@ -83,7 +92,8 @@ class CopyingJaxEngine(JaxEngine):
             arena, last_tokens, _copy(draft_tokens), _copy(draft_len),
             _copy(active), key, _copy(temp), _copy(top_k), _copy(top_p),
             page_tables=_copy(page_tables), forced=_copy(forced),
-            first_tok=_copy(first_tok), pos_set=_copy(pos_set), **kw)
+            first_tok=_copy(first_tok), pos_set=_copy(pos_set),
+            **_copy_kw(kw))
 
     def extract_pages(self, arena, page_ids):
         return super().extract_pages(arena, _copy(page_ids))

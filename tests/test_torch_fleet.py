@@ -370,8 +370,9 @@ def test_bounded_queue_deadlines_and_shutdown(engine, oracle):
 
 
 def test_router_refusals_name_their_items(engine):
-    """The operations surface (A13) and the tenants' fields (A12b) refuse
-    by name; replica counts and the device are checked."""
+    """The operations surface (A13) refuses by name; replica counts and
+    the device are checked.  (The tenants' fields, refused here before
+    A12b, are served: tests/test_torch_tenant_stream.py.)"""
     for name in ("observer", "exporter", "slos"):
         with pytest.raises(NotImplementedError, match="A13"):
             Router(engine, device="cpu", warmup=False, **{name: object()})
@@ -379,9 +380,3 @@ def test_router_refusals_name_their_items(engine):
         Router(engine, n_replicas=0, device="cpu")
     with pytest.raises(ValueError, match="device"):
         Router(engine, device="cpu", sched_kwargs={"device": "cpu"})
-    with Router(engine, n_replicas=1, device="cpu", warmup=False) as router:
-        for field in ("adapter", "grammar", "stream"):
-            req = Request([1, 2, 3], 2)
-            setattr(req, field, object())
-            with pytest.raises(NotImplementedError, match="A12b"):
-                router.submit(req)

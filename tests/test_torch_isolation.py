@@ -78,7 +78,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "parallel/sequence.py", "parallel/collectives.py",
                 "runtime/mesh.py", "examples/train_lm_4d.py",
                 "serve/fleet.py", "serve/health.py", "serve/paged.py",
-                "examples/serve_fleet.py"):
+                "examples/serve_fleet.py", "serve/tenant/__init__.py",
+                "serve/tenant/lora.py", "serve/tenant/grammar.py",
+                "serve/tenant/stream.py"):
         assert PKG / rel in files
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)

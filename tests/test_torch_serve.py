@@ -136,15 +136,16 @@ def test_decode_tokens_stay_on_device_until_harvest(models):
 
 def test_engine_refuses_later_slices(models):
     _, _, tm = models
-    # the dense arena, quantization, chunked prefill and tensor-parallel
-    # serving are ported; the fleet's, the tenants' and the operations'
-    # options still refuse
-    for kwargs in ({"observer": object()},
-                   {"lora_rank": 2, "lora_adapters": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the dense arena, quantization, chunked prefill, tensor-parallel
+    # serving and tenancy are ported; the operations' observer and a LoRA
+    # bank on a tensor-parallel engine still refuse
+    mesh = build_mesh((1, 1), ("data", "model"))
+    for kwargs, item in (({"observer": object()}, "A13"),
+                         ({"lora_rank": 2, "lora_adapters": 3,
+                           "mesh": mesh}, "A12a's follow-up")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
             InferenceEngine(tm, n_slots=2, device="cpu", **kwargs)
-    tp = InferenceEngine(tm, n_slots=2, device="cpu",
-                         mesh=build_mesh((1, 1), ("data", "model")))
+    tp = InferenceEngine(tm, n_slots=2, device="cpu", mesh=mesh)
     assert tp.compile_stats()["tp"] == {"rules": "tp",
                                         "mesh": {"data": 1, "model": 1}}
     eng = InferenceEngine(tm, n_slots=2, buckets=BUCKETS, page_size=PAGE,
@@ -154,13 +155,6 @@ def test_engine_refuses_later_slices(models):
                      device="cpu").spill is not None
     with pytest.raises(NotImplementedError, match="ROADMAP queue A13"):
         Scheduler(eng, observer=object(), device="cpu")
-    knobs = (np.zeros(2, np.float32), np.zeros(2, np.int32),
-             np.ones(2, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A12"):
-        eng.verify(eng.init_arena(), eng.init_last_tokens(),
-                   np.zeros((2, 2), np.int32), [2, 2], [True, True], *knobs,
-                   np.zeros((2, eng.n_ptab), np.int32),
-                   allowed=np.ones((2, 3, VOCAB), bool))
     with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         generate(tm, np.zeros((1, 3), np.int32), 2, strategy=object())
 

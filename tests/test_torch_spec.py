@@ -168,15 +168,6 @@ def test_accept_resample_greedy_rows_match_jax(case, seed):
         assert (got_n.numpy()[forced] == draft_len[forced]).all()
 
 
-def test_accept_resample_refuses_packed_masks():
-    logits = torch.zeros(1, 2, 40)
-    packed = torch.zeros(1, 2, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A12"):
-        accept_resample(logits, torch.zeros(1, 1, dtype=torch.int32),
-                        torch.ones(1, dtype=torch.int32), None, [0.0], [0],
-                        [1.0], allowed=packed)
-
-
 def test_rejection_sampling_matches_analytic_acceptance():
     """The hand-computable 4-token case (port of the JAX test): target p =
     softmax(logits), one-hot proposal d.  The acceptance rate is p[d], the

@@ -184,3 +184,38 @@ def test_twin_parses_help_with_the_jax_examples_flags(twin, monkeypatch):
              and not f.startswith("--no-")]
     assert words and all(f"--{w.replace('-', '_')}" in got and
                          f"--{w.replace('_', '-')}" in got for w in words)
+
+
+def test_serve_lm_twin_serves_tenants(tmp_path, capsys):
+    """serve_lm with --lora (two demo adapters written on first use),
+    --json-schema and --stream on the tiny LM, paged: every request ends
+    without error, its output legal for the schema's automaton, each
+    stream closed and equal to its request's tokens, and the JAX
+    script's report lines."""
+    from dtdl_tpu_torch.examples import serve_lm
+    schema = tmp_path / "schema.json"
+    schema.write_text('{"type": "object", "properties": '
+                      '{"id": {"type": "integer"}, "ok": {"type": "boolean"}}}')
+    lora = f"{tmp_path / 'a.pt'},{tmp_path / 'b.pt'}"
+    reqs, s, _ = serve_lm.main(
+        ["--platform", "cpu", "--n-requests", "6", "--n-slots", "3",
+         "--max-new-tokens", "30", "--page-size", "16", "--lora", lora,
+         "--lora-rank", "4", "--json-schema", str(schema), "--stream"])
+    out = capsys.readouterr().out
+    assert all(r.done and r.error is None for r in reqs)
+    dfa = reqs[0].grammar
+    for r in reqs:
+        assert dfa.walk(r.tokens) >= 0
+        assert r.stream.closed and not r.stream.divergent
+        assert r.stream.tokens == r.tokens
+    assert [r.adapter for r in reqs[:3]] == [None] + lora.split(",")
+    assert sorted(s["tokens_by_adapter"]) == sorted(
+        ["base"] + lora.split(","))
+    assert out.count("--lora: saved demo adapter") == 2
+    assert re.search(r"multi-lora \(2 adapters, rank 4\): tokens by tenant: "
+                     r"a\.pt=\d+  b\.pt=\d+  base=\d+  bank loads 2", out)
+    assert re.search(r"--json-schema: \d+-state token DFA", out)
+    assert re.search(r"constrained \(.*\): \d+/6 requests completed valid "
+                     r"JSON", out)
+    assert "stream req 0: +[" in out
+    assert f"streaming: {s['stream_deliveries']} incremental" in out
