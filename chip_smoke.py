@@ -114,7 +114,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the ranks' parameter digests equal; what NCCL says for two
                ranks on one card (recorded); (3) the DDP twin
                (examples.distributed_data_parallel: PyramidNet-110, global
-               batch 64, 24 steps and one evaluate over synthetic CIFAR-10)
+               batch 64, 12 steps and one evaluate of 500 synthetic
+               CIFAR-10 images)
                at world 1 over NCCL and 2 over gloo: leader-only log and
                weights, the weights loading back to every rank's digest,
                BatchNorm statistics equal across ranks, samples/s; (4) a
@@ -135,7 +136,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
                under cuDNN's deterministic algorithms (set for that check
                only); (d) the mnist_single twin (2 epochs, load_latest,
                evaluate) and the train_mnist twin (2 epochs, then --resume
-               of its snapshot) as subprocesses;
+               of its snapshot), 6000 images an epoch, each main() in this
+               process;
 7h. faces    - the last example twins, each as a user runs it: (a)
                serve_lm on base at full width, bf16, page 16 (16 requests
                with a 256-token shared prefix, 32 new tokens, greedy):
@@ -143,16 +145,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
                greedy tokens identical to the same requests through the
                serve phase's engine path with the plain attend (a parting
                only at a bf16 near-tie, reported); (b) imagenet_resnet50
-               at 224 px, 1000 classes, batch 256, 40 steps over a
+               at 224 px, 1000 classes, batch 256, 20 steps over a
                1024-image pool:
                samples/s, ms/step and MFU, the train-pool accuracy; (c)
                caffe_train on examples/caffe/lenet_solver.prototxt to 600
                iterations, then --snapshot latest to 800 (the resume starts
                at 600): iterations/s and MFU by netspec_flops; (d)
-               tf_estimator to 400 steps, then again (it restores 400 and
+               tf_estimator to 200 steps, then again (it restores 200 and
                trains nothing); (e) mxnet_kvstore --kv-store device, one
-               epoch; (f) single_device and data_parallel, one epoch of 2560
-               images each; each twin's output in build/faces/<twin>.log;
+               epoch of 6400 images; (f) single_device and data_parallel,
+               one epoch of 1280 images each, evaluating 500; (b), (e) and
+               (f) as main() in this process (c and d already were); each
+               twin's output in build/faces/<twin>.log;
 7i. fourd    - the 4D-parallel step (parallel/megatron.py) on the one-card
                mesh (1, 1, 1, 1) through K1-K3: (a) base widths, bf16 on
                f32 weights, adamw(3e-4), 8 x 4096, 1F1B over 2
@@ -230,7 +234,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
                a Router of 3 replicas of the LoRA engine with the fleet
                phase's faults: 0 lost, 0 divergent streams; (e) the
                serve_lm and serve_fleet twins with --lora/--stream
-               (serve_lm with --json-schema), exit 0;
+               (serve_lm with --json-schema) at their default watchdog,
+               the fleet twin traced for its longest worker iteration;
+7m. obs      - observability (obs/): (a) the train cell (base bf16,
+               8 x 4096, adamw) through train_epoch, 3 warm-up and 10
+               timed steps a run, runs with the full Observer (Tracer,
+               GoodputMeter, a MetricsExporter with a JSONL sink) and
+               without in five pairs, in turns: step ms and the overhead
+               (the median of the pairs, limit 2%), the synchronizations
+               of each run (equal, by site), span
+               counts, the device track, the meter's MFU within 1% of the
+               train line's, K1-K3 launches; (b) the serve cell through
+               Scheduler(observer=, exporter=), paired the same way:
+               tokens identical, tokens/s at most 2% below, TTFT p50/p99,
+               synchronizations equal, every rid admitted -> first token
+               -> finished with its flow closed, JSONL points, K4; (c) the
+               fleet's three replicas with a killed worker and hedging at
+               the twin's 0.25 s watchdog under the Observer, an exporter
+               (JSONL, serve_http(0) scraped twice) and default_fleet_slos:
+               0 lost, one terminal per rid, no dangling flow, only the
+               killed replica evicted; then a loop-site stall breaks a TTFT
+               objective and waves of short requests restore it
+               (slo_breach, then slo_recovered, in the trace and the
+               series); (d) serve_fleet at base and its default watchdog
+               with every observability flag (32/32 served, no eviction,
+               the longest worker iteration from its trace), serve_lm and
+               train_lm with --trace;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -267,7 +296,7 @@ PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
           "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
-          "fleet", "timing", "tenant")
+          "fleet", "timing", "tenant", "obs")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -2628,7 +2657,7 @@ DDP_PAIR_BATCH, DDP_PAIR_SEQ, DDP_PAIR_LR = 8, 256, 3e-4
 DDP_PAIR_ATOL, DDP_PAIR_SHARE = 1e-5, 1e-3
 DDP_MLP_TOL = (1e-4, 1e-5)
 # (3) the DDP twin: PyramidNet-110 at the reference's global batch
-TWIN_BATCH, TWIN_STEPS, TWIN_TEST = 64, 24, 1000
+TWIN_BATCH, TWIN_STEPS, TWIN_TEST = 64, 12, 500
 FAILFAST_BOUND_S = 5.0
 
 
@@ -3018,9 +3047,11 @@ RESUME_PYR, RESUME_PYR_BATCHES = (6, 3, 4), 8
 RESUME_TIMED = 3     # steps timed without a write in flight
 # (d) the MNIST twins, as a user runs them
 TWIN_MNIST_EPOCHS = 2
-# the MNIST twins' epochs cut to 12000 of the 60000 images, which keeps
-# the default run's time with the gspmd phase in it
-TWIN_MNIST_LIMIT = ["--limit-train", "12000"]
+# the MNIST twins' epochs cut to 6000 of the 60000 images, and run in this
+# process (the subprocess set-ups were most of their time), which keeps
+# the default run's time with the obs phase in it
+TWIN_MNIST_IMAGES = 6000
+TWIN_MNIST_LIMIT = ["--limit-train", str(TWIN_MNIST_IMAGES)]
 
 
 def host_tree(torch, state) -> dict:
@@ -3253,32 +3284,13 @@ def resume_pyramidnet(torch, seed, card, root, kernels):
     torch.cuda.empty_cache()
 
 
-def twin_run(name, args, cwd, log_path, timeout=600):
-    """``python -m dtdl_tpu_torch.examples.<name> args`` from ``cwd``
-    (no dataset files there: the synthetic sets, no download); (output,
-    seconds).  The output is appended to ``log_path``; a non-zero exit
-    raises."""
-    cmd = [sys.executable, "-m", f"dtdl_tpu_torch.examples.{name}", *args]
-    t0 = time.perf_counter()
-    p = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
-                       timeout=timeout, env={**os.environ, "PYTHONPATH": ROOT,
-                                             "DTDL_OFFLINE": "1"})
-    out = p.stdout + p.stderr
-    with open(log_path, "a") as f:
-        f.write(out)
-    if p.returncode != 0:
-        raise AssertionError(f"twin {name} exited {p.returncode}:\n"
-                             f"{out[-4000:]}")
-    return out, time.perf_counter() - t0
-
-
 def resume_twins(torch, card, root):
     """(d) the Keras and Chainer MNIST twins as a user runs them."""
     data = ["--dataset-dir", os.path.join(root, "datasets")]
 
     def twin(name, *args):
-        return twin_run(name, [*data, *TWIN_MNIST_LIMIT, *args], root,
-                        os.path.join(ROOT, "build", f"resume_{name}.log"))
+        return twin_main(name, [*data, *TWIN_MNIST_LIMIT, *args],
+                         os.path.join(ROOT, "build", f"resume_{name}.log"))
 
     out, secs = twin("mnist_single", "--epochs", str(TWIN_MNIST_EPOCHS),
                      "--train_dir", os.path.join(root, "keras"))
@@ -3286,8 +3298,8 @@ def resume_twins(torch, card, root):
     if not ev or f"Epoch [{TWIN_MNIST_EPOCHS - 1}]" not in out:
         raise AssertionError(f"mnist_single printed no report:\n"
                              f"{out[-4000:]}")
-    log(f"resume twin mnist_single: {TWIN_MNIST_EPOCHS} epochs of 12000 "
-        f"images, "
+    log(f"resume twin mnist_single: {TWIN_MNIST_EPOCHS} epochs of "
+        f"{TWIN_MNIST_IMAGES} images, "
         f"ModelCheckpoint, load_latest, evaluate: {ev[-1]} ({secs:.1f} s) "
         f"| {card}")
     out_dir = os.path.join(root, "chainer")
@@ -3335,32 +3347,55 @@ def phase_resume(torch, seed, card):
 FACES_SERVE = ["--model-size", "base", "--page-size", "16", "--n-slots", "8",
                "--n-requests", "16", "--max-new-tokens", "32",
                "--shared-prefix", "256", "--dtype", "bfloat16"]
-FACES_RESNET = ["--batch-size", "256", "--steps", "40", "--train-examples",
-                "1024", "--log-interval", "20", "--image-size", "224",
+# the twins below serve_lm run in this process and cut to fewer steps
+# (the subprocess set-ups and the epochs were most of the phase's time);
+# widths, batch sizes and image sizes stay the reference's
+FACES_RESNET = ["--batch-size", "256", "--steps", "20", "--train-examples",
+                "1024", "--log-interval", "10", "--image-size", "224",
                 "--num-classes", "1000"]
+FACES_MX_IMAGES = 6400
+FACES_PYR_TRAIN, FACES_PYR_TEST = 1280, 500
 # the classify phase's ResNet-50 cell (bf16, batch 256, cudnn.benchmark
 # on), as PERF.md records it
 RESNET50_CLASSIFY_MS = 64.612
 FACES_CAFFE_ITERS = (600, 800)
-FACES_EST_STEPS = 400
+FACES_EST_STEPS = 200
 
 
 def faces_log(name) -> str:
     return os.path.join(ROOT, "build", "faces", f"{name}.log")
 
 
-def in_process(main, argv, log_name):
-    """``main(argv)`` of a twin in this process, its standard output
-    appended to build/faces/<log_name>.log; (return value, output)."""
+def in_process(main, argv, log_name, log_path=None):
+    """``main(argv)`` of a twin in this process, as a user's script calls
+    it (no interpreter start, import and CUDA set-up of its own), its
+    standard output appended to build/faces/<log_name>.log (or
+    ``log_path``); (return value, output)."""
     import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         ret = main(argv)
     out = buf.getvalue()
-    with open(faces_log(log_name), "a") as f:
+    with open(log_path or faces_log(log_name), "a") as f:
         f.write(out)
     return ret, out
+
+
+def twin_main(name, args, log_path):
+    """The twin ``name``'s ``main(args)`` in this process (in_process);
+    (output, seconds), its memory released after it."""
+    import importlib
+    import torch
+    # no dataset file here: the synthetic sets, never a download
+    os.environ["DTDL_OFFLINE"] = "1"
+    mod = importlib.import_module(f"dtdl_tpu_torch.examples.{name}")
+    t0 = time.perf_counter()
+    _, out = in_process(mod.main, list(args), name, log_path)
+    secs = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, secs
 
 
 def faces_serve(torch, seed, card):
@@ -3414,12 +3449,11 @@ def faces_serve(torch, seed, card):
 
 def faces_resnet(torch, seed, card, root):
     """(b) imagenet_resnet50 at 224 px, 1000 classes, batch 256, bf16:
-    samples/s and ms/step of the second log window (steps 21-40), MFU by
+    samples/s and ms/step of the second log window (steps 11-20), MFU by
     classifier_train_flops, the closing train-pool accuracy."""
-    out, secs = twin_run("imagenet_resnet50", [
+    out, secs = twin_main("imagenet_resnet50", [
         *FACES_RESNET, "--seed", str(seed), "--dataset-dir",
-        os.path.join(root, "datasets")], root,
-        faces_log("imagenet_resnet50"))
+        os.path.join(root, "datasets")], faces_log("imagenet_resnet50"))
     rows = re.findall(r"step (\d+)/\d+ loss ([\d.]+) acc ([\d.]+) \| "
                       r"([\d,]+) samples/sec .*\| ([\d.]+) ms/step", out)
     final = re.search(r"final: train-pool acc ([\d.]+)", out)
@@ -3437,7 +3471,7 @@ def faces_resnet(torch, seed, card, root):
         raise AssertionError(f"faces imagenet_resnet50: loss {loss}")
     log(f"faces imagenet_resnet50 twin bf16 batch 256 224px 1000 classes "
         f"(choose_strategy auto = single, warm-up cosine, Nesterov SGD "
-        f"0.9 + decay 1e-4; 40 steps over a 1024-image pool): steps 21-{step}"
+        f"0.9 + decay 1e-4; 20 steps over a 1024-image pool): steps 11-{step}"
         f" samples/sec={sps.replace(',', '')} ms/step={ms} (the classify "
         f"phase's cell in PERF.md: {RESNET50_CLASSIFY_MS} ms, cudnn.benchmark"
         f" on there) "
@@ -3528,9 +3562,9 @@ def faces_caffe(torch, card, root):
 
 
 def faces_estimator(torch, card, root):
-    """(d) tf_estimator to 400 steps checkpointing every 200, then the
-    same command again: it restores 400 and runs no train step (the
-    steps counted in this process)."""
+    """(d) tf_estimator to FACES_EST_STEPS steps checkpointing every
+    half of them, then the same command again: it restores the last and
+    runs no train step (the steps counted in this process)."""
     from dtdl_tpu_torch.examples import tf_estimator
     from dtdl_tpu_torch.train import estimator as est_mod
     model_dir = os.path.join(root, "estimator")
@@ -3582,13 +3616,13 @@ def faces_estimator(torch, card, root):
 
 def faces_mxnet(torch, card, root):
     """(e) mxnet_kvstore --kv-store device (width 1, SingleDevice), one
-    epoch of 12800 synthetic MNIST images (of 60000: cut for the default
-    run's time)."""
-    out, secs = twin_run("mxnet_kvstore", [
+    epoch of FACES_MX_IMAGES synthetic MNIST images (of 60000: cut for the
+    default run's time)."""
+    out, secs = twin_main("mxnet_kvstore", [
         "--kv-store", "device", "--num-epochs", "1", "--limit-train",
-        "12800", "--out",
+        str(FACES_MX_IMAGES), "--out",
         os.path.join(root, "mx"), "--dataset-dir",
-        os.path.join(root, "datasets")], root, faces_log("mxnet_kvstore"))
+        os.path.join(root, "datasets")], faces_log("mxnet_kvstore"))
     speeds = re.findall(r"Speed: ([\d.]+) samples/sec", out)
     val = re.search(r"Validation-accuracy=([\d.]+)", out)
     head = re.search(r"kvstore: kind=device rank=0 num_workers=1 width=1",
@@ -3598,7 +3632,7 @@ def faces_mxnet(torch, card, root):
                              f"{out[-4000:]}")
     log(f"faces mxnet_kvstore twin --kv-store device (width 1: "
         f"SingleDevice) MnistCNN f32 batch 64 sgd(0.05, 0.9), 1 epoch of "
-        f"12800 images "
+        f"{FACES_MX_IMAGES} images "
         f"(prefetch_to_device, a sync each step as Module.fit reads its "
         f"metrics): Speedometer samples/sec median "
         f"{sorted(float(s) for s in speeds)[len(speeds) // 2]:.2f} (last "
@@ -3606,13 +3640,15 @@ def faces_mxnet(torch, card, root):
 
 
 def faces_pyramidnet(torch, card, root):
-    """(f) single_device and data_parallel (world 1), one epoch over 2560
-    synthetic CIFAR-10 images, evaluate over 1000."""
+    """(f) single_device and data_parallel (world 1), one epoch over
+    FACES_PYR_TRAIN synthetic CIFAR-10 images, evaluate over
+    FACES_PYR_TEST."""
     for name in ("single_device", "data_parallel"):
-        out, secs = twin_run(name, [
-            "--epochs", "1", "--limit-train", "2560", "--limit-test", "1000",
+        out, secs = twin_main(name, [
+            "--epochs", "1", "--limit-train", str(FACES_PYR_TRAIN),
+            "--limit-test", str(FACES_PYR_TEST),
             "--out", os.path.join(root, name), "--no-download",
-            "--dataset-dir", os.path.join(root, "datasets")], root,
+            "--dataset-dir", os.path.join(root, "datasets")],
             faces_log(name))
         epoch = re.search(r"Epoch \[0\] \| loss: ([\d.]+) \| accuracy: "
                           r"([\d.]+) \| epoch_time: ([\d.]+) \| "
@@ -3625,7 +3661,8 @@ def faces_pyramidnet(torch, card, root):
         strategy = {"single_device": "SingleDevice",
                     "data_parallel": "DataParallel, world 1"}[name]
         log(f"faces {name} twin PyramidNet-110 bf16 batch 64 (SGD + StepLR,"
-            f" {strategy}), 1 epoch of 40 steps: loss={epoch[1]} accuracy={epoch[2]} "
+            f" {strategy}), 1 epoch of {FACES_PYR_TRAIN // 64} steps: "
+            f"loss={epoch[1]} accuracy={epoch[2]} "
             f"epoch_time_s={epoch[3]} avg_batch_time_s={epoch[4]} "
             f"({64 / float(epoch[4]):.2f} samples/s, first step included), "
             f"val_loss={val[1]} val_accuracy={val[2]}, final weights saved "
@@ -4401,8 +4438,10 @@ FLEET_CUT_PAGES = 201             # (e)'s pool: 200 usable pages of 16
 FLEET_DISK_BYTES = 1 << 30
 FLEET_TWIN = ["--model-size", "base", "--disagg", "--kill-replica-after",
               "5"]
-# the Router's knobs on the card: a step of base at 8 slots takes
-# milliseconds, so a stall of seconds is a wedge and never a busy replica
+# the Router's knobs of the fleet phase, kept at its 2 s watchdog so that
+# its records ((b)'s seconds from a fault to HEALTHY) compare with PRs
+# 14-15; the fleet at the twin's default of 0.25 s is held by the obs
+# phase's (c) and (d) and the tenant phase's fleet twin (ROADMAP C7)
 FLEET_KNOBS = dict(probe_interval_s=0.02, watchdog_s=2.0, retry_budget=3)
 
 
@@ -4757,16 +4796,17 @@ def phase_fleet(torch, seed, card):
     # (f) the twin
     path = os.path.join(ROOT, "build", "fleet", "serve_fleet.log")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    text, secs = twin_run("serve_fleet", [*FLEET_TWIN, "--seed", str(seed)],
-                          ROOT, path)
+    text, secs = twin_main("serve_fleet", [*FLEET_TWIN, "--seed", str(seed)],
+                           path)
     lost = re.search(r"requests lost: (\d+)", text)
     evict = re.search(r"evicted replica 0 \(([\d.]+)ms", text)
     if lost is None or int(lost[1]) != 0 or evict is None \
             or "[OK]" not in text:
         raise AssertionError(f"fleet (f): serve_fleet twin:\n{text[-3000:]}")
     served = re.search(r"served .*", text)
-    log(f"fleet (f) twin serve_fleet {' '.join(FLEET_TWIN)}: exit 0, "
-        f"requests lost 0, eviction {evict[1]} ms after the worker's death; "
+    log(f"fleet (f) twin serve_fleet {' '.join(FLEET_TWIN)} (main() in this "
+        f"process): requests lost 0, eviction {evict[1]} ms after the "
+        f"worker's death; "
         f"{served[0] if served else ''} ({secs:.1f} s, log {path}) | {card}")
     return out
 
@@ -4781,17 +4821,15 @@ TENANT_EOS = 31999
 TENANT_SCHEMA = {"type": "object", "properties": {
     "id": {"type": "integer"}, "name": {"type": "string"},
     "ok": {"type": "boolean"}}}
-# the fleet twin at base width takes the fleet phase's watchdog (2 s): its
-# replica threads' admission steps (4 prefills) take up to ~0.3 s of host
-# time there with the LoRA path on, past the twin's default of 0.25 s,
-# which is sized for its tiny model
+# the fleet twin at its default watchdog (0.25 s): a worker beats after
+# each admission's prefill, so a LoRA admission step of four prefills
+# (~0.3-0.4 s of host time at base width) is not a wedge (ROADMAP C7)
 TENANT_TWINS = (
     ("serve_lm", ["--model-size", "base", "--dtype", "bfloat16",
                   "--page-size", "16", "--n-slots", "8", "--n-requests",
                   "12", "--stream"]),
     ("serve_fleet", ["--model-size", "base", "--dtype", "bfloat16",
-                     "--stream", "--kill-replica-after", "3",
-                     "--watchdog", str(FLEET_KNOBS["watchdog_s"])]),
+                     "--stream", "--kill-replica-after", "3"]),
 )
 
 
@@ -5295,12 +5333,16 @@ def phase_tenant(torch, seed, card):
     with open(schema, "w") as f:
         json.dump(TENANT_SCHEMA, f)
     lora = f"{os.path.join(d, 'a.pt')},{os.path.join(d, 'b.pt')}"
+    trace = os.path.join(d, "serve_fleet.json")
     for name, args in TENANT_TWINS:
         extra = ["--lora", lora, "--seed", str(seed)]
         if name == "serve_lm":
             extra += ["--json-schema", schema]
-        text, secs = twin_run(name, [*args, *extra], ROOT,
-                              os.path.join(d, f"{name}.log"))
+        else:
+            # the trace reads where a worker's iterations go (C7)
+            extra += ["--trace", trace]
+        text, secs = twin_main(name, [*args, *extra],
+                               os.path.join(d, f"{name}.log"))
         served = re.search(r"served (\d+)/(\d+) requests", text)
         if name == "serve_fleet" and (
                 "requests lost: 0" not in text
@@ -5311,12 +5353,582 @@ def phase_tenant(torch, seed, card):
         if "multi-lora (2 adapters" not in text:
             raise AssertionError(f"tenant (e): {name}:\n{text[-3000:]}")
         lines = [x.strip() for x in text.splitlines()
-                 if re.match(r"\s*(served|multi-lora|constrained|streaming)",
-                             x)]
+                 if re.match(r"\s*(served|multi-lora|constrained|streaming|"
+                             r"heartbeat)", x)]
+        if name == "serve_fleet":
+            events = json.load(open(trace))["traceEvents"]
+            it_s, parts = longest_iteration(events)
+            lines.append(f"longest worker iteration {it_s:.4f} s ("
+                         f"{ {k: round(v, 4) for k, v in parts.items()} }), "
+                         f"{span_stats(events, 'prefill')}")
         log(f"tenant (e) twin {name} {' '.join(args)} --lora a,b"
-            f"{' --json-schema' if name == 'serve_lm' else ''}: exit 0 "
+            f"{' --json-schema' if name == 'serve_lm' else ''}: main() "
+            f"returned "
             f"({secs:.1f} s): {' / '.join(lines)} | {card}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# obs: the observer, the metrics exporter and the SLOs through training,
+# serving and the fleet, on K1-K4
+# ---------------------------------------------------------------------------
+
+# (a), (b): pairs of an observed and an unobserved run, in turns (on
+# first in even pairs, off first in odd ones); the overhead is the median
+# of the pairs' ratios, against JAX's limit
+OBS_PAIRS = 5
+OBS_LIMIT = 0.02
+OBS_TRAIN_STEPS = (3, 10)         # warm-up, timed steps a run
+OBS_MFU_TOL = 0.01                # the meter's MFU against the train line
+OBS_WATCHDOG = 0.25               # the fleet twin's default
+# (c) the fleet: the TTFT objective and the stall that breaks it
+OBS_TTFT_SLO, OBS_STALL_S = 1.5, 3.0
+OBS_RECOVER_WAVES, OBS_WAVE = 9, 12
+# (d) the twins, each at its defaults but for the flags it is run with
+OBS_FLEET_TWIN = ["--model-size", "base", "--n-requests", "32"]
+OBS_SERVE_TWIN = ["--model-size", "base", "--page-size", "16",
+                  "--n-slots", "8", "--n-requests", "16", "--dtype",
+                  "bfloat16"]
+OBS_TRAIN_TWIN = ["--model-size", "base", "--epochs", "1",
+                  "--log-interval", "16"]
+
+
+def median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def obs_pairs(run) -> dict:
+    """``run(on)`` in OBS_PAIRS pairs, the observed run first in even
+    pairs and last in odd ones: {True: runs, False: runs}, pair by pair."""
+    runs = {True: [], False: []}
+    for i in range(OBS_PAIRS):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            runs[on].append(run(on))
+    return runs
+
+
+def obs_dir(*parts) -> str:
+    path = os.path.join(ROOT, "build", "obs", *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def sync_count(torch, fn, where=None):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, the number of operations that waited for the card); each
+    one's ``file:line`` is appended to the list ``where``."""
+    import warnings
+    if DEV != "cuda":
+        return fn(), 0
+    sync(torch)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    if where is not None:
+        where.extend(f"{os.path.basename(w.filename)}:{w.lineno}"
+                     for w in hits)
+    return out, len(hits)
+
+
+def sync_sites(runs) -> dict:
+    """{file:line: counts by run} where the runs' synchronizations differ."""
+    sites = sorted({x for r in runs for x in r["where"]})
+    out = {}
+    for x in sites:
+        n = [r["where"].count(x) for r in runs]
+        if len(set(n)) > 1:
+            out[x] = n
+    return out
+
+
+def span_counts(obs) -> dict:
+    out: dict = {}
+    for e in obs.tracer.to_chrome()["traceEvents"]:
+        if e["ph"] == "X":
+            key = e["name"] if e["tid"] != 1 else "device (window-settled)"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def span_stats(trace_events, name) -> str:
+    """Count, mean and max seconds of the ``name`` spans of a trace."""
+    d = [e["dur"] / 1e6 for e in trace_events
+         if e.get("ph") == "X" and e["name"] == name]
+    if not d:
+        return f"{name}: none"
+    return (f"{name} x{len(d)} mean {sum(d) / len(d):.4f} s max "
+            f"{max(d):.4f} s")
+
+
+def flows_closed(trace_events) -> tuple:
+    """(user rids whose flow chain dangles: not one start first and one
+    end after it, the rids with steps after their end).  A step after the
+    end is a hedge's or a retry's losing attempt, still running when the
+    user's terminal closed the chain (JAX's emitters do the same)."""
+    by: dict = {}
+    flows = [e for e in trace_events if e.get("cat") == "request"]
+    for e in sorted(flows, key=lambda e: e["ts"]):
+        by.setdefault(e["id"], []).append(e["ph"])
+    dangling = [rid for rid, phs in by.items()
+                if phs.count("s") != 1 or phs.count("f") != 1
+                or phs[0] != "s"]
+    late = [rid for rid, phs in by.items()
+            if rid not in dangling and phs[-1] != "f"]
+    return dangling, late
+
+
+def parse_prometheus(text) -> dict:
+    """{name: value} of a scrape body; raises on a malformed line."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        name, value, ts = line.split(" ")
+        if not re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*", name):
+            raise AssertionError(f"bad metric name in {line!r}")
+        out[name] = float(value)
+        int(ts)
+    return out
+
+
+def longest_iteration(trace) -> tuple:
+    """The longest interval between two ``admit`` spans of one replica
+    worker in which it did work (a prefill, a dispatch or a harvest),
+    from a fleet trace: (seconds, its spans' seconds by name)."""
+    by_tid: dict = {}
+    for e in trace:
+        if e.get("ph") == "X" and e["name"] in ("admit", "prefill",
+                                                 "dispatch", "verify",
+                                                 "harvest", "drain"):
+            by_tid.setdefault(e["tid"], []).append(e)
+    best = (0.0, {})
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: e["ts"])
+        admits = [e for e in evs if e["name"] == "admit"]
+        for a, b in zip(admits, admits[1:]):
+            inside = [e for e in evs if a["ts"] <= e["ts"] < b["ts"]
+                      and e["name"] != "admit"]
+            work = {}
+            for e in inside + [a]:
+                work[e["name"]] = work.get(e["name"], 0.0) + e["dur"] / 1e6
+            if set(work) - {"admit"} and (b["ts"] - a["ts"]) / 1e6 > best[0]:
+                best = ((b["ts"] - a["ts"]) / 1e6, work)
+    return best
+
+
+def obs_train(torch, seed, card):
+    """(a) the train cell through train_epoch, observed and not."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    from dtdl_tpu_torch.metrics.report import Reporter
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.obs import (GoodputMeter, JsonlSeriesSink,
+                                    MetricsExporter, Observer,
+                                    lm_train_flops, peak_flops_per_chip)
+    from dtdl_tpu_torch.train.loop import train_epoch
+    from dtdl_tpu_torch.train.optim import adamw
+    from dtdl_tpu_torch.train.state import init_state
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    warm, steps = OBS_TRAIN_STEPS
+    tokens, _ = synthetic_lm(n_train=TRAIN_BATCH * (warm + steps),
+                             n_test=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             vocab_size=32000, seed=seed)
+    model = transformer_lm("base", max_seq=TRAIN_SEQ, seed=None, device=DEV)
+    state = init_state(model, seed, adamw(3e-4), device=DEV)
+    step = make_lm_train_step()
+    cfg = model.cfg
+    flops = lm_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    peak = peak_flops_per_chip()
+    series = os.path.join(obs_dir("train"), "series.jsonl")
+
+    class Sink:
+        def __init__(self, ex):
+            self.ex = ex
+
+        def write(self, payload):
+            if self.ex is not None:     # the report boundary samples it
+                self.ex.sample()
+
+        def close(self):
+            pass
+
+    def loader(lo, hi):
+        return DataLoader({"tokens": tokens[lo * TRAIN_BATCH:
+                                            hi * TRAIN_BATCH]},
+                          TRAIN_BATCH, shuffle=False, device=DEV)
+
+    def run(on):
+        obs = ex = None
+        if on:
+            obs = Observer(trace=True, sentinel="warn",
+                           goodput=GoodputMeter(
+                               flops_per_step=flops,
+                               tokens_per_step=TRAIN_BATCH * (TRAIN_SEQ - 1)))
+            ex = MetricsExporter([JsonlSeriesSink(series)], interval_s=0.0)
+            ex.add_source("goodput", obs.goodput.export_window)
+        rep = Reporter([Sink(ex)], leader_only=False)
+        nonlocal state
+        state, _ = train_epoch(step, state, loader(0, warm), reporter=rep,
+                               log_interval=5)
+        sync(torch)
+        kernels.reset_launches()
+        where = []
+        t0 = time.perf_counter()
+        (state, means), n_sync = sync_count(torch, lambda: train_epoch(
+            step, state, loader(warm, warm + steps), reporter=rep,
+            log_interval=5, observer=obs), where)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        if ex is not None:
+            ex.close()
+        return dict(wall=wall, syncs=n_sync, obs=obs, ex=ex, where=where,
+                    launches=dict(kernels.LAUNCHES), loss=means["loss"])
+
+    # one run first, not kept: the host allocators' first blocks (pinned
+    # staging for the uploads) are taken there, not inside a counted run
+    run(False)
+    runs = obs_pairs(run)
+    ms = {on: [1e3 * r["wall"] / steps for r in runs[on]] for on in runs}
+    over = median([a / b - 1.0 for a, b in zip(ms[True], ms[False])])
+    syncs = {on: [r["syncs"] for r in runs[on]] for on in runs}
+    last = runs[True][-1]
+    obs = last["obs"]
+    mfu_meter = obs.goodput.totals().get("mfu")
+    mfu_line = flops * steps / last["wall"] / peak if peak else None
+    want = cfg.n_layers * steps
+    bad = [(on, r["launches"]) for on in runs for r in runs[on]
+           if any(r["launches"][k] != want for k in
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))]
+    counts = span_counts(obs)
+    points = sum(1 for _ in open(series))
+    k123 = {k: last["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv", "rope_rows")}
+    log(f"obs (a) train base bf16 (f32 weights) adamw(3e-4) {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ} through train_epoch, {steps} steps a run after "
+        f"{warm}, observed (Tracer, GoodputMeter, MetricsExporter with a "
+        f"JSONL sink) and not, in {OBS_PAIRS} pairs: step_ms on "
+        f"{[round(x, 3) for x in ms[True]]} off "
+        f"{[round(x, 3) for x in ms[False]]}, overhead (median of the "
+        f"pairs) {100 * over:+.3f}% (limit {100 * OBS_LIMIT:.0f}%; pooled "
+        f"{100 * (sum(ms[True]) / sum(ms[False]) - 1):+.3f}%); "
+        f"synchronizations on {syncs[True]} off "
+        f"{syncs[False]} (sites where runs differ, on runs first: "
+        f"{sync_sites(runs[True] + runs[False])}); spans {counts}; meter "
+        f"mfu {mfu_meter} against "
+        f"the train line's reckoning {mfu_line and round(mfu_line, 5)}; "
+        f"series points {points}; K1-K3 launches a run {k123} | {card}")
+    if over > OBS_LIMIT:
+        raise AssertionError(f"obs (a): observer overhead {100 * over:.3f}%")
+    if len(set(syncs[True] + syncs[False])) != 1:
+        raise AssertionError(f"obs (a): synchronizations differ: {syncs}")
+    if bad:
+        raise AssertionError(f"obs (a): K1-K3 launches {bad}, want {want}")
+    if not ({"data", "dispatch", "drain", "device (window-settled)"}
+            <= set(counts)) or counts["dispatch"] != steps:
+        raise AssertionError(f"obs (a): spans {counts}")
+    if mfu_line is None or mfu_meter is None or \
+            abs(mfu_meter - mfu_line) > OBS_MFU_TOL * mfu_line:
+        raise AssertionError(f"obs (a): meter mfu {mfu_meter} against "
+                             f"{mfu_line}")
+    del state, model
+    torch.cuda.empty_cache()
+    return last["launches"]
+
+
+def obs_serve(torch, seed, card):
+    """(b) the serve cell through a Scheduler, observed and not."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.obs import JsonlSeriesSink, MetricsExporter, Observer
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    traffic = make_traffic(seed, model.cfg.vocab_size)
+    series = os.path.join(obs_dir("serve"), "series.jsonl")
+
+    def run(on, traffic=traffic):
+        eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+        obs = ex = None
+        if on:
+            obs = Observer(trace=True, sentinel="warn")
+            ex = MetricsExporter([JsonlSeriesSink(series)])
+        sched = Scheduler(eng, harvest_lag=4, observer=obs, exporter=ex,
+                          device=DEV)
+        reqs = [Request(list(p), m) for p, m in traffic]
+        sync(torch)
+        kernels.reset_launches()
+        where = []
+        t0 = time.perf_counter()
+        _, n_sync = sync_count(torch, lambda: sched.run(reqs), where)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        if ex is not None:
+            ex.close()
+        s = sched.metrics.summary()
+        return dict(wall=wall, syncs=n_sync, obs=obs, reqs=reqs, where=where,
+                    tokens=sum(len(r.tokens) for r in reqs),
+                    ttft=(s["ttft_s_p50"], s["ttft_s_p99"]),
+                    k4=kernels.LAUNCHES["paged_attention"])
+
+    run(False)                 # warm-up, not kept (as (a)'s first run)
+    runs = obs_pairs(run)
+    tps = {on: [r["tokens"] / r["wall"] for r in runs[on]] for on in runs}
+    rate = {on: sum(r["tokens"] for r in runs[on])
+            / sum(r["wall"] for r in runs[on]) for on in runs}
+    drop = median([1.0 - a / b for a, b in zip(tps[True], tps[False])])
+    want = [r.tokens for r in runs[False][0]["reqs"]]
+    same = all([r.tokens for r in x["reqs"]] == want
+               for on in runs for x in runs[on])
+    syncs = {on: [r["syncs"] for r in runs[on]] for on in runs}
+    obs = runs[True][-1]["obs"]
+    order = ["request_admitted", "request_first_token", "request_finished"]
+    bad_tl = []
+    for r in runs[True][-1]["reqs"]:
+        tl = obs.request_timeline(r.rid)
+        names = [e["name"] for e in tl if e["name"] in order]
+        flows = [e["ph"] for e in tl if e.get("cat") == "request"]
+        if names != order or flows != ["s", "f"]:
+            bad_tl.append((r.rid, names, flows))
+    points = sum(1 for _ in open(series))
+    k4 = [x["k4"] for on in runs for x in runs[on]]
+    prefills = span_stats(obs.tracer.to_chrome()["traceEvents"], "prefill")
+    log(f"obs (b) serve base bf16 page 16 (8 slots, the serve phase's 16 "
+        f"requests) through Scheduler(observer=, exporter=), observed and "
+        f"not, in {OBS_PAIRS} pairs: tokens_per_s on "
+        f"{[round(x, 2) for x in tps[True]]} off "
+        f"{[round(x, 2) for x in tps[False]]} ({100 * drop:+.3f}% below, "
+        f"the median of the pairs, limit {100 * OBS_LIMIT:.0f}%; pooled "
+        f"{rate[True]:.2f} against {rate[False]:.2f}); TTFT p50/p99 s on "
+        f"{[x['ttft'] for x in runs[True]]} off "
+        f"{[x['ttft'] for x in runs[False]]}; greedy tokens identical in "
+        f"all {2 * OBS_PAIRS} runs: {same}; synchronizations on "
+        f"{syncs[True]} off {syncs[False]} (sites where runs differ: "
+        f"{sync_sites(runs[True] + runs[False])}); every rid admitted -> "
+        f"first_token -> finished with its flow opened and closed: "
+        f"{not bad_tl}; spans {span_counts(obs)} ({prefills}, one worker); "
+        f"JSONL points {points}; K4 launches by run {k4} | {card}")
+    if not same:
+        raise AssertionError("obs (b): tokens differ between runs")
+    if drop > OBS_LIMIT:
+        raise AssertionError(f"obs (b): tokens/s {100 * drop:.3f}% below")
+    if len(set(syncs[True] + syncs[False])) != 1:
+        raise AssertionError(f"obs (b): synchronizations differ: {syncs}")
+    if bad_tl or points < 1 or min(k4) <= 0:
+        raise AssertionError(f"obs (b): timelines {bad_tl[:4]}, points "
+                             f"{points}, K4 {k4}")
+    del model
+    torch.cuda.empty_cache()
+    return runs[True][-1]["k4"]
+
+
+def obs_fleet(torch, seed, card):
+    """(c) the fleet under the observer, the exporter and the SLOs."""
+    import urllib.request
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.obs import JsonlSeriesSink, MetricsExporter, Observer
+    from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.serve.fleet import default_fleet_slos
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    traffic = make_traffic(seed, model.cfg.vocab_size)
+    eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    nocache = {"prefix_cache": False}
+    fleet_single(torch, eng, traffic[:2])              # warm-up
+    single, _, _ = fleet_single(torch, eng, traffic, **nocache)
+    d = obs_dir("fleet")
+
+    # the fleet phase's three replicas, replica 0's worker killed, hedging
+    obs = Observer(trace=True, sentinel="warn")
+    path = os.path.join(d, "series.jsonl")
+    ex = MetricsExporter([JsonlSeriesSink(path)])
+    port = ex.serve_http(port=0)
+    scrapes = []
+
+    def scrape(router, reqs):
+        time.sleep(0.3)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=5) as r:
+            scrapes.append(parse_prometheus(r.read().decode()))
+
+    def scrape_again(router):
+        scrape(router, None)
+
+    plan = FaultPlan().at(replica_site(0, "loop"), 5)
+    reqs, router, s, wall, k4 = fleet_run(
+        torch, eng, traffic, plan=plan, n_replicas=FLEET_REPLICAS,
+        sched_kwargs=nocache, observer=obs, exporter=ex,
+        slos=default_fleet_slos(ttft_p99_s=30.0, availability=0.9),
+        hedge_after_s=1.0, watchdog_s=OBS_WATCHDOG, during=scrape,
+        settled=scrape_again)
+    ex.close()
+    fleet_identical("obs (c)", reqs, single)
+    trace = obs.tracer.to_chrome()["traceEvents"]
+    terminals = {}
+    for e in trace:
+        if e["name"] == "request_done":
+            rid = e["args"]["rid"]
+            terminals[rid] = terminals.get(rid, 0) + 1
+    dangling, late = flows_closed(trace)
+    pts = [json.loads(x) for x in open(path)]
+    lost = s["fleet_requests_submitted"] - s["fleet_requests_finished"]
+    evicted = [e["replica"] for e in router.evict_log]
+    log(f"obs (c) fleet of {FLEET_REPLICAS} replicas (base bf16 page 16, "
+        f"8 slots each, the serve phase's 16 requests), replica 0's worker "
+        f"killed at loop iteration 5, hedging after 1.0 s, watchdog "
+        f"{OBS_WATCHDOG} s, Router(observer=, exporter=JSONL + "
+        f"serve_http(0), slos=default_fleet_slos(ttft_p99_s=30, "
+        f"availability=0.9)): tokens identical to one scheduler, lost "
+        f"{lost}, evicted {evicted}, retries {s['fleet_retries']}, hedges "
+        f"{s['fleet_hedges']}; terminals per rid "
+        f"{sorted(set(terminals.values()))} over {len(terminals)} rids, "
+        f"dangling flows {len(dangling)} (rids with a losing attempt's "
+        f"steps after the end: {len(late)}); {span_stats(trace, 'prefill')} "
+        f"over the three workers, longest worker iteration "
+        f"{longest_iteration(trace)[0]:.4f} s; {len(scrapes)} scrapes parsed "
+        f"({[len(x) for x in scrapes]} series, fleet_requests_submitted "
+        f"{[x.get('dtdl_fleet_requests_submitted') for x in scrapes]}); "
+        f"JSONL points {len(pts)}; SLO breaches {s['slo_breach_events']}; "
+        f"K4 by replica {k4} | {card}")
+    if lost or len(terminals) != len(traffic) or set(terminals.values()) \
+            != {1} or dangling or evicted != [0] or len(scrapes) != 2 \
+            or not all(scrapes) or s["slo_breach_events"]:
+        raise AssertionError(f"obs (c): lost {lost}, terminals {terminals}, "
+                             f"dangling {dangling}, evicted {evicted}, "
+                             f"scrapes {len(scrapes)}, breaches "
+                             f"{s['slo_breach_events']}")
+
+    # a TTFT regression: replica 0's loop stalls with one request on it,
+    # then waves of short requests bring the cumulative p99 back
+    rng = __import__("numpy").random.default_rng(seed + 1)
+    short = [(rng.integers(0, 32000, int(n)).tolist(), 8)
+             for n in rng.integers(32, 65, 1 + OBS_RECOVER_WAVES * OBS_WAVE)]
+    obs2 = Observer(trace=True, sentinel="warn")
+    sink_path = os.path.join(d, "slo_series.jsonl")
+    ex2 = MetricsExporter([JsonlSeriesSink(sink_path)], interval_s=0.05)
+    plan2 = FaultPlan().at(replica_site(0, "loop"), 0, kind="stall",
+                           seconds=OBS_STALL_S)
+
+    def waves(router, first):
+        if not router.wait(first, timeout_s=120):
+            raise AssertionError("obs (c): the stalled request never ended")
+        for w in range(OBS_RECOVER_WAVES):
+            batch = fleet_requests(short[1 + w * OBS_WAVE:
+                                         1 + (w + 1) * OBS_WAVE])
+            for r in batch:
+                router.submit(r)
+            if not router.wait(batch, timeout_s=120):
+                raise AssertionError("obs (c): a recovery wave hung")
+            time.sleep(0.1)           # a sampled point per wave
+
+    reqs2, router2, s2, wall2, _ = fleet_run(
+        torch, eng, short[:1], plan=plan2, n_replicas=FLEET_REPLICAS,
+        observer=obs2, exporter=ex2,
+        slos=default_fleet_slos(ttft_p99_s=OBS_TTFT_SLO), watchdog_s=30.0,
+        during=waves)
+    ex2.close()
+    names = [e["name"] for e in obs2.tracer.to_chrome()["traceEvents"]
+             if e["name"].startswith("slo_")]
+    pts2 = [json.loads(x) for x in open(sink_path)]
+    oks = [p["slo_ttft_p99_ok"] for p in pts2 if "slo_ttft_p99_ok" in p]
+    first_ttft = reqs2[0].t_first - reqs2[0].t_submit
+    runs = []                      # the verdicts run-length encoded
+    for ok in oks:
+        if runs and runs[-1][0] == ok:
+            runs[-1][1] += 1
+        else:
+            runs.append([ok, 1])
+    log(f"obs (c) TTFT regression: replica 0's loop stalled {OBS_STALL_S} s "
+        f"with one request on it (its TTFT {first_ttft:.3f} s against a "
+        f"p99 objective of {OBS_TTFT_SLO} s), then {OBS_RECOVER_WAVES} waves "
+        f"of {OBS_WAVE} short requests (32-64 prompt tokens, 8 new): trace "
+        f"events {names}; series verdicts slo_ttft_p99_ok (value, points) "
+        f"{runs}; breaches "
+        f"{s2['slo_breach_events']} burn crossings "
+        f"{s2['slo_burn_crossings']}; final fleet_ttft_s_p99 "
+        f"{s2.get('fleet_ttft_s_p99')} | {card}")
+    if "slo_breach" not in names or "slo_recovered" not in names or \
+            names.index("slo_breach") > names.index("slo_recovered") or \
+            0 not in oks or oks[-1] != 1 or oks.index(0) > \
+            len(oks) - 1 - oks[::-1].index(1):
+        raise AssertionError(f"obs (c): no breach then recovery: {names} "
+                             f"{oks}")
+    del eng, router, router2
+    torch.cuda.empty_cache()
+    return k4
+
+
+def obs_twins(torch, seed, card):
+    """(d) the twins with their observability flags, C7 at the fleet
+    twin's default watchdog."""
+    d = obs_dir("twins")
+    trace = os.path.join(d, "fleet.json")
+    series = os.path.join(d, "fleet_series.jsonl")
+    text, secs = twin_main("serve_fleet", [
+        *OBS_FLEET_TWIN, "--seed", str(seed), "--trace", trace,
+        "--metrics-jsonl", series, "--metrics-port", "0", "--slo-ttft-p99",
+        "30", "--slo-availability", "0.9"],
+        os.path.join(d, "serve_fleet.log"))
+    served = re.search(r"served (\d+)/(\d+) requests", text)
+    gap = re.search(r"longest gap of a current worker ([\d.]+) ms", text)
+    events = json.load(open(trace))["traceEvents"]
+    it_s, parts = longest_iteration(events)
+    evicts = re.findall(r"evicted replica \d+", text)
+    log(f"obs (d) twin serve_fleet {' '.join(OBS_FLEET_TWIN)} at its default "
+        f"--watchdog 0.25 with --trace --metrics-jsonl --metrics-port 0 "
+        f"--slo-ttft-p99 30 --slo-availability 0.9, main() in this "
+        f"process ({secs:.1f} s): "
+        f"{served and served[0]}, evictions {len(evicts)}; longest worker "
+        f"iteration from the trace {it_s:.4f} s (its spans' host seconds "
+        f"{ {k: round(v, 4) for k, v in parts.items()} }), longest "
+        f"heartbeat gap {gap and gap[1]} ms; "
+        f"{sum(1 for _ in open(series))} series points; dangling flows "
+        f"{len(flows_closed(events)[0])} | {card}")
+    if not served or served[1] != served[2] or evicts or \
+            "requests lost: 0" not in text or "scraping: curl" not in text \
+            or flows_closed(events)[0]:
+        raise AssertionError(f"obs (d): serve_fleet twin:\n{text[-3000:]}")
+    for name, args, want in (
+            ("serve_lm", OBS_SERVE_TWIN, {"admit", "prefill", "dispatch",
+                                          "harvest", "drain"}),
+            ("train_lm", OBS_TRAIN_TWIN, {"data", "dispatch", "drain"})):
+        path = os.path.join(d, f"{name}.json")
+        text, secs = twin_main(name, [*args, "--seed", str(seed), "--trace",
+                                      path], os.path.join(d, f"{name}.log"))
+        events = json.load(open(path))["traceEvents"]
+        got = {e["name"] for e in events if e["ph"] == "X"}
+        lines = [x.strip() for x in text.splitlines()
+                 if re.match(r"\s*(served|ttft|trace written)", x)]
+        log(f"obs (d) twin {name} {' '.join(args)} --trace: main() "
+            f"returned "
+            f"({secs:.1f} s), {len(events)} events, spans {sorted(got)}; "
+            f"{' / '.join(lines)} | {card}")
+        if not want <= got or f"trace written to {path}" not in text:
+            raise AssertionError(f"obs (d): {name} trace spans {got}:\n"
+                                 f"{text[-3000:]}")
+
+
+def phase_obs(torch, seed, card):
+    """(a) training, (b) serving, (c) the fleet, (d) the twins and C7;
+    returns the K1-K4 launches of (a)'s last observed run and (b)'s."""
+    t0 = time.perf_counter()
+    train = obs_train(torch, seed, card)
+    k4 = obs_serve(torch, seed, card)
+    fleet = obs_fleet(torch, seed, card)
+    obs_twins(torch, seed, card)
+    log(f"obs: {time.perf_counter() - t0:.1f} s | {card}")
+    return {"train": {k: train[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv", "rope_rows")},
+            "serve": k4, "fleet": fleet}
 
 
 def phase_profile_fourd(torch, seed, steps: int = 2):
@@ -5721,6 +6333,10 @@ def main(argv=None) -> int:
     if "tenant" in phases:
         tenant_launches = phase_tenant(torch, args.seed, card)
     ended("tenant")
+    obs_launches = None
+    if "obs" in phases:
+        obs_launches = phase_obs(torch, args.seed, card)
+    ended("obs")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
@@ -5781,24 +6397,32 @@ def main(argv=None) -> int:
              "source": "dtdl_tpu_torch/csrc/flash_fwd.cu",
              "replaces": "dtdl_tpu/ops/attention.py:271",
              "launches": train_launches.get("flash_fwd"),
+             "launches_obs": obs_launches and obs_launches["train"][
+                 "flash_fwd"],
              "max_abs_err": errors.get(main_case),
              **{k: tr["K1"][k] for k in keys}},
             {"name": "flash_bwd_dq", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "dtdl_tpu/ops/attention.py:408",
              "launches": train_launches.get("flash_bwd_dq"),
+             "launches_obs": obs_launches and obs_launches["train"][
+                 "flash_bwd_dq"],
              "max_abs_err": bwd_errs and bwd_errs[0],
              **{k: tr["K2"][k] for k in keys}},
             {"name": "flash_bwd_dkv", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "dtdl_tpu/ops/attention.py:475",
              "launches": train_launches.get("flash_bwd_dkv"),
+             "launches_obs": obs_launches and obs_launches["train"][
+                 "flash_bwd_dkv"],
              "max_abs_err": bwd_errs and max(bwd_errs[1:]),
              **{k: tr["K3"][k] for k in keys}},
             {"name": "rope_rows", "route": "cuda",
              "source": "dtdl_tpu_torch/csrc/rope_rows.cu",
              "replaces": "dtdl_tpu/ops/attention.py:118",
              "launches": train_launches.get("rope_rows"),
+             "launches_obs": obs_launches and obs_launches["train"][
+                 "rope_rows"],
              "max_abs_err": errors.get("rope train 32x4096 hd128 bf16"),
              **{k: rope_t[k] for k in keys}},
             {"name": "paged_attention", "route": "cuda",
@@ -5807,6 +6431,9 @@ def main(argv=None) -> int:
              "launches": k4_launches,
              "launches_fleet": fleet_launches,
              "launches_tenant": tenant_launches,
+             "launches_obs": obs_launches and {
+                 "serve": obs_launches["serve"],
+                 "fleet": obs_launches["fleet"]},
              "max_abs_err": errors.get("decode S=1 bf16"),
              **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},

@@ -97,10 +97,10 @@ def cifar_loaders(args, seed: int, device=None, mesh=None):
     """CIFAR-10 train/val loaders with the reference's augmentation
     (RandomCrop(32, pad 4) + flip + normalize), each process (of the
     world, or of ``mesh``) on its stripe.  ``--num-workers > 0`` (the native C++ loader) is ROADMAP
-    queue A13."""
+    queue A13c."""
     if getattr(args, "num_workers", 0) > 0:
         raise NotImplementedError(
-            "--num-workers > 0 (the native C++ loader) is ROADMAP queue A13 "
+            "--num-workers > 0 (the native C++ loader) is ROADMAP queue A13c "
             "(operations)")
     (xtr, ytr), (xte, yte) = _limit(
         args, *load_dataset("cifar10", args.dataset_dir,

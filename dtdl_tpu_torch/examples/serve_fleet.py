@@ -17,14 +17,18 @@ retries, hedging, rolling restarts and prefill/decode disaggregation.
     # tenants: base + two LoRA adapters, token streams, JSON output
     python -m dtdl_tpu_torch.examples.serve_fleet --lora a.pt,b.pt \\
         --stream --json-schema schema.json --kill-replica-after 3
+    # observability: a Perfetto trace, a JSONL series, a scrape endpoint
+    # and SLO judging
+    python -m dtdl_tpu_torch.examples.serve_fleet --trace fleet.json \\
+        --metrics-jsonl fleet_series.jsonl --metrics-port 0 \\
+        --slo-ttft-p99 0.5 --slo-availability 0.999
 
 It runs on the card (every paged attend through the paged-attention
 kernel) unless ``--platform cpu``.  With ``--stream`` it reports the
 streams that parted from their request's tokens (``divergent streams``,
-0 unless a loser of a retry or hedge streamed).  Not ported yet, and
-refused by name: ``--trace``, ``--metrics-jsonl``, ``--metrics-port``,
-``--slo-ttft-p99`` and ``--slo-availability`` (ROADMAP queue A13,
-operations).
+0 unless a loser of a retry or hedge streamed).  It also reports the
+longest interval between two heartbeats of a working replica against
+``--watchdog`` (the watchdog's margin).
 """
 
 import time
@@ -36,20 +40,12 @@ from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
                                             demo_adapters, json_report,
                                             json_schema_dfa)
 from dtdl_tpu_torch.models import transformer_lm
+from dtdl_tpu_torch.obs import JsonlSeriesSink, MetricsExporter, Observer
 from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
 from dtdl_tpu_torch.serve import (InferenceEngine, Request, Router,
-                                  TokenStream)
+                                  TokenStream, default_fleet_slos)
 from dtdl_tpu_torch.utils.config import flag, make_parser
 from dtdl_tpu_torch.utils.random import seed_everything
-
-_A13 = "ROADMAP queue A13 (operations)"
-# flags whose modules are not ported yet -> (the value that means off,
-# the ROADMAP item that ports them)
-REFUSED = {
-    "trace": (None, _A13), "metrics_jsonl": (None, _A13),
-    "metrics_port": (-1, _A13), "slo_ttft_p99": (0.0, _A13),
-    "slo_availability": (0.0, _A13),
-}
 
 
 def parser():
@@ -74,18 +70,23 @@ def parser():
          help="seconds of stale worker heartbeat (with work outstanding) "
               "before the stall signal fires")
     flag(p, "--trace", default=None,
-         help="request-correlated Chrome trace: ROADMAP queue A13")
+         help="write a request-correlated Chrome trace here "
+              "(Perfetto-loadable; spans + per-request flow events)")
     flag(p, "--metrics-jsonl", default=None,
-         help="continuous metric snapshots: ROADMAP queue A13")
+         help="append continuous window-delta metric snapshots here "
+              "(one JSON object per sampled boundary)")
     flag(p, "--metrics-port", type=int, default=-1,
-         help="GET /metrics on this port: ROADMAP queue A13")
+         help="serve GET /metrics (Prometheus text) on this port "
+              "(0 = pick a free port; -1 = off)")
     flag(p, "--metrics-interval", type=float, default=0.25,
          help="minimum seconds between exported snapshots (with "
               "--metrics-jsonl or --metrics-port)")
     flag(p, "--slo-ttft-p99", type=float, default=0.0,
-         help="SLO on router-clock TTFT p99: ROADMAP queue A13")
+         help="SLO: router-clock TTFT p99 target in seconds (0 = off); "
+              "crossings land in the trace AND the series")
     flag(p, "--slo-availability", type=float, default=0.0,
-         help="SLO availability floor: ROADMAP queue A13")
+         help="SLO: availability floor, e.g. 0.999 (0 = off); bad = "
+              "failed + expired over a rolling window")
     flag(p, "--disagg", action="store_true",
          help="prefill/decode disaggregation: replica 0 serves only prompt "
               "prefills (chunked), the rest only decode; completed "
@@ -118,9 +119,6 @@ def main(argv=None):
     """Run the demo; returns ``(requests, router summary, wall s)``."""
     ap = parser()
     args = ap.parse_args(argv)
-    for name, (off, item) in REFUSED.items():
-        if getattr(args, name) != off:
-            ap.error(f"--{name.replace('_', '-')} is {item}")
     roles = None
     if args.disagg:
         if args.n_replicas < 2:
@@ -162,11 +160,29 @@ def main(argv=None):
                     grammar=dfa, eos_id=eos, stream=streams[i])
             for i in range(args.n_requests)]
 
+    # observability, all opt-in: correlated tracing, continuous
+    # boundary-sampled export, SLO judging
+    observer = Observer(trace=bool(args.trace), trace_path=args.trace)
+    exporter = None
+    if (args.metrics_jsonl or args.metrics_port >= 0
+            or args.slo_ttft_p99 or args.slo_availability):
+        sinks = ([JsonlSeriesSink(args.metrics_jsonl)]
+                 if args.metrics_jsonl else [])
+        exporter = MetricsExporter(sinks=sinks,
+                                   interval_s=args.metrics_interval)
+        if args.metrics_port >= 0:
+            port = exporter.serve_http(port=args.metrics_port)
+            print(f"scraping: curl http://127.0.0.1:{port}/metrics")
+    slos = default_fleet_slos(
+        ttft_p99_s=args.slo_ttft_p99 or None,
+        availability=args.slo_availability or None) or None
+
     t0 = time.perf_counter()
     with Router(engine, n_replicas=args.n_replicas, plan=plan,
                 retry_budget=args.retry_budget,
                 hedge_after_s=args.hedge_after or None,
-                watchdog_s=args.watchdog, roles=roles, device=device,
+                watchdog_s=args.watchdog, observer=observer,
+                exporter=exporter, slos=slos, roles=roles, device=device,
                 sched_kwargs={"harvest_lag": 4,
                               "chunk_tokens": args.chunk_tokens or None}
                 ) as router:
@@ -181,7 +197,9 @@ def main(argv=None):
                   f"(pump_error={router.pump_error})")
         dt = time.perf_counter() - t0
         evicts = list(router.evict_log)
-    # after shutdown: the books are settled
+        beat_gap = max(rep.max_beat_gap_s for rep in router.replicas)
+    # after shutdown: the books are settled and the exporter's final
+    # forced snapshot (and any SLO verdicts on it) are included
     s = router.summary()
 
     n_ok = sum(1 for r in reqs if r.done and r.error is None)
@@ -239,7 +257,32 @@ def main(argv=None):
           f"{s['fleet_requests_aborted']}  "
           f"[{'OK' if s['fleet_accounting_ok'] and acc else 'VIOLATED'}]"
           f"  requests lost: {s['fleet_requests_submitted'] - acc}")
-    print(f"  replica health: {s['replica_health']}", flush=True)
+    print(f"  replica health: {s['replica_health']}")
+    print(f"  heartbeat: longest gap of a current worker "
+          f"{beat_gap * 1e3:.1f} ms (watchdog {args.watchdog * 1e3:.0f} ms)")
+    if exporter is not None:
+        slo_bits = {k: v for k, v in s.items() if k.startswith("slo_")}
+        print(f"  export: {s.get('export_snapshots', 0)} snapshots"
+              + (f" -> {args.metrics_jsonl}" if args.metrics_jsonl
+                 else "")
+              + (f"  SLO: {slo_bits}" if slo_bits else ""))
+        exporter.close()
+    if args.trace:
+        # one request's correlated story, reconstructed from the trace:
+        # intake -> dispatch (every attempt, with lineage) -> admit ->
+        # first token -> terminal, what Perfetto draws as flow arrows
+        probe = next((r for r in reqs if r.done), None)
+        if probe is not None:
+            tl = observer.request_timeline(probe.rid)
+            steps = [f"{e['ts'] / 1e6:+.3f}s {e['name']}"
+                     + (f"[{e['args']['lineage']}]"
+                        if e.get("args", {}).get("lineage") else "")
+                     for e in tl if e.get("ph") in ("i", "X")]
+            print(f"  timeline rid={probe.rid}: " + " -> ".join(steps))
+        observer.close()
+        print(f"  trace written to {args.trace} (load in Perfetto; "
+              f"flow arrows join each request's attempts)")
+    print(end="", flush=True)
     return reqs, s, dt
 
 

@@ -15,11 +15,12 @@ the prefix cache of a paged arena.  Tenancy: ``--lora a,b`` round-robins
 the requests over the base model and the adapters (a missing path gets a
 random demo adapter saved there), ``--json-schema FILE`` masks every
 output to JSON of that schema, ``--stream`` attaches a token stream to
-each request.  ``--platform cpu`` runs on the CPU.  Not ported yet, and
-refused by name: ``--trace``, ROADMAP queue A13; ``--restore`` of flax
-msgpack weights, queue A8b's remainder.  The JAX
-script's Observer counts recompiles; the eager port compiles nothing,
-so the twin builds none (a capture count is queue A5's).
+each request.  ``--trace PATH`` writes a Perfetto-loadable Chrome trace
+of the scheduler's phases and request lifecycles (the twin's Observer, as
+the JAX script's; its sentinel counts captures once the port has them,
+queue A5).  ``--platform cpu`` runs on the CPU.  Not ported yet, and
+refused by name: ``--restore`` of flax msgpack weights, ROADMAP queue
+A8b's remainder.
 """
 
 import argparse
@@ -32,6 +33,7 @@ from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
                                             demo_adapters, json_report,
                                             json_schema_dfa)
 from dtdl_tpu_torch.models import transformer_lm
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.serve import (InferenceEngine, ModelDraft, Request,
                                   SampleParams, Scheduler, TokenStream)
 from dtdl_tpu_torch.utils.config import flag, make_parser
@@ -39,7 +41,6 @@ from dtdl_tpu_torch.utils.random import seed_everything
 
 # flags whose modules are not ported yet -> the ROADMAP item that ports them
 REFUSED = {
-    "trace": "queue A13 (operations: the Observer's trace)",
     "restore": "queue A8b's remainder (reading flax msgpack weights)",
 }
 
@@ -107,7 +108,8 @@ def parser():
               "requests' tokens as the lag-harvest windows deliver them")
     flag(p, "--seed", type=int, default=0)
     flag(p, "--trace", default="",
-         help="Chrome-trace JSON of the scheduler phases: ROADMAP queue A13")
+         help="write a Chrome-trace-event JSON (Perfetto-loadable) of the "
+              "scheduler phases here")
     flag(p, "--dtype", default="float32", choices=["float32", "bfloat16"],
          help="the model's compute dtype (the JAX script serves f32)")
     add_device_flags(p)
@@ -161,7 +163,8 @@ def main(argv=None):
         ap.error(f"--shared-prefix must be in [0, "
                  f"{model.cfg.max_seq - hi - 1}] for this model")
     lora_paths = demo_adapters(model, args.lora, args.lora_rank)
-    engine = InferenceEngine(model, n_slots=args.n_slots,
+    obs = Observer(trace_path=args.trace or None, sentinel="warn")
+    engine = InferenceEngine(model, n_slots=args.n_slots, observer=obs,
                              page_size=args.page_size,
                              n_pages=args.n_pages or None,
                              quantize_weights=args.quantize != "none",
@@ -180,7 +183,8 @@ def main(argv=None):
                             seed=args.seed + 1)
         draft = ModelDraft(dm, warmup=args.speculate)
     sched = Scheduler(engine, seed=args.seed, harvest_lag=args.harvest_lag,
-                      draft=draft, prefix_cache=args.prefix_cache,
+                      observer=obs, draft=draft,
+                      prefix_cache=args.prefix_cache,
                       chunk_tokens=args.chunk_tokens or None, device=device,
                       spill_host_bytes=args.spill_host_mb << 20 or None,
                       spill_dir=args.spill_dir or None,
@@ -287,6 +291,8 @@ def main(argv=None):
         print(f"  streaming: {s['stream_deliveries']} incremental "
               f"deliveries across {len(reqs)} requests")
     print("compiled programs:", engine.compile_stats(), flush=True)
+    if args.trace:
+        print(f"trace written to {obs.save()}", flush=True)
     return reqs, s, dt
 
 

@@ -8,7 +8,10 @@ layer, goodput fields per log window, the final weights.
     python -m dtdl_tpu_torch.launch.local --nproc 2 -- \\
         -m dtdl_tpu_torch.examples.train_lm --strategy ddp --platform cpu
 
-``--trace`` (the Observer's span trace) is ROADMAP queue A13.
+Observability (:mod:`dtdl_tpu_torch.obs`): goodput and MFU per log window
+through a ``GoodputMeter``, and with ``--trace PATH`` a Perfetto-loadable
+Chrome trace of the host phases (``data``, ``dispatch``, ``drain``) and
+the window-settled device track, as the JAX twin writes it.
 """
 
 import time
@@ -23,8 +26,8 @@ from dtdl_tpu_torch.data.sharding import ShardedSampler
 from dtdl_tpu_torch.examples.common import bootstrap
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
 from dtdl_tpu_torch.models import generate, transformer_lm
-from dtdl_tpu_torch.obs.goodput import (lm_train_flops, peak_flops_per_chip,
-                                        window_fields)
+from dtdl_tpu_torch.obs import (GoodputMeter, Observer, lm_train_flops,
+                                peak_flops_per_chip)
 from dtdl_tpu_torch.parallel import choose_strategy
 from dtdl_tpu_torch.runtime import is_leader, process_count, process_index
 from dtdl_tpu_torch.train.optim import adamw
@@ -62,15 +65,12 @@ def main(argv=None):
          help=">0: after training, greedily decode this many tokens from "
               "a training-prefix prompt, one row per replica")
     flag(parser, "--trace", default="",
-         help="Chrome-trace JSON of the host phases: ROADMAP queue A13")
+         help="write a Chrome-trace JSON of the host phases here")
     args = parser.parse_args(argv)
 
     if args.dataset != "synthetic_lm":
         raise SystemExit("train_lm trains on token data; "
                          "use --dataset synthetic_lm")
-    if args.trace:
-        raise NotImplementedError("--trace (the Observer's span trace) is "
-                                  "ROADMAP queue A13 (operations)")
 
     device = bootstrap(args)
     seed_everything(args.seed)
@@ -99,33 +99,45 @@ def main(argv=None):
     step = make_lm_train_step(strategy,
                               vocab_chunk_size=args.vocab_chunk_size,
                               moe_aux_weight=args.moe_aux_weight)
+    # goodput and MFU per log window through the reporter; with --trace
+    # a span trace of the host phases (one card a process: its peak)
     on_card = model.device.type == "cuda"
-    flops = lm_train_flops(model.cfg, per_proc, args.seq_len)
-    peak = peak_flops_per_chip() if on_card else None
+    obs = Observer(trace_path=args.trace or None, sentinel="warn",
+                   goodput=GoodputMeter(
+                       flops_per_step=lm_train_flops(model.cfg, per_proc,
+                                                     args.seq_len),
+                       tokens_per_step=per_proc * (args.seq_len - 1),
+                       peak_flops=peak_flops_per_chip() if on_card
+                       else None))
+    step = obs.watch(step, "lm_train_step")
     global_step = 0
     t_win, steps_win = time.perf_counter(), 0
     with Reporter([StdoutSink()]) as reporter:
         for epoch in range(args.epochs):
             loader.set_epoch(epoch)
             for batch in loader:
-                state, metrics = step(state, strategy.shard_batch(batch))
+                with obs.span("data"):
+                    sharded = strategy.shard_batch(batch)
+                with obs.span("dispatch", step=global_step):
+                    state, metrics = step(state, sharded)
                 steps_win += 1
                 if global_step % args.log_interval == 0:
-                    loss = float(metrics["loss"])     # settles the window
-                    row = {"epoch": epoch, "step": global_step,
-                           "loss": loss,
-                           "accuracy": float(metrics["accuracy"]),
-                           "ppl": float(np.exp(min(20.0, loss)))}
-                    if "moe_aux_loss" in metrics:
-                        row["moe_aux_loss"] = float(metrics["moe_aux_loss"])
-                    row.update(window_fields(
-                        steps_win, time.perf_counter() - t_win,
-                        flops_per_step=flops,
-                        tokens_per_step=per_proc * (args.seq_len - 1),
-                        peak_flops=peak))
+                    with obs.span("drain"):
+                        loss = float(metrics["loss"])  # settles the window
+                        row = {"epoch": epoch, "step": global_step,
+                               "loss": loss,
+                               "accuracy": float(metrics["accuracy"]),
+                               "ppl": float(np.exp(min(20.0, loss)))}
+                        if "moe_aux_loss" in metrics:
+                            row["moe_aux_loss"] = float(
+                                metrics["moe_aux_loss"])
+                    row.update(obs.window(steps_win,
+                                          time.perf_counter() - t_win))
                     t_win, steps_win = time.perf_counter(), 0
                     reporter.report(row)
                 global_step += 1
+    if args.trace and is_leader():
+        print(f"trace written to {obs.save()}", flush=True)
     if args.save_model:
         path = save_weights(f"{args.out}/lm_final.pt",
                             state_dict_to_flax(model))

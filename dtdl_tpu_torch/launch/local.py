@@ -20,7 +20,7 @@ Each child gets ``--coordinator 127.0.0.1:PORT --num-processes N
 the CPU (``--platform cpu``) uses no card, and the stripe changes
 nothing for it.  A child's ``OMP_NUM_THREADS`` defaults to this host's
 cores divided by N.  The elastic control-plane store (``serve_store``,
-``store_port``) is ROADMAP queue A13.
+``store_port``) is ROADMAP queue A13b.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
     if serve_store or store_port is not None or store_wal_dir is not None:
         raise NotImplementedError(
             "the elastic control-plane store (serve_store, store_port, "
-            "store_wal_dir) is ROADMAP queue A13 (operations)")
+            "store_wal_dir) is ROADMAP queue A13b (resilience)")
     attempt = 0
     while True:
         rc = _launch_once(script_args, nproc, port, env_extra, timeout,

@@ -1,11 +1,13 @@
-"""Analytic model FLOPs and the card's peak: the numerator and the
-denominator of a training run's MFU.  The port's copy of the LM part of
-dtdl_tpu/obs/goodput.py (``lm_forward_flops``, ``lm_train_flops``, MoE
-layers at their activated experts) and of its Caffe part
-(``netspec_flops``), a ``peak_flops_per_chip`` keyed on
-the CUDA device's name, and ``window_fields``, the per-window row fields
-of the JAX ``GoodputMeter`` (the meter itself, with the Observer, is
-ROADMAP queue A13).
+"""Goodput and MFU accounting, the port's copy of dtdl_tpu/obs/goodput.py:
+analytic model FLOPs in, roofline fractions out.
+
+* analytic FLOPs: the LM's (``lm_forward_flops``, ``lm_train_flops``,
+  ``lm_decode_flops``, ``lm_prefill_flops``, ``lm_verify_flops``; MoE
+  layers at their activated experts), the bytes an unfused rope would
+  move (``lm_rope_hbm_bytes``), and a Caffe net's (``netspec_flops``);
+* ``peak_flops_per_chip``, keyed on the CUDA device's name;
+* :class:`GoodputMeter`, which turns settled (steps, seconds) windows into
+  JAX's fields from numbers the drain already has.
 
 The convention is the JAX package's: matmul-only model FLOPs, causal
 attention counted at the computed half, the backward at twice the
@@ -57,28 +59,40 @@ def lm_train_flops(cfg, batch: int, seq: int) -> float:
     return 3.0 * lm_forward_flops(cfg, batch, seq - 1)
 
 
-def window_fields(steps: int, seconds: float, *,
-                  flops_per_step: Optional[float] = None,
-                  tokens_per_step: Optional[float] = None,
-                  samples_per_step: Optional[float] = None,
-                  peak_flops: Optional[float] = None) -> dict:
-    """The JAX ``GoodputMeter``'s fields for one settled window of
-    ``steps`` steps in ``seconds`` (same names, same rounding; empty if
-    degenerate): steps_per_sec, tokens_per_sec, samples_per_sec,
-    achieved_tflops and, with ``peak_flops``, mfu."""
-    if steps <= 0 or seconds <= 0:
-        return {}
-    out = {"steps_per_sec": round(steps / seconds, 3)}
-    if tokens_per_step:
-        out["tokens_per_sec"] = round(tokens_per_step * steps / seconds, 1)
-    if samples_per_step:
-        out["samples_per_sec"] = round(samples_per_step * steps / seconds, 2)
-    if flops_per_step:
-        achieved = flops_per_step * steps / seconds
-        out["achieved_tflops"] = round(achieved / 1e12, 4)
-        if peak_flops:
-            out["mfu"] = round(achieved / peak_flops, 4)
-    return out
+def lm_decode_flops(cfg, batch: int, context: int) -> float:
+    """Matmul-only FLOPs of ONE batched decode step at KV length
+    ``context``: every weight matmul at seq=1 plus the attention reads
+    against the cache."""
+    cfg = getattr(cfg, "cfg", cfg)
+    qkvo = 4 * 2 * batch * cfg.d_model * (cfg.n_heads * cfg.head_dim)
+    attn = 2 * 2 * batch * cfg.n_heads * context * cfg.head_dim
+    mlp = 3 * 2 * batch * cfg.d_model * cfg.d_ff
+    head = 2 * batch * cfg.d_model * cfg.vocab_size
+    n_moe = cfg.n_layers // cfg.moe_every if cfg.n_experts else 0
+    return (cfg.n_layers * (qkvo + attn) + (cfg.n_layers - n_moe) * mlp
+            + n_moe * cfg.moe_top_k * mlp + head)
+
+
+def lm_prefill_flops(cfg, prompt_len: int) -> float:
+    """Forward-only FLOPs of prefilling one prompt (batch 1)."""
+    return lm_forward_flops(cfg, 1, prompt_len)
+
+
+def lm_verify_flops(cfg, batch: int, context: int, k: int) -> float:
+    """Matmul-only FLOPs of ONE speculative verify pass scoring k drafts
+    (k+1 query positions) per slot at KV length ``context``."""
+    return (k + 1) * lm_decode_flops(cfg, batch, context)
+
+
+def lm_rope_hbm_bytes(cfg, batch: int, seq: int,
+                      dtype_bytes: int = 2) -> float:
+    """Bytes per train step that an UNFUSED rope round-trips through
+    memory: per layer, Q and K read and written once in the forward and
+    dQ, dK once in the backward, 8 x B·H·S·D·bytes.  The FLOP numerator
+    never counts rope's elementwise work."""
+    cfg = getattr(cfg, "cfg", cfg)
+    qk = batch * cfg.n_heads * cfg.head_dim * seq * dtype_bytes
+    return cfg.n_layers * 8.0 * qk
 
 
 # ---------------------------------------------------------------------------
@@ -162,3 +176,86 @@ def netspec_flops(specs, input_shape, phase: str = "TRAIN",
             flat = h * w * c
         # Data/ReLU/LRN/Dropout/Softmax/losses: 0 by convention
     return total * (3.0 if backward else 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the meter
+# ---------------------------------------------------------------------------
+
+class GoodputMeter:
+    """Per-window goodput fields from numbers the drain already has.
+
+    Configure once with the workload's analytic per-step FLOPs (and
+    tokens or samples per step); each :meth:`window` call turns a settled
+    (steps, seconds) window into reporter fields.  ``peak_flops="auto"``
+    (the default) takes this card's peak (None on the CPU: throughput
+    fields only); pass the sum over devices when ``flops_per_step``
+    covers a step spread over several.  ``roofline_mfu`` adds
+    ``vs_roofline``, the share of an MFU this card has shown.
+    """
+
+    def __init__(self, flops_per_step: Optional[float] = None,
+                 tokens_per_step: Optional[float] = None,
+                 samples_per_step: Optional[float] = None,
+                 peak_flops="auto",
+                 roofline_mfu: Optional[float] = None):
+        self.flops_per_step = flops_per_step
+        self.tokens_per_step = tokens_per_step
+        self.samples_per_step = samples_per_step
+        self.peak_flops = (peak_flops_per_chip() if peak_flops == "auto"
+                           else peak_flops)
+        self.roofline_mfu = roofline_mfu
+        self.total_steps = 0
+        self.total_seconds = 0.0
+        self._exp_steps = 0
+        self._exp_seconds = 0.0
+
+    def window(self, steps: int, seconds: float) -> dict:
+        """Goodput fields for one settled window (empty if degenerate)."""
+        if steps <= 0 or seconds <= 0:
+            return {}
+        self.total_steps += steps
+        self.total_seconds += seconds
+        return self._fields(steps, seconds)
+
+    def _fields(self, steps: int, seconds: float) -> dict:
+        out = {"steps_per_sec": round(steps / seconds, 3)}
+        if self.tokens_per_step:
+            out["tokens_per_sec"] = round(
+                self.tokens_per_step * steps / seconds, 1)
+        if self.samples_per_step:
+            out["samples_per_sec"] = round(
+                self.samples_per_step * steps / seconds, 2)
+        if self.flops_per_step:
+            achieved = self.flops_per_step * steps / seconds
+            out["achieved_tflops"] = round(achieved / 1e12, 4)
+            if self.peak_flops:
+                mfu = achieved / self.peak_flops
+                out["mfu"] = round(mfu, 4)
+                if self.roofline_mfu:
+                    out["vs_roofline"] = round(mfu / self.roofline_mfu, 3)
+        return out
+
+    def totals(self) -> dict:
+        """Whole-run goodput (same fields over the summed windows)."""
+        if self.total_steps <= 0 or self.total_seconds <= 0:
+            return {}
+        return self._fields(self.total_steps, self.total_seconds)
+
+    def export_window(self) -> dict:
+        """Delta since the last call: the no-arg source a
+        :class:`~dtdl_tpu_torch.obs.export.MetricsExporter` samples
+        (``exporter.add_source("goodput", meter.export_window)``).  The
+        window's goodput fields plus ``steps`` and the mean
+        ``step_time_s`` that ``default_train_slos`` judges; empty on an
+        idle interval."""
+        dsteps = self.total_steps - self._exp_steps
+        dsecs = self.total_seconds - self._exp_seconds
+        self._exp_steps = self.total_steps
+        self._exp_seconds = self.total_seconds
+        if dsteps <= 0 or dsecs <= 0:
+            return {}
+        out = self._fields(dsteps, dsecs)
+        out["steps"] = dsteps
+        out["step_time_s"] = round(dsecs / dsteps, 6)
+        return out

@@ -44,16 +44,42 @@ class LogHistogram:
         return min(i, self._n_bins - 1)
 
     def add(self, x: float) -> None:
+        """O(1), allocation-free; non-positive samples clamp to ``lo``."""
         x = float(x)
         self._counts[self._index(x)] += 1
         self.n += 1
         self.total += x
-        self._min = min(self._min, x)
-        self._max = max(self._max, x)
+        if x < self._min:
+            self._min = x
+        if x > self._max:
+            self._max = x
+
+    def extend(self, xs) -> None:
+        for x in xs:
+            self.add(x)
+
+    def merge(self, other: "LogHistogram") -> "LogHistogram":
+        """In-place merge of an identically-bucketed histogram (the
+        fleet folds its replicas' tails with it)."""
+        if (other.lo, other.hi, other.bins_per_decade) != (
+                self.lo, self.hi, self.bins_per_decade):
+            raise ValueError("cannot merge histograms with different "
+                             "bucket layouts")
+        for i, c in enumerate(other._counts):
+            self._counts[i] += c
+        self.n += other.n
+        self.total += other.total
+        self._min = min(self._min, other._min)
+        self._max = max(self._max, other._max)
+        return self
 
     @property
     def mean(self) -> float:
         return self.total / self.n if self.n else 0.0
+
+    @property
+    def min(self) -> float:
+        return self._min if self.n else 0.0
 
     @property
     def max(self) -> float:
@@ -71,9 +97,22 @@ class LogHistogram:
             seen += c
             if seen >= rank and c:
                 lo_edge = self.lo * 10 ** (i * self._ratio_log)
-                mid = lo_edge * 10 ** (self._ratio_log / 2)
+                hi_edge = lo_edge * 10 ** self._ratio_log
+                mid = math.sqrt(lo_edge * hi_edge)
                 return min(max(mid, self._min), self._max)
         return self._max
+
+    @property
+    def p50(self) -> float:
+        return self.percentile(50)
+
+    @property
+    def p95(self) -> float:
+        return self.percentile(95)
+
+    @property
+    def p99(self) -> float:
+        return self.percentile(99)
 
     def summary(self, prefix: str = "", unit: float = 1.0,
                 digits: int = 6) -> dict:
@@ -83,7 +122,7 @@ class LogHistogram:
         r = lambda v: round(v * unit, digits)  # noqa: E731
         return {f"{prefix}count": self.n,
                 f"{prefix}mean": r(self.mean),
-                f"{prefix}p50": r(self.percentile(50)),
-                f"{prefix}p95": r(self.percentile(95)),
-                f"{prefix}p99": r(self.percentile(99)),
+                f"{prefix}p50": r(self.p50),
+                f"{prefix}p95": r(self.p95),
+                f"{prefix}p99": r(self.p99),
                 f"{prefix}max": r(self.max)}

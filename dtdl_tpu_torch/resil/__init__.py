@@ -4,7 +4,7 @@ the SIGTERM :class:`PreemptionWatcher`
 (:mod:`~dtdl_tpu_torch.resil.preempt`).  Checkpoint integrity (commit
 markers, quarantine and fallback) lives in
 dtdl_tpu_torch/ckpt/checkpoint.py.  The step guard (``guard.py``) and
-elastic training (``elastic.py``) are ROADMAP queue A13.
+elastic training (``elastic.py``) are ROADMAP queue A13b.
 """
 
 from dtdl_tpu_torch.resil.faults import (  # noqa: F401

@@ -248,7 +248,7 @@ def sub_mesh(ranks, axis: str = DATA_AXIS) -> Mesh | None:
 def shrink_mesh(*args, **kwargs):
     raise NotImplementedError(
         "shrink_mesh (shrink-to-survivors elastic training) is ROADMAP "
-        "queue A13 (operations)")
+        "queue A13b (resilience)")
 
 
 def replicated(mesh: Mesh, array, device=None):

@@ -1,12 +1,14 @@
 """The port's serving stack: engine, scheduler, sampling and drafts, the
 page allocator and its spill tiers, the fleet (Router, replicas, health,
 the prefix directory), and tenancy (batched multi-LoRA, grammar DFAs,
-token streams; :mod:`dtdl_tpu_torch.serve.tenant`)."""
+token streams; :mod:`dtdl_tpu_torch.serve.tenant`), with the standard
+serving SLOs (``default_fleet_slos``)."""
 
 from dtdl_tpu_torch.serve.draft import DraftSource, ModelDraft, NGramDraft
-from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
+from dtdl_tpu_torch.serve.engine import (InferenceEngine, PromptTooLongError,
+                                         default_buckets)
 from dtdl_tpu_torch.serve.fleet import (FleetMetrics, PrefixDirectory,
-                                        Replica, Router)
+                                        Replica, Router, default_fleet_slos)
 from dtdl_tpu_torch.serve.health import (DRAINING, EVICTED, HEALTHY,
                                          SUSPECT, ReplicaHealth)
 from dtdl_tpu_torch.serve.metrics import (ERROR_KINDS, UNAVAILABLE_KINDS,
@@ -18,8 +20,8 @@ from dtdl_tpu_torch.serve.paged import (GARBAGE_PAGE, DiskPageStore,
                                         adapter_salt, page_chain_hashes)
 from dtdl_tpu_torch.serve.sampling import (GREEDY, SampleParams,
                                            accept_resample, filter_logits,
-                                           mask_words, pack_mask, sample,
-                                           unpack_mask)
+                                           filter_logits_sorted, mask_words,
+                                           pack_mask, sample, unpack_mask)
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 from dtdl_tpu_torch.serve.tenant import (AdapterBank, AdapterBankFullError,
                                          TokenDFA, TokenStream,
@@ -37,6 +39,7 @@ __all__ = ["AdapterBank", "AdapterBankFullError", "DRAINING",
            "SpillCorruptEntryError", "TokenDFA", "TokenStream",
            "UNAVAILABLE_KINDS", "accept_resample", "adapter_salt",
            "adapter_template", "byte_vocab", "compile_json_schema",
-           "compile_regex", "error_kind", "filter_logits",
+           "compile_regex", "default_buckets", "default_fleet_slos",
+           "error_kind", "filter_logits", "filter_logits_sorted",
            "json_schema_to_regex", "mask_words", "merge_adapter",
            "pack_mask", "page_chain_hashes", "sample", "unpack_mask"]

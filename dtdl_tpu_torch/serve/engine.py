@@ -170,9 +170,10 @@ class InferenceEngine:
                 "holding its heads' rows of q_b/k_b/v_b/out_a) is ROADMAP "
                 "queue A12a's follow-up (tensor-parallel tenancy and "
                 "handoff)")
-        if observer is not None:
-            raise NotImplementedError(
-                "the observer facade is ROADMAP queue A13 (operations)")
+        # the obs facade: each program is watched under JAX's name on its
+        # first call (the sentinel counts captures with A5)
+        self.observer = observer
+        self._watched: set = set()
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if page_size < 0 or (page_size and model.cfg.max_seq % page_size):
@@ -245,7 +246,7 @@ class InferenceEngine:
             self.adapter_bank = AdapterBank(
                 init_bank(model, lora_rank, lora_adapters,
                           device=self.device),
-                adapter_template(model, lora_rank))
+                adapter_template(model, lora_rank), observer=observer)
 
     # ---- state the caller threads ------------------------------------
 
@@ -343,6 +344,14 @@ class InferenceEngine:
         assert_same_across_hosts(
             (self._calls,) + host,
             f"tensor-parallel engine call {self._calls} ({host[0]})")
+
+    def _watch(self, name: str) -> None:
+        """Hand the program ``name`` (JAX's: ``serve.prefill[T]``,
+        ``serve.decode``, ``serve.verify[k]``, ``serve.kv_extract``,
+        ``serve.kv_inject``) to the observer's sentinel, once."""
+        if self.observer is not None and name not in self._watched:
+            self._watched.add(name)
+            self.observer.watch(self.model, name)
 
     def bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -453,6 +462,7 @@ class InferenceEngine:
                 f"prefix start {start} + padded bucket {T} exceeds "
                 f"max_seq={self.max_seq}; map fewer prefix pages so the "
                 f"suffix bucket fits")
+        self._watch(f"serve.prefill[{T}]")
         padded = np.zeros((1, T), np.int32)
         padded[0, :prompt.size] = prompt
         dev = self.device
@@ -513,6 +523,7 @@ class InferenceEngine:
         words = None if allowed is None else pack_mask(allowed)
         self._lockstep("decode", active, temp, top_k, top_p, page_tables,
                        adapter_ids, words)
+        self._watch("serve.decode")
         tables = self._tables_arg(page_tables)
         lora = self._lora_args(adapter_ids, self.n_slots)
         dev = self.device
@@ -574,6 +585,7 @@ class InferenceEngine:
         if k + 1 > self.max_seq:
             raise ValueError(f"draft width {k} cannot fit "
                              f"max_seq={self.max_seq}")
+        self._watch(f"serve.verify[{k}]")
         tables = self._tables_arg(page_tables)
         lora = self._lora_args(adapter_ids, self.n_slots)
         dev = self.device
@@ -633,6 +645,7 @@ class InferenceEngine:
         """Gather each chunk of page ids from every pool leaf and start
         its copy into pinned host memory; one event after the last copy
         is the only wait.  Returns one numpy tree per chunk."""
+        self._watch("serve.kv_extract")
         leaves = self._pool_leaves(arena)
         cuda = self.device.type == "cuda"
         staged = []
@@ -779,6 +792,7 @@ class InferenceEngine:
             extra = sorted("/".join(p) for p in given - set(pools))
             raise ValueError(f"payload leaves do not match the arena: "
                              f"missing {missing}, extra {extra}")
+        self._watch("serve.kv_inject")
         ids = upload(np.asarray(page_ids, np.int64), self.device)
         for path, arr in leaves:
             pool = pools[path]

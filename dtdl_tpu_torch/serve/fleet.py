@@ -48,9 +48,24 @@ kernel is sticky for the whole process, so the fleet does not catch device
 errors and no replica is ever moved to the CPU.  The Router's warm-up
 builds the kernels in the calling thread before any worker starts.
 
-Not in this slice: the Router's ``observer``, ``exporter`` and ``slos``
-and ``default_fleet_slos`` (ROADMAP queue A13) raise naming it; the fleet
-emits its events to a private no-op observer that A13 replaces.
+**Observability**: ``Router(observer=)`` reaches every replica's
+scheduler, so all workers' spans and events land on one thread-safe
+tracer: the intake (``request_submitted``), each dispatch, retry, hedge
+and migration, the health edges (``replica_*``) and the one terminal
+``request_done`` carry the user's ``rid`` (and an attempt's ``arid``), and
+flow events join them into one chain per user request.  ``exporter=``
+is sampled once per pump tick (it throttles itself) with the fleet's
+window deltas; ``slos=`` (a list of :class:`~dtdl_tpu_torch.obs.slo.SLO`,
+e.g. :func:`default_fleet_slos`, or a ready evaluator) judges every
+sampled point, on a sink-less exporter the Router builds when none is
+given.
+
+**Heartbeats**: a worker beats at the top of each loop iteration and at
+each unit of progress inside a step: after each admission's prefill and
+after each harvest.  A working replica whose iteration holds several
+eager prefills behind other threads' GIL turns therefore never reads as
+wedged, while a frozen worker (a ``loop``-site stall, a hung call) stops
+beating and is caught within ``watchdog_s``.
 
 Tenant requests ride every attempt: the clones carry the user request's
 ``adapter``, ``grammar`` and ``stream``.  The stream is shared by the
@@ -71,28 +86,19 @@ from typing import Optional, Sequence
 
 from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.obs.hist import LogHistogram
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
+from dtdl_tpu_torch.obs.slo import SLO, SLOEvaluator
+from dtdl_tpu_torch.obs.trace import corr_rid
 from dtdl_tpu_torch.resil.faults import FaultPlan, InjectedFault, replica_site
 from dtdl_tpu_torch.serve.health import (DRAINING, EVICTED, HEALTHY, SUSPECT,
                                          ReplicaHealth)
-from dtdl_tpu_torch.serve.metrics import ServeMetrics, _window_delta, error_kind
+from dtdl_tpu_torch.serve.metrics import (UNAVAILABLE_KINDS, ServeMetrics,
+                                          _window_delta, error_kind)
 from dtdl_tpu_torch.serve.paged import adapter_salt, page_chain_hashes
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
 __all__ = ["DRAINING", "EVICTED", "HEALTHY", "SUSPECT", "FleetMetrics",
-           "PrefixDirectory", "Replica", "Router"]
-
-_A13 = "ROADMAP queue A13 (operations)"
-
-
-class _NullObserver:
-    """Where the fleet's events go until the observer is ported (A13):
-    ``event`` accepts anything and does nothing."""
-
-    def event(self, name, **args) -> None:
-        pass
-
-
-_NULL_OBSERVER = _NullObserver()
+           "PrefixDirectory", "Replica", "Router", "default_fleet_slos"]
 
 
 class _FaultableEngine:
@@ -146,10 +152,11 @@ class Replica:
 
     def __init__(self, idx: int, engine, sched_kwargs: dict | None = None,
                  plan: Optional[FaultPlan] = None, device=None,
-                 idle_wait_s: float = 0.002):
+                 idle_wait_s: float = 0.002, observer=None):
         self.idx = idx
         self.engine = engine
         self.plan = plan
+        self.observer = observer or NULL_OBSERVER
         self.device = engine.device if device is None else device
         self.idle_wait_s = idle_wait_s
         self._sched_kwargs = dict(sched_kwargs or {})
@@ -164,6 +171,9 @@ class Replica:
         self.dead_error: Optional[str] = None
         self.dead_at: Optional[float] = None
         self.last_beat = time.perf_counter()
+        # the longest interval between two beats of a working worker (its
+        # watchdog's margin, read by the twin's report)
+        self.max_beat_gap_s = 0.0
         self.restarts = 0
         self.sched = self._make_sched()
         self._thread = self._spawn()
@@ -173,10 +183,24 @@ class Replica:
         if self.plan is not None:
             engine = _FaultableEngine(
                 engine, self.plan, replica_site(self.idx, "engine"))
+        kw = dict(self._sched_kwargs)
+        if "observer" not in kw and self.observer is not NULL_OBSERVER:
+            # the Router's observer reaches every replica: all workers'
+            # spans and events land on one tracer, so request_timeline
+            # joins a request's attempts across replica threads
+            kw["observer"] = self.observer
         sched = Scheduler(engine, metrics=self.metrics, device=self.device,
-                          **self._sched_kwargs)
+                          **kw)
         sched._fleet_published = 0   # per-generation completion cursor
+        # a beat at each unit of progress inside a step (see module doc)
+        sched.on_progress = self._beat
         return sched
+
+    def _beat(self) -> None:
+        now = time.perf_counter()
+        if now - self.last_beat > self.max_beat_gap_s:
+            self.max_beat_gap_s = now - self.last_beat
+        self.last_beat = now
 
     def _spawn(self) -> threading.Thread:
         t = threading.Thread(target=self._run, args=(self._gen,),
@@ -285,7 +309,7 @@ class Replica:
                 self._inbox.clear()
                 cans = list(self._cancels)
                 self._cancels.clear()
-            self.last_beat = time.perf_counter()
+            self._beat()
             if self.plan is not None:
                 try:
                     # "stall" sleeps here with the heartbeat frozen (the
@@ -593,6 +617,41 @@ def _merge_counts(dicts) -> dict:
     return out
 
 
+def default_fleet_slos(ttft_p99_s: Optional[float] = None,
+                       availability: Optional[float] = None,
+                       acceptance_rate: Optional[float] = None,
+                       window_s: float = 10.0) -> list:
+    """The standard serving objectives as :class:`~dtdl_tpu_torch.obs.slo.
+    SLO` declarations over the Router's exported fields (pass the result
+    as ``Router(slos=...)``), JAX's:
+
+    * ``ttft_p99_s``: router-clock TTFT p99 at most the target, judged on
+      the histogram tail ``fleet_ttft_s_p99``;
+    * ``availability``: finished / (finished + failed + expired) over a
+      rolling ``window_s`` (:data:`~dtdl_tpu_torch.serve.metrics.
+      UNAVAILABLE_KINDS`: sheds, rejections and aborts never burn it);
+    * ``acceptance_rate``: a speculative-acceptance floor on the
+      per-scheduler ``spec_acceptance_rate`` (needs a ServeMetrics source
+      on the same exporter), gated on drafted tokens.
+    """
+    slos = []
+    if ttft_p99_s is not None:
+        slos.append(SLO("ttft_p99", metric="fleet_ttft_s_p99",
+                        op="<=", target=ttft_p99_s))
+    if availability is not None:
+        slos.append(SLO(
+            "availability", good="fleet_requests_finished",
+            bad=tuple(f"fleet_requests_{k}" for k in UNAVAILABLE_KINDS),
+            target=availability, window_s=window_s))
+    if acceptance_rate is not None:
+        # gated on drafted tokens: the rate exports 0.0 in windows with
+        # speculation off, which would breach the floor every idle window
+        slos.append(SLO("acceptance", metric="spec_acceptance_rate",
+                        op=">=", target=acceptance_rate,
+                        gate="spec_drafted_tokens"))
+    return slos
+
+
 @dataclasses.dataclass
 class _Flight:
     """Router-side record of one USER request: its attempts (replica-local
@@ -628,7 +687,8 @@ class Router:
     'decode', 'mixed' per replica) disaggregates; ``prefix_directory``
     and ``affinity_min_tokens`` steer warm prefixes.  ``device`` is where
     the replicas' schedulers run (the card unless ``"cpu"``); it must be
-    the engines'."""
+    the engines'.  ``observer``, ``exporter`` and ``slos``: see the module
+    docstring."""
 
     def __init__(self, engines, n_replicas: Optional[int] = None,
                  sched_kwargs: dict | None = None,
@@ -643,10 +703,6 @@ class Router:
                  exporter=None, slos=None, roles=None,
                  prefix_directory: bool = True,
                  affinity_min_tokens: Optional[int] = None, device=None):
-        for name, value in (("observer", observer), ("exporter", exporter),
-                            ("slos", slos)):
-            if value is not None:
-                raise NotImplementedError(f"Router({name}=...) is {_A13}")
         sched_kwargs = dict(sched_kwargs or {})
         if sched_kwargs.pop("device", None) is not None:
             raise ValueError("sched_kwargs['device']: pass the device to "
@@ -712,7 +768,7 @@ class Router:
                         f"dense engine: build it with page_size > 0")
         self.roles = roles
         self.device = dev
-        self.observer = _NULL_OBSERVER
+        self.observer = observer or NULL_OBSERVER
         self.metrics = metrics or FleetMetrics()
         self.max_queue = max_queue
         self.retry_budget = retry_budget
@@ -723,7 +779,8 @@ class Router:
         self.poll_s = poll_s
         if warmup:
             self._warm(engines, sched_kwargs)
-        self.replicas = [Replica(i, eng, sched_kwargs, plan, dev)
+        self.replicas = [Replica(i, eng, sched_kwargs, plan, dev,
+                                 observer=self.observer)
                          for i, eng in enumerate(engines)]
         sizes = {eng.page_size for eng in engines}
         self.prefix_dir = (PrefixDirectory()
@@ -755,6 +812,25 @@ class Router:
         self._closed = False
         self._stop = False
         self.pump_error: Optional[str] = None
+        # continuous export and SLO judging: the pump samples the exporter
+        # once a tick (self-throttled) with the fleet's window deltas; an
+        # attached evaluator judges every point and its crossings land on
+        # this router's trace.  ``slos`` without an exporter builds a
+        # sink-less one (the evaluator still judges, summary() rolls up)
+        self._own_exporter = False
+        if slos is not None and exporter is None:
+            from dtdl_tpu_torch.obs.export import MetricsExporter
+            exporter = MetricsExporter()
+            self._own_exporter = True
+        self.exporter = exporter
+        if exporter is not None:
+            exporter.add_source("", self._export_window)
+            if slos is not None:
+                if not isinstance(slos, SLOEvaluator):
+                    slos = SLOEvaluator(slos)
+                if slos.observer is None:
+                    slos.observer = self.observer
+                exporter.attach_slo(slos)
         for rep in self.replicas:
             rep._on_complete = self._wake
         self._pump = threading.Thread(target=self._pump_loop,
@@ -795,6 +871,19 @@ class Router:
 
     # ---- intake -------------------------------------------------------
 
+    @property
+    def slo(self):
+        """The live SLO evaluator (read through the exporter, so one
+        attached after construction still shows in :meth:`summary`)."""
+        return self.exporter.slo if self.exporter is not None else None
+
+    def _export_window(self) -> dict:
+        """The fleet's exporter feed: FleetMetrics window deltas plus the
+        replicas' health gauges (host state only)."""
+        return self.metrics.window(
+            [rep.metrics.summary() for rep in self.replicas],
+            health=[h.state for h in self.health])
+
     def _wake(self) -> None:
         with self._cv:
             self._cv.notify_all()
@@ -822,9 +911,13 @@ class Router:
             self.metrics.on_submit()
             fl = _Flight(req, now)
             self._flights[req.rid] = fl
-            self.observer.event("request_submitted", rid=req.rid,
+            # the intake marker and the flow chain's anchor, under the
+            # lock so they precede the dispatch's (the tracer's lock is a
+            # leaf: no ordering cycle)
+            self.observer.event("request_submitted", rid=corr_rid(req.rid),
                                 prompt_len=len(req.prompt),
                                 max_new_tokens=req.max_new_tokens)
+            self.observer.flow("req", corr_rid(req.rid), "start")
             self.queue.append(fl)
             self._cv.notify_all()
         return req
@@ -839,7 +932,9 @@ class Router:
         if req.stream is not None:
             req.stream.finish(req.tokens, req.error)
         self.finished.append(req)
-        self.observer.event("request_done", rid=req.rid,
+        # an intake rejection started no flow chain: its terminal marker
+        # only, no dangling flow end
+        self.observer.event("request_done", rid=corr_rid(req.rid),
                             kind=error_kind(error), attempts=0)
         self._cv.notify_all()
         return req
@@ -880,11 +975,16 @@ class Router:
                 self._by_attempt.pop(rid, None)
             self.finished.append(user)
             self._cv.notify_all()
+        # the terminal marker (which attempt won, how many ran) closes the
+        # request's flow chain
         self.observer.event(
-            "request_done", rid=user.rid,
+            "request_done", rid=corr_rid(user.rid),
             kind=error_kind(user.error) if user.error else "finished",
             attempts=len(fl.attempts), retries=fl.retries,
-            hedged=int(fl.hedged))
+            hedged=int(fl.hedged),
+            **({"arid": corr_rid(attempt.rid)} if attempt is not None
+               else {}))
+        self.observer.flow("req", corr_rid(user.rid), "end")
         for rid, j in losers:
             # best effort: a loser past cancellation finishes on its
             # replica and is dropped at collection
@@ -918,6 +1018,10 @@ class Router:
         self._expire_queued()
         self._dispatch()
         self._hedge()
+        if self.exporter is not None:
+            # the tick is the router's drain boundary: completions are
+            # collected above, so the sampled counters are consistent
+            self.exporter.sample()
 
     # ---- prefix directory ---------------------------------------------
 
@@ -1012,16 +1116,18 @@ class Router:
                 fl.handoff = att.kv_handoff
                 n_pg = int(att.kv_handoff["n_pages"])
                 self.metrics.on_migrate(n_pg)
-                self.observer.event("request_migrated", rid=user.rid,
-                                    arid=att.rid, replica=i, pages=n_pg)
+                self.observer.event(
+                    "request_migrated", rid=corr_rid(user.rid),
+                    arid=corr_rid(att.rid), replica=i, pages=n_pg)
+                self.observer.flow("req", corr_rid(user.rid), "step")
                 with self._cv:
                     self.queue.appendleft(fl)
                     self._cv.notify_all()
                 return
             if fl.hedged and att.rid == fl.hedge_rid and not user.done:
                 self.metrics.on_hedge_won()
-                self.observer.event("hedge_won", rid=user.rid,
-                                    arid=att.rid, replica=i)
+                self.observer.event("hedge_won", rid=corr_rid(user.rid),
+                                    arid=corr_rid(att.rid), replica=i)
             self._finish_user(fl, None, None, attempt=att)
             return
         kind = error_kind(att.error)
@@ -1076,7 +1182,8 @@ class Router:
             return
         fl.retries += 1
         self.metrics.on_retry()
-        self.observer.event("request_retry", rid=user.rid, n=fl.retries)
+        self.observer.event("request_retry", rid=corr_rid(user.rid),
+                            n=fl.retries)
         with self._cv:
             self.queue.appendleft(fl)
             self._cv.notify_all()
@@ -1247,73 +1354,76 @@ class Router:
         return min(cands, key=lambda i: (self.replicas[i].load, i))
 
     def _dispatch(self) -> None:
-        while True:
-            dead = None
-            with self._cv:
-                if not self.queue:
+        with self.observer.span("route"):
+            while True:
+                dead = None
+                with self._cv:
+                    if not self.queue:
+                        return
+                    # role fleets pick by the HEAD flight's stage (strict
+                    # FIFO: a decode-capacity stall holds the queue)
+                    head_stage = (self.queue[0].stage
+                                  if self.roles is not None else None)
+                    target = self._pick(stage=head_stage)
+                    aff = None
+                    if target is not None and self.prefix_dir is not None:
+                        aff = self._affinity(self.queue[0])
+                        if aff is not None:
+                            target = aff[0]
+                    if target is None:
+                        # SUSPECT and DRAINING recover; a fleet ENTIRELY
+                        # evicted (no auto_restart) never will: fail the
+                        # queue by name instead of hanging
+                        if all(h.state == EVICTED for h in self.health):
+                            dead = list(self.queue)
+                            self.queue.clear()
+                        else:
+                            return         # circuits open: wait for probes
+                    else:
+                        fl = self.queue.popleft()
+                        if fl.req.done:
+                            continue
+                        if self.roles is not None and fl.stage == "decode":
+                            att = self._clone(fl.req, "migrate")
+                            att.kv_inject = fl.handoff
+                            # the prefill half delivered the first token:
+                            # seed it, the decode replica owes the rest
+                            att.tokens = [int(fl.handoff["first_token"])]
+                            att.t_first = float(
+                                fl.handoff.get("t_first") or 0.0)
+                        else:
+                            lineage = ("primary" if not fl.attempts
+                                       else f"retry:{fl.retries}"
+                                       if fl.retries else "requeue")
+                            att = self._clone(fl.req, lineage)
+                            if self.roles is not None \
+                                    and self.roles[target] == "prefill":
+                                att.prefill_only = True
+                        now = time.perf_counter()
+                        fl.live[att.rid] = target
+                        fl.attempts.append((att.rid, target, now))
+                        self._by_attempt[att.rid] = fl
+                        self.dispatch_log.append(
+                            (now, target, fl.req.rid, att.rid))
+                if dead is not None:
+                    for fl in dead:
+                        self._finish_user(
+                            fl, "failed: no healthy replica (every "
+                                "replica evicted)",
+                            self.metrics.on_failed)
                     return
-                # role fleets pick by the HEAD flight's stage (strict
-                # FIFO: a decode-capacity stall holds the queue)
-                head_stage = (self.queue[0].stage
-                              if self.roles is not None else None)
-                target = self._pick(stage=head_stage)
-                aff = None
-                if target is not None and self.prefix_dir is not None:
-                    aff = self._affinity(self.queue[0])
-                    if aff is not None:
-                        target = aff[0]
-                if target is None:
-                    # SUSPECT and DRAINING recover; a fleet ENTIRELY
-                    # evicted (no auto_restart) never will: fail the
-                    # queue by name instead of hanging
-                    if all(h.state == EVICTED for h in self.health):
-                        dead = list(self.queue)
-                        self.queue.clear()
-                    else:
-                        return         # circuits open: wait for probes
-                else:
-                    fl = self.queue.popleft()
-                    if fl.req.done:
-                        continue
-                    if self.roles is not None and fl.stage == "decode":
-                        att = self._clone(fl.req, "migrate")
-                        att.kv_inject = fl.handoff
-                        # the prefill half delivered the first token:
-                        # seed it, the decode replica owes the rest
-                        att.tokens = [int(fl.handoff["first_token"])]
-                        att.t_first = float(
-                            fl.handoff.get("t_first") or 0.0)
-                    else:
-                        lineage = ("primary" if not fl.attempts
-                                   else f"retry:{fl.retries}"
-                                   if fl.retries else "requeue")
-                        att = self._clone(fl.req, lineage)
-                        if self.roles is not None \
-                                and self.roles[target] == "prefill":
-                            att.prefill_only = True
-                    now = time.perf_counter()
-                    fl.live[att.rid] = target
-                    fl.attempts.append((att.rid, target, now))
-                    self._by_attempt[att.rid] = fl
-                    self.dispatch_log.append(
-                        (now, target, fl.req.rid, att.rid))
-            if dead is not None:
-                for fl in dead:
-                    self._finish_user(
-                        fl, "failed: no healthy replica (every "
-                            "replica evicted)",
-                        self.metrics.on_failed)
-                return
-            if aff is not None:
-                self.metrics.on_directory_hit(aff[2])
-                self.replicas[target].metrics.on_directory_hit()
-                self.observer.event("prefix_directory_hit",
-                                    rid=fl.req.rid, replica=target,
-                                    pages=aff[1], tokens_saved=aff[2])
-            self.observer.event("request_dispatched", rid=fl.req.rid,
-                                arid=att.rid, replica=target,
-                                lineage=att.lineage, retries=fl.retries)
-            self.replicas[target].submit(att)
+                if aff is not None:
+                    self.metrics.on_directory_hit(aff[2])
+                    self.replicas[target].metrics.on_directory_hit()
+                    self.observer.event(
+                        "prefix_directory_hit", rid=corr_rid(fl.req.rid),
+                        replica=target, pages=aff[1], tokens_saved=aff[2])
+                self.observer.event("request_dispatched",
+                                    rid=corr_rid(fl.req.rid),
+                                    arid=corr_rid(att.rid), replica=target,
+                                    lineage=att.lineage, retries=fl.retries)
+                self.observer.flow("req", corr_rid(fl.req.rid), "step")
+                self.replicas[target].submit(att)
 
     def _clone(self, user: Request, lineage: str = "primary") -> Request:
         """A fresh replica-local attempt for a user request: the same
@@ -1363,8 +1473,12 @@ class Router:
                 self.metrics.on_hedge()
                 todo.append((j, att, fl.req.rid))
         for j, att, rid in todo:
-            self.observer.event("request_hedged", rid=rid, arid=att.rid,
-                                replica=j, lineage="hedge")
+            # the hedge is the flight's second dispatch: rid joins it to
+            # the primary, arid and lineage tell the attempts apart
+            self.observer.event("request_hedged", rid=corr_rid(rid),
+                                arid=corr_rid(att.rid), replica=j,
+                                lineage="hedge")
+            self.observer.flow("req", corr_rid(rid), "step")
             self.replicas[j].submit(att)
 
     # ---- lifecycle ----------------------------------------------------
@@ -1447,9 +1561,13 @@ class Router:
             self._closed = True
         if already and self._stop:
             return
+        self.observer.event("router_shutdown", drain=int(drain))
         timed_out = False
         if drain:
             timed_out = not self.wait(None, timeout_s=timeout_s)
+            if timed_out:
+                self.observer.event("router_drain_timeout",
+                                    timeout_s=timeout_s)
         if not drain or timed_out:
             # an accepted request is never left non-terminal
             why = ("shutdown drain timed out" if timed_out
@@ -1471,6 +1589,12 @@ class Router:
         for rep in self.replicas:
             rep.stop(drain=drain)
         self._collect()    # the pump is gone: settle the last completions
+        if self.exporter is not None:
+            # the final point carries the settled books, so the series
+            # telescopes to the end-of-run summary
+            self.exporter.sample(force=True)
+            if self._own_exporter:
+                self.exporter.close()
 
     def __enter__(self) -> "Router":
         return self
@@ -1484,7 +1608,8 @@ class Router:
     def summary(self) -> dict:
         """Fleet-level metrics with per-replica summaries nested under
         ``replicas`` (call after :meth:`wait` or :meth:`shutdown`, so the
-        harvest-side numbers are settled)."""
+        harvest-side numbers are settled); with an exporter the export
+        volume and the SLO rollup ride along."""
         out = self.metrics.summary(
             [rep.metrics.summary() for rep in self.replicas],
             health=[h.state for h in self.health])
@@ -1492,4 +1617,8 @@ class Router:
             out["replica_roles"] = list(self.roles)
         if self.prefix_dir is not None:
             out["prefix_directory_entries"] = len(self.prefix_dir)
+        if self.exporter is not None:
+            out["export_snapshots"] = self.exporter.n_snapshots
+        if self.slo is not None:
+            out.update(self.slo.summary())
         return out

@@ -86,8 +86,17 @@ pages are keyed by its adapter as well as its tokens
 (:func:`~dtdl_tpu_torch.serve.paged.adapter_salt`), so no request maps
 K/V that another adapter computed (ROADMAP C5).
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the exporter and observer (A13).
+**Observability**: ``observer=`` (:mod:`dtdl_tpu_torch.obs`) records JAX's
+spans (``admit``, ``prefill``, ``draft``, ``verify``, ``dispatch``,
+``harvest``, ``drain``), the request lifecycle (``request_admitted``,
+``request_first_token``, ``request_finished``, with ``rid``/``arid`` and a
+flow chain per user request), the containment, tier and tenancy events, at
+JAX's points and from host truth only: an event's args are host ints and
+floats, and the first-token event is emitted at the harvest, so nothing
+waits for the card on its account.  ``exporter=`` (a
+:class:`~dtdl_tpu_torch.obs.export.MetricsExporter`) takes this
+scheduler's ``metrics.window`` as a source and is sampled at each step's
+harvest boundary and at the drain.
 """
 
 from __future__ import annotations
@@ -102,6 +111,8 @@ import numpy as np
 import torch
 
 from dtdl_tpu_torch.device import resolve_device
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
+from dtdl_tpu_torch.obs.trace import corr_rid
 from dtdl_tpu_torch.serve.draft import NGramDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
 from dtdl_tpu_torch.serve.metrics import ERROR_KINDS, ServeMetrics
@@ -321,10 +332,6 @@ class Scheduler:
         if dev != engine.device:
             raise ValueError(f"the engine runs on {engine.device}, the "
                              f"scheduler was asked for {dev}")
-        if observer is not None or exporter is not None:
-            raise NotImplementedError(
-                "the observer and the metrics exporter are ROADMAP queue "
-                "A13 (operations)")
         if harvest_lag < 0:
             raise ValueError(f"harvest_lag must be >= 0, got {harvest_lag}")
         if max_queue is not None and max_queue < 1:
@@ -339,6 +346,18 @@ class Scheduler:
             raise ValueError(
                 f"draft model vocab ({draft_model.cfg.vocab_size}) must "
                 f"match the served model's ({engine.model.cfg.vocab_size})")
+        # the obs facade (spans, lifecycle events, the engine's sentinel);
+        # the default NULL_OBSERVER no-ops every hook
+        self.observer = observer or NULL_OBSERVER
+        if observer is not None and engine.observer is None:
+            engine.observer = observer
+        if engine.adapter_bank is not None \
+                and engine.adapter_bank.observer is None \
+                and observer is not None:
+            engine.adapter_bank.observer = observer
+        # sampled at the boundaries this loop already settles at (a step's
+        # harvest and the drain); the exporter throttles itself
+        self.exporter = exporter
         self.engine = engine
         self.harvest_lag = harvest_lag
         self.max_queue = max_queue
@@ -348,6 +367,10 @@ class Scheduler:
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[Request]] = [None] * engine.n_slots
         self.metrics = metrics or ServeMetrics(n_slots=engine.n_slots)
+        if exporter is not None:
+            # this scheduler's window-delta feed; callers stack further
+            # sources on the same exporter
+            exporter.add_source("", self.metrics.window)
         self.finished: list[Request] = []
         self._reqs: dict[int, Request] = {}
         self._active = np.zeros(engine.n_slots, bool)
@@ -369,6 +392,10 @@ class Scheduler:
         self._closed = False
         self._containing = False
         self.last_engine_error: Optional[str] = None
+        # called (no args, host only) at each unit of progress inside a
+        # step: after an admission's prefill or inject and after each
+        # harvest.  The fleet's replica worker beats its watchdog here
+        self.on_progress = None
         # paged arena: the host page allocator, the tables every step
         # takes as data, each slot's pages (released at retirement), and
         # the prefix hashes a chunked admission publishes at its final
@@ -409,6 +436,14 @@ class Scheduler:
 
     # ---- intake -------------------------------------------------------
 
+    def _corr(self, req: Request) -> dict:
+        """Trace-correlation args of a request-scoped event: ``rid`` the
+        USER request id (the Router's ``origin_rid`` on an attempt; a
+        standalone request is its own origin), ``arid`` this attempt's,
+        both in the :func:`~dtdl_tpu_torch.obs.trace.corr_rid` wire form."""
+        rid = req.origin_rid if req.origin_rid is not None else req.rid
+        return {"rid": corr_rid(rid), "arid": corr_rid(req.rid)}
+
     def _finish_error(self, req: Request, reason: str, metric_hook,
                       kind: str) -> Request:
         assert kind in ERROR_KINDS, kind
@@ -418,6 +453,10 @@ class Scheduler:
         self.finished.append(req)
         self._stream_terminal(req)
         metric_hook(req)
+        if req.origin_rid is None and req.admit_step >= 0:
+            # a standalone request that was admitted started a flow at its
+            # admission: close it (a fleet attempt's chain is the Router's)
+            self.observer.flow("req", corr_rid(req.rid), "end")
         return req
 
     def _reject(self, req: Request, reason: str) -> Request:
@@ -625,12 +664,16 @@ class Scheduler:
             self.queue.remove(req)
             self._finish_error(req, "deadline exceeded before admission",
                                self.metrics.on_expire, "expired")
+            self.observer.event("request_expired", queued=1,
+                                **self._corr(req))
         for slot in slotted:
             req = self.slots[slot]
             if req is not None:
                 self._finish_error(
                     req, f"deadline exceeded after {len(req.tokens)} tokens",
                     self.metrics.on_expire, "expired")
+                self.observer.event("request_expired", slot=slot,
+                                    **self._corr(req))
                 self._retire(slot)
 
     # ---- outstanding work, cancel, containment ----------------------
@@ -659,12 +702,16 @@ class Scheduler:
             self.queue.remove(req)
             self._finish_error(req, f"cancelled before admission: {reason}",
                                self.metrics.on_abort, "aborted")
+            self.observer.event("request_cancelled", queued=1,
+                                **self._corr(req))
             return True
         for slot, r in enumerate(self.slots):
             if r is req:
                 self._finish_error(
                     req, f"cancelled after {len(req.tokens)} tokens: "
                          f"{reason}", self.metrics.on_abort, "aborted")
+                self.observer.event("request_cancelled", slot=slot,
+                                    **self._corr(req))
                 self._retire(slot)
                 return True
         return False
@@ -682,6 +729,8 @@ class Scheduler:
         self._containing = True
         try:
             self.last_engine_error = f"{type(exc).__name__}: {exc}"
+            self.observer.event("engine_failure",
+                                error=self.last_engine_error)
             reason = f"engine failure: {self.last_engine_error}"
             pending_rids = {rid for _, _, entries in self._pending
                             for _, rid, _, _ in entries}
@@ -807,6 +856,7 @@ class Scheduler:
             suffix = prompt[start:]
             self.queue.popleft()
             sp = req.sampling
+            corr = self._corr(req)
             if restored:
                 # the spilled payloads re-enter the arena by inject into
                 # fresh[:n]; the suffix's prefill or chunks that follow
@@ -826,11 +876,14 @@ class Scheduler:
                         self.metrics.on_failure, "failed")
                     self._release_adapter(aid)   # not slotted yet
                     return
+                nbytes = sum(payload_nbytes(p) for p in payloads)
                 self.metrics.on_restore(
-                    len(restored), sum(payload_nbytes(p) for p in payloads),
-                    time.perf_counter() - t0,
+                    len(restored), nbytes, time.perf_counter() - t0,
                     host_hits=sum(1 for _, t in restored if t == "host"),
                     disk_hits=sum(1 for _, t in restored if t == "disk"))
+                self.observer.event(
+                    "page_restored", slot=slot, pages=len(restored),
+                    nbytes=nbytes, cached=len(hits) * eng.page_size, **corr)
             if not chunked:
                 # a blocking whole-prompt prefill: every decoding slot
                 # waits for it
@@ -841,12 +894,15 @@ class Scheduler:
                 g0 = (req.grammar.mask(req.grammar.start)[None, :]
                       if req.grammar is not None else None)
                 try:
-                    self.arena, self.last_tokens, _ = eng.prefill(
-                        self.arena, self.last_tokens, slot, suffix, sp,
-                        self._gen, page_row=row, start=start,
-                        adapter_id=(aid if eng.adapter_bank is not None
-                                    else None),
-                        allowed=g0)
+                    with self.observer.span("prefill", slot=slot,
+                                            suffix_len=len(suffix),
+                                            cached=start, **corr):
+                        self.arena, self.last_tokens, _ = eng.prefill(
+                            self.arena, self.last_tokens, slot, suffix, sp,
+                            self._gen, page_row=row, start=start,
+                            adapter_id=(aid if eng.adapter_bank is not None
+                                        else None),
+                            allowed=g0)
                 except Exception as e:
                     # this request is not slotted yet: _contain frees the
                     # pages it mapped with the pool reset
@@ -856,6 +912,8 @@ class Scheduler:
                         self.metrics.on_failure, "failed")
                     self._release_adapter(aid)
                     return
+                if self.on_progress is not None:
+                    self.on_progress()
             if self.pages is not None:
                 self._ptab[slot] = row
                 self._slot_pages[slot] = list(hits) + list(fresh)
@@ -888,6 +946,16 @@ class Scheduler:
             self._topp[slot] = sp.top_p
             req.t_admit = time.perf_counter()
             req.admit_step = self.step_count
+            # the admission marker on this worker's track, and the flow
+            # arrow joining the attempt to its user request's chain (a
+            # standalone request starts it here)
+            self.observer.event("request_admitted", slot=slot,
+                                step=self.step_count,
+                                prompt_len=len(req.prompt),
+                                cached=start, lineage=req.lineage, **corr)
+            self.observer.flow(
+                "req", corr["rid"],
+                "step" if req.origin_rid is not None else "start")
             self.metrics.on_admit(req, slot, len(suffix))
             if chunked:
                 # no token guaranteed yet: the first is the final chunk's
@@ -940,11 +1008,14 @@ class Scheduler:
         self._spill_evicted()
         row = np.full(self.engine.n_ptab, GARBAGE_PAGE, np.int32)
         row[:n_pg] = fresh
+        corr = self._corr(req)
         t0 = time.perf_counter()
         try:
-            self.arena, self.last_tokens = self.engine.inject_pages(
-                self.arena, self.last_tokens, payload["data"], fresh, slot,
-                len(req.prompt), int(payload["first_token"]))
+            with self.observer.span("prefill", slot=slot, suffix_len=0,
+                                    cached=len(req.prompt), **corr):
+                self.arena, self.last_tokens = self.engine.inject_pages(
+                    self.arena, self.last_tokens, payload["data"], fresh,
+                    slot, len(req.prompt), int(payload["first_token"]))
         except Exception as e:
             self._contain(e)
             self._finish_error(
@@ -952,6 +1023,8 @@ class Scheduler:
                 self.metrics.on_failure, "failed")
             self._release_adapter(aid)
             return True
+        if self.on_progress is not None:
+            self.on_progress()
         self._ptab[slot] = row
         self._slot_pages[slot] = list(fresh)
         # the migrated full prompt pages join this scheduler's prefix
@@ -973,6 +1046,15 @@ class Scheduler:
         self._topp[slot] = sp.top_p
         req.t_admit = time.perf_counter()
         req.admit_step = self.step_count
+        self.observer.event("kv_handoff", side="inject", pages=n_pg, **corr)
+        self.observer.event("request_admitted", slot=slot,
+                            step=self.step_count,
+                            prompt_len=len(req.prompt),
+                            cached=len(req.prompt), lineage=req.lineage,
+                            **corr)
+        self.observer.flow(
+            "req", corr["rid"],
+            "step" if req.origin_rid is not None else "start")
         # the prefill half delivered the first token (seeded in req.tokens
         # by the Router); this slot owes the rest
         req._guaranteed = max(1, req._guaranteed)
@@ -1007,6 +1089,8 @@ class Scheduler:
                 self._finish_error(
                     req, f"{e} (shed after {len(req.tokens)} harvested "
                          f"tokens)", self.metrics.on_shed, "shed")
+                self.observer.event("page_pool_shed", slot=slot,
+                                    **self._corr(req))
                 self._retire(slot)
         # growth may have evicted cached pages: spill them before the
         # caller's dispatch rewrites them
@@ -1037,6 +1121,8 @@ class Scheduler:
             nbytes += payload_nbytes(payload)
             self.spill.put(h, payload)
         self.metrics.on_spill(len(evs), nbytes, dt)
+        self.observer.event("page_spilled", pages=len(evs), nbytes=nbytes,
+                            host_pages=len(self.spill))
 
     # ---- drafting and chunk planning ---------------------------------
 
@@ -1126,18 +1212,20 @@ class Scheduler:
         returns how many slots were active.  An exception from the
         dispatch is contained to the in-flight batch (:meth:`_contain`)."""
         self._expire()
-        self._admit()
+        with self.observer.span("admit"):
+            self._admit()
         # overflow settling: a slot whose worst-case index leaves no room
         # for one more write waits for its in-flight steps to harvest
         # (only ever within the last k+1 positions of a sequence)
         while self._pending and any(
                 self._state[s].pos_hi > self.engine.max_seq - 1
                 for s in range(self.engine.n_slots) if self._active[s]):
-            self._harvest_one()
+            with self.observer.span("harvest", forced=1):
+                self._harvest_one()
         n_active = int(self._active.sum())
         if n_active:
             try:
-                self._dispatch_round()
+                self._dispatch_round(n_active)
             except Exception as e:
                 self._contain(e)
         self.step_count += 1
@@ -1146,13 +1234,19 @@ class Scheduler:
             self.metrics.on_pages(self.pages.pages_in_use,
                                   self.pages.capacity)
         if len(self._pending) > self.harvest_lag:
-            while len(self._pending) > self.harvest_lag:
-                self._harvest_one()
+            with self.observer.span("harvest"):
+                while len(self._pending) > self.harvest_lag:
+                    self._harvest_one()
         elif not n_active and self._pending:
-            self._harvest_one()
+            with self.observer.span("harvest", idle=1):
+                self._harvest_one()
+        if self.exporter is not None:
+            # harvest boundary: host counters the lag harvest settled; the
+            # exporter's interval decides whether this becomes a point
+            self.exporter.sample()
         return n_active
 
-    def _dispatch_round(self):
+    def _dispatch_round(self, n_active: int):
         """Plan drafts and chunks, then one decode or verify step over the
         stepped slots: the decoding ones, plain or speculative, and the
         prefilling ones that drew a chunk, as ``forced`` rows."""
@@ -1186,7 +1280,8 @@ class Scheduler:
             if gated and self._pending:
                 # settle the oldest window so the gated automata advance:
                 # a lone constrained slot never reaches the lag threshold
-                self._harvest_one()
+                with self.observer.span("harvest", grammar=1):
+                    self._harvest_one()
             return
         # the room bound covers every active slot, stepped or not: the
         # window of k+1 positions is written for every row (a dense row
@@ -1233,7 +1328,8 @@ class Scheduler:
             forced = np.zeros(B, bool)
             first_tok = np.zeros(B, np.int32)
             pos_set = np.zeros(B, np.int32)
-            n_drafted = self._draft(desires, k_prog, drafts, lens)
+            with self.observer.span("draft", n_active=n_active):
+                n_drafted = self._draft(desires, k_prog, drafts, lens)
             for slot, w in chunk_plan.items():
                 st = self._state[slot]
                 toks = st.fill_toks[st.fill_next:st.fill_next + w]
@@ -1267,15 +1363,16 @@ class Scheduler:
                 else:
                     entries.append((slot, rid, int(lens[slot]), 0))
             entries = tuple(entries)
-            self.arena, self.last_tokens, window, counts = \
-                self.engine.verify(
-                    self.arena, self.last_tokens, drafts, lens, step_act,
-                    self._temp, self._topk, self._topp, tables,
-                    generator=self._gen, forced=forced,
-                    first_tok=first_tok, pos_set=pos_set,
-                    adapter_ids=self._adapter_ids(),
-                    allowed=self._grammar_masks(step_act, chunk_plan,
-                                                drafts, lens, k_prog))
+            g_allowed = self._grammar_masks(step_act, chunk_plan, drafts,
+                                            lens, k_prog)
+            with self.observer.span("verify", n_active=n_active, k=k_prog):
+                self.arena, self.last_tokens, window, counts = \
+                    self.engine.verify(
+                        self.arena, self.last_tokens, drafts, lens,
+                        step_act, self._temp, self._topk, self._topp,
+                        tables, generator=self._gen, forced=forced,
+                        first_tok=first_tok, pos_set=pos_set,
+                        adapter_ids=self._adapter_ids(), allowed=g_allowed)
             self._pending.append((_HostTokens(window), _HostTokens(counts),
                                   entries))
             if n_drafted:
@@ -1309,10 +1406,11 @@ class Scheduler:
                 for s in g_rows:
                     r = self.slots[s]
                     allowed[s] = r.grammar.mask(r._gq)
-            self.arena, self.last_tokens, _ = self.engine.decode(
-                self.arena, self.last_tokens, step_act, self._temp,
-                self._topk, self._topp, tables, generator=self._gen,
-                adapter_ids=self._adapter_ids(), allowed=allowed)
+            with self.observer.span("dispatch", n_active=n_active):
+                self.arena, self.last_tokens, _ = self.engine.decode(
+                    self.arena, self.last_tokens, step_act, self._temp,
+                    self._topk, self._topp, tables, generator=self._gen,
+                    adapter_ids=self._adapter_ids(), allowed=allowed)
             self._pending.append((_HostTokens(self.last_tokens), None,
                                   entries))
             for slot, _, _, _ in entries:
@@ -1403,6 +1501,9 @@ class Scheduler:
                     if q < 0:
                         req.tokens.pop()
                         delivered -= 1
+                        self.observer.event(
+                            "grammar_violation", token=int(t),
+                            reason="illegal", **self._corr(req))
                         self._finish_error(
                             req, f"grammar violation: token {int(t)} is "
                                  f"illegal in automaton state {req._gq}",
@@ -1412,12 +1513,27 @@ class Scheduler:
                 if len(req.tokens) == 1:
                     req.t_first = now
                     self.metrics.on_first_token(req)
+                    self.observer.event("request_first_token", slot=slot,
+                                        **self._corr(req))
                 hit_eos = req.eos_id is not None and int(t) == req.eos_id
                 if hit_eos or len(req.tokens) >= budget:
                     req.done = True
                     req.t_done = now
                     self.finished.append(req)
                     self.metrics.on_finish(req)
+                    corr = self._corr(req)
+                    self.observer.event("request_finished",
+                                        tokens=len(req.tokens),
+                                        eos=int(hit_eos), **corr)
+                    if req.grammar is not None \
+                            and not req.grammar.accept[req._gq]:
+                        # the budget ran out mid-structure: legal so far,
+                        # not a complete utterance (a truncation)
+                        self.observer.event("grammar_violation",
+                                            reason="incomplete", **corr)
+                    self.observer.flow(
+                        "req", corr["rid"],
+                        "step" if req.origin_rid is not None else "end")
                     break          # EOS mid-window trims exactly
             # every generated token counts once; the first is the prefill's
             self.metrics.on_harvest_tokens(
@@ -1431,6 +1547,8 @@ class Scheduler:
                     n = req.stream.offer(req.rid, req.tokens)
                     if n:
                         self.metrics.on_stream(n)
+                        self.observer.event("stream_delivery", tokens=n,
+                                            **self._corr(req))
             if req.prefill_only and not req.done and req.tokens:
                 # the prefill half is done with generation still owed:
                 # export the prompt's pages for the decode half
@@ -1441,6 +1559,8 @@ class Scheduler:
                 self._stream_terminal(req)
             if req.done and self.slots[slot] is req:
                 self._retire(slot)
+        if self.on_progress is not None:
+            self.on_progress()
 
     def _handoff_out(self, slot: int, req: Request):
         """Finish a ``prefill_only`` request by exporting its prompt's K/V
@@ -1462,15 +1582,26 @@ class Scheduler:
             "data": data,
             "t_first": req.t_first,
         }
+        corr = self._corr(req)
+        self.observer.event("kv_handoff", side="extract", pages=n_pg,
+                            **corr)
         req.done = True
         req.t_done = time.perf_counter()
         self.finished.append(req)
         self.metrics.on_finish(req)
+        self.observer.event("request_finished", tokens=len(req.tokens),
+                            eos=0, **corr)
+        self.observer.flow(
+            "req", corr["rid"],
+            "step" if req.origin_rid is not None else "end")
 
     def drain(self):
         """Harvest everything still in flight (the boundary sync)."""
-        while self._pending:
-            self._harvest_one()
+        with self.observer.span("drain"):
+            while self._pending:
+                self._harvest_one()
+        if self.exporter is not None:
+            self.exporter.sample()
 
     # ---- shutdown -----------------------------------------------------
 
@@ -1490,10 +1621,13 @@ class Scheduler:
                                self.metrics.on_abort, "aborted")
         if already:
             return
+        self.observer.event("scheduler_shutdown", drain=int(drain))
         if drain:
             while any(s is not None for s in self.slots):
                 self.step()
             self.drain()
+            if self.exporter is not None:
+                self.exporter.sample(force=True)   # the final point
             return
         self.drain()
         for slot, req in enumerate(self.slots):
@@ -1502,6 +1636,8 @@ class Scheduler:
             self._finish_error(req, "scheduler shut down",
                                self.metrics.on_abort, "aborted")
             self._retire(slot)
+        if self.exporter is not None:
+            self.exporter.sample(force=True)
 
     def __enter__(self) -> "Scheduler":
         return self

@@ -167,15 +167,12 @@ class AdapterBank:
     share one bank."""
 
     def __init__(self, bank, template, observer=None) -> None:
-        if observer is not None:
-            raise NotImplementedError(
-                "the adapter bank's observer events (adapter_loaded, "
-                "adapter_evicted) are ROADMAP queue A13 (operations)")
         self.bank = bank
         self.template = template
         leaf = next(_leaves(bank))[1]
         self.capacity = int(leaf.shape[0])
-        self.observer = None
+        # adapter_loaded / adapter_evicted land on its trace (JAX's args)
+        self.observer = observer
         self._lock = threading.RLock()
         self._by_name: Dict[str, int] = {}
         self._name_of: Dict[int, str] = {}
@@ -205,6 +202,8 @@ class AdapterBank:
             self._refs[aid] = 1
             self._lru[aid] = None
             self.n_loads += 1
+            if self.observer is not None:
+                self.observer.event("adapter_loaded", adapter=path, row=aid)
             return aid
 
     def release(self, aid: int) -> None:
@@ -227,6 +226,8 @@ class AdapterBank:
         del self._refs[aid]
         del self._lru[aid]
         self.n_evictions += 1
+        if self.observer is not None:
+            self.observer.event("adapter_evicted", adapter=old, row=aid)
         # no zeroing: the incoming adapter overwrites the whole row before
         # any slot references it, and the stream orders the upload after
         # every step already queued that read the old row

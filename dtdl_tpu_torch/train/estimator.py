@@ -13,8 +13,9 @@ Here ``model_fn(mode, params)`` returns an :class:`EstimatorSpec` whose
 ``tx`` a :mod:`dtdl_tpu_torch.train.optim` transform; each verb runs the
 port's train/eval/predict step under the strategy.  The checkpoint is the
 TRAIN state (parameters and optimizer slots, TF1-style), a port snapshot
-(:class:`~dtdl_tpu_torch.ckpt.Checkpointer`).  ``observer`` is ROADMAP
-queue A13.
+(:class:`~dtdl_tpu_torch.ckpt.Checkpointer`).  ``observer``
+(:mod:`dtdl_tpu_torch.obs`) adds ``dispatch``/``drain`` spans and each log
+window's goodput fields to ``train``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dtdl_tpu_torch.data.loader import (DataLoader, LimitBatches,
 from dtdl_tpu_torch.data.sharding import ShardedSampler
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
 from dtdl_tpu_torch.runtime.bootstrap import process_count, process_index
 from dtdl_tpu_torch.train.loop import _pad_and_mask, evaluate as _evaluate
@@ -113,9 +115,7 @@ class Estimator:
                  config: RunConfig | None = None, params: dict | None = None,
                  strategy: Strategy | None = None, observer=None,
                  device=None):
-        if observer is not None:
-            raise NotImplementedError("observer is ROADMAP queue A13 "
-                                      "(operations)")
+        self.observer = observer or NULL_OBSERVER
         self.model_fn = model_fn
         self.model_dir = model_dir
         self.config = config or RunConfig()
@@ -171,10 +171,10 @@ class Estimator:
         if global_step >= target:
             return self
 
-        train_step = make_train_step(
+        train_step = self.observer.watch(make_train_step(
             self.strategy, **({"loss_fn": spec.loss_fn} if spec.loss_fn
                               else {}),
-            seed=self.config.tf_random_seed)
+            seed=self.config.tf_random_seed), "estimator.train_step")
         cfg = self.config
         # the loop dispatches back to back and syncs once per
         # log_step_count_steps: the drain at the log boundary fetches the
@@ -197,20 +197,26 @@ class Estimator:
                 for batch in it:
                     if global_step >= target:
                         break
-                    state, metrics = train_step(state, batch)
+                    with self.observer.span("dispatch",
+                                            global_step=global_step):
+                        state, metrics = train_step(state, batch)
                     global_step += 1
                     queue.push(metrics)
                     if (cfg.log_step_count_steps
                             and global_step % cfg.log_step_count_steps == 0):
-                        drained = queue.drain()  # waits on the current step
+                        with self.observer.span("drain"):
+                            drained = queue.drain()  # waits on this step
                         dt = time.time() - t0
                         rate = (global_step - logged_at) / max(dt, 1e-9)
+                        goodput = self.observer.window(
+                            global_step - logged_at, dt)
                         t0, logged_at = time.time(), global_step
                         self.reporter.report({
                             "global_step": global_step,
                             "loss": drained[-1]["loss"] if drained
                             else float(metrics["loss"]),
                             "global_step/sec": round(rate, 2),
+                            **goodput,
                         })
                     if (cfg.save_checkpoints_steps
                             and global_step % cfg.save_checkpoints_steps == 0):

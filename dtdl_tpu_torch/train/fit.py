@@ -14,11 +14,13 @@ initializers (``None`` keeps the weights it holds, e.g. bridged ones);
 ``example_input`` is accepted and unused (a port module knows its
 shapes).  The weights a callback or ``save_weights`` writes are the
 params tree of :func:`~dtdl_tpu_torch.train.state.params_tree` (flax
-paths and layouts).  ``fit(observer=)`` is ROADMAP queue A13.
+paths and layouts).  ``fit(observer=)`` adds JAX's ``dispatch`` /
+``drain`` spans and each epoch's goodput window to its logs.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -33,6 +35,7 @@ from dtdl_tpu_torch.data.sharding import ShardedSampler
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import (Accumulator, Reporter, StdoutSink,
                                            TensorBoardSink)
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
 from dtdl_tpu_torch.runtime.bootstrap import (host_group, process_count,
                                               process_index)
@@ -181,9 +184,7 @@ class Model:
             validation_data=None, callbacks: Sequence[Callback] = (),
             shuffle: bool = True, seed: int = 0, verbose: int = 1,
             observer=None) -> History:
-        if observer is not None:
-            raise NotImplementedError("observer is ROADMAP queue A13 "
-                                      "(operations)")
+        obs = observer or NULL_OBSERVER
         x, y = np.asarray(x), np.asarray(y)
         self._ensure_state(x)
         history = History()
@@ -193,6 +194,7 @@ class Model:
             cb.on_train_begin()
         reporter = Reporter([StdoutSink()]) if verbose else None
         loader = self._loader(x, y, batch_size, shuffle, seed)
+        step_fn = obs.watch(self._train_step, "fit.train_step")
         try:
             for epoch in range(epochs):
                 for cb in cbs:
@@ -203,14 +205,21 @@ class Model:
                 # metrics `lag` steps behind and the epoch end drains the
                 # rest — same floats, same order, no per-step stall
                 queue = MetricsQueue()
+                n_steps, t0 = 0, time.perf_counter()
                 for batch in _prefetch(map(self.strategy.shard_batch,
                                            loader), 2):
-                    self.state, metrics = self._train_step(self.state, batch)
+                    with obs.span("dispatch", epoch=epoch):
+                        self.state, metrics = step_fn(self.state, batch)
+                    n_steps += 1
                     for vals in queue.push(metrics):
                         acc.add(vals)
-                for vals in queue.drain():
-                    acc.add(vals)
+                with obs.span("drain", epoch=epoch):
+                    for vals in queue.drain():
+                        acc.add(vals)
                 logs = acc.means()
+                # the drain settled every dispatched step: the epoch's
+                # train section is an honest goodput window
+                logs.update(obs.window(n_steps, time.perf_counter() - t0))
                 if validation_data is not None:
                     vx, vy = validation_data
                     val = self.evaluate(vx, vy, batch_size=batch_size,

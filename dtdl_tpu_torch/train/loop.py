@@ -19,10 +19,14 @@ of every process's loader exactly once.
 
 ``profile_dir`` traces the epoch with ``torch.profiler``
 (:mod:`dtdl_tpu_torch.utils.profiling`), each step annotated.
+``observer`` (:mod:`dtdl_tpu_torch.obs`) adds the host-phase spans
+(``data`` / ``dispatch`` / ``drain``) and per-window goodput fields merged
+into the boundary reports, at JAX's points; all host-side, so the
+one-wait-per-window contract holds.
 
 Not ported yet, and refused by name: ``unroll > 1`` (JAX runs k steps as
 one ``lax.scan`` program; in PyTorch that meaning comes with CUDA-graph
-capture, ROADMAP queue A5), ``observer`` and ``guard`` (queue A13).
+capture, ROADMAP queue A5) and ``guard`` (queue A13b).
 """
 
 from __future__ import annotations
@@ -34,20 +38,20 @@ import torch
 
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import Accumulator, Reporter
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import check_strategy
 from dtdl_tpu_torch.utils.profiling import maybe_trace, step_annotation
 from dtdl_tpu_torch.utils.timing import StepTimer
 
 
-def _refuse(unroll: int = 1, observer=None, guard=None) -> None:
+def _refuse(unroll: int = 1, guard=None) -> None:
     if unroll > 1:
         raise NotImplementedError(
             "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
             "(CUDA-graph capture)")
-    for name, val in (("observer", observer), ("guard", guard)):
-        if val is not None:
-            raise NotImplementedError(f"{name} is ROADMAP queue A13 "
-                                      f"(operations)")
+    if guard is not None:
+        raise NotImplementedError("guard is ROADMAP queue A13b "
+                                  "(resilience)")
 
 
 def _prefetch(iterator, depth: int):
@@ -80,7 +84,8 @@ def train_epoch(train_step, state, loader, strategy=None,
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     strategy = check_strategy(strategy)
-    _refuse(unroll, observer, guard)
+    _refuse(unroll, guard)
+    obs = observer or NULL_OBSERVER
     timer = timer or StepTimer(blocking=sync_every_step)
     timer.reset_epoch()
     acc = Accumulator()
@@ -89,8 +94,9 @@ def train_epoch(train_step, state, loader, strategy=None,
     it = _prefetch(map(strategy.shard_batch, loader), prefetch)
 
     with maybe_trace(profile_dir):
-        state = _run_epoch(train_step, state, it, reporter, epoch, log_interval,
-                   timer, sync_every_step, lag, acc, steps_per_epoch)
+        state = _run_epoch(train_step, state, it, reporter, epoch,
+                           log_interval, timer, sync_every_step, lag, acc,
+                           steps_per_epoch, obs)
     if reporter is not None:
         reporter.report({
             "epoch": epoch, "split": "train_epoch", **acc.means(),
@@ -101,55 +107,74 @@ def train_epoch(train_step, state, loader, strategy=None,
 
 
 def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
-               sync_every_step, lag, acc, steps_per_epoch):
+               sync_every_step, lag, acc, steps_per_epoch, obs):
     """The epoch's steps (the body of :func:`train_epoch`); returns the
     state."""
+    step_fn = obs.watch(train_step, "train_step")
     if sync_every_step:
         for i, batch in enumerate(it):
-            with step_annotation(i):
-                state, metrics = train_step(state, batch)
+            with step_annotation(i), obs.span("dispatch", step=i):
+                state, metrics = step_fn(state, batch)
             timer.step(metrics["loss"])
+            # blocking mode: every step is its own settled window
+            goodput = obs.window(1, timer.last_step_s)
             vals = {k: float(v) for k, v in metrics.items()}
             acc.add(vals)
             if reporter is not None and (i % log_interval) == 0:
                 reporter.report({
                     "epoch": epoch, "step": i,
                     "steps_per_epoch": steps_per_epoch, **vals,
-                    "batch_time": timer.last_step_s,
+                    "batch_time": timer.last_step_s, **goodput,
                 })
-    else:
-        queue = MetricsQueue(lag if lag is not None else max(log_interval, 1))
-        latest: dict | None = None
-        next_log = 0
-        step0 = 0
-        for batch in it:
-            with step_annotation(step0):
-                state, metrics = train_step(state, batch)
-            timer.step()
-            popped = queue.push(metrics)
-            for vals in popped:
-                acc.add(vals)
-            if popped:
-                latest = popped[-1]
-            if reporter is not None and step0 >= next_log:
-                # boundary: ONE drain converts the whole window (waits on
-                # the step just dispatched), the window's only sync
+        return state
+    queue = MetricsQueue(lag if lag is not None else max(log_interval, 1))
+    latest: dict | None = None
+    next_log = 0
+    step0 = 0
+    window_start = 0          # first step of the current obs/goodput window
+    it = iter(it)
+    end = object()
+    while True:
+        with obs.span("data"):
+            batch = next(it, end)
+        if batch is end:
+            break
+        with step_annotation(step0), obs.span("dispatch", step=step0):
+            state, metrics = step_fn(state, batch)
+        timer.step()
+        popped = queue.push(metrics)
+        for vals in popped:
+            acc.add(vals)
+        if popped:
+            latest = popped[-1]
+        if reporter is not None and step0 >= next_log:
+            # boundary: ONE drain converts the whole window (waits on
+            # the step just dispatched), the window's only sync
+            with obs.span("drain", steps=step0 + 1 - window_start):
                 drained = queue.drain()
-                for vals in drained:
-                    acc.add(vals)
-                if drained:
-                    latest = drained[-1]
-                timer.sync()
-                reporter.report({
-                    "epoch": epoch, "step": step0,
-                    "steps_per_epoch": steps_per_epoch, **(latest or {}),
-                    "batch_time": timer.last_step_s,
-                })
-                next_log = (step0 // log_interval + 1) * log_interval
-            step0 += 1
+            for vals in drained:
+                acc.add(vals)
+            if drained:
+                latest = drained[-1]
+            timer.sync()
+            w = step0 + 1 - window_start
+            window_start = step0 + 1
+            reporter.report({
+                "epoch": epoch, "step": step0,
+                "steps_per_epoch": steps_per_epoch, **(latest or {}),
+                "batch_time": timer.last_step_s,
+                # settled-window goodput, host floats only
+                **obs.window(w, timer.last_step_s * w),
+            })
+            next_log = (step0 // log_interval + 1) * log_interval
+        step0 += 1
+    with obs.span("drain", steps=step0 - window_start):
         for vals in queue.drain():
             acc.add(vals)
-        timer.sync()
+    timer.sync()
+    if step0 > window_start:
+        obs.window(step0 - window_start,
+                   timer.last_step_s * (step0 - window_start))
     return state
 
 
@@ -194,7 +219,8 @@ def evaluate(eval_step, state, loader, strategy=None,
     with the most batches (``max_sync``); the extra ones repeat the last
     batch with mask 0, so the sum-synced counts stay exact."""
     strategy = check_strategy(strategy)
-    _refuse(observer=observer)
+    obs = observer or NULL_OBSERVER
+    eval_fn = obs.watch(eval_step, "eval_step")
     target = loader.batch_size
     queue = MetricsQueue(lag)
     sums = {"loss_sum": 0.0, "correct_sum": 0.0, "count": 0.0}
@@ -216,8 +242,11 @@ def evaluate(eval_step, state, loader, strategy=None,
     extra = (strategy.max_sync(len(loader)) - len(loader)
              if strategy.num_replicas > 1 else 0)
     for batch in _prefetch(map(strategy.shard_batch, batches()), prefetch):
-        absorb(queue.push(eval_step(state, batch)))
-    absorb(queue.drain())
+        with obs.span("dispatch", phase="eval"):
+            metrics = eval_fn(state, batch)
+        absorb(queue.push(metrics))
+    with obs.span("drain", phase="eval"):
+        absorb(queue.drain())
     if sums["count"] == 0:
         return {"loss": float("nan"), "accuracy": float("nan")}
     means = {"loss": sums["loss_sum"] / sums["count"],

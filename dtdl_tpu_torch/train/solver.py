@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 
 import torch
 
@@ -33,6 +34,7 @@ from dtdl_tpu_torch.data.loader import (LimitBatches, prefetch_to_device,
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
 from dtdl_tpu_torch.models.netspec import build_net
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
 from dtdl_tpu_torch.train import optim
 from dtdl_tpu_torch.train.loop import evaluate as _evaluate
@@ -115,15 +117,14 @@ class Solver:
     dataset; the batches come from :mod:`dtdl_tpu_torch.data`).  The
     net is built for the loader's example shape on ``device`` (``None``:
     the card), its fillers drawn from the prototxt's ``random_seed``.
-    ``observer`` is ROADMAP queue A13."""
+    ``observer`` (:mod:`dtdl_tpu_torch.obs`) adds the ``dispatch`` and
+    ``drain`` spans and each display window's goodput fields."""
 
     def __init__(self, solver_path_or_msg, train_loader, test_loader=None,
                  strategy: Strategy | None = None, dtype=torch.float32,
                  out: str | None = None, overrides: dict | None = None,
                  observer=None, device=None):
-        if observer is not None:
-            raise NotImplementedError("observer is ROADMAP queue A13 "
-                                      "(operations)")
+        self.observer = observer or NULL_OBSERVER
         sp = (parse_file(solver_path_or_msg)
               if isinstance(solver_path_or_msg, str) else solver_path_or_msg)
         # overrides land BEFORE the optimizer is built: lr policies like
@@ -230,6 +231,8 @@ class Solver:
         metrics = None
         queue = MetricsQueue(max(display, 1) if display else 8)
         newest: dict = {}
+        step_fn = self.observer.watch(self.train_step, "solver.train_step")
+        t_disp, iters_at_disp = time.perf_counter(), self.iteration
         try:
             steps_per_pass = len(self.train_loader)
         except TypeError:
@@ -248,7 +251,9 @@ class Solver:
                 for batch in it:
                     if self.iteration >= self.max_iter:
                         break
-                    self.state, metrics = self.train_step(self.state, batch)
+                    with self.observer.span("dispatch",
+                                            iteration=self.iteration):
+                        self.state, metrics = step_fn(self.state, batch)
                     batches += 1
                     if batches % iter_size:
                         continue  # mid-accumulation: not an iteration yet
@@ -257,12 +262,18 @@ class Solver:
                     if popped:
                         newest = popped[-1]
                     if display and self.iteration % display == 0:
-                        drained = queue.drain()  # the window's one sync
+                        with self.observer.span("drain"):
+                            drained = queue.drain()  # the window's one sync
                         if drained:
                             newest = drained[-1]
                         last = newest
+                        goodput = self.observer.window(
+                            self.iteration - iters_at_disp,
+                            time.perf_counter() - t_disp)
+                        t_disp = time.perf_counter()
+                        iters_at_disp = self.iteration
                         self.reporter.report({"iter": self.iteration,
-                                              **last})
+                                              **last, **goodput})
                     if (test_interval and self.test_loader is not None
                             and self.iteration % test_interval == 0):
                         last = self.test()

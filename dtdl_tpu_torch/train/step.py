@@ -26,7 +26,7 @@ with the JAX step's semantics: the gradients are the mean of the
 per-replica gradients (``grad_sync``, before the update); BatchNorm
 normalizes by the replica's own rows and its new running statistics are
 mean-synced (``stats_sync``); train metrics are mean-synced, eval sums
-sum-synced.  ``guard`` is ROADMAP queue A13 (operations).
+sum-synced.  ``guard`` is ROADMAP queue A13b (resilience).
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ def _on(x, device, dtype=None):
 def _strategy(strategy, guard=None) -> Strategy:
     if guard is not None:
         raise NotImplementedError(
-            "the step guard (resil StepGuard) is ROADMAP queue A13 "
-            "(operations)")
+            "the step guard (resil StepGuard) is ROADMAP queue A13b "
+            "(resilience)")
     return check_strategy(strategy)
 
 

@@ -21,8 +21,12 @@ a mid-epoch resume replays the exact remainder of the epoch through
 Output is leader-gated.  ``preempt=`` (a
 :class:`~dtdl_tpu_torch.resil.PreemptionWatcher`) snapshots at the next
 iteration boundary after SIGTERM and returns with ``preempted`` set.
-``guard=``, ``observer=``, ``exporter=`` and ``watchdog=`` are ROADMAP
-queue A13.
+``observer=`` (:mod:`dtdl_tpu_torch.obs`) adds the ``dispatch`` and
+``drain`` spans and each drained window's goodput fields to the
+observation; ``exporter=`` (a
+:class:`~dtdl_tpu_torch.obs.export.MetricsExporter`) is sampled at each
+drain and once, forced, at the end of :meth:`Trainer.run`.  ``guard=``
+and ``watchdog=`` are ROADMAP queue A13b.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from dtdl_tpu_torch.data.loader import resume_iter
 from dtdl_tpu_torch.metrics.device import MetricsQueue
 from dtdl_tpu_torch.metrics.report import (Accumulator, JsonlSink, Reporter,
                                            StdoutSink)
+from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
 from dtdl_tpu_torch.runtime.bootstrap import is_leader
 from dtdl_tpu_torch.train.loop import _prefetch
@@ -91,13 +96,16 @@ class Trainer:
                  stop_trigger=(20, "epoch"), out: str = "./result",
                  prefetch: int = 2, metrics_lag: int = 20, observer=None,
                  guard=None, preempt=None, exporter=None, watchdog=None):
-        for name, val in (("guard", guard), ("observer", observer),
-                          ("exporter", exporter), ("watchdog", watchdog)):
+        for name, val in (("guard", guard), ("watchdog", watchdog)):
             if val is not None:
                 raise NotImplementedError(f"Trainer({name}=) is ROADMAP "
-                                          f"queue A13 (operations)")
+                                          f"queue A13b (resilience)")
         self.state = state
         self.train_step = train_step
+        # the obs facade; the default NULL_OBSERVER no-ops every hook
+        self.observer = observer or NULL_OBSERVER
+        # sampled at the drain, the one boundary this loop already owns
+        self.exporter = exporter
         # a PreemptionWatcher polled at iteration boundaries: on SIGTERM
         # the run snapshots and returns with ``self.preempted`` set
         self.preempt = preempt
@@ -151,10 +159,17 @@ class Trainer:
         """Settle pending device metrics into observation/accumulator, in
         dispatch order (the floats a sync-every-iteration loop would
         produce)."""
-        drained = self.metrics_queue.drain()
+        with self.observer.span("drain"):
+            drained = self.metrics_queue.drain()
         self._absorb(drained)
         if drained:
             self.timer.sync()
+            # settled window = exactly the drained steps; goodput fields
+            # land in observation so LogReport/PrintReport can select them
+            self.observation.update(self.observer.window(
+                len(drained), self.timer.last_step_s * len(drained)))
+        if self.exporter is not None:
+            self.exporter.sample()
 
     # -- run loop -------------------------------------------------------------
 
@@ -164,25 +179,31 @@ class Trainer:
         return count >= self.stop.period
 
     def run(self) -> None:
+        step_fn = self.observer.watch(self.train_step, "trainer.train_step")
         try:
             while not self._done:
-                if self._run_epoch():
+                if self._run_epoch(step_fn):
                     return
         finally:
             # snapshots save asynchronously; make them durable before the
             # process moves on (a fresh Trainer may resume immediately)
             self.ckpt.wait_until_finished()
+            if self.exporter is not None:
+                # the forced final point closes the window-delta
+                # telescope even on an exception path
+                self.exporter.sample(force=True)
 
     def _check_preempt(self) -> bool:
         """SIGTERM received: snapshot at this (consistent) boundary and
         stop; run()'s finally makes it durable and committed."""
         if self.preempt is None or not self.preempt.requested:
             return False
+        self.observer.event("trainer_preempted", iteration=self.iteration)
         self.save_snapshot()
         self.preempted = True
         return True
 
-    def _run_epoch(self) -> bool:
+    def _run_epoch(self, step_fn) -> bool:
         """One epoch (or the remainder of one after a resume); True when
         the run should stop (done or preempted)."""
         self.train_loader.set_epoch(self.epoch)
@@ -198,7 +219,8 @@ class Trainer:
             self.iteration_in_epoch = 0
         for batch in _prefetch(map(self.strategy.shard_batch, raw),
                                self.prefetch):
-            self.state, metrics = self.train_step(self.state, batch)
+            with self.observer.span("dispatch", iteration=self.iteration):
+                self.state, metrics = step_fn(self.state, batch)
             self.iteration += 1
             self.iteration_in_epoch += 1
             self.timer.step()

@@ -58,6 +58,7 @@ from dtdl_tpu_torch.data.loader import DataLoader
 from dtdl_tpu_torch.data.synthetic import class_pattern_images
 from dtdl_tpu_torch.metrics.report import Reporter
 from dtdl_tpu_torch.models import netspec
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.obs.goodput import netspec_flops
 from dtdl_tpu_torch.train.solver import Solver, lr_schedule, make_optimizer
 from dtdl_tpu_torch.train.state import init_state, state_to_tree
@@ -518,7 +519,10 @@ def test_split_train_test_nets_share_weights(tmp_path):
     assert s.test_net.layers["ip2"].weight is s.net.layers["ip2"].weight
     s.solve()
     assert set(s.test()) == {"test_loss", "test_accuracy"}
-    with pytest.raises(NotImplementedError, match="A13"):
-        Solver(str(tmp_path / "s.prototxt"),
-               DataLoader({"image": x, "label": y}, BATCH, device="cpu"),
-               device="cpu", observer=object())
+    # the observer is served (A13a): dispatch spans, one per iteration
+    obs = Observer(trace=True, sentinel=None)
+    Solver(str(tmp_path / "s.prototxt"),
+           DataLoader({"image": x, "label": y}, BATCH, device="cpu"),
+           device="cpu", observer=obs).solve()
+    names = [e["name"] for e in obs.tracer.to_chrome()["traceEvents"]]
+    assert names.count("dispatch") == 2

@@ -41,6 +41,7 @@ from dtdl_tpu_torch.parallel import SingleDevice as TorchSingleDevice
 from dtdl_tpu_torch.runtime import local_mesh
 from dtdl_tpu_torch.metrics.report import (Accumulator, JsonlSink, Reporter,
                                            StdoutSink, TensorBoardSink)
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.train.loop import evaluate, train_epoch
 from dtdl_tpu_torch.train.optim import sgd
 from dtdl_tpu_torch.train.step import (make_eval_step, make_predict_step,
@@ -173,10 +174,15 @@ def test_refusals_name_their_roadmap_items(tmp_path):
                         "label": np.zeros(8, np.int32)}, 4, device="cpu")
     step = make_train_step()
     for kw, label in ((dict(unroll=2), "A5"),
-                      (dict(observer=object()), "A13"),
-                      (dict(guard=object()), "A13")):
+                      (dict(guard=object()), "A13b")):
         with pytest.raises(NotImplementedError, match=label):
             train_epoch(step, tstate, train, **kw)
+    # the observer is served (A13a): the loop's spans land on its trace
+    obs = Observer(trace=True, sentinel=None)
+    train_epoch(step, tstate, train, observer=obs)
+    evaluate(make_eval_step(), tstate, train, observer=obs)
+    names = [e["name"] for e in obs.tracer.to_chrome()["traceEvents"]]
+    assert {"data", "dispatch", "drain"} <= set(names)
     # the port's own strategies are accepted; a JAX strategy object is not
     # one of them
     train_epoch(step, tstate, train, strategy=TorchSingleDevice())
@@ -193,7 +199,7 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         make(DataParallel(local_mesh()))
         with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
             make(SingleDevice())
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A13b"):
         make_train_step(guard=object())
     # profile_dir traces the epoch (utils.profiling); TensorBoardSink
     # without a writer package (as on the card machine) is a no-op

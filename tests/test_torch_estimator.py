@@ -39,6 +39,7 @@ from dtdl_tpu_torch.ckpt import Checkpointer
 from dtdl_tpu_torch.data.loader import DataLoader
 from dtdl_tpu_torch.data.synthetic import class_pattern_images
 from dtdl_tpu_torch.models import MLP
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.parallel import DataParallel
 from dtdl_tpu_torch.runtime import local_mesh
 from dtdl_tpu_torch.train import (Estimator, EstimatorSpec, EvalSpec,
@@ -209,7 +210,8 @@ def test_train_legs_walk_the_dataset(tmp_path):
 
 def test_input_fn_pair_data_parallel_and_refusals(tmp_path):
     """input_fn may return a (features, labels) pair, TF1-style; the
-    strategy may be DataParallel; an observer is ROADMAP A13."""
+    strategy may be DataParallel; an observer records the train loop's
+    spans and goodput windows (A13a)."""
     (x, y), _ = data()
     est = Estimator(port_model_fn, str(tmp_path),
                     RunConfig(log_step_count_steps=0),
@@ -218,5 +220,11 @@ def test_input_fn_pair_data_parallel_and_refusals(tmp_path):
     assert est.latest_global_step() == 3
     r = est.evaluate(lambda: (x, y))
     assert r["global_step"] == 3 and np.isfinite(r["loss"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        Estimator(port_model_fn, str(tmp_path), observer=object())
+    obs = Observer(trace=True, sentinel=None)
+    est = Estimator(port_model_fn, str(tmp_path / "obs"),
+                    RunConfig(log_step_count_steps=2), device="cpu",
+                    observer=obs)
+    est.train(lambda: (x, y), steps=4)
+    names = [e["name"] for e in obs.tracer.to_chrome()["traceEvents"]]
+    assert names.count("dispatch") == 4 and names.count("drain") == 2
+    assert obs.summary()["step_time_s_count"] == 2

@@ -34,6 +34,7 @@ from dtdl_tpu.train import Model as JaxModel
 from dtdl_tpu_torch import bridge
 from dtdl_tpu_torch.data.synthetic import synthetic_mnist
 from dtdl_tpu_torch.metrics.report import TensorBoardSink
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.train import (Callback, History, Model, ModelCheckpoint,
                                   PrintLR, TensorBoard)
 from dtdl_tpu_torch.train.optim import rmsprop
@@ -101,8 +102,12 @@ def test_fit_rejects_unknown_loss():
     model = Model(MODELS["mlp"][1]())
     with pytest.raises(ValueError, match="unsupported loss"):
         model.compile(loss="mse")
-    with pytest.raises(NotImplementedError, match="A13"):
-        model.compile().fit(*data("mlp")[0], observer=object())
+    # fit(observer=) is served (A13a): its spans and the epoch's window
+    obs = Observer(trace=True, sentinel=None)
+    model.compile().fit(*data("mlp")[0], verbose=0, observer=obs)
+    names = {e["name"] for e in obs.tracer.to_chrome()["traceEvents"]}
+    assert {"dispatch", "drain"} <= names
+    assert obs.summary()["step_time_s_count"] == 1
 
 
 def test_evaluate_ragged_tail_exact_and_predict():

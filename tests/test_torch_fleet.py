@@ -370,12 +370,14 @@ def test_bounded_queue_deadlines_and_shutdown(engine, oracle):
 
 
 def test_router_refusals_name_their_items(engine):
-    """The operations surface (A13) refuses by name; replica counts and
-    the device are checked.  (The tenants' fields, refused here before
-    A12b, are served: tests/test_torch_tenant_stream.py.)"""
-    for name in ("observer", "exporter", "slos"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            Router(engine, device="cpu", warmup=False, **{name: object()})
+    """Replica counts and the device are checked.  (The operations
+    surface, refused here before A13a, is served: tests/
+    test_torch_obs_export.py; the tenants' fields, before A12b:
+    tests/test_torch_tenant_stream.py.)  ``slos`` without an exporter
+    builds the Router's own sink-less one."""
+    with Router(engine, device="cpu", warmup=False,
+                slos=[]) as router:
+        assert router.exporter is not None and router.slo is not None
     with pytest.raises(ValueError, match="n_replicas"):
         Router(engine, n_replicas=0, device="cpu")
     with pytest.raises(ValueError, match="device"):

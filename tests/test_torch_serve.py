@@ -32,6 +32,7 @@ from dtdl_tpu.serve import Request as JaxRequest
 from dtdl_tpu.serve import Scheduler as JaxScheduler
 from dtdl_tpu_torch import bridge
 from dtdl_tpu_torch.models.transformer import generate, transformer_lm
+from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.runtime.mesh import build_mesh
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
@@ -137,12 +138,11 @@ def test_decode_tokens_stay_on_device_until_harvest(models):
 def test_engine_refuses_later_slices(models):
     _, _, tm = models
     # the dense arena, quantization, chunked prefill, tensor-parallel
-    # serving and tenancy are ported; the operations' observer and a LoRA
-    # bank on a tensor-parallel engine still refuse
+    # serving, tenancy and the observer are ported; a LoRA bank on a
+    # tensor-parallel engine still refuses
     mesh = build_mesh((1, 1), ("data", "model"))
-    for kwargs, item in (({"observer": object()}, "A13"),
-                         ({"lora_rank": 2, "lora_adapters": 3,
-                           "mesh": mesh}, "A12a's follow-up")):
+    for kwargs, item in (({"lora_rank": 2, "lora_adapters": 3,
+                           "mesh": mesh}, "A12a's follow-up"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
             InferenceEngine(tm, n_slots=2, device="cpu", **kwargs)
     tp = InferenceEngine(tm, n_slots=2, device="cpu", mesh=mesh)
@@ -150,11 +150,17 @@ def test_engine_refuses_later_slices(models):
                                         "mesh": {"data": 1, "model": 1}}
     eng = InferenceEngine(tm, n_slots=2, buckets=BUCKETS, page_size=PAGE,
                           device="cpu")
-    # the spill tiers are ported; the scheduler's observer still refuses
+    # the spill tiers and the observer are ported: the scheduler hands its
+    # observer to the engine, which watches each program once by name
     assert Scheduler(eng, spill_host_bytes=1 << 20,
                      device="cpu").spill is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A13"):
-        Scheduler(eng, observer=object(), device="cpu")
+    watched = []
+    obs = Observer(trace=True, sentinel=None)
+    obs.watch = lambda fn, name=None, expected=1: watched.append(name) or fn
+    Scheduler(eng, observer=obs, device="cpu").run(
+        [Request([1, 2, 3], 3), Request([4, 5, 6, 7], 3)])
+    assert eng.observer is obs
+    assert watched == ["serve.prefill[8]", "serve.decode"]
     with pytest.raises(TypeError, match="not a dtdl_tpu_torch strategy"):
         generate(tm, np.zeros((1, 3), np.int32), 2, strategy=object())
 

@@ -23,9 +23,10 @@ and its snapshot/resume.
   uninterrupted run, and only rank 0 writes (the ranks are spawned
   through ``dtdl_tpu_torch.launch.local``, running this file as
   ``__main__``; the worker imports no JAX).
-* **Refusals**: ``guard=``, ``observer=``, ``exporter=`` and
-  ``watchdog=`` name ROADMAP A13; ``dump_graph`` writes the module tree
-  and never runs a step.
+* **Refusals**: ``guard=`` and ``watchdog=`` name ROADMAP A13b;
+  ``observer=`` and ``exporter=`` are served (spans, goodput windows,
+  one exporter point per drain and a forced final one); ``dump_graph``
+  writes the module tree and never runs a step.
 """
 
 import argparse
@@ -47,6 +48,8 @@ from dtdl_tpu_torch.data.loader import DataLoader  # noqa: E402
 from dtdl_tpu_torch.data.sharding import ShardedSampler  # noqa: E402
 from dtdl_tpu_torch.launch.local import launch_local  # noqa: E402
 from dtdl_tpu_torch.models import MLP  # noqa: E402
+from dtdl_tpu_torch.obs import (GoodputMeter, MetricsExporter,  # noqa: E402
+                                Observer)
 from dtdl_tpu_torch.parallel import DataParallel, SingleDevice  # noqa: E402
 from dtdl_tpu_torch.parallel.collectives import tree_digest  # noqa: E402
 from dtdl_tpu_torch.runtime import (build_mesh, initialize,  # noqa: E402
@@ -314,9 +317,27 @@ def test_preemption_snapshot_then_exact_resume(tmp_path):
 
 
 def test_refusals_dump_graph_and_progress_summary(tmp_path, capsys):
-    for name in ("guard", "observer", "exporter", "watchdog"):
-        with pytest.raises(NotImplementedError, match="A13"):
+    for name in ("guard", "watchdog"):
+        with pytest.raises(NotImplementedError, match="A13b"):
             port_trainer(tmp_path / name, (1, "epoch"), **{name: object()})
+    obs = Observer(trace=True, sentinel=None,
+                   goodput=GoodputMeter(samples_per_step=BATCH))
+    points = []
+    sink = type("ListSink", (), {"write": lambda self, p: points.append(p),
+                                 "close": lambda self: None})()
+    ex = MetricsExporter([sink], interval_s=0.0)
+    ex.add_source("goodput", obs.goodput.export_window)
+    tr = port_trainer(tmp_path / "obs", (1, "epoch"), observer=obs,
+                      exporter=ex)
+    tr.extend(LogReport(), trigger=(1, "epoch"))
+    tr.run()
+    names = [e["name"] for e in obs.tracer.to_chrome()["traceEvents"]]
+    assert names.count("dispatch") == tr.iteration and "drain" in names
+    # one point at the epoch's drain, one forced at the end of run()
+    assert ex.n_snapshots == 2 == len(points)
+    assert points[0]["goodput_steps"] == tr.iteration
+    assert "goodput_steps" not in points[1]      # nothing settled since
+    assert "samples_per_sec" in tr.observation
     x, y = mlp_data()
     tr = port_trainer(tmp_path / "g", (1, "epoch"))
     before = bridge.flatten(state_to_tree(tr.state))["params/Dense_0/kernel"]

@@ -12,8 +12,10 @@ Every twin parses ``--help``, and its flags include every flag of the
 JAX example it twins, in both spellings.
 """
 
+import gzip
 import importlib
 import io
+import json
 import os
 import re
 import subprocess
@@ -219,3 +221,48 @@ def test_serve_lm_twin_serves_tenants(tmp_path, capsys):
                      r"JSON", out)
     assert "stream req 0: +[" in out
     assert f"streaming: {s['stream_deliveries']} incremental" in out
+
+
+def test_serve_lm_trace_writes_the_scheduler_trace(tmp_path, capsys):
+    """serve_lm --trace (refused before A13a): the Chrome trace loads,
+    holds the scheduler's spans and each request's admitted, first-token
+    and finished events with a closed flow chain, and the twin prints the
+    JAX script's trace line after its report."""
+    from dtdl_tpu_torch.examples import serve_lm
+    path = tmp_path / "serve.json.gz"
+    reqs, s, _ = serve_lm.main(
+        ["--platform", "cpu", "--n-requests", "5", "--n-slots", "2",
+         "--max-new-tokens", "6", "--page-size", "16", "--trace",
+         str(path)])
+    out = capsys.readouterr().out
+    assert all(r.done and r.error is None for r in reqs)
+    assert f"trace written to {path}" in out
+    assert re.search(r"ttft p50/p95/p99: [\d.]+ / [\d.]+ / [\d.]+ ms", out)
+    with gzip.open(path, "rt") as f:
+        trace = json.load(f)["traceEvents"]
+    names = [e["name"] for e in trace]
+    assert {"admit", "prefill", "dispatch", "harvest", "drain"} <= set(names)
+    for n in ("request_admitted", "request_first_token", "request_finished"):
+        assert names.count(n) == 5, n
+    flows = [e["ph"] for e in trace if e.get("cat") == "request"]
+    assert flows.count("s") == flows.count("f") == 5
+
+
+def test_train_lm_trace_writes_spans_and_goodput(tmp_path, capsys):
+    """train_lm --trace (refused before A13a): the log rows carry the
+    goodput fields of each window, and the trace holds the data, dispatch
+    and drain spans and the window-settled device track."""
+    from dtdl_tpu_torch.examples import train_lm
+    path = tmp_path / "train.json"
+    train_lm.main(["--platform", "cpu", "--batch-size", "8", "--seq-len",
+                   "16", "--epochs", "1", "--log-interval", "4",
+                   "--trace", str(path), "--out", str(tmp_path / "out")])
+    out = capsys.readouterr().out
+    assert f"trace written to {path}" in out
+    assert "tokens_per_sec" in out and "steps_per_sec" in out
+    trace = json.load(open(path))["traceEvents"]
+    names = [e["name"] for e in trace]
+    assert {"data", "dispatch", "drain", "device"} <= set(names)
+    assert names.count("dispatch") == names.count("data") > 0
+    assert any(e.get("args", {}).get("name") == "device (window-settled)"
+               for e in trace if e["ph"] == "M")

@@ -216,13 +216,12 @@ def test_twin_parses_help_with_the_jax_examples_flags(twin, monkeypatch):
                          f"--{w.replace('_', '-')}" in got for w in words)
 
 
-# the spill flags (flag0, flag1) and the tenants' flags (flag2-flag4) are
-# ported now, tested below and in test_torch_twins.py; the other cases keep
-# their ids
+# the spill flags (flag0, flag1), the tenants' flags (flag2-flag4) and
+# --trace (flag5) are ported now, tested below and in test_torch_twins.py;
+# the other case keeps its id
 @pytest.mark.parametrize("flag,item", [
-    (["--trace", "t.json"], "A13"),
     (["--restore", "w.msgpack"], "A8b's remainder"),
-], ids=["flag5-A13", "flag6-A8b's remainder"])
+], ids=["flag6-A8b's remainder"])
 def test_serve_lm_refuses_unported_flags_by_item(flag, item):
     from dtdl_tpu_torch.examples import serve_lm
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):

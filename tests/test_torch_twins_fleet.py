@@ -6,15 +6,20 @@ as a user runs it: the tiny LM over a health-checked Router.
   accounting invariant.
 * ``main(argv)`` in-process for the rolling restart and hedging: every
   request served, none failed.
-* ``--help`` lists every flag of the JAX script in both spellings; each
-  flag whose module is not ported (operations, A13) fails with a parser
-  error naming its ROADMAP item.
+* ``--help`` lists every flag of the JAX script in both spellings.
+* The observability flags (``--trace``, ``--metrics-jsonl``,
+  ``--metrics-port``, ``--slo-ttft-p99``, ``--slo-availability``), one at
+  a time and together with a kill, at the default ``--watchdog``: the
+  trace loads as Chrome JSON with one closed flow chain per request, the
+  series sums to the books, the scrape line, the SLO verdicts, and the
+  heartbeat line.
 * The tenants' flags, as a process: ``--lora a,b --json-schema FILE
   --stream`` with replica 0's worker killed serves base and both
   adapters, loses nothing, and no stream parts from its request's tokens.
 """
 
 import importlib
+import json
 import os
 import re
 import subprocess
@@ -105,18 +110,58 @@ def test_twin_parses_help_with_the_jax_examples_flags(monkeypatch):
                          f"--{w.replace('_', '-')}" in got for w in words)
 
 
-# the tenants' flags (flag0-flag2) are ported now, tested below; the
-# other cases keep their ids
-@pytest.mark.parametrize("flag,item", [
-    (["--trace", "t.json"], "A13"),
-    (["--metrics-jsonl", "m.jsonl"], "A13"), (["--metrics-port", "0"], "A13"),
-    (["--slo-ttft-p99", "0.5"], "A13"), (["--slo-availability", "0.999"],
-                                         "A13"),
-], ids=["flag3-A13", "flag4-A13", "flag5-A13", "flag6-A13", "flag7-A13"])
-def test_twin_refuses_unported_flags_by_item(flag, item, capsys):
+# the observability flags, refused before A13a, each with its working
+# output; every case runs at the default --watchdog (0.25 s)
+OBS_FLAGS = {
+    "trace": ["--trace", "{tmp}/fleet.json"],
+    "metrics-jsonl": ["--metrics-jsonl", "{tmp}/series.jsonl"],
+    "metrics-port": ["--metrics-port", "0"],
+    "slo-ttft-p99": ["--slo-ttft-p99", "30"],
+    "slo-availability": ["--slo-availability", "0.5"],
+    "all": ["--trace", "{tmp}/fleet.json", "--metrics-jsonl",
+            "{tmp}/series.jsonl", "--metrics-port", "0", "--slo-ttft-p99",
+            "30", "--slo-availability", "0.5", "--kill-replica-after", "3"],
+}
+
+
+@pytest.mark.parametrize("case", list(OBS_FLAGS))
+def test_twin_observability_flags(case, tmp_path, capsys):
     from dtdl_tpu_torch.examples import serve_fleet
-    with pytest.raises(SystemExit) as e:
-        serve_fleet.main(["--platform", "cpu", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"--{flag[0][2:]} is ROADMAP queue {item}" in err, err
+    argv = [a.format(tmp=tmp_path) for a in OBS_FLAGS[case]]
+    reqs, s, _ = serve_fleet.main(["--platform", "cpu", "--n-requests", "6",
+                                   "--max-new-tokens", "4", *argv])
+    out = capsys.readouterr().out
+    assert all(r.done and r.error is None for r in reqs)
+    assert "requests lost: 0" in out and "[OK]" in out
+    assert re.search(r"heartbeat: longest gap of a current worker [\d.]+ ms "
+                     r"\(watchdog 250 ms\)", out), out
+    if case in ("trace", "all"):
+        trace = json.load(open(tmp_path / "fleet.json"))["traceEvents"]
+        names = {e["name"] for e in trace}
+        assert {"route", "admit", "prefill", "harvest", "request_submitted",
+                "request_dispatched", "request_done"} <= names
+        assert re.search(r"timeline rid=\d+: .*request_submitted -> .*"
+                         r"request_dispatched\[primary\].*request_done",
+                         out), out
+        assert f"trace written to {tmp_path}/fleet.json" in out
+        flows = sorted((e for e in trace if e.get("cat") == "request"),
+                       key=lambda e: e["ts"])
+        for rid in {e["id"] for e in flows}:
+            phs = [e["ph"] for e in flows if e["id"] == rid]
+            assert phs[0] == "s" and phs.count("s") == 1 \
+                and phs.count("f") == 1, phs
+    if case in ("metrics-jsonl", "all"):
+        pts = [json.loads(x) for x in open(tmp_path / "series.jsonl")]
+        assert pts and sum(p.get("fleet_requests_finished", 0)
+                           for p in pts) == 6
+        assert f"snapshots -> {tmp_path}/series.jsonl" in out
+    if case in ("metrics-port", "all"):
+        assert re.search(r"scraping: curl http://127\.0\.0\.1:\d+/metrics",
+                         out), out
+    if case in ("slo-ttft-p99", "all"):
+        assert "'slo_ttft_p99_ok': 1" in out and s["slo_ttft_p99_ok"] == 1
+    if case in ("slo-availability", "all"):
+        assert "'slo_availability_ok'" in out
+        assert s["slo_breach_events"] == 0
+    if case == "all":
+        assert s["fleet_evictions"] == 1       # the kill, nothing else
