@@ -112,14 +112,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (2) two gloo ranks on the one card, f32: the small LM and
                the MLP against the single-device step on the global batch,
                the ranks' parameter digests equal; what NCCL says for two
-               ranks on one card (recorded); (3) the DDP twin
-               (examples.distributed_data_parallel: PyramidNet-110, global
-               batch 64, 12 steps and one evaluate of 500 synthetic
-               CIFAR-10 images)
-               at world 1 over NCCL and 2 over gloo: leader-only log and
-               weights, the weights loading back to every rank's digest,
-               BatchNorm statistics equal across ranks, samples/s; (4) a
-               launch in which one rank exits 3 returns 3 within 20 s;
+               ranks on one card (an NCCL group in that world, recorded);
+               (3) the DDP twin (examples.distributed_data_parallel:
+               PyramidNet-110, global batch 64, 8 steps and one evaluate
+               of 500 synthetic CIFAR-10 images, the only ones generated)
+               inside (1)'s world and (2)'s: leader-only log and weights,
+               the weights loading back to every rank's digest, BatchNorm
+               statistics equal across ranks, samples/s; (4) a launch in
+               which one rank exits 3 returns 3 within 5 s;
 7g. resume   - snapshot and resume through the Trainer: (a) the train
                phase's base LM recipe (8 x 4096, bf16, adamw) uninterrupted
                to 8 iterations against a run that snapshots at 3 and stops
@@ -178,14 +178,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
                (this script's --ddp-worker gspmd through the launcher):
                (a) base bf16 and int8 served tensor-parallel (rules tp,
                mesh (data 1, model 2), page 16, 8 slots, the serve phase's
-               16 requests) through K4 on each rank's pool of 2 of 4
-               heads, against the single-placement engine under the
-               near-tie rule, KV bytes a rank (half), tokens/s; (b) the
-               tp, tp_fsdp (1, 2) and fsdp (2, 1) steps at base widths,
-               bf16 on f32 weights, adamw(3e-4), 8 x 1024 (the sequence
-               cut from 4096 for the host staging), 3 steps each against
-               the single-device step, K1-K3 launches and ms a step a
-               rank; (c) ep on base-moe8 at capacity 8; (d) AutoSharded
+               16 prompts, 16 new tokens each) through K4 on each rank's
+               pool of 2 of 4 heads, against the single-placement engine
+               under the near-tie rule, KV bytes a rank (half), tokens/s;
+               (b) the tp, tp_fsdp (1, 2) and fsdp (2, 1) steps at base
+               widths, bf16 on f32 weights, adamw(3e-4), 8 x 1024 (the
+               sequence cut from 4096 for the host staging), 2 steps each
+               against the single-device step, K1-K3 launches and ms a
+               step a rank; (c) ep on base-moe8 at capacity 8; (d) AutoSharded
                PyramidNet-110 f32 at a global batch of 64 against the
                single-device step, DataParallel's difference beside it;
                (e) the train_lm_gspmd twin's main with --rules tp and ep;
@@ -260,6 +260,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
                with every observability flag (32/32 served, no eviction,
                the longest worker iteration from its trace), serve_lm and
                train_lm with --trace;
+7n. resil    - resilience (resil/, parallel/tcpstore.py): (a) the train
+               cell (base bf16, 8 x 4096, adamw) under
+               make_lm_train_step(guard=StepGuard("skip")), 10 steps a
+               run: guarded without a fault bitwise the unguarded run, a
+               NaN batch at step 4 skipped bitwise as if dropped (state
+               step 9), the same waits on and off, K1-K3 80 each and rope
+               320 a run, the guard's overhead (median of five pairs); (b)
+               Trainer(guard=StepGuard("rollback")) at base width: a NaN
+               burst restores the last good snapshot, bitwise the stream
+               without its first batch, and a second burst past
+               max_rollbacks escalates by name; (c) run_workers: four
+               elastic workers (the elastic_train twin's MLP) on the card,
+               rank 2 crashed: the survivors bitwise a fault-free world of
+               3 from the same snapshot, no sample lost or doubled, detect,
+               re-form and first-step seconds; (d) a coordinator process
+               with a WAL and the twin's four worker processes through
+               launch_local(store_port=, elastic=True): rank 2 SIGKILLed,
+               then the coordinator SIGKILLed and restarted from its WAL,
+               the survivors bitwise the in-process world of 3, then an
+               amnesiac restart refused by name; (e) meanwhile a
+               StepWatchdog on a two-rank gloo world on the card with one
+               rank stalled raises PeerLostError within its timeout;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -296,7 +318,7 @@ PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
           "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
-          "fleet", "timing", "tenant", "obs")
+          "fleet", "timing", "tenant", "obs", "resil")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -2208,7 +2230,7 @@ CLASSIFY_CELLS = (("pyramidnet", 64, 1), ("pyramidnet", 256, 1),
 # loop and the profile run with cudnn.benchmark on, as a user training
 # these models would: cuDNN's heuristic algorithms are far slower on
 # PyramidNet's odd widths, and the search falls inside the warm-up
-CLASSIFY_WARMUP, CLASSIFY_ITERS = 5, 30
+CLASSIFY_WARMUP, CLASSIFY_ITERS = 5, 20   # cut for the default run's time
 CLASSIFY_INPUT = {"pyramidnet": ((32, 32, 3), 10),
                   "resnet50": ((224, 224, 3), 1000)}
 # the end-to-end loop (classify) and the learnability run (classifycheck):
@@ -2657,7 +2679,7 @@ DDP_PAIR_BATCH, DDP_PAIR_SEQ, DDP_PAIR_LR = 8, 256, 3e-4
 DDP_PAIR_ATOL, DDP_PAIR_SHARE = 1e-5, 1e-3
 DDP_MLP_TOL = (1e-4, 1e-5)
 # (3) the DDP twin: PyramidNet-110 at the reference's global batch
-TWIN_BATCH, TWIN_STEPS, TWIN_TEST = 64, 12, 500
+TWIN_BATCH, TWIN_STEPS, TWIN_TEST = 64, 8, 500
 FAILFAST_BOUND_S = 5.0
 
 
@@ -2842,25 +2864,56 @@ def ddp_gloo_pair(torch, seed):
     dp.grad_sync(grads)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(2):
         dp.grad_sync(grads)
     torch.cuda.synchronize()
-    out["gloo_base_grad_sync_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["gloo_base_grad_sync_ms"] = (time.perf_counter() - t0) / 2 * 1e3
     out["gloo_base_grad_bytes"] = sum(g.numel() * 4 for g in grads)
     return out
 
 
-def ddp_nccl_dup(torch, seed):
-    """Two NCCL ranks on one card: what NCCL says (recorded, not gated)."""
+def ddp_nccl_dup(torch):
+    """Two ranks on one card, an NCCL group inside their gloo world: what
+    NCCL says (recorded, not gated), under a watchdog so that a hang is
+    named rather than waited out."""
     import torch.distributed as dist
-    t = torch.ones(1, device=DEV)
-    dist.all_reduce(t)
-    torch.cuda.synchronize()
-    return {"message": f"no error: all_reduce gave {float(t)}"}
+    from dtdl_tpu_torch.resil import StepWatchdog
+
+    def probe():
+        group = dist.new_group(backend="nccl")
+        t = torch.ones(1, device=DEV)
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        return f"no error: all_reduce gave {float(t)}"
+    try:
+        return {"message": StepWatchdog(20.0, name="nccl_dup").run(probe)}
+    except Exception as e:
+        return {"message": f"{type(e).__name__}: {e}"[:1500]}
+
+
+def ddp_twin(args, world) -> dict:
+    """The DDP twin's main() inside this rank's world (its rendezvous
+    finds the world already joined): (seconds, the output directory)."""
+    from dtdl_tpu_torch.examples import distributed_data_parallel as twin
+    outdir = os.path.join(ROOT, "build", "ddp_twin", f"world{world}")
+    if args.process_id == 0:
+        import shutil
+        shutil.rmtree(outdir, ignore_errors=True)
+    argv = ["--batch-size", str(TWIN_BATCH), "--limit-train",
+            str(TWIN_BATCH * TWIN_STEPS), "--limit-test", str(TWIN_TEST),
+            "--epochs", "1", "--log-interval", "4", "--seed",
+            str(args.seed), "--out", outdir, "--dataset-dir",
+            os.path.join(ROOT, "build", "ddp_twin", "datasets"),
+            "--coordinator", args.coordinator, "--num-processes",
+            str(args.num_processes), "--process-id", str(args.process_id)]
+    if world > 1:
+        argv += ["--dist-backend", "gloo"]
+    t0 = time.perf_counter()
+    twin.main(argv)
+    return {"twin_s": time.perf_counter() - t0, "outdir": outdir}
 
 
 DDP_WORKERS = {"nccl_lm": ddp_nccl_lm, "gloo_pair": ddp_gloo_pair,
-               "nccl_dup": ddp_nccl_dup,
                "gspmd": lambda torch, seed: gspmd_worker(torch, seed)}
 
 
@@ -2871,43 +2924,102 @@ def ddp_worker(args) -> int:
     from dtdl_tpu_torch.runtime import initialize
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ddp_worker.startswith("resil_"):
+        return resil_worker(args)
     backend = "gloo" if args.ddp_worker in ("gloo_pair", "gspmd") \
         else "nccl"
-    try:
-        initialize(args.coordinator, args.num_processes, args.process_id,
-                   backend=backend,
-                   timeout_s=600 if args.ddp_worker == "gspmd" else 120)
-        result = DDP_WORKERS[args.ddp_worker](torch, args.seed)
-    except Exception as e:
-        if args.ddp_worker != "nccl_dup":
-            raise
-        result = {"message": f"{type(e).__name__}: {e}"[:1500]}
-        print("ddp_result " + json.dumps(result), flush=True)
-        os._exit(0)      # no teardown of a refused communicator
+    t0 = time.perf_counter()
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               backend=backend,
+               timeout_s=600 if args.ddp_worker == "gspmd" else 120)
+    result = DDP_WORKERS[args.ddp_worker](torch, args.seed)
+    result["world_s"] = time.perf_counter() - t0
     print("ddp_result " + json.dumps(result), flush=True)
+    if args.ddp_worker in ("nccl_lm", "gloo_pair"):
+        # one world answers two checks: the DDP twin runs in it
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("ddp_twin " + json.dumps(ddp_twin(args, args.num_processes)),
+              flush=True)
+    if args.ddp_worker == "gloo_pair":
+        t1 = time.perf_counter()
+        dup = ddp_nccl_dup(torch)
+        dup["probe_s"] = time.perf_counter() - t1
+        print("ddp_nccl_dup " + json.dumps(dup), flush=True)
+        os._exit(0)      # no teardown of a refused communicator
     return 0
+
+
+def ddp_twin_check(torch, out, world, backend, like, secs, card):
+    """The DDP twin's run inside a ddp world: leader-only log and weights,
+    the weights loading back to every rank's digest, BatchNorm statistics
+    equal across ranks."""
+    import shutil
+    from dtdl_tpu_torch.ckpt import load_weights
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    label = f"twin_world{world}"
+    summ = rank_lines(out, "ddp_summary ")
+    twin = rank_lines(out, "ddp_twin ")
+    if sorted(summ) != list(range(world)) or 0 not in twin:
+        raise AssertionError(f"ddp {label}: summaries from {sorted(summ)}")
+    for key in ("params_digest", "batch_stats_digest"):
+        if len({x[key] for x in summ.values()}) != 1:
+            raise AssertionError(f"ddp {label}: {key} differs across "
+                                 f"ranks: {summ}")
+    outdir = twin[0]["outdir"]
+    files = sorted(os.listdir(outdir))
+    if files != ["final.pt", "final.pt.manifest.json", "log.jsonl"]:
+        raise AssertionError(f"ddp {label}: the run wrote {files}")
+    rows = [json.loads(x) for x in open(os.path.join(outdir, "log.jsonl"))]
+    val = [x for x in rows if x.get("split") == "val"]
+    if len(val) != 1 or "[p1]" in out:
+        raise AssertionError(f"ddp {label}: log rows {len(rows)}, val "
+                             f"rows {len(val)}, a rank other than the "
+                             f"leader reported: {'[p1]' in out}")
+    back = load_weights(os.path.join(outdir, "final.pt"), like)
+    if tree_digest(back) != summ[0]["params_digest"]:
+        raise AssertionError(f"ddp {label}: the saved weights' digest "
+                             f"differs from the ranks'")
+    s0 = summ[0]
+    # after the first window (the first step's warm-up): the loop's
+    # per-step time at each later log boundary
+    later = [x["batch_time"] for x in rows if x.get("step", 0) > 0
+             and "batch_time" in x]
+    steady = TWIN_BATCH * len(later) / sum(later) if later else math.nan
+    log(f"ddp twin pyramidnet-110 bf16 world {world} ({backend}) global "
+        f"batch {TWIN_BATCH}: steps={s0['steps']} samples_per_s="
+        f"{s0['samples_per_s']:.2f} (epoch, first step included; after "
+        f"it {steady:.2f}) train_s={s0['train_s']:.3f} "
+        f"val_accuracy={val[0]['val_accuracy']:.4f} over {TWIN_TEST} "
+        f"images; log rows {len(rows)} by the leader, weights "
+        f"{os.path.getsize(os.path.join(outdir, 'final.pt'))} bytes load "
+        f"back to every rank's digest; BN statistics equal across ranks;"
+        f" twin s={twin[0]['twin_s']:.1f} in the launch of {secs:.1f} s | "
+        f"{card}")
+    shutil.rmtree(outdir, ignore_errors=True)
 
 
 def phase_ddp(torch, seed, card):
     """(1) NCCL world 1, the base LM: DDP step bitwise the single-device
-    step's, and their times; (2) two gloo ranks on the one card against
-    the single-device step on the global batch, and what NCCL says for
-    two ranks on one card; (3) the PyramidNet-110 DDP twin at world 1
-    (NCCL) and 2 (gloo): leader-only log and weights, digests; (4) a
-    launch in which one rank exits 3 returns 3."""
-    import shutil
+    step's, and their times, then the PyramidNet-110 DDP twin in the same
+    world; (2) two gloo ranks on the one card against the single-device
+    step on the global batch, the twin at world 2 in the same world, and
+    what NCCL says for two ranks on one card (an NCCL group inside that
+    world); (3) a launch in which one rank exits 3 returns 3."""
     from dtdl_tpu_torch.bridge import state_dict_to_flax
-    from dtdl_tpu_torch.ckpt import load_weights
     from dtdl_tpu_torch.launch.local import launch_local
     from dtdl_tpu_torch.models import pyramidnet
-    from dtdl_tpu_torch.parallel.collectives import tree_digest
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     me = os.path.join(ROOT, "chip_smoke.py")
+    like = state_dict_to_flax(pyramidnet(device="cpu", seed=None))
+    offline = {"DTDL_OFFLINE": "1"}
+    sub_s = {}
 
     # (1)
     rc, out, secs = launch([me, "--ddp-worker", "nccl_lm", "--seed",
-                            str(seed)], 1, 600, "nccl_lm")
+                            str(seed)], 1, 600, "nccl_lm", env=offline)
+    sub_s["nccl_lm+twin_world1"] = round(secs, 1)
     r = launched_ok(rc, out, "nccl_lm", 1)[0]
     want = r["n_layers"] * DDP_STEPS
     for name, k in (("flash_fwd", 1), ("flash_bwd_dq", 1),
@@ -2927,11 +3039,14 @@ def phase_ddp(torch, seed, card):
         f"{r['single_tokens_per_s']:.1f}; ddp step_ms={r['ddp_step_ms']:.3f}"
         f" tokens_per_s={r['ddp_tokens_per_s']:.1f}; grad_sync ms="
         f"{r['grad_sync_ms']:.4f} over {r['grad_bytes']} bytes; launches "
-        f"{r['launches']}; launch s={secs:.1f} | {card}")
+        f"{r['launches']}; world up to result s={r['world_s']:.1f} in the "
+        f"launch of {secs:.1f} s | {card}")
+    ddp_twin_check(torch, out, 1, "nccl", like, secs, card)
 
     # (2)
     rc, out, secs = launch([me, "--ddp-worker", "gloo_pair", "--seed",
-                            str(seed)], 2, 600, "gloo_pair")
+                            str(seed)], 2, 600, "gloo_pair", env=offline)
+    sub_s["gloo_pair+twin_world2+nccl_dup"] = round(secs, 1)
     r = launched_ok(rc, out, "gloo_pair", 2)
     for kind in ("lm", "mlp"):
         if r[0][kind]["digest"] != r[1][kind]["digest"]:
@@ -2953,72 +3068,16 @@ def phase_ddp(torch, seed, card):
         f"max {r[0]['mlp']['max_err']:.3e}; digests equal across ranks; "
         f"K1-K3 launches {lm['launches']}; gloo grad_sync of the base LM's "
         f"{r[0]['gloo_base_grad_bytes']} bytes: "
-        f"{r[0]['gloo_base_grad_sync_ms']:.2f} ms (host clock); launch "
-        f"s={secs:.1f} | {card}")
-    rc, out, secs = launch([me, "--ddp-worker", "nccl_dup", "--seed",
-                            str(seed)], 2, 150, "nccl_dup")
-    dup = rank_lines(out)
-    log(f"ddp nccl 2 ranks on one card: launch rc={rc} in {secs:.1f}s; "
-        f"rank 0 says: {dup.get(0, {}).get('message', out[-300:])!r} | "
+        f"{r[0]['gloo_base_grad_sync_ms']:.2f} ms (host clock); world up to "
+        f"result s={r[0]['world_s']:.1f} in the launch of {secs:.1f} s | "
         f"{card}")
+    ddp_twin_check(torch, out, 2, "gloo", like, secs, card)
+    dup = rank_lines(out, "ddp_nccl_dup ")
+    log(f"ddp nccl 2 ranks on one card (an NCCL group in the gloo world): "
+        f"rank 0 says: {dup.get(0, {}).get('message', out[-300:])!r} in "
+        f"{dup.get(0, {}).get('probe_s', math.nan):.1f}s | {card}")
 
-    # (3)
-    like = state_dict_to_flax(pyramidnet(device="cpu", seed=None))
-    for world, backend in ((1, "nccl"), (2, "gloo")):
-        outdir = os.path.join(ROOT, "build", "ddp_twin", f"world{world}")
-        shutil.rmtree(outdir, ignore_errors=True)
-        args = ["-m", "dtdl_tpu_torch.examples.distributed_data_parallel",
-                "--batch-size", str(TWIN_BATCH), "--limit-train",
-                str(TWIN_BATCH * TWIN_STEPS), "--limit-test", str(TWIN_TEST),
-                "--epochs", "1", "--log-interval", "8", "--seed", str(seed),
-                "--out", outdir, "--dataset-dir",
-                os.path.join(ROOT, "build", "ddp_twin", "datasets")]
-        if backend == "gloo":
-            args += ["--dist-backend", "gloo"]
-        label = f"twin_world{world}"
-        rc, out, secs = launch(args, world, 900, label,
-                               env={"DTDL_OFFLINE": "1"})
-        if rc != 0:
-            raise AssertionError(f"ddp {label}: exited {rc}:\n{out[-4000:]}")
-        summ = rank_lines(out, "ddp_summary ")
-        if sorted(summ) != list(range(world)):
-            raise AssertionError(f"ddp {label}: summaries from {sorted(summ)}")
-        for key in ("params_digest", "batch_stats_digest"):
-            if len({x[key] for x in summ.values()}) != 1:
-                raise AssertionError(f"ddp {label}: {key} differs across "
-                                     f"ranks: {summ}")
-        files = sorted(os.listdir(outdir))
-        if files != ["final.pt", "final.pt.manifest.json", "log.jsonl"]:
-            raise AssertionError(f"ddp {label}: the run wrote {files}")
-        rows = [json.loads(x) for x in open(os.path.join(outdir,
-                                                         "log.jsonl"))]
-        val = [x for x in rows if x.get("split") == "val"]
-        if len(val) != 1 or "[p1]" in out:
-            raise AssertionError(f"ddp {label}: log rows {len(rows)}, val "
-                                 f"rows {len(val)}, a rank other than the "
-                                 f"leader reported: {'[p1]' in out}")
-        back = load_weights(os.path.join(outdir, "final.pt"), like)
-        if tree_digest(back) != summ[0]["params_digest"]:
-            raise AssertionError(f"ddp {label}: the saved weights' digest "
-                                 f"differs from the ranks'")
-        s0 = summ[0]
-        # after the first window (the first step's warm-up): the loop's
-        # per-step time at each later log boundary
-        later = [x["batch_time"] for x in rows if x.get("step", 0) > 0
-                 and "batch_time" in x]
-        steady = TWIN_BATCH * len(later) / sum(later) if later else math.nan
-        log(f"ddp twin pyramidnet-110 bf16 world {world} ({backend}) global "
-            f"batch {TWIN_BATCH}: steps={s0['steps']} samples_per_s="
-            f"{s0['samples_per_s']:.2f} (epoch, first step included; after "
-            f"it {steady:.2f}) train_s={s0['train_s']:.3f} "
-            f"val_accuracy={val[0]['val_accuracy']:.4f} over {TWIN_TEST} "
-            f"images; log rows {len(rows)} by the leader, weights "
-            f"{os.path.getsize(os.path.join(outdir, 'final.pt'))} bytes load "
-            f"back to every rank's digest; BN statistics equal across ranks;"
-            f" launch s={secs:.1f} | {card}")
-        shutil.rmtree(outdir, ignore_errors=True)
-
-    # (4) launch_local in this process: the time is the two children's
+    # (3) launch_local in this process: the time is the two children's
     # start, rank 1's exit and rank 0's termination, not the launcher's
     # own interpreter start
     code = ("import sys, time\nif sys.argv[-1] == '1':\n    sys.exit(3)\n"
@@ -3026,12 +3085,14 @@ def phase_ddp(torch, seed, card):
     t0 = time.perf_counter()
     rc = launch_local(["-c", code], nproc=2, port=free_port(), timeout=120)
     secs = time.perf_counter() - t0
+    sub_s["fail_fast"] = round(secs, 3)
     if rc != 3 or secs > FAILFAST_BOUND_S:
         raise AssertionError(f"ddp fail-fast: rc {rc} after {secs:.1f}s, "
                              f"want 3 within {FAILFAST_BOUND_S}s")
     log(f"ddp fail-fast: rank 1 exits 3 while rank 0 sleeps, launch_local "
         f"returned {rc} in {secs:.3f}s (bound {FAILFAST_BOUND_S}s) | {card}")
-    log(f"ddp phase: {time.perf_counter() - t_phase:.1f}s")
+    log(f"ddp phase: {time.perf_counter() - t_phase:.1f}s, by launch "
+        f"{sub_s}")
 
 
 # ---- resume: snapshot and resume through the Trainer -------------------------
@@ -4086,7 +4147,10 @@ def phase_fourd(torch, seed, card):
 # staging of every activation collective (16 MiB a psum at 8 x 1024 x 512
 # f32, through the CPU)
 GSPMD_SEQ = 1024
-GSPMD_STEPS = 3
+GSPMD_STEPS = 2                   # cut for the default run's time
+# (a) new tokens a request (the serve phase's 32, cut for the default
+# run's time: each is a gloo-staged decode step)
+GSPMD_NEW_TOKENS = 16
 GSPMD_TRAIN = (("tp", (1, 2)), ("tp_fsdp", (1, 2)), ("fsdp", (2, 1)))
 # (b), (c) bf16 trajectories against the single-device step: the sharded
 # step sums each row-parallel product's bf16 partials in f32 where the
@@ -4119,7 +4183,8 @@ def gspmd_serve(torch, seed, rank, mesh):
     from dtdl_tpu_torch.parallel.collectives import tree_digest
     host = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
                           device="cpu")
-    traffic = make_traffic(seed, host.cfg.vocab_size)
+    traffic = make_traffic(seed, host.cfg.vocab_size,
+                           new_tokens=GSPMD_NEW_TOKENS)
     out = {}
     for label, kw in (("bf16", {}), ("int8", {"quantize_weights": True})):
         serve(torch, host, traffic[:2], mesh=mesh, rules="tp", **kw)
@@ -4137,7 +4202,8 @@ def gspmd_serve(torch, seed, rank, mesh):
              "kv_bytes": sum(v.numel() * v.element_size() for v in kv),
              "tokens_per_s": n_tok / wall, "wall_s": wall,
              "digest": tree_digest([x.tokens for x in reqs]),
-             "done": all(x.done and not x.error and len(x.tokens) == 32
+             "done": all(x.done and not x.error
+                         and len(x.tokens) == GSPMD_NEW_TOKENS
                          for x in reqs)}
         if rank == 0:
             model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
@@ -5399,6 +5465,35 @@ def median(xs):
     return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
 
 
+_GC_PAUSE = [0.0, 0.0]          # seconds in the collector, start of the last
+
+
+def _gc_timer(phase, info):
+    if phase == "start":
+        _GC_PAUSE[1] = time.perf_counter()
+    else:
+        _GC_PAUSE[0] += time.perf_counter() - _GC_PAUSE[1]
+
+
+def host_counters(torch, since=None) -> dict:
+    """The host's counters of a timed run: CPU seconds of this thread and
+    of the process (every thread), seconds in the garbage collector and
+    the caching allocator's device mallocs; with ``since``, the change
+    from that reading."""
+    if _gc_timer not in gc.callbacks:
+        gc.callbacks.append(_gc_timer)
+    now = {"cpu_main_s": time.thread_time(), "cpu_all_s": time.process_time(),
+           "gc_s": _GC_PAUSE[0],
+           "device_mallocs": torch.cuda.memory_stats().get(
+               "num_device_alloc", 0) if DEV == "cuda" else 0}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
+def host_sums(runs) -> dict:
+    return {k: round(sum(r["host"][k] for r in runs), 4)
+            for k in runs[0]["host"]}
+
+
 def obs_pairs(run) -> dict:
     """``run(on)`` in OBS_PAIRS pairs, the observed run first in even
     pairs and last in odd ones: {True: runs, False: runs}, pair by pair."""
@@ -5407,6 +5502,44 @@ def obs_pairs(run) -> dict:
         for on in ((True, False) if i % 2 == 0 else (False, True)):
             runs[on].append(run(on))
     return runs
+
+
+def obs_toggled(sched, reqs, phase: int, step_s: list) -> None:
+    """``sched.run(reqs)`` with its observer and exporter attached at the
+    steps whose index has parity ``phase`` and detached at the others;
+    each step's seconds are appended to ``step_s`` (the final drain is
+    timed by neither)."""
+    from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
+    on, off = (sched.observer, sched.exporter), (NULL_OBSERVER, None)
+    for r in reqs:
+        sched.submit(r)
+    i = 0
+    while sched.queue or any(s is not None for s in sched.slots):
+        observed = i % 2 == phase
+        sched.observer, sched.exporter = on if observed else off
+        t0 = time.perf_counter()
+        sched.step()
+        step_s.append(time.perf_counter() - t0)
+        i += 1
+    sched.observer, sched.exporter = on
+    sched.drain()
+
+
+def obs_step_overhead(a, b) -> tuple:
+    """The observer's share of a step from two toggled runs of the same
+    steps, ``a`` observed at the even steps and ``b`` at the odd ones:
+    step i takes speed_a·w_i·(1+d) in ``a`` and speed_b·w_i in ``b`` when
+    even, the other way round when odd, so the even steps' a/b ratio over
+    the odd steps' is (1+d)^2 whatever the two runs' host speeds and the
+    steps' work.  Returns (d from the median step ratio of each parity,
+    d from each parity's summed seconds)."""
+    import math
+    ev = [math.log(x / y) for x, y in zip(a[0::2], b[0::2])]
+    od = [math.log(x / y) for x, y in zip(a[1::2], b[1::2])]
+    by_median = math.exp((median(ev) - median(od)) / 2) - 1.0
+    by_time = math.sqrt((sum(a[0::2]) / sum(b[0::2]))
+                        / (sum(a[1::2]) / sum(b[1::2]))) - 1.0
+    return by_median, by_time
 
 
 def obs_dir(*parts) -> str:
@@ -5644,7 +5777,9 @@ def obs_train(torch, seed, card):
 
 
 def obs_serve(torch, seed, card):
-    """(b) the serve cell through a Scheduler, observed and not."""
+    """(b) the serve cell through a Scheduler, observed and not: one run
+    each way for the functional checks, then the overhead from runs that
+    observe every other step (see :func:`obs_toggled`)."""
     from dtdl_tpu_torch import kernels
     from dtdl_tpu_torch.models.transformer import transformer_lm
     from dtdl_tpu_torch.obs import JsonlSeriesSink, MetricsExporter, Observer
@@ -5655,7 +5790,9 @@ def obs_serve(torch, seed, card):
     traffic = make_traffic(seed, model.cfg.vocab_size)
     series = os.path.join(obs_dir("serve"), "series.jsonl")
 
-    def run(on, traffic=traffic):
+    def run(on, phase=None, traffic=traffic):
+        """One serve run, observed (``on``) or not; with ``phase`` 0 or
+        1, observed at the steps of that parity only, each step timed."""
         eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
         obs = ex = None
         if on:
@@ -5666,29 +5803,36 @@ def obs_serve(torch, seed, card):
         reqs = [Request(list(p), m) for p, m in traffic]
         sync(torch)
         kernels.reset_launches()
-        where = []
+        where, step_s = [], []
+        go = sched.run if phase is None else \
+            (lambda reqs: obs_toggled(sched, reqs, phase, step_s))
+        host = host_counters(torch)
         t0 = time.perf_counter()
-        _, n_sync = sync_count(torch, lambda: sched.run(reqs), where)
+        _, n_sync = sync_count(torch, lambda: go(reqs), where)
         sync(torch)
         wall = time.perf_counter() - t0
+        host = host_counters(torch, host)
         if ex is not None:
             ex.close()
         s = sched.metrics.summary()
         return dict(wall=wall, syncs=n_sync, obs=obs, reqs=reqs, where=where,
-                    tokens=sum(len(r.tokens) for r in reqs),
-                    ttft=(s["ttft_s_p50"], s["ttft_s_p99"]),
+                    tokens=sum(len(r.tokens) for r in reqs), host=host,
+                    step_s=step_s, ttft=(s["ttft_s_p50"], s["ttft_s_p99"]),
                     k4=kernels.LAUNCHES["paged_attention"])
 
     run(False)                 # warm-up, not kept (as (a)'s first run)
-    runs = obs_pairs(run)
+    threads = sorted(t.name for t in __import__("threading").enumerate())
+    runs = {True: [run(True)], False: [run(False)]}
+    toggled = [run(True, phase=i % 2) for i in range(2 * OBS_PAIRS)]
+    pairs = [obs_step_overhead(a["step_s"], b["step_s"])
+             for a, b in zip(toggled[0::2], toggled[1::2])]
+    drop = 1.0 - 1.0 / (1.0 + median([x[0] for x in pairs]))
     tps = {on: [r["tokens"] / r["wall"] for r in runs[on]] for on in runs}
-    rate = {on: sum(r["tokens"] for r in runs[on])
-            / sum(r["wall"] for r in runs[on]) for on in runs}
-    drop = median([1.0 - a / b for a, b in zip(tps[True], tps[False])])
     want = [r.tokens for r in runs[False][0]["reqs"]]
-    same = all([r.tokens for r in x["reqs"]] == want
-               for on in runs for x in runs[on])
+    every = runs[True] + runs[False] + toggled
+    same = all([r.tokens for r in x["reqs"]] == want for x in every)
     syncs = {on: [r["syncs"] for r in runs[on]] for on in runs}
+    syncs["toggled"] = [r["syncs"] for r in toggled]
     obs = runs[True][-1]["obs"]
     order = ["request_admitted", "request_first_token", "request_finished"]
     bad_tl = []
@@ -5699,28 +5843,33 @@ def obs_serve(torch, seed, card):
         if names != order or flows != ["s", "f"]:
             bad_tl.append((r.rid, names, flows))
     points = sum(1 for _ in open(series))
-    k4 = [x["k4"] for on in runs for x in runs[on]]
+    k4 = [x["k4"] for x in every]
     prefills = span_stats(obs.tracer.to_chrome()["traceEvents"], "prefill")
     log(f"obs (b) serve base bf16 page 16 (8 slots, the serve phase's 16 "
-        f"requests) through Scheduler(observer=, exporter=), observed and "
-        f"not, in {OBS_PAIRS} pairs: tokens_per_s on "
-        f"{[round(x, 2) for x in tps[True]]} off "
-        f"{[round(x, 2) for x in tps[False]]} ({100 * drop:+.3f}% below, "
-        f"the median of the pairs, limit {100 * OBS_LIMIT:.0f}%; pooled "
-        f"{rate[True]:.2f} against {rate[False]:.2f}); TTFT p50/p99 s on "
-        f"{[x['ttft'] for x in runs[True]]} off "
-        f"{[x['ttft'] for x in runs[False]]}; greedy tokens identical in "
-        f"all {2 * OBS_PAIRS} runs: {same}; synchronizations on "
-        f"{syncs[True]} off {syncs[False]} (sites where runs differ: "
-        f"{sync_sites(runs[True] + runs[False])}); every rid admitted -> "
+        f"requests) through Scheduler(observer=, exporter=): tokens/s of "
+        f"one run observed {tps[True][0]:.2f} and one not "
+        f"{tps[False][0]:.2f}; {2 * OBS_PAIRS} runs observing every other "
+        f"step (even, odd in turns; {len(toggled[0]['step_s'])} steps a "
+        f"run, step seconds a run {[round(sum(x['step_s']), 4) for x in toggled]}): "
+        f"observed steps' time over the same steps' unobserved, by pair "
+        f"(step medians; time-weighted) "
+        f"{[(round(100 * a, 3), round(100 * b, 3)) for a, b in pairs]}%, "
+        f"tokens/s {100 * drop:+.3f}% below (the median of the pairs' step "
+        f"medians, limit {100 * OBS_LIMIT:.0f}%); "
+        f"TTFT p50/p99 s on {runs[True][0]['ttft']} off "
+        f"{runs[False][0]['ttft']}; greedy tokens identical in all "
+        f"{len(every)} runs: {same}; synchronizations {syncs} (sites "
+        f"where runs differ: {sync_sites(every)}); every rid admitted -> "
         f"first_token -> finished with its flow opened and closed: "
         f"{not bad_tl}; spans {span_counts(obs)} ({prefills}, one worker); "
-        f"JSONL points {points}; K4 launches by run {k4} | {card}")
+        f"JSONL points {points}; K4 launches by run {k4}; host of the "
+        f"toggled runs {host_sums(toggled)}; threads alive before the runs "
+        f"{threads} | {card}")
     if not same:
         raise AssertionError("obs (b): tokens differ between runs")
     if drop > OBS_LIMIT:
         raise AssertionError(f"obs (b): tokens/s {100 * drop:.3f}% below")
-    if len(set(syncs[True] + syncs[False])) != 1:
+    if len({x["syncs"] for x in every}) != 1:
         raise AssertionError(f"obs (b): synchronizations differ: {syncs}")
     if bad_tl or points < 1 or min(k4) <= 0:
         raise AssertionError(f"obs (b): timelines {bad_tl[:4]}, points "
@@ -5798,7 +5947,10 @@ def obs_fleet(torch, seed, card):
         f"({[len(x) for x in scrapes]} series, fleet_requests_submitted "
         f"{[x.get('dtdl_fleet_requests_submitted') for x in scrapes]}); "
         f"JSONL points {len(pts)}; SLO breaches {s['slo_breach_events']}; "
-        f"K4 by replica {k4} | {card}")
+        f"K4 by replica {k4}; longest heartbeat gap by replica "
+        f"{[round(r.max_beat_gap_s, 4) for r in router.replicas]} s; "
+        f"evictions {[(e['replica'], e['reason'][:80]) for e in router.evict_log]} "
+        f"| {card}")
     if lost or len(terminals) != len(traffic) or set(terminals.values()) \
             != {1} or dangling or evicted != [0] or len(scrapes) != 2 \
             or not all(scrapes) or s["slo_breach_events"]:
@@ -5929,6 +6081,576 @@ def phase_obs(torch, seed, card):
     return {"train": {k: train[k] for k in ("flash_fwd", "flash_bwd_dq",
                                             "flash_bwd_dkv", "rope_rows")},
             "serve": k4, "fleet": fleet}
+
+
+# ---- resil: the step guard, the store and elastic training ------------------
+
+RESIL_STEPS = 10                  # steps a run of (a)
+RESIL_NAN_AT = 4                  # (a)'s NaN batch
+RESIL_PAIRS = 5                   # (a)'s timed pairs, guarded and not
+RESIL_TRAINER_STOP = 6            # (b)'s iterations
+RESIL_ELASTIC = dict(heartbeat_s=0.03, watchdog_s=0.3, step_timeout_s=5.0,
+                     join_grace_s=0.25, rendezvous_timeout_s=20.0,
+                     snapshot_every=2)
+RESIL_ELASTIC_STEPS, RESIL_KILL_AT = 12, 5
+RESIL_TWIN_STEPS = 200            # (d): long enough to kill the store mid-run
+RESIL_WATCHDOG_S = 1.0            # (e)'s bound on the stalled drain
+
+
+def resil_dir(*parts) -> str:
+    path = os.path.join(ROOT, "build", "resil", *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def resil_batches(torch, seed, n):
+    """``n`` batches of the train cell on the card: TRAIN_BATCH x
+    TRAIN_SEQ Markov tokens and an all-ones target mask (a NaN batch is
+    ``poison_batch`` of one: its mask NaN)."""
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    tokens, _ = synthetic_lm(n_train=TRAIN_BATCH * n, n_test=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, vocab_size=32000, seed=seed)
+    toks = torch.from_numpy(tokens).to(DEV, torch.long)
+    mask = torch.ones(TRAIN_BATCH, TRAIN_SEQ - 1, device=DEV)
+    return [{"tokens": toks[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+             "mask": mask} for i in range(n)]
+
+
+def resil_model(torch, seed):
+    """The train cell's model (base, bf16 on f32 weights) with weights
+    from ``seed``, and a maker of fresh adamw states that puts those
+    weights back by a copy on the card (bitwise the seeded draw, without
+    drawing again)."""
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.train.optim import adamw
+    from dtdl_tpu_torch.train.state import init_state
+    model = transformer_lm("base", max_seq=TRAIN_SEQ, seed=None, device=DEV)
+    init_state(model, seed, adamw(3e-4), device=DEV)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def fresh():
+        import torch as _torch
+        with _torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(weights[k])
+        return init_state(model, None, adamw(3e-4), device=DEV)
+    return model, fresh
+
+
+def resil_step(torch, seed, card):
+    """(a) the guarded base step: bitwise contracts, launches, waits and
+    the guard's overhead."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.resil import StepGuard, poison_batch
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    batches = resil_batches(torch, seed, RESIL_STEPS)
+    model, fresh = resil_model(torch, seed)
+
+    def run(guard, stream, where=None, keep=True):
+        """Fresh state from ``seed`` (the one model's weights put back),
+        the steps over ``stream``: (the final state's host tree when
+        ``keep``, the metrics, seconds of the steps, waits, launches,
+        the state's step)."""
+        state = fresh()
+        step = make_lm_train_step(guard=guard)
+        sync(torch)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+
+        def steps():
+            nonlocal state
+            ms = []
+            for b in stream:
+                state, m = step(state, b)
+                ms.append(m)
+            return ms
+        ms, waits = sync_count(torch, steps, where)
+        sync(torch)
+        secs = time.perf_counter() - t0
+        return (host_tree(torch, state) if keep else None, ms, secs, waits,
+                dict(kernels.LAUNCHES), state.step)
+
+    run(StepGuard("skip"), batches[:2], keep=False)   # warm the allocators
+    # the timed pairs, in turns; the first pair's states are also the
+    # bitwise check's
+    where, gwhere = [], []
+    runs = {True: [], False: []}
+    for i in range(RESIL_PAIRS):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            runs[on].append(run(StepGuard("skip") if on else None, batches,
+                                gwhere if on else where, keep=i == 0))
+    plain, guarded = runs[False][0], runs[True][0]
+    ms = {on: [1e3 * r[2] / RESIL_STEPS for r in runs[on]] for on in runs}
+    over = median([a / b - 1.0 for a, b in zip(ms[True], ms[False])])
+    differ = tree_diff(torch, plain[0], guarded[0])
+    nan = [poison_batch(b) if i == RESIL_NAN_AT else b
+           for i, b in enumerate(batches)]
+    guard = StepGuard("skip")
+    skipped = run(guard, nan)
+    for m in skipped[1]:
+        guard.observe({k: float(v) for k, v in m.items()})
+    flags = [float(m["bad_step"]) for m in skipped[1]]
+    dropped = run(None, [b for i, b in enumerate(batches)
+                         if i != RESIL_NAN_AT])
+    differ_skip = tree_diff(torch, skipped[0], dropped[0])
+    steps_applied = skipped[5]
+    want = model.cfg.n_layers * RESIL_STEPS
+    every = [("plain", r) for r in runs[False]] + \
+        [("guarded", r) for r in runs[True]] + [("skip", skipped)]
+    bad_launch = [(name, r[4]) for name, r in every
+                  if any(r[4][k] != want for k in ("flash_fwd",
+                                                   "flash_bwd_dq",
+                                                   "flash_bwd_dkv"))
+                  or r[4]["rope_rows"] != 4 * want]
+    log(f"resil (a) guarded base step bf16 (f32 weights) adamw(3e-4) "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}, {RESIL_STEPS} steps a run: no fault "
+        f"bitwise the unguarded run: {not differ} (differ {differ[:4]}); "
+        f"NaN batch at step {RESIL_NAN_AT} under skip: flags {flags}, "
+        f"guard n_bad {guard.n_bad}, state.step {steps_applied}, bitwise "
+        f"the run with that batch dropped: {not differ_skip} (differ "
+        f"{differ_skip[:4]}); waits a run unguarded "
+        f"{[r[3] for r in runs[False]]} guarded "
+        f"{[r[3] for r in runs[True]]} (sites where they differ "
+        f"{sync_sites([{'where': where}, {'where': gwhere}])}); "
+        f"launches plain {plain[4]} guarded {guarded[4]} skip "
+        f"{skipped[4]}; step_ms guarded {[round(x, 3) for x in ms[True]]}"
+        f" unguarded {[round(x, 3) for x in ms[False]]}, overhead (median "
+        f"of {RESIL_PAIRS} pairs) {100 * over:+.3f}% | {card}")
+    if differ or differ_skip:
+        raise AssertionError(f"resil (a): not bitwise: no fault {differ[:8]}"
+                             f", skip {differ_skip[:8]}")
+    if flags != [float(i == RESIL_NAN_AT) for i in range(RESIL_STEPS)] or \
+            steps_applied != RESIL_STEPS - 1 or guard.n_bad != 1:
+        raise AssertionError(f"resil (a): flags {flags}, step "
+                             f"{steps_applied}, n_bad {guard.n_bad}")
+    waits = {r[3] for on in runs for r in runs[on]}
+    if len(waits) != 1:
+        raise AssertionError(f"resil (a): waits differ: "
+                             f"{[r[3] for r in runs[True]]} guarded, "
+                             f"{[r[3] for r in runs[False]]} unguarded")
+    if bad_launch:
+        raise AssertionError(f"resil (a): launches {bad_launch}, want "
+                             f"{want} each and rope {4 * want}")
+    del plain, runs, skipped, dropped, model, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return guarded[4]
+
+
+def resil_trainer(torch, seed, card):
+    """(b) Trainer(guard=StepGuard("rollback")) at base width: a 2-step NaN
+    burst restores the last good snapshot and the run continues, bitwise
+    the stream with the first burst batch dropped; a second burst past
+    max_rollbacks escalates by name."""
+    import shutil
+    import numpy as np
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    from dtdl_tpu_torch.resil import (FaultPlan, GuardEscalationError,
+                                      LoaderFaults, StepGuard)
+    from dtdl_tpu_torch.ckpt import Checkpointer
+    from dtdl_tpu_torch.train import Trainer, make_lm_train_step, snapshot
+    n = RESIL_TRAINER_STOP
+    tokens, _ = synthetic_lm(n_train=TRAIN_BATCH * n, n_test=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, vocab_size=32000, seed=seed)
+    data = {"tokens": tokens,
+            "mask": np.ones((len(tokens), TRAIN_SEQ - 1), np.float32)}
+    model, fresh = resil_model(torch, seed)
+
+    def trainer(out, guard, plan):
+        shutil.rmtree(out, ignore_errors=True)
+        loader = DataLoader(data, TRAIN_BATCH, shuffle=False, device=DEV)
+        tr = Trainer(fresh(),
+                     make_lm_train_step(guard=guard),
+                     LoaderFaults(loader, plan), None,
+                     stop_trigger=(1, "epoch"), out=out, guard=guard)
+        tr.ckpt = Checkpointer(out, keep=2)    # the last good one suffices
+        tr.extend(snapshot(), trigger=(1, "iteration"))
+        return tr
+
+    t0 = time.perf_counter()
+    guard = StepGuard("rollback", max_consecutive=2)
+    tr = trainer(resil_dir("trainer_a"), guard,
+                 FaultPlan().at("loader", 3, "nan").at("loader", 4, "nan"))
+    tr.run()
+    got = host_tree(torch, tr.state)
+    secs = time.perf_counter() - t0
+    from dtdl_tpu_torch.train.step import make_lm_train_step as mk
+    ref = fresh()
+    step = mk()
+    loader = DataLoader(data, TRAIN_BATCH, shuffle=False, device=DEV)
+    for i, b in enumerate(iter(loader)):
+        if i != 3:
+            ref, _ = step(ref, b)
+    differ = tree_diff(torch, got, host_tree(torch, ref))
+    guard2 = StepGuard("rollback", max_consecutive=1, max_rollbacks=1)
+    tr2 = trainer(resil_dir("trainer_b"), guard2,
+                  # the second burst lands in the replay, past the
+                  # batches the first pass had prefetched
+                  FaultPlan().at("loader", 2, "nan").at("loader", 6, "nan"))
+    try:
+        tr2.run()
+        escalated = None
+    except GuardEscalationError as e:
+        escalated = str(e)
+    log(f"resil (b) Trainer(guard=StepGuard('rollback', max_consecutive=2)) "
+        f"base bf16 {TRAIN_BATCH}x{TRAIN_SEQ}, a snapshot every iteration, "
+        f"NaN batches at loader occurrences 3 and 4: rollbacks "
+        f"{guard.n_rollbacks}, bad {guard.n_bad}, finished epoch "
+        f"{tr.epoch} at iteration {tr.iteration}, bitwise the stream "
+        f"without batch 3: {not differ} (differ {differ[:4]}) in "
+        f"{secs:.1f}s; max_rollbacks=1 with a second burst escalates: "
+        f"{escalated!r} (rollbacks {guard2.n_rollbacks}) | {card}")
+    if guard.n_rollbacks != 1 or guard.n_bad != 2 or tr.epoch != 1 or \
+            differ:
+        raise AssertionError(f"resil (b): rollbacks {guard.n_rollbacks}, "
+                             f"bad {guard.n_bad}, epoch {tr.epoch}, differ "
+                             f"{differ[:8]}")
+    if not escalated or "rollbacks exceeded" not in escalated:
+        raise AssertionError(f"resil (b): no escalation: {escalated!r}")
+    del tr, tr2, ref, model, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    for x in ("trainer_a", "trainer_b"):
+        shutil.rmtree(resil_dir(x), ignore_errors=True)
+
+
+def elastic_latencies(victim, survivors) -> dict:
+    """Seconds from the victim's death to the first survivor's detection,
+    from there to the re-formed world, and to its first applied step."""
+    def first(w, name, after=0.0):
+        return min(t for n, t, _ in w.events if n == name and t >= after)
+    lost = min(first(w, "peer_lost") for w in survivors)
+    world = max(first(w, "world", lost) for w in survivors)
+    step = max(first(w, "applied", world) for w in survivors)
+    return {"detect_s": lost - victim.stopped_t, "reform_s": world - lost,
+            "first_step_s": step - world}
+
+
+def resil_workers(torch, seed, card):
+    """(c) run_workers: four elastic workers (the elastic_train twin's
+    MLP) on the card, rank 2 crashed at step RESIL_KILL_AT."""
+    import numpy as np
+    from dtdl_tpu_torch.data.sharding import GlobalBatchSampler
+    from dtdl_tpu_torch.examples import elastic_train as twin
+    from dtdl_tpu_torch.parallel.kvstore import HostKVStore, RetryingStore
+    from dtdl_tpu_torch.resil import (ElasticConfig, ElasticWorker,
+                                      FaultPlan, effective_sample_log,
+                                      peer_site, run_workers)
+    import shutil
+    problem = twin.make_problem(seed, DEV)
+    sampler = GlobalBatchSampler(twin.N_EXAMPLES, 12 * 8, seed=seed)
+    ck = resil_dir("elastic")
+    shutil.rmtree(ck, ignore_errors=True)
+    os.makedirs(ck)
+
+    def workers(store, ranks, ckpt_dir=None):
+        return [ElasticWorker(RetryingStore(store), r, sampler=sampler,
+                              total_steps=RESIL_ELASTIC_STEPS,
+                              cfg=ElasticConfig(**RESIL_ELASTIC),
+                              ckpt_dir=ckpt_dir, audit_samples=True,
+                              **problem) for r in ranks]
+    plan = FaultPlan().at(peer_site(2, "step"), RESIL_KILL_AT, "crash")
+    with plan:
+        ws = workers(HostKVStore(), [0, 1, 2, 3], ck)
+        run_workers(ws, timeout_s=60)
+    victim, survivors = ws[2], [ws[0], ws[1], ws[3]]
+    lat = elastic_latencies(victim, survivors)
+    restored = [info["step"] for n, _, info in survivors[0].events
+                if n == "restore"]
+    ok = all(w.done and w.world.ranks == (0, 1, 3) for w in survivors)
+    store = HostKVStore()
+    if restored:
+        store.set("ckpt/committed",
+                  {"step": restored[0],
+                   "path": os.path.join(ck, f"elastic_{restored[0]:06d}.pt")})
+    oracle = workers(store, [0, 1, 3])
+    run_workers(oracle, timeout_s=60)
+    differ = [k for a, b in zip(survivors, oracle)
+              for k in a.state["params"]
+              if not torch.equal(a.state["params"][k], b.state["params"][k])]
+    eff = effective_sample_log(ws)
+    audit = sorted(eff) == list(range(RESIL_ELASTIC_STEPS)) and all(
+        np.array_equal(v, np.sort(sampler.batch_indices(s)))
+        for s, v in eff.items())
+    log(f"resil (c) run_workers: 4 elastic workers (MLP(32) on the card, "
+        f"global batch 96), rank 2 crashed at step {RESIL_KILL_AT}: "
+        f"survivors done in world {survivors[0].world.ranks} generation "
+        f"{survivors[0].world.generation}: {ok}; restored step "
+        f"{restored}; bitwise the fault-free world of 3 from the same "
+        f"snapshot: {not differ and bool(restored)}; zero samples lost or "
+        f"counted twice: {audit}; detect {lat['detect_s']:.4f}s, re-form "
+        f"{lat['reform_s']:.4f}s, first step {lat['first_step_s']:.4f}s "
+        f"(watchdog {RESIL_ELASTIC['watchdog_s']}s) | {card}")
+    if not ok or differ or not restored or not audit:
+        raise AssertionError(f"resil (c): survivors {ok}, restored "
+                             f"{restored}, differ {differ[:4]}, audit "
+                             f"{audit}")
+    return lat
+
+
+def spawn_store(port, wal, ready=True):
+    """A standalone coordinator process (``python -m
+    dtdl_tpu_torch.parallel.tcpstore``) and its ready line (``None`` when
+    not waited for)."""
+    p = subprocess.Popen(
+        [sys.executable, "-m", "dtdl_tpu_torch.parallel.tcpstore",
+         "--port", str(port), "--wal-dir", wal], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    if not ready:
+        return p, None
+    line = p.stdout.readline()
+    if "STORE ready" not in line:
+        p.kill()
+        raise AssertionError(f"resil (d): the coordinator said {line!r}")
+    return p, line
+
+
+def resil_launcher(torch, seed, card):
+    """(d) the launcher drill: a standalone coordinator with a WAL, the
+    elastic_train twin's four worker processes on the card through
+    launch_local(store_port=, elastic=True); rank 2 SIGKILLed, then the
+    coordinator SIGKILLed after the shrink and restarted from its WAL;
+    then an amnesiac restart refused by name.  (e) runs meanwhile."""
+    import shutil
+    import numpy as np
+    from dtdl_tpu_torch.data.sharding import GlobalBatchSampler
+    from dtdl_tpu_torch.examples import elastic_train as twin
+    from dtdl_tpu_torch.parallel.kvstore import HostKVStore, RetryingStore
+    from dtdl_tpu_torch.parallel.tcpstore import (ServerEpochError,
+                                                  TCPStoreClient,
+                                                  TCPStoreServer)
+    from dtdl_tpu_torch.resil import (ElasticConfig, ElasticWorker,
+                                      run_workers)
+    root = resil_dir("launcher")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    wal, ck, out = (os.path.join(root, x) for x in ("wal", "ck", "out"))
+    port = free_port()
+    t0 = time.perf_counter()
+    # the coordinator starts beside the workers (each worker's connect
+    # budget outlasts its start)
+    store, _ = spawn_store(port, wal, ready=False)
+    argv = ["-m", "dtdl_tpu_torch.examples.elastic_train", "--steps",
+            str(RESIL_TWIN_STEPS), "--seed", str(seed), "--ckpt-dir", ck,
+            "--out-dir", out, "--kill-rank", "2", "--kill-at",
+            str(RESIL_KILL_AT), "--heartbeat-s", "0.05", "--watchdog-s",
+            "0.5", "--join-grace-s", "0.5", "--step-timeout-s", "30"]
+    logpath = os.path.join(root, "launch.log")
+    with open(logpath, "w") as f:
+        # its own session, so that a failure below can stop the launcher
+        # and its workers together
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "dtdl_tpu_torch.launch.local", "--nproc",
+             "4", "--port", str(free_port()), "--store-port", str(port),
+             "--elastic", "--timeout", "240", "--", *argv], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": ROOT}, stdout=f,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    import threading
+    wd = {}
+
+    def side_run():
+        try:
+            wd.update(resil_watchdog_world(torch, seed, card))
+        except Exception as e:       # raised in the phase's thread below
+            wd["exc"] = e
+    side = threading.Thread(target=side_run, daemon=True)
+    side.start()                                  # (e) meanwhile
+    killed_at = restarted = None
+    try:
+        ready = store.stdout.readline()           # the coordinator is up
+        if "STORE ready" not in ready:
+            raise AssertionError(f"resil (d): the coordinator said "
+                                 f"{ready!r}")
+        watcher = TCPStoreClient(f"127.0.0.1:{port}", reconnect_attempts=30,
+                                 max_backoff_s=0.2, io_timeout_s=10.0)
+        deadline = time.monotonic() + 200
+        while killed_at is None:
+            latest = watcher.get("world/latest", None)
+            done = watcher.get("ckpt/committed", {"step": 0})["step"]
+            if latest and latest[0] >= 1 and done >= 20:
+                store.kill()
+                store.wait(timeout=10)
+                killed_at = done
+                t_kill = time.perf_counter()
+                store, ready = spawn_store(port, wal)
+                restarted = (time.perf_counter() - t_kill,
+                             "recovered=True" in ready)
+            elif launcher.poll() is not None or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        rc = launcher.wait(timeout=240)
+        side.join(120)
+        if "exc" in wd:
+            raise wd["exc"]
+        amnesia = None
+        store.kill()
+        store.wait(timeout=10)
+        # a coordinator without its WAL on the same port (in this
+        # process: the same server code without a second interpreter)
+        blank = TCPStoreServer(port=port, wal_dir=os.path.join(
+            root, "empty_wal")).start()
+        try:
+            watcher.get("world/latest")
+        except ServerEpochError as e:
+            amnesia = str(e)
+        finally:
+            blank.stop()
+    finally:
+        store.kill()
+        store.wait(timeout=10)
+        if launcher.poll() is None:
+            import signal
+            os.killpg(launcher.pid, signal.SIGKILL)
+            launcher.wait(timeout=10)
+    text = open(logpath).read()
+    res = {}
+    for r in (0, 1, 3):
+        path = os.path.join(out, f"result_{r}.json")
+        res[r] = json.load(open(path)) if os.path.exists(path) else None
+    ok = all(x and x["done"] and x["generation"] == 1 and
+             x["ranks"] == [0, 1, 3] for x in res.values())
+    restored = {x["restored_step"] for x in res.values() if x}
+    reconnects = sum(x["reconnects"] for x in res.values() if x)
+    # the journals: zero lost or counted twice across both kills
+    top, logs = {}, {}
+    for r in range(4):
+        path = os.path.join(out, f"samples_{r}.jsonl")
+        for line in (open(path) if os.path.exists(path) else ()):
+            rec = json.loads(line)
+            logs[(r, rec["gen"], rec["step"])] = rec["idx"]
+            top[rec["step"]] = max(top.get(rec["step"], rec["gen"]),
+                                   rec["gen"])
+    sampler = GlobalBatchSampler(twin.N_EXAMPLES, 12 * 8, seed=seed)
+    audit = sorted(top) == list(range(RESIL_TWIN_STEPS)) and all(
+        np.array_equal(np.sort(np.concatenate(
+            [np.asarray(logs[(r, g, s)]) for r in range(4)
+             if (r, g, s) in logs])), np.sort(sampler.batch_indices(s)))
+        for s, g in top.items())
+    # bitwise against the world of 3 run in this process from the same
+    # committed snapshot
+    differ = ["no result"]
+    if ok and len(restored) == 1:
+        step0 = restored.pop()
+        hs = HostKVStore()
+        hs.set("ckpt/committed", {"step": step0, "path": os.path.join(
+            ck, f"elastic_{step0:06d}.pt")})
+        problem = twin.make_problem(seed, DEV)
+        oracle = [ElasticWorker(RetryingStore(hs), r, sampler=sampler,
+                                total_steps=RESIL_TWIN_STEPS,
+                                cfg=ElasticConfig(heartbeat_s=0,
+                                                  join_grace_s=0.2),
+                                **problem) for r in (0, 1, 3)]
+        run_workers(oracle, timeout_s=120)
+        differ = [k for r in (0, 1, 3) for k, v in torch.load(
+            os.path.join(out, f"final_{r}.pt")).items()
+            if not torch.equal(v, oracle[0].state["params"][k].cpu())]
+    secs = time.perf_counter() - t0
+    log(f"resil (d) launcher drill: coordinator `python -m "
+        f"dtdl_tpu_torch.parallel.tcpstore` with a WAL, elastic_train's 4 "
+        f"workers on the card through launch_local(store_port=, "
+        f"elastic=True), {RESIL_TWIN_STEPS} steps: rank 2 SIGKILLed at step "
+        f"{RESIL_KILL_AT} ({'rank 2 lost to signal 9' in text}); survivors "
+        f"done in generation 1 [0, 1, 3]: {ok}; the coordinator SIGKILLed "
+        f"after the shrink at committed step {killed_at}, restarted from its "
+        f"WAL in {restarted and round(restarted[0], 3)}s (recovered "
+        f"{restarted and restarted[1]}), worker reconnects {reconnects}; "
+        f"launch rc {rc}; zero lost/doubled: {audit}; bitwise "
+        f"the in-process world of 3 from the same snapshot: {not differ}; "
+        f"an amnesiac restart refused: {amnesia and amnesia[:90]!r}; "
+        f"{secs:.1f}s | {card}")
+    if not (ok and rc == 0 and killed_at and restarted
+            and restarted[1] and audit and not differ and reconnects >= 1
+            and amnesia and "WITHOUT its WAL" in amnesia and wd):
+        raise AssertionError(f"resil (d): results {res}, rc {rc},"
+                             f" killed {killed_at}, restarted {restarted}, "
+                             f"audit {audit}, differ {differ[:4]}, amnesia "
+                             f"{amnesia!r}:\n{text[-3000:]}")
+    return wd
+
+
+def resil_watchdog_world(torch, seed, card):
+    """(e) StepWatchdog on a two-rank gloo world on the card: rank 1
+    stalls; rank 0's DDP step and drain under the watchdog must raise
+    PeerLostError within RESIL_WATCHDOG_S (plus slack)."""
+    me = os.path.join(ROOT, "chip_smoke.py")
+    rc, out, secs = launch([me, "--ddp-worker", "resil_watchdog", "--seed",
+                            str(seed)], 2, 120, "resil_watchdog")
+    got = rank_lines(out, "resil_result ")
+    r = got.get(0, {})
+    log(f"resil (e) StepWatchdog({RESIL_WATCHDOG_S}s) on a gloo world of 2 "
+        f"on the card, rank 1 stalled: rank 0 {r.get('error')!r} after "
+        f"{r.get('waited_s', math.nan):.3f}s; afterwards a fresh op on the "
+        f"card from the main thread {r.get('after')}; launch rc {rc} in "
+        f"{secs:.1f}s | {card}")
+    if rc != 0 or "PeerLostError" not in str(r.get("error")) or \
+            not r.get("waited_s", 99) < RESIL_WATCHDOG_S + 1.0:
+        raise AssertionError(f"resil (e): {got}\n{out[-3000:]}")
+    return r
+
+
+def resil_worker(args) -> int:
+    """One rank of (e)'s gloo world on the card."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from dtdl_tpu_torch.metrics.device import MetricsQueue
+    from dtdl_tpu_torch.models import MLP
+    from dtdl_tpu_torch.parallel import DataParallel
+    from dtdl_tpu_torch.resil import PeerLostError, StepWatchdog
+    from dtdl_tpu_torch.runtime import build_mesh, initialize
+    from dtdl_tpu_torch.train import init_state, make_train_step
+    from dtdl_tpu_torch.train.optim import sgd
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               backend="gloo", timeout_s=120,
+               device="cpu" if DEV == "cpu" else None)
+    dp = DataParallel(build_mesh())
+    state = dp.replicate(init_state(MLP(device=DEV), args.seed, sgd(0.1),
+                                    device=DEV))
+    step = make_train_step(dp)
+    batch = {"image": torch.randn(32, 784, device=DEV),
+             "label": torch.zeros(32, dtype=torch.long, device=DEV)}
+    queue = MetricsQueue(4)
+    state, m = step(state, batch)                  # both ranks, once
+    queue.push(m)
+    queue.drain()
+    if args.process_id == 1:
+        time.sleep(RESIL_WATCHDOG_S + 3)           # the stalled peer
+        os._exit(0)
+
+    def step_and_drain():
+        queue.push(step(state, batch)[1])
+        return queue.drain()
+    t0 = time.perf_counter()
+    try:
+        StepWatchdog(RESIL_WATCHDOG_S, name="drain").run(step_and_drain)
+        error = None
+    except PeerLostError as e:
+        error = f"PeerLostError: {e}"
+    waited = time.perf_counter() - t0
+    try:
+        after = float((torch.ones(4, device=DEV) * 2).sum())
+        after = f"completes ({after})"
+    except Exception as e:
+        after = f"fails: {type(e).__name__}"
+    print("resil_result " + json.dumps({"error": error, "waited_s": waited,
+                                        "after": after}), flush=True)
+    os._exit(0)    # the abandoned collective still waits on its thread
+
+
+def phase_resil(torch, seed, card):
+    """(a)-(e) of the resilience phase (module docstring)."""
+    t0 = time.perf_counter()
+    sub_s, out = {}, {}
+    for name, fn in (("step", resil_step), ("trainer", resil_trainer),
+                     ("workers", resil_workers),
+                     ("launcher+watchdog", resil_launcher)):
+        t1 = time.perf_counter()
+        out[name] = fn(torch, seed, card)
+        sub_s[name] = round(time.perf_counter() - t1, 1)
+    log(f"resil phase: {time.perf_counter() - t0:.1f}s, by part {sub_s}")
+    return out["step"]
 
 
 def phase_profile_fourd(torch, seed, steps: int = 2):
@@ -6337,6 +7059,10 @@ def main(argv=None) -> int:
     if "obs" in phases:
         obs_launches = phase_obs(torch, args.seed, card)
     ended("obs")
+    resil_launches = None
+    if "resil" in phases:
+        resil_launches = phase_resil(torch, args.seed, card)
+    ended("resil")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
@@ -6399,6 +7125,8 @@ def main(argv=None) -> int:
              "launches": train_launches.get("flash_fwd"),
              "launches_obs": obs_launches and obs_launches["train"][
                  "flash_fwd"],
+             "launches_resil": resil_launches and resil_launches[
+                 "flash_fwd"],
              "max_abs_err": errors.get(main_case),
              **{k: tr["K1"][k] for k in keys}},
             {"name": "flash_bwd_dq", "route": "cuda",
@@ -6406,6 +7134,8 @@ def main(argv=None) -> int:
              "replaces": "dtdl_tpu/ops/attention.py:408",
              "launches": train_launches.get("flash_bwd_dq"),
              "launches_obs": obs_launches and obs_launches["train"][
+                 "flash_bwd_dq"],
+             "launches_resil": resil_launches and resil_launches[
                  "flash_bwd_dq"],
              "max_abs_err": bwd_errs and bwd_errs[0],
              **{k: tr["K2"][k] for k in keys}},
@@ -6415,6 +7145,8 @@ def main(argv=None) -> int:
              "launches": train_launches.get("flash_bwd_dkv"),
              "launches_obs": obs_launches and obs_launches["train"][
                  "flash_bwd_dkv"],
+             "launches_resil": resil_launches and resil_launches[
+                 "flash_bwd_dkv"],
              "max_abs_err": bwd_errs and max(bwd_errs[1:]),
              **{k: tr["K3"][k] for k in keys}},
             {"name": "rope_rows", "route": "cuda",
@@ -6422,6 +7154,8 @@ def main(argv=None) -> int:
              "replaces": "dtdl_tpu/ops/attention.py:118",
              "launches": train_launches.get("rope_rows"),
              "launches_obs": obs_launches and obs_launches["train"][
+                 "rope_rows"],
+             "launches_resil": resil_launches and resil_launches[
                  "rope_rows"],
              "max_abs_err": errors.get("rope train 32x4096 hd128 bf16"),
              **{k: rope_t[k] for k in keys}},

@@ -254,7 +254,9 @@ def _find_cifar10_dir(root: str) -> str | None:
     return None
 
 
-def load_cifar10(root: str = "./datasets", download: bool = True):
+def load_cifar10(root: str = "./datasets", download: bool = True,
+                 keep_train: int | None = None,
+                 keep_test: int | None = None):
     """CIFAR-10 from the python pickle batches under ``root`` (or its
     ``cifar-10-batches-py``/``cifar10`` directory).
 
@@ -267,7 +269,9 @@ def load_cifar10(root: str = "./datasets", download: bool = True):
     own root under :func:`_download_locked`.  Only if that fails too
     (e.g. no network egress) does the LOUD deterministic synthetic
     fallback engage; ``download=False`` or ``DTDL_OFFLINE`` go to it
-    directly.
+    directly.  ``keep_train``/``keep_test`` return only the splits' first
+    examples (the synthetic stand-in then makes only those, the same
+    values as the whole set's).
     """
     from dtdl_tpu_torch.runtime.bootstrap import barrier, is_leader
 
@@ -299,7 +303,8 @@ def load_cifar10(root: str = "./datasets", download: bool = True):
             "images. Loss/accuracy are NOT comparable to real CIFAR-10 — "
             "place cifar-10-python.tar.gz under the dataset root or enable "
             "network access.", root)
-        return synthetic.synthetic_cifar10()
+        return synthetic.synthetic_cifar10(keep_train=keep_train,
+                                           keep_test=keep_test)
 
     def read_batch(name):
         # the batches are the dataset's own python pickles, read from the
@@ -314,7 +319,8 @@ def load_cifar10(root: str = "./datasets", download: bool = True):
     tr_l = np.concatenate([p[1] for p in parts])
     te_i, te_l = read_batch("test_batch")
     te_i = te_i.astype(np.float32) / 255.0
-    return (tr_i, tr_l), (te_i, te_l)
+    return ((tr_i[:keep_train], tr_l[:keep_train]),
+            (te_i[:keep_test], te_l[:keep_test]))
 
 
 def normalize_cifar10(images: np.ndarray) -> np.ndarray:

@@ -16,18 +16,24 @@ import numpy as np
 
 def class_pattern_images(n: int, shape: tuple[int, ...], num_classes: int,
                          seed: int, noise: float = 0.25,
-                         noise_seed: int | None = None):
+                         noise_seed: int | None = None,
+                         keep: int | None = None):
     """Images = a fixed per-class pattern + gaussian noise, squashed into
     [0, 1]; labels balanced.  ``seed`` fixes the patterns (the task),
     ``noise_seed`` the draw: a dataset's train and test splits share
-    ``seed`` and differ in ``noise_seed``."""
+    ``seed`` and differ in ``noise_seed``.  ``keep`` makes only the first
+    ``keep`` of the ``n`` examples, the same values as the whole set's
+    (the labels are shuffled over all ``n``; the noise is drawn in order,
+    so a shorter draw is the longer one's prefix)."""
     patterns = np.random.default_rng(seed).normal(
         size=(num_classes,) + shape).astype(np.float32)
     rng = np.random.default_rng(seed if noise_seed is None else noise_seed)
     labels = np.arange(n, dtype=np.int32) % num_classes
     rng.shuffle(labels)
+    if keep is not None:
+        labels = labels[:min(keep, n)]
     images = patterns[labels] + noise * rng.normal(
-        size=(n,) + shape).astype(np.float32)
+        size=(len(labels),) + shape).astype(np.float32)
     images = 1.0 / (1.0 + np.exp(-images))
     return images.astype(np.float32), labels
 
@@ -42,11 +48,14 @@ def synthetic_mnist(n_train: int = 60000, n_test: int = 10000,
 
 
 def synthetic_cifar10(n_train: int = 50000, n_test: int = 10000,
-                      seed: int = 4321):
+                      seed: int = 4321, keep_train: int | None = None,
+                      keep_test: int | None = None):
+    """``keep_train``/``keep_test``: only the splits' first examples, the
+    same values as the whole splits' (see :func:`class_pattern_images`)."""
     tr = class_pattern_images(n_train, (32, 32, 3), 10, seed,
-                              noise_seed=seed + 10)
+                              noise_seed=seed + 10, keep=keep_train)
     te = class_pattern_images(n_test, (32, 32, 3), 10, seed,
-                              noise_seed=seed + 11)
+                              noise_seed=seed + 11, keep=keep_test)
     return tr, te
 
 

@@ -104,7 +104,9 @@ def cifar_loaders(args, seed: int, device=None, mesh=None):
             "(operations)")
     (xtr, ytr), (xte, yte) = _limit(
         args, *load_dataset("cifar10", args.dataset_dir,
-                            download=getattr(args, "download", True)))
+                            download=getattr(args, "download", True),
+                            keep_train=getattr(args, "limit_train", 0) or None,
+                            keep_test=getattr(args, "limit_test", 0) or None))
     train = per_process_loader(
         xtr, ytr, args.batch_size, shuffle=True, seed=seed,
         transform=cifar10_train_transform(CIFAR10_MEAN, CIFAR10_STD),

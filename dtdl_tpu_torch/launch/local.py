@@ -19,8 +19,21 @@ Each child gets ``--coordinator 127.0.0.1:PORT --num-processes N
 ``[i·K, (i+1)·K)`` through ``CUDA_VISIBLE_DEVICES``; a child that runs on
 the CPU (``--platform cpu``) uses no card, and the stripe changes
 nothing for it.  A child's ``OMP_NUM_THREADS`` defaults to this host's
-cores divided by N.  The elastic control-plane store (``serve_store``,
-``store_port``) is ROADMAP queue A13b.
+cores divided by N.
+
+The elastic control-plane store: ``--serve-store`` hosts a
+:class:`~dtdl_tpu_torch.parallel.tcpstore.TCPStoreServer` in the
+launcher process (which outlives any worker and spans restart attempts,
+as a coordinator does; ``--store-wal-dir`` gives it a WAL for crash
+recovery) and gives every child its address as ``DTDL_STORE_ADDR``
+(``127.0.0.1:<store port>``, the rendezvous port + 1 by default), so a
+worker reaches it with :func:`dtdl_tpu_torch.parallel.tcpstore.connect`.
+``--store-port`` alone exports the address of a store the operator runs;
+without either, a child sees only the variable it inherits.
+``--elastic`` keeps the world running when a rank is lost to a signal
+(an elastic world shrinks to its survivors through the store instead):
+the launch then succeeds when every rank exited 0 or was killed, and at
+least one exited 0; a rank's own non-zero exit still fails it.
 """
 
 from __future__ import annotations
@@ -37,7 +50,8 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
                  devices_per_proc: int | None = None,
                  max_restarts: int = 0, store_port: int | None = None,
                  serve_store: bool = False,
-                 store_wal_dir: str | None = None) -> int:
+                 store_wal_dir: str | None = None,
+                 elastic: bool = False) -> int:
     """Spawn ``nproc`` processes of a script; non-zero if any rank failed.
 
     If any process dies — non-zero exit *or* a signal — the rest are
@@ -46,21 +60,43 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
     ``max_restarts`` relaunches the WHOLE world after a failed attempt
     (ranks resume from their own checkpoints), the checkpoint-restart
     model of synchronous data parallelism.
+
+    ``serve_store=True`` serves the control-plane store here (WAL in
+    ``store_wal_dir``) on ``store_port`` (default ``port + 1``) and
+    exports ``DTDL_STORE_ADDR`` to the children; an explicit
+    ``store_port`` alone exports the address without serving.  An
+    address is never advertised unless a store is meant to listen
+    there.  ``elastic=True``: a rank killed by a signal does not stop the
+    others (module docstring).
     """
-    if serve_store or store_port is not None or store_wal_dir is not None:
-        raise NotImplementedError(
-            "the elastic control-plane store (serve_store, store_port, "
-            "store_wal_dir) is ROADMAP queue A13b (resilience)")
-    attempt = 0
-    while True:
-        rc = _launch_once(script_args, nproc, port, env_extra, timeout,
-                          devices_per_proc)
-        if rc == 0 or attempt >= max_restarts:
-            return rc
-        attempt += 1
-        print(f"[launcher] attempt {attempt}/{max_restarts}: relaunching "
-              f"all {nproc} ranks (resume from latest checkpoint)",
+    if store_wal_dir is not None and not serve_store:
+        raise ValueError("store_wal_dir is the served store's WAL: pass "
+                         "serve_store=True with it")
+    explicit = store_port is not None or serve_store
+    store_port = store_port if store_port is not None else port + 1
+    store_addr = f"127.0.0.1:{store_port}" if explicit else None
+    server = None
+    if serve_store:
+        from dtdl_tpu_torch.parallel.tcpstore import TCPStoreServer
+        server = TCPStoreServer(port=store_port,
+                                wal_dir=store_wal_dir).start()
+        print(f"[launcher] store at {server.addr} (epoch "
+              f"{server.epoch[:8]}, recovered={server.recovered})",
               flush=True)
+    try:
+        attempt = 0
+        while True:
+            rc = _launch_once(script_args, nproc, port, env_extra, timeout,
+                              devices_per_proc, store_addr, elastic)
+            if rc == 0 or attempt >= max_restarts:
+                return rc
+            attempt += 1
+            print(f"[launcher] attempt {attempt}/{max_restarts}: "
+                  f"relaunching all {nproc} ranks (resume from latest "
+                  f"checkpoint)", flush=True)
+    finally:
+        if server is not None:
+            server.stop()
 
 
 def _stop(procs, grace: float = 10.0) -> None:
@@ -78,11 +114,15 @@ def _stop(procs, grace: float = 10.0) -> None:
 
 def _launch_once(script_args: list[str], nproc: int, port: int,
                  env_extra: dict | None, timeout: float,
-                 devices_per_proc: int | None) -> int:
+                 devices_per_proc: int | None,
+                 store_addr: str | None = None,
+                 elastic: bool = False) -> int:
     procs: list[subprocess.Popen] = []
     coordinator = f"127.0.0.1:{port}"
     for i in range(nproc):
         env = dict(os.environ)
+        if store_addr:
+            env["DTDL_STORE_ADDR"] = store_addr
         if env_extra:
             env.update(env_extra)
         # each rank's intra-op threads get a share of the cores: N ranks
@@ -113,6 +153,7 @@ def _launch_once(script_args: list[str], nproc: int, port: int,
 
     deadline = time.time() + timeout
     first_failure = 0
+    lost: set = set()
     try:
         while any(p.poll() is None for p in procs):
             if time.time() > deadline:
@@ -125,6 +166,12 @@ def _launch_once(script_args: list[str], nproc: int, port: int,
                 break
             for i, p in enumerate(procs):
                 rc = p.poll()
+                if elastic and rc is not None and rc < 0:
+                    if i not in lost:
+                        lost.add(i)
+                        print(f"[launcher] rank {i} lost to signal {-rc}; "
+                              f"the others run on (elastic)", flush=True)
+                    continue
                 if rc is not None and rc != 0 and not first_failure:
                     first_failure = rc
                     print(f"[launcher] rank {i} exited with {rc}; "
@@ -138,13 +185,15 @@ def _launch_once(script_args: list[str], nproc: int, port: int,
         t.join(timeout=5)
     if first_failure:
         return first_failure
+    if elastic and any(rc == 0 for rc in rcs):
+        return next((rc for rc in rcs if rc > 0), 0)
     return next((rc for rc in rcs if rc != 0), 0)
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     nproc, port, devices, restarts, timeout = 2, 12355, None, 0, 600.0
-    store_port, serve_store, store_wal = None, False, None
+    store_port, serve_store, store_wal, elastic = None, False, None, False
     while argv and argv[0] != "--":
         if argv[0] == "--nproc":
             nproc = int(argv[1]); argv = argv[2:]
@@ -162,6 +211,8 @@ def main(argv=None) -> int:
             serve_store = True; argv = argv[1:]
         elif argv[0] == "--store-wal-dir":
             store_wal = argv[1]; argv = argv[2:]
+        elif argv[0] == "--elastic":
+            elastic = True; argv = argv[1:]
         else:
             raise SystemExit(f"unknown launcher flag {argv[0]} "
                              "(use: --nproc N --port P -- script.py ...)")
@@ -173,7 +224,7 @@ def main(argv=None) -> int:
     return launch_local(argv, nproc=nproc, port=port, timeout=timeout,
                         devices_per_proc=devices, max_restarts=restarts,
                         store_port=store_port, serve_store=serve_store,
-                        store_wal_dir=store_wal)
+                        store_wal_dir=store_wal, elastic=elastic)
 
 
 if __name__ == "__main__":

@@ -76,6 +76,7 @@ a routed MoE (its groups and experts over ranks).
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, fields, replace
 from typing import Any
 
@@ -642,6 +643,18 @@ class SlotStep:
                    sin=rope_sin[g].float()[:, None], kernel=kernel)
 
 
+# the calling thread's block beat: a fleet replica's worker heartbeat,
+# called after each block of a cached (serving) forward, so that a long
+# eager prefill beats once a layer and not only once it returns
+_BLOCK_BEAT = threading.local()
+
+
+def set_block_beat(fn) -> None:
+    """Have this thread call ``fn()`` after each block of every cached
+    forward it runs (``None``: stop)."""
+    _BLOCK_BEAT.fn = fn
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM: int tokens [batch, seq] -> f32 logits.  Matmul
     weights and the embedding are held in ``param_dtype`` (f32, as flax
@@ -777,6 +790,7 @@ class TransformerLM(nn.Module):
         # remat is a training-time memory/FLOPs trade: never under decode
         remat = self.cfg.remat and step is None and torch.is_grad_enabled()
         aux = []
+        beat = None if step is None else getattr(_BLOCK_BEAT, "fn", None)
         for i, block in enumerate(self.blocks):
             layer = None if step is None else cache[f"block_{i}"]["attn"]
             args = (x, self.rope_cos, self.rope_sin, layer, step, return_aux)
@@ -786,6 +800,8 @@ class TransformerLM(nn.Module):
                     else block(*args))
             if a is not None:
                 aux.append(a)
+            if beat is not None:
+                beat()
         if cache is not None and pos is None:
             cache["index"].fill_(step + tokens.shape[1])
         x = self.ln_f(x)

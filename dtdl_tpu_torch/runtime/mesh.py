@@ -19,9 +19,10 @@ mesh (the 4D engine's ``('data', 'seq', 'pipe', 'model')``);
 ``local_mesh()`` is this process's own device, one replica;
 ``sub_mesh(ranks)`` a data axis over some of the world's processes;
 ``hybrid_mesh`` leads with a ``dcn`` axis over launcher hosts or
-synthetic slices.  ``replicated`` and ``batch_sharded`` place a host
-array: each returns this process's part of it as a tensor.
-``shrink_mesh`` (elastic shrink to survivors) is not ported.
+synthetic slices; ``shrink_mesh`` keeps the survivors' positions along
+one axis after peers are lost, its groups made by the survivors alone.
+``replicated`` and ``batch_sharded`` place a host array: each returns
+this process's part of it as a tensor.
 """
 
 from __future__ import annotations
@@ -245,10 +246,77 @@ def sub_mesh(ranks, axis: str = DATA_AXIS) -> Mesh | None:
     return Mesh(ranks, (axis,), group if len(ranks) > 1 else None)
 
 
-def shrink_mesh(*args, **kwargs):
-    raise NotImplementedError(
-        "shrink_mesh (shrink-to-survivors elastic training) is ROADMAP "
-        "queue A13b (resilience)")
+class ShrinkMeshError(RuntimeError):
+    """The survivors could not form their process group: the world's
+    rendezvous store is gone (it lives in process 0, the coordinator
+    address's owner), so no group can be made without a new world."""
+
+
+# survivor groups by their world ranks: torch names a group made with
+# local synchronization after its ranks, so each set is made once
+_SURVIVOR_GROUPS: dict = {}
+
+
+def _survivor_group(ranks: tuple):
+    """A process group over ``ranks`` that only its members make
+    (``use_local_synchronization``): a lost peer never has to join."""
+    if ranks not in _SURVIVOR_GROUPS:
+        _SURVIVOR_GROUPS[ranks] = dist.new_group(
+            list(ranks), use_local_synchronization=True)
+    return _SURVIVOR_GROUPS[ranks]
+
+
+def shrink_mesh(mesh: Mesh, survivors, axis: str = DATA_AXIS) -> Mesh | None:
+    """``mesh`` keeping only the ``survivors`` coordinates along ``axis``:
+    the process-group half of shrink-to-survivors elastic training.  The
+    new mesh's ``axis`` spans exactly the surviving positions, every
+    other axis keeps its extent, and its collectives run in groups that
+    hold no lost peer.
+
+    ``survivors`` are positions along ``axis`` (as in JAX), not ranks.
+    Only the surviving processes call this: ``dist.new_group`` is
+    collective over the whole world, and a dead peer cannot join it, so
+    every group here is made with local synchronization (by its members
+    alone) over the world's rendezvous store.  A process outside the
+    survivors gets ``None``; when the store's owner (process 0) is among
+    the lost, the construction fails fast and raises
+    :class:`ShrinkMeshError` by name."""
+    names = mesh.axis_names
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r} (axes: {names})")
+    ax = names.index(axis)
+    extent = mesh.dims[ax]
+    surv = sorted(set(int(s) for s in survivors))
+    if not surv:
+        raise ValueError("shrink_mesh needs at least one survivor")
+    bad = [s for s in surv if not 0 <= s < extent]
+    if bad:
+        raise ValueError(f"survivor position(s) {bad} outside axis "
+                         f"{axis!r} of extent {extent}")
+    grid = np.take(np.asarray(mesh.ranks).reshape(mesh.dims), surv, axis=ax)
+    ranks = tuple(int(r) for r in grid.reshape(-1))
+    dims = tuple(grid.shape)
+    if mesh.group is None or not dist.is_initialized():
+        return Mesh(ranks, names, None, dims)
+    me = process_index()
+    if me not in ranks:
+        return None
+    try:
+        group = _survivor_group(ranks) if len(ranks) > 1 else None
+        groups = {}
+        live = [i for i, d in enumerate(dims) if d > 1]
+        small = Mesh(ranks, names, None, dims)
+        for n in range(1, len(live)):
+            for sub in itertools.combinations(live, n):
+                key = frozenset(names[i] for i in sub)
+                groups[key] = _survivor_group(small.line(tuple(key), me))
+    except RuntimeError as e:   # c10d DistNetworkError and kin
+        raise ShrinkMeshError(
+            f"the survivors {list(ranks)} could not form their process "
+            f"group ({type(e).__name__}: {e}); the world's rendezvous "
+            f"store lives in process 0 — if it was lost, start a new "
+            f"world") from e
+    return Mesh(ranks, names, group, dims, groups)
 
 
 def replicated(mesh: Mesh, array, device=None):

@@ -85,6 +85,7 @@ from collections import deque
 from typing import Optional, Sequence
 
 from dtdl_tpu_torch.device import resolve_device
+from dtdl_tpu_torch.models.transformer import set_block_beat
 from dtdl_tpu_torch.obs.hist import LogHistogram
 from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.obs.slo import SLO, SLOEvaluator
@@ -297,6 +298,9 @@ class Replica:
         if self.device.type == "cuda":
             import torch
             torch.cuda.set_device(self.device)
+        # a beat at each layer too: an eager prefill is many launches,
+        # which other replicas' threads slow by holding the GIL
+        set_block_beat(self._beat)
         while True:
             with self._cv:
                 while (gen == self._gen and not self._inbox

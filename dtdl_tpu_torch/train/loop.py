@@ -24,9 +24,16 @@ of every process's loader exactly once.
 into the boundary reports, at JAX's points; all host-side, so the
 one-wait-per-window contract holds.
 
+``guard`` (a :class:`~dtdl_tpu_torch.resil.guard.StepGuard`) must be
+the instance folded into ``train_step``: the step keeps bad updates out
+of the state on the device, and this loop feeds every drained per-step
+dict to ``guard.observe``, at the boundaries it already waits at, so the
+guard adds no wait.  The ``rollback`` policy needs a checkpointer and is
+a Trainer feature; from this loop its ``GuardRollback`` propagates.
+
 Not ported yet, and refused by name: ``unroll > 1`` (JAX runs k steps as
 one ``lax.scan`` program; in PyTorch that meaning comes with CUDA-graph
-capture, ROADMAP queue A5) and ``guard`` (queue A13b).
+capture, ROADMAP queue A5).
 """
 
 from __future__ import annotations
@@ -42,16 +49,6 @@ from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import check_strategy
 from dtdl_tpu_torch.utils.profiling import maybe_trace, step_annotation
 from dtdl_tpu_torch.utils.timing import StepTimer
-
-
-def _refuse(unroll: int = 1, guard=None) -> None:
-    if unroll > 1:
-        raise NotImplementedError(
-            "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
-            "(CUDA-graph capture)")
-    if guard is not None:
-        raise NotImplementedError("guard is ROADMAP queue A13b "
-                                  "(resilience)")
 
 
 def _prefetch(iterator, depth: int):
@@ -84,7 +81,10 @@ def train_epoch(train_step, state, loader, strategy=None,
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     strategy = check_strategy(strategy)
-    _refuse(unroll, guard)
+    if unroll > 1:
+        raise NotImplementedError(
+            "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
+            "(CUDA-graph capture)")
     obs = observer or NULL_OBSERVER
     timer = timer or StepTimer(blocking=sync_every_step)
     timer.reset_epoch()
@@ -96,7 +96,7 @@ def train_epoch(train_step, state, loader, strategy=None,
     with maybe_trace(profile_dir):
         state = _run_epoch(train_step, state, it, reporter, epoch,
                            log_interval, timer, sync_every_step, lag, acc,
-                           steps_per_epoch, obs)
+                           steps_per_epoch, obs, guard)
     if reporter is not None:
         reporter.report({
             "epoch": epoch, "split": "train_epoch", **acc.means(),
@@ -107,10 +107,16 @@ def train_epoch(train_step, state, loader, strategy=None,
 
 
 def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
-               sync_every_step, lag, acc, steps_per_epoch, obs):
+               sync_every_step, lag, acc, steps_per_epoch, obs, guard):
     """The epoch's steps (the body of :func:`train_epoch`); returns the
     state."""
     step_fn = obs.watch(train_step, "train_step")
+
+    def absorb(vals):
+        if guard is not None:
+            guard.observe(vals)
+        acc.add(vals)
+
     if sync_every_step:
         for i, batch in enumerate(it):
             with step_annotation(i), obs.span("dispatch", step=i):
@@ -119,7 +125,7 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
             # blocking mode: every step is its own settled window
             goodput = obs.window(1, timer.last_step_s)
             vals = {k: float(v) for k, v in metrics.items()}
-            acc.add(vals)
+            absorb(vals)
             if reporter is not None and (i % log_interval) == 0:
                 reporter.report({
                     "epoch": epoch, "step": i,
@@ -144,7 +150,7 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
         timer.step()
         popped = queue.push(metrics)
         for vals in popped:
-            acc.add(vals)
+            absorb(vals)
         if popped:
             latest = popped[-1]
         if reporter is not None and step0 >= next_log:
@@ -153,7 +159,7 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
             with obs.span("drain", steps=step0 + 1 - window_start):
                 drained = queue.drain()
             for vals in drained:
-                acc.add(vals)
+                absorb(vals)
             if drained:
                 latest = drained[-1]
             timer.sync()
@@ -170,7 +176,7 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
         step0 += 1
     with obs.span("drain", steps=step0 - window_start):
         for vals in queue.drain():
-            acc.add(vals)
+            absorb(vals)
     timer.sync()
     if step0 > window_start:
         obs.window(step0 - window_start,

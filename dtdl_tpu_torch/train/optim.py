@@ -51,7 +51,8 @@ param groups just before each ``step()``; the count is the group's
 ``"count"`` entry, which a snapshot saves and a restore sets.
 
 The optimizer state lives beside the parameters, on their device and in
-their dtype (f32 master weights keep f32 moments).
+their dtype (f32 master weights keep f32 moments); on the card Adam and
+AdamW are built ``capturable``, so their step counters live there too.
 """
 
 from __future__ import annotations
@@ -82,18 +83,33 @@ def _build(name: str, ctor, learning_rate, **hp) -> Transform:
         ctor(p, lr=learning_rate(0), **hp), learning_rate))
 
 
+def _capturable(ctor):
+    """``ctor`` with ``capturable=True`` for parameters on the card: the
+    step counters then live on the device beside the moments, so a step
+    guard can keep a suppressed update's count without a wait
+    (:mod:`dtdl_tpu_torch.resil.guard`).  Guarded and unguarded steps
+    build the same optimizer, so they stay one function."""
+    def make(params, **hp):
+        tensors = [t for p in params
+                   for t in (p["params"] if isinstance(p, dict) else [p])]
+        return ctor(params, capturable=any(t.is_cuda for t in tensors),
+                    **hp)
+    return make
+
+
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4) -> Transform:
     hp = dict(lr=learning_rate, betas=(b1, b2), eps=eps,
               weight_decay=weight_decay)
-    return Transform("adamw", lambda p: torch.optim.AdamW(p, **hp))
+    return Transform("adamw",
+                     lambda p: _capturable(torch.optim.AdamW)(p, **hp))
 
 
 def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Transform:
     """``learning_rate`` a float or a schedule (count -> lr)."""
-    return _build("adam", torch.optim.Adam, learning_rate, betas=(b1, b2),
-                  eps=eps, weight_decay=0.0)
+    return _build("adam", _capturable(torch.optim.Adam), learning_rate,
+                  betas=(b1, b2), eps=eps, weight_decay=0.0)
 
 
 def sgd(learning_rate, momentum: float | None = None,

@@ -13,8 +13,6 @@ shape.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from dtdl_tpu_torch.bridge import (_classifier_leaves, _flax_layout, _nest,
@@ -25,11 +23,42 @@ from dtdl_tpu_torch.train.optim import (MultiSteps, OwnOptimizer,
                                          Transform)
 
 
-@dataclass
 class TrainState:
-    step: int
-    model: torch.nn.Module           # the params
-    optimizer: torch.optim.Optimizer  # the opt_state
+    """``step`` counts the updates applied: the updates dispatched less
+    those a step guard suppressed (:attr:`skipped`, a device count the
+    guard adds its flags to, so the step never waits for the card; reading
+    ``step`` under a guard settles it).  Setting ``step`` resets both."""
+
+    def __init__(self, step: int, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer):
+        self.model = model                # the params
+        self.optimizer = optimizer        # the opt_state
+        self.step = step
+
+    def __repr__(self) -> str:
+        return (f"TrainState(step={self._dispatched}"
+                f"{'' if self.skipped is None else ' - skipped'}, "
+                f"model={type(self.model).__name__}, "
+                f"optimizer={type(self.optimizer).__name__})")
+
+    @property
+    def step(self) -> int:
+        if self.skipped is None:
+            return self._dispatched
+        return self._dispatched - int(self.skipped)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._dispatched = int(value)
+        self.skipped = None
+
+    def count_skipped(self, bad: torch.Tensor) -> None:
+        """Add a guard's 0-d ``bad`` flag to the device count of
+        suppressed updates."""
+        if self.skipped is None:
+            self.skipped = torch.zeros((), dtype=torch.int64,
+                                       device=bad.device)
+        self.skipped.add_(bad.to(torch.int64))
 
     @property
     def batch_stats(self) -> dict | None:
@@ -43,7 +72,7 @@ class TrainState:
         (``.grad``), and step + 1: in place, where JAX's
         ``apply_gradients`` returns a new state."""
         self.optimizer.step()
-        self.step += 1
+        self._dispatched += 1
         return self
 
 

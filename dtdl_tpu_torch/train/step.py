@@ -26,7 +26,15 @@ with the JAX step's semantics: the gradients are the mean of the
 per-replica gradients (``grad_sync``, before the update); BatchNorm
 normalizes by the replica's own rows and its new running statistics are
 mean-synced (``stats_sync``); train metrics are mean-synced, eval sums
-sum-synced.  ``guard`` is ROADMAP queue A13b (resilience).
+sum-synced.
+
+``guard`` (a :class:`~dtdl_tpu_torch.resil.guard.StepGuard`) folds the
+anomaly check into the train steps: the state's mutable tensors are
+copied before the forward, the flag is computed from the metric-synced
+loss and the post-``grad_sync`` gradients, and after the update every
+tensor is ``where(bad, copy, live)``; ``bad_step`` and ``grad_norm`` ride
+the metrics.  No value is read on the host, and with no fault the step is
+bitwise the unguarded one.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from dtdl_tpu_torch.bridge import batch_stats_view, flatten
 from dtdl_tpu_torch.device import upload
 from dtdl_tpu_torch.ops.cross_entropy import (accuracy, chunked_lm_loss,
                                               softmax_cross_entropy)
-from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
+from dtdl_tpu_torch.parallel.strategy import check_strategy
 from dtdl_tpu_torch.train.state import TrainState
 
 
@@ -51,12 +59,20 @@ def _on(x, device, dtype=None):
     return upload(x, device, dtype)
 
 
-def _strategy(strategy, guard=None) -> Strategy:
-    if guard is not None:
-        raise NotImplementedError(
-            "the step guard (resil StepGuard) is ROADMAP queue A13b "
-            "(resilience)")
-    return check_strategy(strategy)
+def _apply(state: TrainState, metrics: dict, guard=None, saved=None):
+    """The optimizer update from the gradients the parameters hold;
+    returns the metrics.  Under ``guard`` the flag comes from the synced
+    ``metrics["loss"]`` and the (synced) gradients, and the update is
+    kept or dropped on the device (``guard.select``)."""
+    if guard is None:
+        state.apply_gradients()
+        return metrics
+    grads = [p.grad for g in state.optimizer.param_groups
+             for p in g["params"] if p.grad is not None]
+    bad, gnorm = guard.check(metrics["loss"], grads)
+    state.apply_gradients()
+    guard.select(state, saved, bad)
+    return {**metrics, "bad_step": bad.to(torch.float32), "grad_norm": gnorm}
 
 
 def _grads(model) -> list:
@@ -95,10 +111,11 @@ def make_train_step(strategy=None,
     or tensors; they are put on the model's device).  Train-mode forward
     (BatchNorm statistics updated), ``loss_fn`` (softmax cross entropy),
     backward, optimizer update; metrics {'loss', 'accuracy'} as 0-d
-    device tensors.  ``seed`` feeds dropout in the JAX step, and no
-    classifier has dropout."""
+    device tensors (with ``guard``, also {'bad_step', 'grad_norm'}).
+    ``seed`` feeds dropout in the JAX step, and no classifier has
+    dropout."""
     del seed
-    strategy = _strategy(strategy, guard)
+    strategy = check_strategy(strategy)
 
     def step(state: TrainState, batch):
         strategy.bind(state)
@@ -107,6 +124,7 @@ def make_train_step(strategy=None,
         images = _on(batch["image"], dev)
         labels = _on(batch["label"], dev, torch.long)
         model.train()
+        saved = guard.begin(state, _stats(model)) if guard else None
         state.optimizer.zero_grad(set_to_none=True)
         logits = model(images)
         loss = loss_fn(logits, labels)
@@ -115,12 +133,11 @@ def make_train_step(strategy=None,
             strategy.grad_sync(_grads(model))
             with torch.no_grad():
                 strategy.stats_sync(_stats(model))
-        state.apply_gradients()
         with torch.no_grad():
             acc = accuracy(logits, labels)
             metrics = strategy.metric_sync({"loss": loss.detach(),
                                             "accuracy": acc})
-        return state, metrics
+        return state, _apply(state, metrics, guard, saved)
 
     return step
 
@@ -133,7 +150,7 @@ def make_eval_step(strategy=None,
     ``batch["mask"]`` 1 (all rows without a mask), so a padded ragged
     tail counts each real example once.  Under :class:`DataParallel` the
     sums are sum-synced over the replicas."""
-    strategy = _strategy(strategy)
+    strategy = check_strategy(strategy)
 
     def evaluate(state: TrainState, batch):
         strategy.bind(state)
@@ -159,7 +176,7 @@ def make_predict_step(strategy=None, probabilities: bool = False):
     their softmax with ``probabilities=True``; eval mode.  Under
     :class:`DataParallel` each process predicts its own rows (the JAX
     outputs stay sharded on the data axis, aligned with the batch)."""
-    strategy = _strategy(strategy)
+    strategy = check_strategy(strategy)
 
     def predict(state: TrainState, batch):
         strategy.bind(state)
@@ -192,10 +209,12 @@ def make_lm_train_step(strategy=None, seed: int = 0,
     their mean over the MoE layers, reported as the ``moe_aux_loss``
     metric (a weight of 0 adds nothing and still reports it).
 
-    ``seed`` feeds dropout in the JAX step, and the LM has no dropout.
+    ``guard`` folds the anomaly check into the step, as in
+    :func:`make_train_step`.  ``seed`` feeds dropout in the JAX step, and
+    the LM has no dropout.
     """
     del seed
-    strategy = _strategy(strategy, guard)
+    strategy = check_strategy(strategy)
 
     def step(state: TrainState, batch):
         strategy.bind(state)
@@ -209,6 +228,7 @@ def make_lm_train_step(strategy=None, seed: int = 0,
         total = strategy.sum_sync(mask.sum())
         scale = strategy.num_replicas / total.clamp(min=1.0)
 
+        saved = guard.begin(state) if guard else None
         state.optimizer.zero_grad(set_to_none=True)
         if vocab_chunk_size:
             h, aux = model(inputs, return_hidden=True, return_aux=True)
@@ -234,10 +254,9 @@ def make_lm_train_step(strategy=None, seed: int = 0,
         loss.backward()
         if strategy.mesh is not None:
             strategy.grad_sync(_grads(model))
-        state.apply_gradients()
         with torch.no_grad():
             metrics = strategy.metric_sync(
                 {"loss": loss.detach(), "accuracy": acc, **metrics})
-        return state, metrics
+        return state, _apply(state, metrics, guard, saved)
 
     return step

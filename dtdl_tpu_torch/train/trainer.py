@@ -25,8 +25,16 @@ iteration boundary after SIGTERM and returns with ``preempted`` set.
 ``drain`` spans and each drained window's goodput fields to the
 observation; ``exporter=`` (a
 :class:`~dtdl_tpu_torch.obs.export.MetricsExporter`) is sampled at each
-drain and once, forced, at the end of :meth:`Trainer.run`.  ``guard=``
-and ``watchdog=`` are ROADMAP queue A13b.
+drain and once, forced, at the end of :meth:`Trainer.run`.
+
+``guard=`` (a :class:`~dtdl_tpu_torch.resil.guard.StepGuard`, the
+instance folded into ``train_step``) is fed every drained step; under
+its ``rollback`` policy the Trainer restores the last good snapshot and
+continues mid-epoch (``trainer_rollback``), and with no snapshot to
+restore it escalates by name.  ``watchdog=`` (a
+:class:`~dtdl_tpu_torch.resil.elastic.StepWatchdog`) bounds the drain's
+wait for the card: a peer dead inside a collective surfaces as a named
+``PeerLostError`` instead of hanging this host.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from dtdl_tpu_torch.metrics.report import (Accumulator, JsonlSink, Reporter,
                                            StdoutSink)
 from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.parallel.strategy import Strategy, check_strategy
+from dtdl_tpu_torch.resil.guard import GuardEscalationError, GuardRollback
 from dtdl_tpu_torch.runtime.bootstrap import is_leader
 from dtdl_tpu_torch.train.loop import _prefetch
 from dtdl_tpu_torch.train.state import params_tree
@@ -96,14 +105,14 @@ class Trainer:
                  stop_trigger=(20, "epoch"), out: str = "./result",
                  prefetch: int = 2, metrics_lag: int = 20, observer=None,
                  guard=None, preempt=None, exporter=None, watchdog=None):
-        for name, val in (("guard", guard), ("watchdog", watchdog)):
-            if val is not None:
-                raise NotImplementedError(f"Trainer({name}=) is ROADMAP "
-                                          f"queue A13b (resilience)")
         self.state = state
         self.train_step = train_step
         # the obs facade; the default NULL_OBSERVER no-ops every hook
         self.observer = observer or NULL_OBSERVER
+        # the StepGuard folded into train_step: fed every drained step
+        self.guard = guard
+        # a StepWatchdog bounding the drain's wait for the card
+        self.watchdog = watchdog
         # sampled at the drain, the one boundary this loop already owns
         self.exporter = exporter
         # a PreemptionWatcher polled at iteration boundaries: on SIGTERM
@@ -152,6 +161,8 @@ class Trainer:
 
     def _absorb(self, drained) -> None:
         for vals in drained:
+            if self.guard is not None:
+                self.guard.observe(vals)
             self.observation = vals
             self.accumulator.add(vals)
 
@@ -160,7 +171,9 @@ class Trainer:
         dispatch order (the floats a sync-every-iteration loop would
         produce)."""
         with self.observer.span("drain"):
-            drained = self.metrics_queue.drain()
+            drained = (self.watchdog.run(self.metrics_queue.drain)
+                       if self.watchdog is not None
+                       else self.metrics_queue.drain())
         self._absorb(drained)
         if drained:
             self.timer.sync()
@@ -182,8 +195,14 @@ class Trainer:
         step_fn = self.observer.watch(self.train_step, "trainer.train_step")
         try:
             while not self._done:
-                if self._run_epoch(step_fn):
-                    return
+                try:
+                    if self._run_epoch(step_fn):
+                        return
+                except GuardRollback:
+                    # the guard's rollback policy: restore the last good
+                    # snapshot and continue from there (mid-epoch exact,
+                    # through the resume path)
+                    self._rollback()
         finally:
             # snapshots save asynchronously; make them durable before the
             # process moves on (a fresh Trainer may resume immediately)
@@ -192,6 +211,20 @@ class Trainer:
                 # the forced final point closes the window-delta
                 # telescope even on an exception path
                 self.exporter.sample(force=True)
+
+    def _rollback(self) -> None:
+        # in-flight metrics belong to the abandoned timeline: settle and
+        # discard them (the queued work is harmless, the guard's device
+        # select already kept any bad update out of the state)
+        self.metrics_queue.drain()
+        self.accumulator.reset()
+        self.observer.event("trainer_rollback", iteration=self.iteration)
+        self.ckpt.wait_until_finished()
+        if not self.resume():
+            raise GuardEscalationError(
+                f"guard requested rollback-to-last-good but no snapshot "
+                f"exists in {self.out} — add the snapshot extension (or "
+                f"use policy='skip')")
 
     def _check_preempt(self) -> bool:
         """SIGTERM received: snapshot at this (consistent) boundary and

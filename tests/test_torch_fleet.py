@@ -252,6 +252,40 @@ def test_stall_trips_the_watchdog(engine, oracle):
     assert s["fleet_accounting_ok"]
 
 
+def test_block_beat_once_a_layer_of_each_cached_forward(engine, oracle):
+    """A fleet worker's heartbeat rides every layer of its serving
+    forwards (a long eager prefill keeps beating): the beat set on a
+    thread runs once a block of each cached forward on that thread, never
+    on a training (uncached) forward nor on another thread."""
+    import threading
+    from dtdl_tpu_torch.models.transformer import set_block_beat
+    prompts, want = oracle
+    beats, other = [], []
+
+    def serve():
+        Scheduler(engine, harvest_lag=1, device="cpu").run(
+            [Request(list(p), N_NEW) for p in prompts[:2]])
+
+    set_block_beat(lambda: beats.append(1))
+    try:
+        reqs = [Request(list(p), N_NEW) for p in prompts]
+        Scheduler(engine, harvest_lag=1, device="cpu").run(reqs)
+        served = len(beats)
+        engine.model(torch.zeros(1, 8, dtype=torch.long))
+        t = threading.Thread(target=serve)
+        t.start()
+        t.join(60)
+        other.append(len(beats))
+    finally:
+        set_block_beat(None)
+    _identical(reqs, want)
+    layers = CFG["n_layers"]
+    # six prefills and the decode steps, each a cached forward
+    assert served >= layers * (len(prompts) + N_NEW - 1)
+    assert served % layers == 0
+    assert other == [served]
+
+
 def test_retry_budget_exhausted_is_a_named_failure(engine, oracle):
     """Every engine dead: requests burn their budget and end ``failed:
     retry budget exhausted``; nothing is lost."""

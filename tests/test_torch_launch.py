@@ -205,8 +205,10 @@ def test_mesh_and_strategy_surface():
     for call in (AutoSharded, lambda: choose_strategy("pjit")):
         s = call()
         assert isinstance(s, AutoSharded) and s.num_replicas == 1
-    with pytest.raises(NotImplementedError, match="A13"):
-        shrink_mesh(mesh, [0])
+    # shrink_mesh is served (A13b): one process keeps its position
+    assert shrink_mesh(mesh, [0]).ranks == mesh.ranks
+    with pytest.raises(ValueError, match="outside axis"):
+        shrink_mesh(mesh, [1])
     assert isinstance(choose_strategy("auto"), SingleDevice)
     for name in ("dp", "ddp"):
         s = choose_strategy(name)
@@ -277,10 +279,22 @@ def test_launcher_restarts_and_refusals(tmp_path):
     marker.unlink()
     assert local.launch_local([child], nproc=2, port=free_port(),
                               timeout=60, max_restarts=1) == 0
-    for kw in ({"serve_store": True}, {"store_port": 1},
-               {"store_wal_dir": "w"}):
-        with pytest.raises(NotImplementedError, match="A13"):
-            local.launch_local([child], **kw)
+    # the store is served (A13b): every child gets its address, and a
+    # WAL directory without a served store is refused by name
+    addr = script(tmp_path, """
+        import os
+        from dtdl_tpu_torch.parallel.tcpstore import connect
+        s = connect()
+        s.add("ranks")
+        print("store", os.environ["DTDL_STORE_ADDR"], flush=True)
+    """)
+    port = free_port()
+    assert local.launch_local([addr], nproc=2, port=port, timeout=60,
+                              env_extra=ENV, serve_store=True,
+                              store_wal_dir=str(tmp_path / "wal")) == 0
+    assert (tmp_path / "wal" / "snapshot.pkl").exists()
+    with pytest.raises(ValueError, match="serve_store"):
+        local.launch_local([child], store_wal_dir="w")
     with pytest.raises(SystemExit, match="no script"):
         local.main(["--nproc", "2", "--"])
     with pytest.raises(SystemExit, match="unknown launcher flag"):

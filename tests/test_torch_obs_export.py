@@ -13,8 +13,8 @@ against the JAX package's, on the CPU.
   objectives.
 * **The catalog audit**: every literal name and f-string family the port
   passes to ``span``/``event``/``instant``/``flow`` lies in the catalogs
-  (JAX's sets); the catalog names the port does not emit are exactly the
-  resilience plane's, which ROADMAP A13b ports.
+  (JAX's sets), and the port emits every catalogued name, the
+  resilience plane's (guard, rollback, elastic, store) included.
 * **Timelines**: a standalone scheduler's request timelines and flow
   chains equal the JAX scheduler's in structure (names in order, flow
   phases, correlation args) on the same script, through
@@ -280,21 +280,11 @@ def test_slo_declarations_and_validation_equal_jax():
 # the catalog audit
 # ---------------------------------------------------------------------------
 
-# the resilience plane's names: catalogued, emitted once A13b ports
-# resil/guard.py, train/trainer.py's rollback, resil/elastic.py and
-# parallel/tcpstore.py
-A13B_NAMES = {"guard_bad_step", "guard_rollback", "trainer_rollback",
-              "elastic_peer_lost", "elastic_rendezvous", "elastic_restore",
-              "elastic_snapshot", "elastic_stale_fenced",
-              "elastic_step_timeout", "store_reconnect", "store_torn_frame",
-              "store_epoch_refused", "store_wal_recovered"}
-
-
 def test_catalog_audit_of_the_port_tree():
     """Every literal name and f-string family passed to .span( / .event( /
     .instant( / .flow( anywhere in dtdl_tpu_torch/ is catalogued (flows
-    carry the one chain name "req"); the catalog names the port does not
-    emit are exactly the A13b resilience plane's."""
+    carry the one chain name "req"); the port emits every catalogued
+    name, the resilience plane's included."""
     pkg = pathlib.Path(dtdl_tpu_torch.__file__).parent
     pat = re.compile(r"\.(span|event|instant|flow)\(\s*(f?)\"([^\"]+)\"")
     found = {"span": set(), "event": set(), "instant": set(),
@@ -316,8 +306,7 @@ def test_catalog_audit_of_the_port_tree():
         f"never emitted: {sorted(SPAN_CATALOG - found['span'])}")
     assert events <= EVENT_CATALOG, \
         f"uncatalogued events: {sorted(events - EVENT_CATALOG)}"
-    assert EVENT_CATALOG - events == A13B_NAMES, \
-        sorted(EVENT_CATALOG - events)
+    assert EVENT_CATALOG == events, sorted(EVENT_CATALOG - events)
     assert found["flow"] == {"req"}
 
 

@@ -226,8 +226,13 @@ def test_unported_options_raise_by_name(monkeypatch):
         _, metrics = make_lm_train_step(strategy=strategy)(state, toks)
         losses.append(float(metrics["loss"]))
     assert losses[0] == losses[1]
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_lm_train_step(guard=object())
+    # the step guard is served (A13b): its flag and norm ride the metrics
+    from dtdl_tpu_torch.resil import StepGuard
+    gm = transformer_lm("tiny", device="cpu", dtype=torch.float32)
+    _, metrics = make_lm_train_step(guard=StepGuard())(
+        init_state(gm, 0, sgd(0.1), device="cpu"), toks)
+    assert float(metrics["bad_step"]) == 0.0
+    assert np.isfinite(float(metrics["grad_norm"]))
     tm = transformer_lm("tiny", device="cpu", dtype=torch.float32)
     with pytest.raises(ValueError, match="runs on"):
         init_state(tm, 0, sgd(0.1), device="meta")

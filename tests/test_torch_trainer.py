@@ -23,7 +23,7 @@ and its snapshot/resume.
   uninterrupted run, and only rank 0 writes (the ranks are spawned
   through ``dtdl_tpu_torch.launch.local``, running this file as
   ``__main__``; the worker imports no JAX).
-* **Refusals**: ``guard=`` and ``watchdog=`` name ROADMAP A13b;
+* **Resilience**: ``guard=`` and ``watchdog=`` run a clean epoch;
   ``observer=`` and ``exporter=`` are served (spans, goodput windows,
   one exporter point per drain and a forced final one); ``dump_graph``
   writes the module tree and never runs a step.
@@ -317,9 +317,15 @@ def test_preemption_snapshot_then_exact_resume(tmp_path):
 
 
 def test_refusals_dump_graph_and_progress_summary(tmp_path, capsys):
-    for name in ("guard", "watchdog"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            port_trainer(tmp_path / name, (1, "epoch"), **{name: object()})
+    # guard= and watchdog= are served (A13b): a clean epoch under both
+    from dtdl_tpu_torch.resil import StepGuard, StepWatchdog
+    guard, wd = StepGuard("rollback"), StepWatchdog(30.0)
+    tg = port_trainer(tmp_path / "guard", (1, "epoch"), guard=guard,
+                      watchdog=wd)
+    tg.train_step = make_train_step(guard=guard)
+    tg.run()
+    assert guard.n_steps == PER_EPOCH and guard.n_bad == 0
+    assert wd.n_timeouts == 0 and tg.epoch == 1
     obs = Observer(trace=True, sentinel=None,
                    goodput=GoodputMeter(samples_per_step=BATCH))
     points = []
