@@ -2237,6 +2237,7 @@ CLASSIFY_INPUT = {"pyramidnet": ((32, 32, 3), 10),
 # PyramidNet-110 bf16 at batch 64 over the JAX package's synthetic CIFAR-10
 # through DataLoader + cifar10_train_transform, train_epoch and evaluate
 LOOP_BATCH = 64
+LOOP_WORKERS = 4                        # the native loader's threads
 E2E_STEPS, E2E_TEST = 40, 1000          # 1000 = 15 x 64 + a ragged 40
 LEARN_EPOCHS, LEARN_STEPS = 3, 30       # 90 steps
 # learnability: the reference's SGD + StepLR (examples/common.py:sgd_steplr:
@@ -2359,21 +2360,29 @@ def classify_cell(torch, seed, name, batch, align=1):
     return out
 
 
-def loop_data(n_train, n_test):
+def loop_data(n_train, n_test, workers=0):
     """The JAX package's synthetic CIFAR-10 (its own seed), train split
-    through DataLoader + cifar10_train_transform, test split normalized,
-    batch LOOP_BATCH, on the card."""
+    through DataLoader + cifar10_train_transform (or, with ``workers``,
+    the native loader's C++ augmentation on that many threads, as
+    ``--num-workers`` takes it), test split normalized, batch LOOP_BATCH,
+    on the card."""
     from dtdl_tpu_torch.data.datasets import CIFAR10_MEAN, CIFAR10_STD
     from dtdl_tpu_torch.data.loader import (DataLoader,
                                             cifar10_train_transform,
                                             normalize_transform)
+    from dtdl_tpu_torch.data.native_loader import NativeDataLoader
     from dtdl_tpu_torch.data.synthetic import synthetic_cifar10
     (xtr, ytr), (xte, yte) = synthetic_cifar10(n_train=n_train,
                                                n_test=n_test)
-    train = DataLoader({"image": xtr, "label": ytr}, LOOP_BATCH,
-                       transform=cifar10_train_transform(CIFAR10_MEAN,
-                                                         CIFAR10_STD),
-                       device=DEV)
+    if workers:
+        train = NativeDataLoader.or_python(
+            xtr, ytr, LOOP_BATCH, augment=True, mean=CIFAR10_MEAN,
+            std=CIFAR10_STD, n_threads=workers, device=DEV)
+    else:
+        train = DataLoader({"image": xtr, "label": ytr}, LOOP_BATCH,
+                           transform=cifar10_train_transform(CIFAR10_MEAN,
+                                                             CIFAR10_STD),
+                           device=DEV)
     val = DataLoader({"image": xte, "label": yte}, LOOP_BATCH, shuffle=False,
                      drop_last=False,
                      transform=normalize_transform(CIFAR10_MEAN, CIFAR10_STD),
@@ -2437,6 +2446,31 @@ def phase_classify(torch, seed):
     if not all(math.isfinite(v) for v in [*means.values(), *res.values()]):
         raise AssertionError(f"classify loop: non-finite metrics {means} "
                              f"{res}")
+    # the same loop at the same depth through the native loader
+    # (--num-workers 4): its C++ threads crop, flip and normalize
+    torch.backends.cudnn.benchmark = True
+    native, _ = loop_data(LOOP_BATCH * E2E_STEPS, LOOP_BATCH,
+                          workers=LOOP_WORKERS)
+    kind = type(native).__name__
+    state = init_state(model, seed, sgd(0.1, momentum=0.9,
+                                        weight_decay=1e-4), device=DEV)
+    sync(torch)
+    t0 = time.perf_counter()
+    state, nmeans = train_epoch(make_train_step(), state, native)
+    sync(torch)
+    t_native = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = False
+    log(f"classify loop native: train_epoch over {E2E_STEPS} batches "
+        f"through {kind} ({LOOP_WORKERS} threads, build/native) "
+        f"{t_native:.3f}s samples_per_s="
+        f"{LOOP_BATCH * E2E_STEPS / t_native:.2f} against the Python "
+        f"loader's {loop_sps:.2f} above; train means {nmeans}")
+    if kind != "NativeDataLoader" or not all(
+            math.isfinite(v) for v in nmeans.values()):
+        raise AssertionError(f"classify loop native: loader {kind} (the "
+                             f"native library did not build?), means "
+                             f"{nmeans}")
+    native.close()
     return cells
 
 
@@ -2708,6 +2742,61 @@ def launch(args, nproc, timeout, label, env=None):
     with open(os.path.join(logdir, f"{label}.log"), "w") as f:
         f.write(out)
     return proc.returncode, out, seconds
+
+
+def slurm_launch(args, ntasks, timeout, label, env=None):
+    """``args`` started as the tasks of a one-node SLURM step would start
+    them: one process a task, each with SLURM_PROCID, SLURM_NTASKS,
+    SLURM_JOB_NODELIST (localhost), SLURM_JOB_ID (one whose coordinator
+    port is free), SLURM_NTASKS_PER_NODE and SLURM_LOCALID set, through
+    ``python -m dtdl_tpu_torch.launch.slurm --``, which appends the
+    rendezvous flags.  (exit code, output with each line prefixed
+    ``[rank i]`` as the local launcher prefixes it, seconds); the whole
+    output goes to build/ddp/<label>.log, and a task still running at
+    ``timeout`` is killed."""
+    import socket
+    from dtdl_tpu_torch.launch.slurm import job_port
+    for job in range(os.getpid() % 4096, os.getpid() % 4096 + 4096):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", job_port({"SLURM_JOB_ID": str(job)})))
+            except OSError:
+                continue
+        break
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(ntasks):
+        task_env = {**os.environ, "PYTHONPATH": ROOT,
+                    "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1)
+                                               // ntasks)),
+                    "SLURM_PROCID": str(rank), "SLURM_NTASKS": str(ntasks),
+                    "SLURM_JOB_NODELIST": "localhost",
+                    "SLURM_JOB_ID": str(job),
+                    "SLURM_NTASKS_PER_NODE": str(ntasks),
+                    "SLURM_LOCALID": str(rank), **(env or {})}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dtdl_tpu_torch.launch.slurm", "--",
+             *args], cwd=ROOT, env=task_env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs, rcs = [], []
+    try:
+        for p in procs:
+            remaining = max(1.0, timeout - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=remaining)[0])
+            rcs.append(p.returncode)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    out = "".join(f"[rank {r}] {line}\n" for r, text in enumerate(outs)
+                  for line in text.splitlines())
+    logdir = os.path.join(ROOT, "build", "ddp")
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, f"{label}.log"), "w") as f:
+        f.write(out)
+    return next((rc for rc in rcs if rc), 0), out, seconds
 
 
 def rank_lines(out, key="ddp_result "):
@@ -3002,10 +3091,11 @@ def ddp_twin_check(torch, out, world, backend, like, secs, card):
 def phase_ddp(torch, seed, card):
     """(1) NCCL world 1, the base LM: DDP step bitwise the single-device
     step's, and their times, then the PyramidNet-110 DDP twin in the same
-    world; (2) two gloo ranks on the one card against the single-device
-    step on the global batch, the twin at world 2 in the same world, and
-    what NCCL says for two ranks on one card (an NCCL group inside that
-    world); (3) a launch in which one rank exits 3 returns 3."""
+    world; (2) two gloo ranks on the one card, started as the tasks of a
+    SLURM step (``slurm_launch``), against the single-device step on the
+    global batch, the twin at world 2 in the same world, and what NCCL
+    says for two ranks on one card (an NCCL group inside that world); (3)
+    a launch in which one rank exits 3 returns 3."""
     from dtdl_tpu_torch.bridge import state_dict_to_flax
     from dtdl_tpu_torch.launch.local import launch_local
     from dtdl_tpu_torch.models import pyramidnet
@@ -3043,9 +3133,10 @@ def phase_ddp(torch, seed, card):
         f"launch of {secs:.1f} s | {card}")
     ddp_twin_check(torch, out, 1, "nccl", like, secs, card)
 
-    # (2)
-    rc, out, secs = launch([me, "--ddp-worker", "gloo_pair", "--seed",
-                            str(seed)], 2, 600, "gloo_pair", env=offline)
+    # (2), its two ranks started as the tasks of a SLURM step
+    rc, out, secs = slurm_launch([me, "--ddp-worker", "gloo_pair", "--seed",
+                                  str(seed)], 2, 600, "gloo_pair",
+                                 env=offline)
     sub_s["gloo_pair+twin_world2+nccl_dup"] = round(secs, 1)
     r = launched_ok(rc, out, "gloo_pair", 2)
     for kind in ("lm", "mlp"):
@@ -3060,7 +3151,9 @@ def phase_ddp(torch, seed, card):
                                            "flash_bwd_dkv")):
         raise AssertionError(f"ddp gloo_pair: K1-K3 not launched: "
                              f"{lm['launches']}")
-    log(f"ddp gloo 2 ranks on one card f32: small LM {DDP_PAIR_BATCH}x"
+    log(f"ddp gloo 2 ranks on one card, started as SLURM tasks "
+        f"(SLURM_PROCID/NTASKS/JOB_NODELIST/JOB_ID, python -m "
+        f"dtdl_tpu_torch.launch.slurm --) f32: small LM {DDP_PAIR_BATCH}x"
         f"{DDP_PAIR_SEQ + 1} adamw({DDP_PAIR_LR}) {DDP_STEPS} steps: "
         f"{lm['past_atol']} of {lm['elements']} elements past "
         f"{DDP_PAIR_ATOL} of the single-device step, max {lm['max_err']:.3e}"
@@ -4346,19 +4439,176 @@ def gspmd_twin(seed, rank):
     return out
 
 
+def gspmd_lora(torch, seed, rank, mesh):
+    """(f) the tenant phase's rank-16 bank (4 rows, five adapters in two
+    waves) on the base engine (bf16, page 16, 8 slots) tensor-parallel
+    over 'model': each rank holds its heads' rows of the head leaves;
+    rank 0 also serves the traffic on the single-placement LoRA engine
+    and holds the TP tokens to it (near-tie rule, per tenant's merged
+    model)."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    from dtdl_tpu_torch.serve import InferenceEngine, merge_adapter
+    from dtdl_tpu_torch.serve.tenant import bank_nbytes
+    host = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                          device="cpu")
+    traffic = make_traffic(seed, host.cfg.vocab_size,
+                           new_tokens=GSPMD_NEW_TOKENS)
+    tenants, waves = tenant_waves(len(traffic))
+    # the tenant phase's calibrated adapters; save_weights is collective
+    # (the leader writes, every rank returns after the write), so every
+    # rank calibrates and the files are the leader's.  An adapter file is
+    # whole-heads whatever the TP size
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    adapters, _ = tenant_adapters(torch, model, seed, traffic[1][0][:512],
+                                  traffic[3][0][:512], "adapters_tp")
+    if rank != 0:
+        model = None
+    kw = dict(n_slots=8, page_size=16, device=DEV, lora_rank=TENANT_RANK,
+              lora_adapters=TENANT_ROWS)
+
+    def head_bytes(eng):
+        return sum(bank_nbytes(sub["attn"][n])
+                   for sub in eng.adapter_bank.bank.values()
+                   for n in ("q_b", "k_b", "v_b", "out_a"))
+    eng = InferenceEngine(host, mesh=mesh, rules="tp", **kw)
+    tenant_serve(torch, eng, traffic[:2], tenants, [[0, 1]], adapters)
+    sync(torch)
+    kernels.reset_launches()
+    reqs, _, wall = tenant_serve(torch, eng, traffic, tenants, waves,
+                                 adapters)
+    tenant_streams_ok("gspmd (f)", reqs)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    bank = eng.adapter_bank
+    r = {"k4": kernels.LAUNCHES["paged_attention"],
+         "n_layers": host.cfg.n_layers, "head_bytes": head_bytes(eng),
+         "bank_bytes": eng.compile_stats()["lora"]["bank_bytes"],
+         "loads": bank.n_loads, "evictions": bank.n_evictions,
+         "tokens_per_s": n_tok / wall,
+         "digest": tree_digest([x.tokens for x in reqs]),
+         "done": all(len(x.tokens) == GSPMD_NEW_TOKENS for x in reqs)}
+    del eng, bank
+    if rank == 0:
+        one = InferenceEngine(model, **kw)
+        tenant_serve(torch, one, traffic[:2], tenants, [[0, 1]], adapters)
+        single, _, wall1 = tenant_serve(torch, one, traffic, tenants, waves,
+                                        adapters)
+        tau = fleet_tau(torch, model, traffic[0][0])
+        parts = []
+        for tenant in (None,) + TENANT_NAMES:
+            idx = [i for i, t in enumerate(tenants) if t == tenant]
+            m = (model if tenant is None
+                 else merge_adapter(model, adapters[tenant][1]))
+            parts += near_tie_divergences(torch, m, [single[i] for i in idx],
+                                          [reqs[i] for i in idx], tau)
+            del m
+        r.update(single_head_bytes=head_bytes(one),
+                 single_tokens_per_s=n_tok / wall1, tau=tau,
+                 partings=parts, identical=len(reqs) - len(parts))
+        del one, model
+    torch.cuda.empty_cache()
+    return r
+
+
+def gspmd_handoff(torch, seed, rank, mesh):
+    """(g) the TP handoff on the base engine (bf16, page 16, 8 slots):
+    one prompt's whole-heads payload against this rank's pool pages, then
+    the traffic through a prefill_only Scheduler and a kv_inject
+    Scheduler over the TP engine against the same engine
+    undisaggregated."""
+    import numpy as np
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    from dtdl_tpu_torch.serve import InferenceEngine, Request, Scheduler
+    host = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                          device="cpu")
+    traffic = make_traffic(seed, host.cfg.vocab_size,
+                           new_tokens=GSPMD_NEW_TOKENS)
+    eng = InferenceEngine(host, n_slots=8, page_size=16, device=DEV,
+                          mesh=mesh, rules="tp")
+    prompt = traffic[0][0]
+    n_pg = -(-len(prompt) // eng.page_size)
+    ids = list(range(1, n_pg + 1))
+    row = np.zeros(eng.n_ptab, np.int32)
+    row[:n_pg] = ids
+    arena, _, _ = eng.prefill(eng.init_arena(), eng.init_last_tokens(), 0,
+                              prompt, page_row=row)
+    data = eng.extract_pages(arena, ids)
+    per = eng.model.kv_heads
+    c = mesh.axis_index("model")
+    heads, cut = set(), True
+    for path, pool in eng._pool_leaves(arena):
+        leaf = data
+        for k in path:
+            leaf = leaf[k]
+        heads.add(leaf.shape[1])
+        mine = eng._bits_view(pool)[1:n_pg + 1].cpu().numpy()
+        cut &= bool(np.array_equal(leaf[:, c * per:(c + 1) * per],
+                                   mine.view(leaf.dtype)))
+    del arena, data
+
+    def run(reqs, **sched_kw):
+        s = Scheduler(eng, harvest_lag=4, device=DEV, **sched_kw)
+        sync(torch)
+        t0 = time.perf_counter()
+        s.run(reqs)
+        sync(torch)
+        return s, time.perf_counter() - t0
+    run([Request(p, m) for p, m in traffic[:2]])          # warm-up
+    plain = [Request(p, m) for p, m in traffic]
+    run(plain)
+    kernels.reset_launches()
+    pre = [Request(p, m, prefill_only=True) for p, m in traffic]
+    ps, pre_s = run(pre)
+    k4_pre = kernels.LAUNCHES["paged_attention"]
+    dec = []
+    for r0 in pre:
+        r = Request(list(r0.prompt), r0.max_new_tokens,
+                    kv_inject=r0.kv_handoff)
+        r.tokens = [r0.kv_handoff["first_token"]]
+        dec.append(r)
+    ds, dec_s = run(dec)
+    k4_dec = kernels.LAUNCHES["paged_attention"] - k4_pre
+    sp, sd = ps.metrics.summary(), ds.metrics.summary()
+    out = {"heads": sorted(heads), "n_heads": host.cfg.n_heads,
+           "cut_bitwise": cut, "k4_prefill": k4_pre, "k4_decode": k4_dec,
+           "n_layers": host.cfg.n_layers,
+           "errors": [r.error for r in pre + dec if r.error],
+           "identical": sum(a.tokens == b.tokens for a, b in zip(plain, dec)),
+           "digest": tree_digest([r.tokens for r in dec]),
+           "handoff_s": {k: (s.get("kv_handoff_s_p50"),
+                             s.get("kv_handoff_s_max"),
+                             s.get("kv_handoff_pages"))
+                         for k, s in (("extract", sp), ("inject", sd))},
+           "prefill_s": pre_s, "decode_s": dec_s}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def gspmd_worker(torch, seed):
-    """Each of two gloo ranks on the one card: (a) TP serving, (b) the
-    sharded LM steps, (c) ep on base-moe8, (d) AutoSharded, (e) the twin;
-    rank 0 also runs the single-placement references and compares."""
+    """Each of two gloo ranks on the one card: (a) TP serving, (f) TP
+    LoRA, (g) the TP handoff, (b) the sharded LM steps, (c) ep on
+    base-moe8, (d) AutoSharded, (e) the twin; rank 0 also runs the
+    single-placement references and compares."""
     from dtdl_tpu_torch.data.synthetic import markov_tokens
     from dtdl_tpu_torch.models.transformer import transformer_lm
     from dtdl_tpu_torch.runtime import build_mesh, process_index
     rank = process_index()
     secs = {}
     t0 = time.perf_counter()
-    out = {"serve": gspmd_serve(torch, seed, rank,
-                                build_mesh((1, 2), ("data", "model")))}
+    tp = build_mesh((1, 2), ("data", "model"))
+    out = {"serve": gspmd_serve(torch, seed, rank, tp)}
     secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lora"] = gspmd_lora(torch, seed, rank, tp)
+    secs["f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["handoff"] = gspmd_handoff(torch, seed, rank, tp)
+    secs["g"] = time.perf_counter() - t0
     toks = list(markov_tokens(GSPMD_STEPS * TRAIN_BATCH, GSPMD_SEQ + 1,
                               32000, seed=seed + 3).reshape(
         GSPMD_STEPS, TRAIN_BATCH, GSPMD_SEQ + 1))
@@ -4404,7 +4654,11 @@ def phase_gspmd(torch, seed, card):
     K1-K3 against the single-device step; (c) ep on base-moe8; (d)
     AutoSharded's global-batch BatchNorm against the single-device step,
     DataParallel's per-replica one beside it; (e) the train_lm_gspmd
-    twin's main with --rules tp and --rules ep in that world."""
+    twin's main with --rules tp and --rules ep in that world; (f) the
+    tenant phase's LoRA bank on the TP engine against the
+    single-placement LoRA engine; (g) the TP handoff (whole-heads
+    payloads) through prefill_only and kv_inject Schedulers against the
+    TP engine undisaggregated."""
     t_phase = time.perf_counter()
     # rank 1 waits in its next collective while rank 0 runs the
     # references: the worker's gloo timeout is 600 s
@@ -4436,6 +4690,50 @@ def phase_gspmd(torch, seed, card):
             f"{x['tau']:.4e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fails.append(f"(a) {label}")
+    a = [r0["lora"], r1["lora"]]
+    x = a[0]
+    ok = (all(r["done"] and r["k4"] > 0 and r["k4"] % r["n_layers"] == 0
+              and r["evictions"] >= 2 for r in a)
+          and a[0]["digest"] == a[1]["digest"]
+          and all(2 * r["head_bytes"] == x["single_head_bytes"] for r in a))
+    log(f"gspmd (f) TP LoRA base bf16, page 16, 8 slots, rules tp mesh "
+        f"(data 1, model 2), two gloo ranks on the card, rank "
+        f"{TENANT_RANK} bank of {TENANT_ROWS} rows ({x['bank_bytes']} bytes "
+        f"whole), tenants [base, A-E] over the 16 requests in two waves: "
+        f"K4 launches per rank {[r['k4'] for r in a]}; head-leaf bank bytes "
+        f"per rank {[r['head_bytes'] for r in a]} vs the single engine's "
+        f"{x['single_head_bytes']}; bank loads/evictions per rank "
+        f"{[(r['loads'], r['evictions']) for r in a]}; tokens_per_s per "
+        f"rank {[round(r['tokens_per_s'], 2) for r in a]} vs single "
+        f"{x['single_tokens_per_s']:.2f}; ranks token-identical "
+        f"{a[0]['digest'] == a[1]['digest']}; tokens identical to the "
+        f"single LoRA engine {x['identical']}/16, near-tie partings "
+        f"(position, top-two gap) {x['partings']} (tau {x['tau']:.4e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append("(f)")
+    a = [r0["handoff"], r1["handoff"]]
+    x = a[0]
+    ok = (all(not r["errors"] and r["cut_bitwise"]
+              and r["heads"] == [r["n_heads"]] and r["identical"] == 16
+              and r["k4_prefill"] > 0 and r["k4_decode"] > 0
+              and r["k4_prefill"] % r["n_layers"] == 0 for r in a)
+          and a[0]["digest"] == a[1]["digest"])
+    log(f"gspmd (g) TP handoff base bf16, page 16, 8 slots, rules tp mesh "
+        f"(data 1, model 2): a prefill_only and a kv_inject Scheduler on "
+        f"each rank over the 16 requests; payload leaves of "
+        f"{x['heads']} heads (every head), each rank's cut bitwise its "
+        f"pool pages {[r['cut_bitwise'] for r in a]}; tokens identical to "
+        f"the same TP engine undisaggregated {[r['identical'] for r in a]}"
+        f"/16, ranks identical {a[0]['digest'] == a[1]['digest']}; "
+        f"kv_handoff_s (p50, max, pages) per rank "
+        f"{[r['handoff_s'] for r in a]}; K4 launches per rank prefill "
+        f"{[r['k4_prefill'] for r in a]} decode "
+        f"{[r['k4_decode'] for r in a]}; prefill/decode s "
+        f"{round(x['prefill_s'], 2)}/{round(x['decode_s'], 2)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append("(g)")
     single = r0["single"]
     for rules, _ in GSPMD_TRAIN + (("ep", None),):
         a = [r["train"][rules] if rules != "ep" else r["ep"]
@@ -4938,11 +5236,11 @@ def tenant_ratio(torch, model, acts, tree, i, proj) -> float:
                  / (x @ w).pow(2).mean().sqrt())
 
 
-def tenant_adapters(torch, model, seed, calib, probe):
+def tenant_adapters(torch, model, seed, calib, probe, folder="adapters"):
     """Five rank-16 adapters from ``seed``: A ~ N(0, 1/fan_in), B ~
     N(0, 1/r), each B then scaled so that its delta is TENANT_SHARE of its
     projection's output RMS on the activations of the prompt ``calib``;
-    saved through the port's save_weights into build/tenant/adapters.
+    saved through the port's save_weights into build/tenant/<folder>.
     Returns ({name: (path, tree)}, the ratios measured on another prompt,
     ``probe``)."""
     import numpy as np
@@ -4965,7 +5263,7 @@ def tenant_adapters(torch, model, seed, calib, probe):
                 r = tenant_ratio(torch, model, cal, tree, i, proj)
                 tree[f"block_{i}"]["attn"][f"{proj}_b"] *= np.float32(
                     TENANT_SHARE / r)
-        path = os.path.join(tenant_dir("adapters"), f"{name}.pt")
+        path = os.path.join(tenant_dir(folder), f"{name}.pt")
         save_weights(path, tree)
         out[name] = (path, tree)
     pro = tenant_activations(torch, model, probe)

@@ -23,7 +23,8 @@ from dtdl_tpu_torch.utils.config import parse_mesh_shape
 
 
 def bootstrap(args):
-    """Rendezvous (if multi-process) and print the leader banner; returns
+    """Rendezvous (if multi-process: the flags, or else a multi-task SLURM
+    step's environment) and print the leader banner; returns
     the device every entry point of the script takes (``None``: the card
     this process was bound to; ``"cpu"``)."""
     platform = getattr(args, "platform", "")
@@ -36,10 +37,15 @@ def bootstrap(args):
                          "dtdl_tpu_torch.launch.local --nproc N -- ...)")
     device = "cpu" if platform == "cpu" else None
     backend = getattr(args, "dist_backend", "") or None
-    initialize(getattr(args, "coordinator", ""),
-               getattr(args, "num_processes", 1),
-               getattr(args, "process_id", 0), device=device,
-               backend=backend)
+    topo = {"coordinator": getattr(args, "coordinator", ""),
+            "num_processes": getattr(args, "num_processes", 1),
+            "process_id": getattr(args, "process_id", 0)}
+    if not topo["coordinator"]:
+        # inside a multi-task SLURM step every script joins its world
+        # with no flags
+        from dtdl_tpu_torch.launch.slurm import maybe_slurm
+        topo = maybe_slurm() or topo
+    initialize(**topo, device=device, backend=backend)
     if is_leader():
         print(banner(device), flush=True)
     return device
@@ -96,21 +102,35 @@ def _limit(args, train, test):
 def cifar_loaders(args, seed: int, device=None, mesh=None):
     """CIFAR-10 train/val loaders with the reference's augmentation
     (RandomCrop(32, pad 4) + flip + normalize), each process (of the
-    world, or of ``mesh``) on its stripe.  ``--num-workers > 0`` (the native C++ loader) is ROADMAP
-    queue A13c."""
-    if getattr(args, "num_workers", 0) > 0:
-        raise NotImplementedError(
-            "--num-workers > 0 (the native C++ loader) is ROADMAP queue A13c "
-            "(operations)")
+    world, or of ``mesh``) on its stripe.
+
+    ``--num-workers N`` (N > 0) takes the train pipeline through the
+    native C++ loader (augment, normalize and batch on N threads, the
+    role of the reference DataLoader's ``num_workers`` processes) over
+    the same :class:`ShardedSampler`, so the loader never changes which
+    examples a process trains on."""
     (xtr, ytr), (xte, yte) = _limit(
         args, *load_dataset("cifar10", args.dataset_dir,
                             download=getattr(args, "download", True),
                             keep_train=getattr(args, "limit_train", 0) or None,
                             keep_test=getattr(args, "limit_test", 0) or None))
-    train = per_process_loader(
-        xtr, ytr, args.batch_size, shuffle=True, seed=seed,
-        transform=cifar10_train_transform(CIFAR10_MEAN, CIFAR10_STD),
-        device=device, mesh=mesh)
+    workers = getattr(args, "num_workers", 0)
+    if workers > 0:
+        from dtdl_tpu_torch.data.native_loader import NativeDataLoader
+        batch, sampler = _host_batch_and_sampler(
+            len(ytr), args.batch_size, shuffle=True, seed=seed, mesh=mesh)
+        train = NativeDataLoader.or_python(
+            xtr, ytr, batch, seed=seed, augment=True,
+            mean=CIFAR10_MEAN, std=CIFAR10_STD, n_threads=workers,
+            sampler=sampler, device=device)
+        if is_leader():
+            print(f"train loader: {type(train).__name__} "
+                  f"({workers} workers)", flush=True)
+    else:
+        train = per_process_loader(
+            xtr, ytr, args.batch_size, shuffle=True, seed=seed,
+            transform=cifar10_train_transform(CIFAR10_MEAN, CIFAR10_STD),
+            device=device, mesh=mesh)
     val = per_process_loader(
         xte, yte, args.batch_size, shuffle=False, seed=seed,
         transform=normalize_transform(CIFAR10_MEAN, CIFAR10_STD),

@@ -180,7 +180,15 @@ class Attention(nn.Module):
         Each q/k/v projection then gains ``(x @ A) @ B`` and the output
         projection ``(o @ out_A) @ out_B``, computed in the factors' dtype
         (f32) and cast to the projection's, as the JAX package's
-        ``lo_delta`` (a quantized projection takes it on its output)."""
+        ``lo_delta`` (a quantized projection takes it on its output).
+
+        On a tensor-parallel rank the rows hold this rank's heads
+        (``tenant.lora.bank_pspecs``): ``x @ A`` is whole and ``@ B`` gives
+        the rank's heads, and ``(o @ out_A) @ out_B`` over the rank's
+        heads is a partial sum that the ``psum`` after this module
+        (``parallel/tensor.py`` ``_megatron_hooks``) adds up with the
+        projection's.  JAX sums ``o @ out_A`` over every head before
+        ``@ out_B``: the same function, rounded in another order."""
         if lora is None:
             q, k, v = (self._proj(x, w) for w in (self.q, self.k, self.v))
         else:

@@ -72,7 +72,14 @@ compares a digest of its host inputs across the processes
 by name instead of hanging in a collective, and a decision a scheduler
 takes from its clock (deadlines) is the leader's (:meth:`agree`).  The
 byte receipts of ``compile_stats()`` stay the whole engine's, as the
-JAX engine's count its sharded arrays whole.
+JAX engine's count its sharded arrays whole.  An adapter bank holds each
+rank's heads' rows of the head leaves (``tenant.lora.bank_pspecs``); the
+out-projection's delta of a rank's heads is a partial sum added before
+the ``psum`` over ``model``.  A page payload is always the whole-heads
+tree: :meth:`extract_pages` gathers the heads over ``model`` and
+:meth:`inject_pages` writes a rank's share, so tensor-parallel and
+single-placement engines exchange pages both ways, and a disk record is
+the same whatever the tensor-parallel size.
 """
 
 from __future__ import annotations
@@ -93,7 +100,8 @@ from dtdl_tpu_torch.serve.sampling import (SampleParams, _masked,
                                            accept_resample, pack_mask,
                                            sample)
 from dtdl_tpu_torch.serve.tenant.lora import (AdapterBank, adapter_template,
-                                              bank_nbytes, init_bank)
+                                              bank_nbytes, init_bank,
+                                              place_bank)
 
 
 class PromptTooLongError(ValueError):
@@ -164,12 +172,6 @@ class InferenceEngine:
         if lora_adapters == 1:
             raise ValueError("lora_adapters must be >= 2: row 0 is the "
                              "reserved all-zeros base adapter")
-        if lora_rank and mesh is not None:
-            raise NotImplementedError(
-                "a LoRA adapter bank on a tensor-parallel engine (each rank "
-                "holding its heads' rows of q_b/k_b/v_b/out_a) is ROADMAP "
-                "queue A12a's follow-up (tensor-parallel tenancy and "
-                "handoff)")
         # the obs facade: each program is watched under JAX's name on its
         # first call (the sentinel counts captures with A5)
         self.observer = observer
@@ -197,6 +199,9 @@ class InferenceEngine:
             from dtdl_tpu_torch.parallel.tensor import place_lm
             model = place_lm(model, mesh, rules, self.device)
         self.model = model
+        # the shares the KV heads split into over 'model' (1: whole)
+        self._heads_split = (1 if model.shard is None
+                             else model.shard.heads_split)
         self.n_slots = n_slots
         self.max_seq = model.cfg.max_seq
         self.buckets = (tuple(sorted(set(buckets))) if buckets
@@ -242,11 +247,21 @@ class InferenceEngine:
         self.lora_rank = lora_rank
         self.lora_adapters = lora_adapters
         self.adapter_bank = None
+        self._bank_bytes = 0
         if lora_rank:
+            bank = init_bank(model, lora_rank, lora_adapters,
+                             device=self.device)
+            # compile_stats reports the whole bank, as JAX counts its
+            # sharded arrays whole
+            self._bank_bytes = bank_nbytes(bank)
+            specs = None
+            if mesh is not None:
+                # this rank's heads' rows of the head leaves (bank_pspecs)
+                bank, specs = place_bank(bank, mesh,
+                                         self._heads_split > 1)
             self.adapter_bank = AdapterBank(
-                init_bank(model, lora_rank, lora_adapters,
-                          device=self.device),
-                adapter_template(model, lora_rank), observer=observer)
+                bank, adapter_template(model, lora_rank), observer=observer,
+                mesh=mesh, specs=specs)
 
     # ---- state the caller threads ------------------------------------
 
@@ -284,7 +299,8 @@ class InferenceEngine:
         ``(param_bytes + kv_arena_bytes) / n_slots``, the whole engine's on
         a mesh too; and ``tp``, ``{"rules", "mesh"}`` of a tensor-parallel
         engine (None otherwise); ``lora``, the adapter bank's rank, rows
-        and bytes (None without a bank)."""
+        and bytes (the whole bank's on a mesh too; None without a
+        bank)."""
         payload = scales = 0
 
         def walk(node):
@@ -305,7 +321,7 @@ class InferenceEngine:
             # the load and evict traffic
             "lora": ({"rank": self.lora_rank,
                       "n_adapters": self.lora_adapters,
-                      "bank_bytes": bank_nbytes(self.adapter_bank.bank)}
+                      "bank_bytes": self._bank_bytes}
                      if self.adapter_bank is not None else None),
             "paged": ({"page_size": self.page_size, "n_pages": self.n_pages,
                        "pages_per_slot": self.n_ptab,
@@ -641,8 +657,23 @@ class InferenceEngine:
             raise ValueError("KV handoff requires a paged engine "
                              "(page_size > 0)")
 
+    def _whole_heads(self, t):
+        """``t`` [n, H/tp, ...], this rank's heads of some pages, as every
+        head's: all-gathered over ``model`` on the heads axis (axis 1,
+        ``serve_arena_shardings``) as bytes, which every backend moves
+        (gloo has no fp8, NCCL no int16).  Every rank gets the same
+        tensor.  The identity on an engine whose heads are whole."""
+        if self._heads_split == 1:
+            return t
+        from dtdl_tpu_torch.parallel.collectives import all_gather
+        from dtdl_tpu_torch.runtime.mesh import MODEL_AXIS
+        raw = all_gather(t.view(torch.uint8), self.mesh, MODEL_AXIS, 1,
+                         invariant=True)
+        return raw.view(t.dtype)
+
     def _extract_chunks(self, arena, chunks) -> list:
-        """Gather each chunk of page ids from every pool leaf and start
+        """Gather each chunk of page ids from every pool leaf (every head:
+        a tensor-parallel rank gathers the other ranks' heads) and start
         its copy into pinned host memory; one event after the last copy
         is the only wait.  Returns one numpy tree per chunk."""
         self._watch("serve.kv_extract")
@@ -654,7 +685,8 @@ class InferenceEngine:
             got = []
             for path, pool in leaves:
                 bits = _BITS.get(pool.dtype)
-                t = self._bits_view(pool).index_select(0, idx)
+                t = self._whole_heads(
+                    self._bits_view(pool).index_select(0, idx))
                 if cuda:
                     host = torch.empty(t.shape, dtype=t.dtype,
                                        pin_memory=True)
@@ -693,9 +725,12 @@ class InferenceEngine:
         host memory: the source half of prefill/decode disaggregation.
         Returns a tree of numpy arrays keyed as the arena (``block_i/attn/
         pages_key`` ..., the ``index`` left home), each leaf
-        ``[len(page_ids), H, page_size, ...]``; bf16 and fp8 leaves carry
-        their bits (uint16, uint8).  The one wait for the card is an event
-        after the copies, behind the prefill that wrote the pages."""
+        ``[len(page_ids), H, page_size, ...]`` of all H heads (a
+        tensor-parallel rank gathers the others' heads: every rank returns
+        the same tree, the JAX engine's ``device_get`` of its head-sharded
+        arena); bf16 and fp8 leaves carry their bits (uint16, uint8).  The
+        one wait for the card is an event after the copies, behind the
+        prefill that wrote the pages."""
         self._check_handoff()
         n = len(page_ids)
         if not 0 < n <= self.n_ptab:
@@ -721,21 +756,22 @@ class InferenceEngine:
         return trees[0] if len(trees) == 1 else concat_payloads(trees)
 
     def _payload_tensor(self, path, arr, pool, n):
-        """One payload leaf uploaded as a tensor of ``pool``'s dtype: bits
-        viewed back (uint16 into bf16, uint8 into fp8), anything else
-        cast."""
+        """One whole-heads payload leaf as a tensor of ``pool``'s dtype,
+        cut to this rank's heads (``block_of`` on axis 1) on a
+        tensor-parallel engine: bits viewed back (uint16 into bf16, uint8
+        into fp8), anything else cast."""
         arr = np.asarray(arr)
-        want = (n,) + tuple(pool.shape[1:])
+        heads = pool.shape[1] * self._heads_split
+        want = (n, heads) + tuple(pool.shape[2:])
         if arr.shape != want:
-            if self.mesh is not None and arr.ndim == pool.ndim \
-                    and arr.shape[0] == n:
-                raise NotImplementedError(
-                    f"{'/'.join(path)}: a payload of {arr.shape[1]} heads "
-                    f"into a tensor-parallel rank's {pool.shape[1]}: the "
-                    f"cross-rank handoff is ROADMAP queue A12a's follow-up "
-                    f"(each rank hands over its own heads' pages)")
-            raise ValueError(f"{'/'.join(path)}: payload leaf "
-                             f"{arr.shape}, the arena wants {want}")
+            raise ValueError(
+                f"{'/'.join(path)}: payload leaf {arr.shape}, the arena "
+                f"wants {want} ({n} pages of all {heads} heads)")
+        if self._heads_split > 1:
+            from dtdl_tpu_torch.runtime.mesh import MODEL_AXIS
+            per = pool.shape[1]
+            c = self.mesh.axis_index(MODEL_AXIS)
+            arr = arr[:, c * per:(c + 1) * per]
         bits = _BITS.get(pool.dtype)
         arr = np.ascontiguousarray(arr)
         if not arr.flags.writeable:     # a disk record read back
@@ -761,7 +797,9 @@ class InferenceEngine:
         slot ``slot``'s cache index to ``index`` (the prompt length) and
         its ``last_tokens`` entry to ``first_token``; the slot then
         decodes through :meth:`decode`/:meth:`verify` as if this engine
-        had prefilled the prompt.  The payload goes up by
+        had prefilled the prompt.  The payload holds every head; a
+        tensor-parallel rank writes its own heads' share of it, and a
+        payload of another head count raises ``ValueError``.  It goes up by
         :func:`~dtdl_tpu_torch.device.upload` and into place by
         ``index_copy_``: nothing waits for the card.  Returns ``(arena,
         last_tokens)``."""

@@ -339,12 +339,21 @@ class DiskPageStore:
 
     Eviction is LRU over entries when ``byte_budget`` is set; freed
     slots are reused before the file grows.  All host-side numpy — no
-    torch, no device syncs."""
+    torch, no device syncs.
+
+    The file is ``filename`` in ``directory``.  The JAX engine has one
+    controller and so one file; the port's tensor-parallel engine is a
+    process a rank, and every rank keeps its own disk tier in its own
+    file (the Scheduler names it ``kv_spill.rank<r>.bin``): each rank
+    spills the same whole-heads payloads on the same decisions, so the
+    tiers agree without any rank reading another's file, and ranks that
+    share a ``spill_dir`` never write one file."""
 
     def __init__(self, directory: str, byte_budget: Optional[int] = None,
-                 on_drop: Optional[Callable[[int], None]] = None):
+                 on_drop: Optional[Callable[[int], None]] = None,
+                 filename: str = "kv_spill.bin"):
         os.makedirs(directory, exist_ok=True)
-        self.path = os.path.join(directory, "kv_spill.bin")
+        self.path = os.path.join(directory, filename)
         self.manifest_path = self.path + ".manifest.json"
         self.byte_budget = byte_budget
         self.on_drop = on_drop

@@ -70,6 +70,12 @@ the pages by inject instead of recomputing them.  A disk record that
 fails its check is quarantined and recomputed.  ``kv_receipts`` tells the
 Router's prefix directory what this scheduler holds.
 
+On a tensor-parallel engine every rank runs its own Scheduler in
+lockstep: the handoff's and the spill tiers' payloads are whole-heads
+trees (the engine gathers the heads), so every rank holds the same
+payloads and takes the same decisions, and each rank keeps its disk tier
+in its own file (``kv_spill.rank<r>.bin`` in ``spill_dir``).
+
 **Tenancy**: a request may name a LoRA ``adapter`` (a checkpoint path the
 engine's :class:`~dtdl_tpu_torch.serve.tenant.lora.AdapterBank` hot-loads
 at admission and releases at retirement; a full bank sheds the request,
@@ -113,6 +119,7 @@ import torch
 from dtdl_tpu_torch.device import resolve_device
 from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.obs.trace import corr_rid
+from dtdl_tpu_torch.runtime.bootstrap import process_index
 from dtdl_tpu_torch.serve.draft import NGramDraft
 from dtdl_tpu_torch.serve.engine import InferenceEngine, PromptTooLongError
 from dtdl_tpu_torch.serve.metrics import ERROR_KINDS, ServeMetrics
@@ -125,6 +132,16 @@ from dtdl_tpu_torch.serve.sampling import GREEDY, SampleParams
 from dtdl_tpu_torch.serve.tenant.lora import AdapterBankFullError
 
 _ids = itertools.count()
+
+
+def _spill_file(engine) -> str:
+    """The disk tier's file name: ``kv_spill.bin``, or one per rank of a
+    tensor-parallel world, so ranks that share ``spill_dir`` never open
+    one file."""
+    mesh = engine.mesh
+    if mesh is None or mesh.group is None:
+        return "kv_spill.bin"
+    return f"kv_spill.rank{process_index()}.bin"
 
 
 @dataclasses.dataclass
@@ -422,7 +439,8 @@ class Scheduler:
                     raise ValueError("spill tiers require "
                                      "prefix_cache=True (spilled pages "
                                      "are keyed by chain hash)")
-                disk = (DiskPageStore(spill_dir, spill_disk_bytes)
+                disk = (DiskPageStore(spill_dir, spill_disk_bytes,
+                                      filename=_spill_file(engine))
                         if spill_dir is not None else None)
                 self.spill = HostPageStore(
                     spill_host_bytes if spill_host_bytes is not None

@@ -9,13 +9,15 @@ from dtdl_tpu_torch.serve.tenant.grammar import (TokenDFA, byte_vocab,
 from dtdl_tpu_torch.serve.tenant.lora import (AdapterBank,
                                               AdapterBankFullError,
                                               adapter_template, bank_nbytes,
-                                              init_bank, merge_adapter)
+                                              bank_pspecs, init_bank,
+                                              merge_adapter, place_bank)
 from dtdl_tpu_torch.serve.tenant.stream import TokenStream
 
 __all__ = [
     "TokenDFA", "byte_vocab", "compile_json_schema", "compile_regex",
     "json_schema_to_regex",
     "AdapterBank", "AdapterBankFullError", "adapter_template",
-    "bank_nbytes", "init_bank", "merge_adapter",
+    "bank_nbytes", "bank_pspecs", "init_bank", "merge_adapter",
+    "place_bank",
     "TokenStream",
 ]

@@ -24,8 +24,18 @@ row finishes before the row is overwritten.
 The trees keep the JAX package's layout, ``{"block_i": {"attn": {leaf:
 array}}}`` with the leaves of :data:`LORA_LEAVES`: ``{q,k,v}_a``
 [d_model, r], ``{q,k,v}_b`` [r, H, D], ``out_a`` [H, D, r], ``out_b``
-[r, d_model].  The bank's head-sharded placement for a tensor-parallel
-engine (JAX ``bank_pspecs``) is ROADMAP queue A12a's follow-up.
+[r, d_model].
+
+On a tensor-parallel engine every rank holds its heads' rows of the bank:
+:func:`bank_pspecs` gives JAX's specs (the heads axis of ``q_b``/``k_b``/
+``v_b`` and ``out_a`` on ``model``, everything else replicated) and
+:func:`place_bank` cuts a whole bank to this rank's blocks.  An adapter
+stays a whole-heads tree (the same saved file loads on any TP size;
+:func:`adapter_template` checks whole shapes), and ``AdapterBank._upload``
+writes this rank's heads of each head leaf.  The registry's acquire and
+evict decisions are deterministic in the call sequence, which every rank
+makes alike (the engine's lockstep carries the adapter ids), so the rows
+agree across the ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +49,9 @@ import torch
 
 from dtdl_tpu_torch.ckpt.checkpoint import load_weights
 from dtdl_tpu_torch.device import upload
+from dtdl_tpu_torch.parallel.tensor import (PartitionSpec, block_of,
+                                            placement)
+from dtdl_tpu_torch.runtime.mesh import MODEL_AXIS
 
 __all__ = [
     "AdapterBankFullError",
@@ -48,6 +61,8 @@ __all__ = [
     "init_bank",
     "merge_adapter",
     "bank_nbytes",
+    "bank_pspecs",
+    "place_bank",
 ]
 
 # per-block leaves: A/B factor pairs of the q/k/v projections and of the
@@ -141,6 +156,49 @@ def merge_adapter(model, adapter):
     return twin.requires_grad_(False)
 
 
+def bank_pspecs(bank) -> dict:
+    """The JAX package's PartitionSpec tree of a bank under the TP rules
+    (``dtdl_tpu/serve/tenant/lora.py`` ``bank_pspecs``): the heads axis
+    shards over ``model`` wherever a factor has one (``q_b``/``k_b``/
+    ``v_b`` [n, r, H, Dh] on axis 2, ``out_a`` [n, H, Dh, r] on axis 1);
+    the adapter and rank axes, and ``q_a``/``k_a``/``v_a``/``out_b``,
+    stay replicated."""
+    def spec(name, leaf):
+        if name in ("q_b", "k_b", "v_b"):
+            return PartitionSpec(None, None, MODEL_AXIS, None)
+        if name == "out_a":
+            return PartitionSpec(None, MODEL_AXIS, None, None)
+        return PartitionSpec(*([None] * leaf.ndim))
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else spec(k, v)
+                for k, v in node.items()}
+    return walk(bank)
+
+
+def place_bank(bank, mesh, heads_split: bool = True):
+    """``(this rank's bank, the placed specs)`` of a whole ``bank``: each
+    leaf cut to its block under :func:`bank_pspecs` (``parallel/
+    tensor.py`` ``placement``/``block_of``), as a contiguous copy.
+    ``heads_split`` False (a rule preset that keeps the model's heads
+    whole) holds the bank whole too, as the heads it multiplies."""
+    specs = bank_pspecs(bank)
+    placed, local = {}, {}
+
+    def walk(node, snode, pnode, lnode):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, snode[k], pnode.setdefault(k, {}),
+                     lnode.setdefault(k, {}))
+                continue
+            spec = (placement(snode[k], tuple(v.shape), mesh) if heads_split
+                    else PartitionSpec(*([None] * v.dim())))
+            pnode[k] = spec
+            lnode[k] = block_of(v, spec, mesh).contiguous()
+    walk(bank, specs, placed, local)
+    return local, placed
+
+
 def bank_nbytes(bank) -> int:
     """Bytes of every leaf of the bank."""
     if isinstance(bank, dict):
@@ -164,11 +222,16 @@ class AdapterBank:
     checkpoint path on first use and evicting the least-recently-used
     unreferenced row when full.  ``release(aid)`` decrements; rows are
     only reclaimable at refcount 0.  Thread-safe: the fleet's replicas
-    share one bank."""
+    share one bank.  On a tensor-parallel rank ``mesh`` and ``specs``
+    (:func:`place_bank`'s) say which block of each whole adapter leaf
+    the rank's bank holds."""
 
-    def __init__(self, bank, template, observer=None) -> None:
+    def __init__(self, bank, template, observer=None, mesh=None,
+                 specs=None) -> None:
         self.bank = bank
         self.template = template
+        self.mesh = mesh
+        self.specs = specs
         leaf = next(_leaves(bank))[1]
         self.capacity = int(leaf.shape[0])
         # adapter_loaded / adapter_evicted land on its trace (JAX's args)
@@ -235,11 +298,16 @@ class AdapterBank:
 
     def _upload(self, aid: int, adapter) -> None:
         for path, dst in _leaves(self.bank):
-            src = adapter
+            src, spec = adapter, self.specs
             for k in path:
                 src = src[k]
-            src = np.ascontiguousarray(
-                src.numpy() if isinstance(src, torch.Tensor) else src)
+                spec = spec[k] if spec is not None else None
+            src = src.numpy() if isinstance(src, torch.Tensor) else src
+            if spec is not None:
+                # the bank's spec has the adapter axis first; an adapter
+                # leaf is one row of it
+                src = block_of(src, spec[1:], self.mesh)
+            src = np.ascontiguousarray(src)
             dst[aid].copy_(upload(src, dst.device, dst.dtype),
                            non_blocking=True)
 

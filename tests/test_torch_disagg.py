@@ -9,8 +9,9 @@
   the port's own; a decode replica's death re-injects the held payload;
   the role checks; hedging only of whole flights; the prefix directory
   routing a warm prefix to its holder without changing a token.
-* A tensor-parallel engine hands over its own heads only: a payload of
-  another head count raises naming ROADMAP A12a's follow-up.
+* A tensor-parallel engine hands over whole-heads payloads (round trip on
+  a ``(1, 1)`` mesh); a payload of another head count raises
+  ``ValueError``.
 
 The JAX serving tests' config (vocab 64, d_model 32, 2 layers, 2 heads,
 f32, bridged weights), max_seq 32, page 4.  Tolerance: tokens exact.
@@ -171,19 +172,28 @@ def test_admission_refusals_match_jax(engines):
 
 
 def test_tensor_parallel_handoff_is_per_rank(models):
-    """On a tensor-parallel engine each rank hands over its own heads'
-    pages; a payload of another head count raises naming ROADMAP A12a's
-    follow-up instead of being faked."""
+    """A tensor-parallel engine hands over whole-heads payloads: on a
+    ``(1, 1)`` mesh one round-trips bitwise into other pages, and a
+    payload of another head count raises ``ValueError`` naming the whole
+    head count the arena wants."""
     _, _, tm = models
     tp = InferenceEngine(tm, n_slots=2, buckets=(8,), page_size=PAGE,
                          device="cpu",
                          mesh=build_mesh((1, 1), ("data", "model")))
     arena, last = tp.init_arena(), tp.init_last_tokens()
-    data = tp.extract_pages(arena, [1, 2])
+    sched = Scheduler(tp, device="cpu")
+    req = sched.submit(Request([5, 1, 4, 1, 5, 9], 4, prefill_only=True))
+    sched.run()
+    data = req.kv_handoff["data"]
+    assert data["block_0"]["attn"]["pages_key"].shape == (2, 2, PAGE, 16)
     arena, last = tp.inject_pages(arena, last, data, [3, 4], 0, 6, 5)
+    back = tp.extract_pages(arena, [3, 4])
+    for b, node in data.items():
+        for k, v in node["attn"].items():
+            np.testing.assert_array_equal(back[b]["attn"][k], v)
     half = {b: {"attn": {k: v[:, :1] for k, v in node["attn"].items()}}
             for b, node in data.items()}
-    with pytest.raises(NotImplementedError, match="A12a"):
+    with pytest.raises(ValueError, match="all 2 heads"):
         tp.inject_pages(arena, last, half, [3, 4], 0, 6, 5)
 
 

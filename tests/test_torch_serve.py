@@ -36,6 +36,7 @@ from dtdl_tpu_torch.obs import Observer
 from dtdl_tpu_torch.runtime.mesh import build_mesh
 from dtdl_tpu_torch.serve.engine import InferenceEngine
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
+from dtdl_tpu_torch.serve.tenant import bank_nbytes
 
 # small shapes: one intra-op thread each leaves the cores to the other
 # test workers
@@ -138,16 +139,19 @@ def test_decode_tokens_stay_on_device_until_harvest(models):
 def test_engine_refuses_later_slices(models):
     _, _, tm = models
     # the dense arena, quantization, chunked prefill, tensor-parallel
-    # serving, tenancy and the observer are ported; a LoRA bank on a
-    # tensor-parallel engine still refuses
+    # serving, tenancy and the observer are ported; a tensor-parallel
+    # engine takes an adapter bank (its receipts the JAX engine's)
     mesh = build_mesh((1, 1), ("data", "model"))
-    for kwargs, item in (({"lora_rank": 2, "lora_adapters": 3,
-                           "mesh": mesh}, "A12a's follow-up"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-            InferenceEngine(tm, n_slots=2, device="cpu", **kwargs)
-    tp = InferenceEngine(tm, n_slots=2, device="cpu", mesh=mesh)
+    tp = InferenceEngine(tm, n_slots=2, device="cpu", mesh=mesh,
+                         lora_rank=2, lora_adapters=3)
     assert tp.compile_stats()["tp"] == {"rules": "tp",
                                         "mesh": {"data": 1, "model": 1}}
+    # one model axis of size 1: the whole bank on the one rank
+    assert tp.compile_stats()["lora"] == {
+        "rank": 2, "n_adapters": 3,
+        "bank_bytes": bank_nbytes(tp.adapter_bank.bank)}
+    assert tp.adapter_bank.bank["block_0"]["attn"]["q_b"].shape == \
+        (3, 2, tm.cfg.n_heads, tm.cfg.head_dim)
     eng = InferenceEngine(tm, n_slots=2, buckets=BUCKETS, page_size=PAGE,
                           device="cpu")
     # the spill tiers and the observer are ported: the scheduler hands its
