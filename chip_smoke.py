@@ -113,6 +113,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                the MLP against the single-device step on the global batch,
                the ranks' parameter digests equal; what NCCL says for two
                ranks on one card (an NCCL group in that world, recorded);
+               caffe_train --gpu 1 in that world (LeNet to 40 iterations,
+               then --snapshot latest to 60, cuDNN deterministic): rank 1
+               sits out, rank 0's parameters bitwise a world of one's;
                (3) the DDP twin (examples.distributed_data_parallel:
                PyramidNet-110, global batch 64, 8 steps and one evaluate
                of 500 synthetic CIFAR-10 images, the only ones generated)
@@ -137,7 +140,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
                only); (d) the mnist_single twin (2 epochs, load_latest,
                evaluate) and the train_mnist twin (2 epochs, then --resume
                of its snapshot), 6000 images an epoch, each main() in this
-               process;
+               process; (e) the JAX package's files: the train_lm twin at
+               base (64 x 128, one epoch, K1-K3) writes lm_final.msgpack,
+               read back bitwise; bytes, save and load seconds of f32 and
+               bf16 blobs; serve_lm --restore of it on faces (a)'s traffic
+               token-identical to the same engine and scheduler serving
+               the in-memory params, K4 once per layer and attend, tokens/s
+               and TTFT, then without and with --restore in turns; an
+               orbax snapshot refused by name where tensorstore does not
+               import;
 7h. faces    - the last example twins, each as a user runs it: (a)
                serve_lm on base at full width, bf16, page 16 (16 requests
                with a 256-token shared prefix, 32 new tokens, greedy):
@@ -3002,6 +3013,53 @@ def ddp_twin(args, world) -> dict:
     return {"twin_s": time.perf_counter() - t0, "outdir": outdir}
 
 
+# caffe_train --gpu 1: LeNet to CAFFE_SUB_ITERS[0], then --snapshot latest
+# to CAFFE_SUB_ITERS[1], on synthetic MNIST
+CAFFE_SUB_ITERS = (40, 60)
+CAFFE_SUB_DIR = os.path.join(ROOT, "build", "ddp_caffe")
+
+
+def caffe_submesh(torch, out, topo=()) -> list:
+    """``caffe_train --gpu 1`` as ``main()`` in this process (in a world,
+    ``topo`` its rendezvous flags): each run's iteration and parameter
+    digest, ``None`` where this process sat it out.  cuDNN's
+    deterministic algorithms (and no TF32) for this check only, so that
+    the run is bitwise repeatable."""
+    from dtdl_tpu_torch.bridge import flatten
+    from dtdl_tpu_torch.examples import caffe_train
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    from dtdl_tpu_torch.train.state import params_tree
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["DTDL_OFFLINE"] = "1"
+    solver_path = os.path.join(ROOT, "examples", "caffe",
+                               "lenet_solver.prototxt")
+    runs = []
+    try:
+        for extra in (["--max-iter", str(CAFFE_SUB_ITERS[0])],
+                      ["--max-iter", str(CAFFE_SUB_ITERS[1]),
+                       "--snapshot", "latest"]):
+            solver = caffe_train.main([
+                "--solver", solver_path, "--gpu", "1", "--out", out,
+                "--dataset-dir", os.path.join(CAFFE_SUB_DIR, "datasets"),
+                "--limit-train", "2048", "--limit-test", "512", *extra,
+                *topo])
+            runs.append(None if solver is None else {
+                "iteration": solver.iteration,
+                "digest": tree_digest(flatten(params_tree(solver.net)))})
+            del solver
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return runs
+
+
 DDP_WORKERS = {"nccl_lm": ddp_nccl_lm, "gloo_pair": ddp_gloo_pair,
                "gspmd": lambda torch, seed: gspmd_worker(torch, seed)}
 
@@ -3032,6 +3090,15 @@ def ddp_worker(args) -> int:
               flush=True)
     if args.ddp_worker == "gloo_pair":
         t1 = time.perf_counter()
+        caffe = caffe_submesh(torch, os.path.join(CAFFE_SUB_DIR, "world"), [
+            "--coordinator", args.coordinator, "--num-processes",
+            str(args.num_processes), "--process-id", str(args.process_id)])
+        caffe_s = time.perf_counter() - t1
+        print("ddp_caffe " + json.dumps({"runs": caffe, "s": caffe_s}),
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         dup = ddp_nccl_dup(torch)
         dup["probe_s"] = time.perf_counter() - t1
         print("ddp_nccl_dup " + json.dumps(dup), flush=True)
@@ -3057,7 +3124,8 @@ def ddp_twin_check(torch, out, world, backend, like, secs, card):
                                  f"ranks: {summ}")
     outdir = twin[0]["outdir"]
     files = sorted(os.listdir(outdir))
-    if files != ["final.pt", "final.pt.manifest.json", "log.jsonl"]:
+    if files != ["final.msgpack", "final.msgpack.manifest.json",
+                 "log.jsonl"]:
         raise AssertionError(f"ddp {label}: the run wrote {files}")
     rows = [json.loads(x) for x in open(os.path.join(outdir, "log.jsonl"))]
     val = [x for x in rows if x.get("split") == "val"]
@@ -3065,7 +3133,7 @@ def ddp_twin_check(torch, out, world, backend, like, secs, card):
         raise AssertionError(f"ddp {label}: log rows {len(rows)}, val "
                              f"rows {len(val)}, a rank other than the "
                              f"leader reported: {'[p1]' in out}")
-    back = load_weights(os.path.join(outdir, "final.pt"), like)
+    back = load_weights(os.path.join(outdir, "final.msgpack"), like)
     if tree_digest(back) != summ[0]["params_digest"]:
         raise AssertionError(f"ddp {label}: the saved weights' digest "
                              f"differs from the ranks'")
@@ -3081,7 +3149,8 @@ def ddp_twin_check(torch, out, world, backend, like, secs, card):
         f"it {steady:.2f}) train_s={s0['train_s']:.3f} "
         f"val_accuracy={val[0]['val_accuracy']:.4f} over {TWIN_TEST} "
         f"images; log rows {len(rows)} by the leader, weights "
-        f"{os.path.getsize(os.path.join(outdir, 'final.pt'))} bytes load "
+        f"{os.path.getsize(os.path.join(outdir, 'final.msgpack'))} bytes "
+        f"(flax msgpack) load "
         f"back to every rank's digest; BN statistics equal across ranks;"
         f" twin s={twin[0]['twin_s']:.1f} in the launch of {secs:.1f} s | "
         f"{card}")
@@ -3134,6 +3203,8 @@ def phase_ddp(torch, seed, card):
     ddp_twin_check(torch, out, 1, "nccl", like, secs, card)
 
     # (2), its two ranks started as the tasks of a SLURM step
+    import shutil
+    shutil.rmtree(CAFFE_SUB_DIR, ignore_errors=True)
     rc, out, secs = slurm_launch([me, "--ddp-worker", "gloo_pair", "--seed",
                                   str(seed)], 2, 600, "gloo_pair",
                                  env=offline)
@@ -3165,6 +3236,26 @@ def phase_ddp(torch, seed, card):
         f"result s={r[0]['world_s']:.1f} in the launch of {secs:.1f} s | "
         f"{card}")
     ddp_twin_check(torch, out, 2, "gloo", like, secs, card)
+    caffe = rank_lines(out, "ddp_caffe ")
+    t0 = time.perf_counter()
+    one = caffe_submesh(torch, os.path.join(CAFFE_SUB_DIR, "one"))
+    one_s = time.perf_counter() - t0
+    sat = out.count("process 1 sits out: --gpu 1 trains over the first 1 "
+                    "of 2")
+    if (sorted(caffe) != [0, 1] or caffe[1]["runs"] != [None, None]
+            or sat != 2 or caffe[0]["runs"] != one
+            or [x["iteration"] for x in one] != list(CAFFE_SUB_ITERS)):
+        raise AssertionError(f"ddp caffe_train --gpu 1 in the gloo world: "
+                             f"ranks {caffe}, sat out {sat} times; a world "
+                             f"of one {one}")
+    shutil.rmtree(CAFFE_SUB_DIR, ignore_errors=True)
+    log(f"ddp caffe_train --gpu 1 in the gloo world of 2 (a sub-mesh of "
+        f"rank 0; rank 1 sat out both runs): LeNet f32 to "
+        f"{CAFFE_SUB_ITERS[0]} iterations, then --snapshot latest to "
+        f"{CAFFE_SUB_ITERS[1]}, cuDNN deterministic: rank 0's parameters "
+        f"bitwise a world of one's after each run (digests "
+        f"{[x['digest'][:12] for x in one]}); {caffe[0]['s']:.1f} s in "
+        f"the world, {one_s:.1f} s alone | {card}")
     dup = rank_lines(out, "ddp_nccl_dup ")
     log(f"ddp nccl 2 ranks on one card (an NCCL group in the gloo world): "
         f"rank 0 says: {dup.get(0, {}).get('message', out[-300:])!r} in "
@@ -3477,10 +3568,184 @@ def resume_twins(torch, card, root):
         f"| {card}")
 
 
+# (e) the train_lm twin at base (its default bf16), one epoch of the
+# synthetic LM set at batch 64 x 128 (64 steps), writing lm_final.msgpack
+RESUME_TWIN_LM = ["--model-size", "base", "--seq-len", "128",
+                  "--batch-size", "64", "--epochs", "1", "--log-interval",
+                  "32"]
+
+
+def weights_costs(torch, params, root):
+    """Bytes, save_weights and load_weights seconds (the manifest's sha256
+    included, the page cache warm) of ``params`` (live CUDA tensors) as an
+    f32 and a bf16 blob."""
+    from dtdl_tpu_torch.bridge import flatten, weights_tree
+    from dtdl_tpu_torch.ckpt import load_weights, save_weights
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tree = weights_tree({k: v.to(dtype) for k, v in
+                             flatten(params).items()})
+        path = os.path.join(root, f"lm_{name}.msgpack")
+        sync(torch)
+        t0 = time.perf_counter()
+        save_weights(path, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_weights(path, tree)
+        load_s = time.perf_counter() - t0
+        bad = [k for k, v in flatten(tree).items()
+               if not torch.equal(flatten(back)[k], v.cpu())]
+        if bad:
+            raise AssertionError(f"resume weights {name}: {bad[:5]} differ "
+                                 f"after a save and load")
+        out[name] = (os.path.getsize(path), save_s, load_s)
+        os.remove(path)
+    return out
+
+
+def orbax_refusal(torch, root):
+    """A JAX (orbax) snapshot directory restored where tensorstore does
+    not import raises the named NotImplementedError; where it imports, the
+    reader rejects this empty one as corrupt."""
+    import importlib.util
+    from dtdl_tpu_torch.ckpt import CheckpointCorruptError, Checkpointer
+    snap = os.path.join(root, "orbax", "snapshot_1")
+    os.makedirs(snap)
+    for name, text in (("_METADATA", "{}"), ("_DTDL_COMMIT", "{}")):
+        with open(os.path.join(snap, name), "w") as f:
+            f.write(text)
+    from dtdl_tpu_torch.models import MLP
+    from dtdl_tpu_torch.train.optim import sgd
+    from dtdl_tpu_torch.train.state import init_state
+    like = init_state(MLP(device=DEV, seed=0), None, sgd(0.1), device=DEV)
+    has_ts = importlib.util.find_spec("tensorstore") is not None
+    try:
+        Checkpointer(os.path.join(root, "orbax_own")).restore_path(like, snap)
+    except NotImplementedError as e:
+        if has_ts or "tensorstore" not in str(e) or "A8b" not in str(e):
+            raise
+        return f"NotImplementedError: {e}"
+    except CheckpointCorruptError as e:
+        if not has_ts:
+            raise
+        return f"tensorstore imports here; CheckpointCorruptError: {e}"
+    raise AssertionError("an orbax snapshot restored without tensorstore")
+
+
+def resume_weights(torch, seed, card, root):
+    """(e) the JAX package's files: the train_lm twin writes
+    lm_final.msgpack, read back bitwise; its bytes and costs as f32 and
+    bf16 blobs; serve_lm --restore of it (faces (a)'s traffic) token-
+    identical to the same engine and scheduler serving the in-memory
+    params, K4 once per layer and attend; the orbax reader's refusal."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.bridge import (flatten, load_flax_params,
+                                       state_dict_to_flax)
+    from dtdl_tpu_torch.ckpt import load_weights
+    from dtdl_tpu_torch.examples import serve_lm, train_lm
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve import InferenceEngine, Scheduler
+    from dtdl_tpu_torch.train.state import params_tree
+    import numpy as np
+    out = os.path.join(root, "lm_twin")
+    log_path = os.path.join(ROOT, "build", "resume_weights.log")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, text = in_process(train_lm.main, [
+        *RESUME_TWIN_LM, "--seed", str(seed), "--out", out], "train_lm",
+        log_path)
+    sync(torch)
+    train_s = time.perf_counter() - t0
+    trained = dict(kernels.LAUNCHES)
+    n_layers = state.model.cfg.n_layers
+    if not all(trained.get(k) for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv", "rope_rows")):
+        raise AssertionError(f"resume (e): the train_lm twin launched "
+                             f"{trained}")
+    path = os.path.join(out, "lm_final.msgpack")
+    live = params_tree(state.model)
+    t0 = time.perf_counter()
+    back = load_weights(path, state_dict_to_flax(state.model))
+    twin_load_s = time.perf_counter() - t0
+    bad = [k for k, v in flatten(live).items()
+           if not torch.equal(flatten(back)[k], v.cpu())]
+    if bad:
+        raise AssertionError(f"resume (e): lm_final.msgpack read back "
+                             f"differs at {bad[:5]}")
+    costs = weights_costs(torch, live, root)
+
+    argv = [*FACES_SERVE, "--seed", str(seed), "--restore", path]
+    in_process(serve_lm.main, argv + ["--n-requests", "2"],
+               "serve_lm_restore_warmup", log_path)
+    sync(torch)
+    kernels.reset_launches()
+    (reqs, s, wall), _ = in_process(serve_lm.main, argv, "serve_lm", log_path)
+    sync(torch)
+    k4 = kernels.LAUNCHES["paged_attention"]
+    if k4 <= 0 or k4 % n_layers:
+        raise AssertionError(f"resume (e) serve_lm --restore: K4 launched "
+                             f"{k4} times, want > 0 and {n_layers} an attend")
+    # the same engine and scheduler (as serve_lm builds them for argv)
+    # over the trained params taken from memory, not from the file
+    a = serve_lm.parser().parse_args(argv)
+    model = transformer_lm(a.model_size, attn_impl="dense",
+                           dtype=getattr(torch, a.dtype), device=DEV,
+                           seed=None)
+    load_flax_params(model, state_dict_to_flax(state.model), device=DEV)
+    del state
+    eng = InferenceEngine(model, n_slots=a.n_slots, page_size=a.page_size,
+                          device=DEV)
+    want = serve_lm.traffic(model, a, np.random.default_rng(a.seed))
+    Scheduler(eng, seed=a.seed, harvest_lag=a.harvest_lag,
+              prefix_cache=a.prefix_cache, device=DEV).run(want)
+    differ = [i for i, (r, w) in enumerate(zip(reqs, want))
+              if r.tokens != w.tokens or r.prompt != w.prompt]
+    if differ or len(reqs) != len(want) or any(
+            r.error or len(r.tokens) != a.max_new_tokens for r in reqs):
+        raise AssertionError(f"resume (e) serve_lm --restore: requests "
+                             f"{differ} differ from the in-memory params' "
+                             f"tokens")
+    refusal = orbax_refusal(torch, root)
+    n_tok = sum(len(r.tokens) for r in reqs)
+    # beside it in turns (without, without, with): the twin without
+    # --restore, timed only, so that the file's cost is read inside one
+    # stretch of the script (faces (a) runs much later)
+    turns = {"restore": [n_tok / wall], "random": []}
+    for kind in ("random", "random", "restore"):
+        (got, _, w), _ = in_process(
+            serve_lm.main, argv if kind == "restore" else argv[:-2],
+            f"serve_lm_{kind}", log_path)
+        turns[kind].append(sum(len(r.tokens) for r in got) / w)
+    log(f"resume (e) train_lm twin base bf16 64x128, 1 epoch "
+        f"({train_s:.1f} s): lm_final.msgpack {os.path.getsize(path)} bytes"
+        f" read back bitwise ({len(flatten(live))} leaves, "
+        f"{twin_load_s:.3f} s); launches {trained} | {card}")
+    log(f"resume (e) weights blobs (flax msgpack, save_weights/load_weights "
+        f"with the manifest's sha256, page cache warm): " + "; ".join(
+            f"{k} bytes={b} save_s={sv:.4f} load_s={ld:.4f}"
+            for k, (b, sv, ld) in costs.items()) + f" | {card}")
+    log(f"resume (e) serve_lm --restore lm_final.msgpack base bf16 page 16 "
+        f"(faces (a)'s 16 requests, 32 new, greedy): wall_s={wall:.4f} "
+        f"tokens_per_s={n_tok / wall:.2f} decode_tokens_per_s="
+        f"{s['decode_tokens_per_sec']:.2f} ttft_p50_s={s['ttft_s_p50']:.4f} "
+        f"ttft_p99_s={s['ttft_s_p99']:.4f} K4 launches={k4} "
+        f"({k4 // n_layers} attends x {n_layers} layers); tokens identical "
+        f"to the in-memory params': {len(reqs)}/{len(reqs)}; in turns "
+        f"(with, without, without, with) tokens_per_s with --restore "
+        f"{[round(x, 2) for x in turns['restore']]} without "
+        f"{[round(x, 2) for x in turns['random']]} | {card}")
+    log(f"resume (e) orbax snapshot on this machine: {refusal[:300]} "
+        f"| {card}")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_resume(torch, seed, card):
     """Snapshot and resume: (a) the base LM through K1-K3 and (b)
     PyramidNet-110, each A/B bitwise; (c) the async hazard and the
-    snapshot's costs; (d) the MNIST twins."""
+    snapshot's costs; (d) the MNIST twins; (e) the JAX package's weights
+    files through the train_lm and serve_lm twins."""
     import shutil
     from dtdl_tpu_torch import kernels
     root = os.path.join(ROOT, "build", "resume")
@@ -3490,6 +3755,7 @@ def phase_resume(torch, seed, card):
         resume_lm(torch, seed, card, root, kernels)
         resume_pyramidnet(torch, seed, card, root, kernels)
         resume_twins(torch, card, root)
+        resume_weights(torch, seed, card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3809,7 +4075,7 @@ def faces_pyramidnet(torch, card, root):
                           r"avg_batch_time: ([\d.]+)", out)
         val = re.search(r"val_loss: ([\d.]+) \| val_accuracy: ([\d.]+)", out)
         if not (epoch and val and os.path.exists(
-                os.path.join(root, name, "final.pt"))):
+                os.path.join(root, name, "pyramidnet_final.msgpack"))):
             raise AssertionError(f"faces {name} printed no report:\n"
                                  f"{out[-4000:]}")
         strategy = {"single_device": "SingleDevice",
@@ -5263,7 +5529,7 @@ def tenant_adapters(torch, model, seed, calib, probe, folder="adapters"):
                 r = tenant_ratio(torch, model, cal, tree, i, proj)
                 tree[f"block_{i}"]["attn"][f"{proj}_b"] *= np.float32(
                     TENANT_SHARE / r)
-        path = os.path.join(tenant_dir(folder), f"{name}.pt")
+        path = os.path.join(tenant_dir(folder), f"{name}.msgpack")
         save_weights(path, tree)
         out[name] = (path, tree)
     pro = tenant_activations(torch, model, probe)
@@ -5281,7 +5547,8 @@ def tenant_shallow(adapters, n_layers):
     out = {}
     for name, (_, tree) in adapters.items():
         sub = {f"block_{i}": tree[f"block_{i}"] for i in range(n_layers)}
-        path = os.path.join(tenant_dir(f"adapters_{n_layers}"), f"{name}.pt")
+        path = os.path.join(tenant_dir(f"adapters_{n_layers}"),
+                            f"{name}.msgpack")
         save_weights(path, sub)
         out[name] = (path, sub)
     return out
@@ -5696,7 +5963,7 @@ def phase_tenant(torch, seed, card):
     schema = os.path.join(d, "schema.json")
     with open(schema, "w") as f:
         json.dump(TENANT_SCHEMA, f)
-    lora = f"{os.path.join(d, 'a.pt')},{os.path.join(d, 'b.pt')}"
+    lora = f"{os.path.join(d, 'a.msgpack')},{os.path.join(d, 'b.msgpack')}"
     trace = os.path.join(d, "serve_fleet.json")
     for name, args in TENANT_TWINS:
         extra = ["--lora", lora, "--seed", str(seed)]
@@ -6661,7 +6928,8 @@ def resil_workers(torch, seed, card):
     if restored:
         store.set("ckpt/committed",
                   {"step": restored[0],
-                   "path": os.path.join(ck, f"elastic_{restored[0]:06d}.pt")})
+                   "path": os.path.join(
+                       ck, f"elastic_{restored[0]:06d}.msgpack")})
     oracle = workers(store, [0, 1, 3])
     run_workers(oracle, timeout_s=60)
     differ = [k for a, b in zip(survivors, oracle)
@@ -6834,7 +7102,7 @@ def resil_launcher(torch, seed, card):
         step0 = restored.pop()
         hs = HostKVStore()
         hs.set("ckpt/committed", {"step": step0, "path": os.path.join(
-            ck, f"elastic_{step0:06d}.pt")})
+            ck, f"elastic_{step0:06d}.msgpack")})
         problem = twin.make_problem(seed, DEV)
         oracle = [ElasticWorker(RetryingStore(hs), r, sampler=sampler,
                                 total_steps=RESIL_TWIN_STEPS,

@@ -57,6 +57,15 @@ A missing or extra leaf, or a shape or payload type that differs, raises
 :class:`BridgeError` naming the path.  Nothing here imports JAX: the
 caller hands over numpy arrays (``jax.device_get`` of the tree).
 
+Weights files: the JAX package saves the nested tree of ``state.params``
+(the LM's and the classifiers'; no ``batch_stats``) or of an adapter
+(``serve.adapter_template``'s ``{block_i: {"attn": {...}}}``) as a flax
+msgpack blob.  :func:`weights_tree` nests the port's flat ``{flax path:
+leaf}`` dicts (:func:`state_dict_to_flax` flattened,
+``train.state.params_tree``, an adapter) into that tree, and
+:func:`flatten` takes it back, so the files of both packages hold the
+same tree and load in either bitwise.
+
 KV page payloads (what the engines' ``extract_pages`` return and their
 ``inject_pages`` take) cross in both directions by
 :func:`jax_pages_to_torch` and :func:`torch_pages_to_jax`.  Both packages
@@ -264,6 +273,12 @@ def _nest(flat: dict) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = val
     return tree
+
+
+def weights_tree(tree) -> dict:
+    """The nested tree the JAX package saves as weights, from a flat
+    ``{flax path: leaf}`` dict or a nested one (``{}`` subtrees drop)."""
+    return _nest(flatten(tree))
 
 
 def batch_stats_view(model) -> dict | None:

@@ -2,25 +2,34 @@
 reference's three checkpoint shapes.
 
 1. **final-weights export**: ``save_weights`` / ``load_weights`` and
-   ``Checkpointer.save_final`` (``final.pt``);
+   ``Checkpointer.save_final`` (``final.msgpack``);
 2. **per-epoch weights + restore-latest** (Keras ``ModelCheckpoint`` +
    ``tf.train.latest_checkpoint``): ``Checkpointer.save_weights_epoch`` /
-   ``latest_weights`` (``weights_epoch_0003.pt``);
+   ``latest_weights`` (``weights_epoch_0003.msgpack``);
 3. **full train-state snapshot with resume** (Chainer ``snapshot`` +
    ``--resume``): ``Checkpointer.save`` / ``restore`` of the whole
    :class:`~dtdl_tpu_torch.train.state.TrainState` (params, optimizer
    state, BatchNorm statistics, step; ``snapshot_12/state.pt``), or of
    any tree of tensors.
 
-A weights file is ``torch.save`` of a flat ``{flax path: tensor}`` dict
-(``"block_0/attn/q/kernel"``, ``"Conv_0/kernel"``: the names and layouts
-of :func:`dtdl_tpu_torch.bridge.state_dict_to_flax`); a snapshot is
-``torch.save`` of the nested tree of
+A weights file is the JAX package's: the flax msgpack blob
+(:mod:`dtdl_tpu_torch.ckpt.flax_msgpack`, byte for byte what
+``flax.serialization.to_bytes`` writes) of the nested tree under flax
+paths (``{"block_0": {"attn": {"q": {"kernel": ...}}}}``; a flat
+``{"block_0/attn/q/kernel": ...}`` dict is nested first, as
+:func:`dtdl_tpu_torch.bridge.state_dict_to_flax` gives it), so a file
+either package writes loads in the other bitwise.  ``load_weights`` also
+reads, by its zip magic, a ``torch.save`` file of a flat ``{flax path:
+tensor}`` dict, the format the port wrote before it wrote msgpack.
+
+A port snapshot is ``torch.save`` of the nested tree of
 :func:`dtdl_tpu_torch.train.state.state_to_tree` (flax paths and
-layouts, each leaf in its own dtype).  Both are read back with
-``torch.load(weights_only=True)``: tensors, ints, floats and ``None`` in
-plain dicts, no pickled objects.  The JAX package writes flax msgpack
-blobs and orbax snapshots; reading those is ROADMAP queue A8b.
+layouts, each leaf in its own dtype), read back with
+``torch.load(weights_only=True)``.  ``restore`` and ``restore_path`` also
+read a JAX snapshot directory (orbax's ``StandardCheckpointer`` layout:
+:mod:`dtdl_tpu_torch.ckpt.orbax_reader`) into a port ``TrainState``,
+where ``tensorstore`` imports; elsewhere they raise
+``NotImplementedError`` naming it.
 
 Writes are **leader-gated** (process 0 writes, every process then meets
 at a barrier) and **atomic** (a weights file and its manifest go to
@@ -59,7 +68,8 @@ import threading
 import numpy as np
 import torch
 
-from dtdl_tpu_torch.bridge import _nest, flatten
+from dtdl_tpu_torch.bridge import _nest, flatten, weights_tree
+from dtdl_tpu_torch.ckpt import flax_msgpack, orbax_reader
 from dtdl_tpu_torch.resil.faults import fire as _fault
 from dtdl_tpu_torch.runtime.bootstrap import barrier, is_leader
 
@@ -69,6 +79,8 @@ log = logging.getLogger("dtdl_tpu_torch")
 # without it is torn (the process died between the rename and here)
 _COMMIT_MARKER = "_DTDL_COMMIT"
 _SNAPSHOT_FILE = "state.pt"
+_ZIP_MAGIC = b"PK\x03\x04"      # a torch.save file (the port's old weights)
+_WEIGHT_FMT = "weights_epoch_{:04d}.msgpack"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -99,12 +111,6 @@ def _unflat(flat: dict, like) -> dict:
     return flat if _flat(like).keys() == like.keys() else _nest(flat)
 
 
-def _tensor(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x))
-
-
 def _atomic_write(path: str, data: bytes) -> None:
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -112,25 +118,56 @@ def _atomic_write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def save_weights(path: str, tree) -> str:
+def save_weights(path: str, tree, mesh=None) -> str:
     """Write a weights tree (nested or flat dicts of tensors or numpy
-    arrays under flax paths) as ``torch.save`` of its flat dict, on the
-    leader only; every process returns after the write."""
+    arrays under flax paths) as the flax msgpack blob of its nested tree,
+    with its manifest, on the leader only; every process (of ``mesh``,
+    a sub-mesh holding the leader, or else of the world) returns after
+    the write (a barrier)."""
     if is_leader():
-        buf = io.BytesIO()
-        torch.save({k: _tensor(v) for k, v in _flat(tree).items()}, buf)
-        blob = buf.getvalue()
+        parts = flax_msgpack.serialize_parts(weights_tree(tree))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        digest, nbytes = hashlib.sha256(), 0
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            f.write(blob)
+            for part in parts:
+                f.write(part)
+                digest.update(part)
+                nbytes += len(part) if isinstance(part, bytes) \
+                    else part.nbytes
         _fault("ckpt.pre_rename")   # the torn-write window, injectable
         os.replace(tmp, path)
-        manifest = {"bytes": len(blob),
-                    "sha256": hashlib.sha256(blob).hexdigest()}
+        manifest = {"bytes": nbytes, "sha256": digest.hexdigest()}
         _atomic_write(_manifest_path(path), json.dumps(manifest).encode())
-    barrier("save_weights")
+    barrier("save_weights", mesh=mesh)
     return path
+
+
+def _read_blob(path: str) -> bytearray:
+    """The file's bytes in a writable buffer (the decoded tensors are
+    views of it)."""
+    with open(path, "rb") as f:
+        blob = bytearray(os.fstat(f.fileno()).st_size)
+        n = f.readinto(blob)
+    del blob[n:]
+    return blob
+
+
+def _decode(path: str, blob: bytearray) -> dict:
+    """The flat {flax path: leaf} dict of a weights blob."""
+    try:
+        if blob[:4] == _ZIP_MAGIC:
+            flat = torch.load(io.BytesIO(blob), weights_only=True)
+        else:
+            tree = flax_msgpack.msgpack_restore(blob)
+            flat = flatten(tree) if isinstance(tree, dict) else tree
+    except Exception as e:
+        raise CheckpointCorruptError(
+            path, len(blob), f"{type(e).__name__}: {e}") from e
+    if not isinstance(flat, dict):
+        raise CheckpointCorruptError(path, len(blob),
+                                     "not a tree of arrays")
+    return flat
 
 
 def load_weights(path: str, like):
@@ -138,12 +175,11 @@ def load_weights(path: str, like):
     flat dicts; CPU tensors as leaves).
 
     **Integrity-checked**: when the manifest exists, the blob's byte
-    length and sha256 must match it, and a blob ``torch.load`` cannot
-    read raises :class:`CheckpointCorruptError` naming the path and byte
+    length and sha256 must match it, and a blob that will not parse
+    raises :class:`CheckpointCorruptError` naming the path and byte
     length.  **Shape-validated**: a missing or extra leaf, or a leaf of
     another shape or dtype than ``like``'s, raises ``ValueError``."""
-    with open(path, "rb") as f:
-        blob = f.read()
+    blob = _read_blob(path)
     mpath = _manifest_path(path)
     if os.path.exists(mpath):
         with open(mpath) as f:
@@ -156,14 +192,7 @@ def load_weights(path: str, like):
         if hashlib.sha256(blob).hexdigest() != manifest.get("sha256"):
             raise CheckpointCorruptError(
                 path, len(blob), "sha256 mismatch against manifest")
-    try:
-        restored = torch.load(io.BytesIO(blob), weights_only=True)
-    except Exception as e:
-        raise CheckpointCorruptError(
-            path, len(blob), f"{type(e).__name__}: {e}") from e
-    if not isinstance(restored, dict):
-        raise CheckpointCorruptError(path, len(blob),
-                                     "not a flat {path: tensor} dict")
+    restored = _decode(path, blob)
     want = _flat(like)
     _validate_shapes(restored, want, path)
     return _unflat({k: restored[k] for k in want}, like)
@@ -171,10 +200,7 @@ def load_weights(path: str, like):
 
 def _dtype_name(x) -> str | None:
     dt = getattr(x, "dtype", None)
-    if dt is None:
-        return None
-    return str(dt).replace("torch.", "") if isinstance(dt, torch.dtype) \
-        else np.dtype(dt).name
+    return None if dt is None else flax_msgpack.dtype_name(dt)
 
 
 def _validate_shapes(restored: dict, like: dict, origin: str) -> None:
@@ -253,11 +279,11 @@ class Checkpointer:
 
     Layout under ``directory``::
 
-        weights_epoch_0003.pt       (shape 2: per-epoch weights)
+        weights_epoch_0003.msgpack  (shape 2: per-epoch weights)
         snapshot_12/                (shape 3: the full state at step 12,
                                      with _DTDL_COMMIT once durable)
         snapshot_12.meta.json       (the Trainer's sidecar)
-        final.pt                    (shape 1: final weights export)
+        final.msgpack               (shape 1: final weights export)
 
     A context manager: ``with Checkpointer(...) as ck:`` flushes (every
     in-flight snapshot durable and committed) and closes on any exit,
@@ -266,15 +292,19 @@ class Checkpointer:
     ``per_process=True`` makes every process the writer of its own
     ``directory`` (the 4D engine's shards, one directory a rank); the
     barriers stay, so every process still saves and restores together.
+    ``mesh``, a sub-mesh of the world that holds process 0 (the writer),
+    makes its barriers span the mesh's processes only (a Solver on
+    ``--gpu n`` below the world).
     """
 
-    _WEIGHT_RE = re.compile(r"weights_epoch_(\d+)\.pt$")
+    _WEIGHT_RE = re.compile(r"weights_epoch_(\d+)\.msgpack$")
     _SNAP_RE = re.compile(r"snapshot_(\d+)$")
 
     def __init__(self, directory: str, keep: int | None = None,
-                 per_process: bool = False):
+                 per_process: bool = False, mesh=None):
         self.directory = directory
         self.keep = keep
+        self._mesh = mesh
         self._writes = per_process or is_leader()
         self._last_saved_step = None   # protected from gc until superseded
         # rollback detection: _supersede (deleting entries ABOVE a save)
@@ -288,7 +318,7 @@ class Checkpointer:
         self._write_error: BaseException | None = None
         if self._writes:
             os.makedirs(directory, exist_ok=True)
-        barrier("ckpt_mkdir")
+        barrier("ckpt_mkdir", mesh=mesh)
 
     def __enter__(self) -> "Checkpointer":
         return self
@@ -357,7 +387,7 @@ class Checkpointer:
                     json.dump({"step": step}, f)
                 os.replace(tmp, marker)
         self._pending_commit.clear()
-        barrier("ckpt_commit")
+        barrier("ckpt_commit", mesh=self._mesh)
 
     def close(self) -> None:
         """Join the writer (no commit: a snapshot not flushed by
@@ -382,11 +412,11 @@ class Checkpointer:
                     pass
 
     def save_weights_epoch(self, epoch: int, params) -> str:
-        path = os.path.join(self.directory, f"weights_epoch_{epoch:04d}.pt")
-        save_weights(path, params)
+        path = os.path.join(self.directory, _WEIGHT_FMT.format(epoch))
+        save_weights(path, params, mesh=self._mesh)
         if self._restored_weights:
-            self._supersede(self._WEIGHT_RE, "weights_epoch_{:04d}.pt", epoch)
-        self._gc(self._WEIGHT_RE, "weights_epoch_{:04d}.pt", protect=epoch)
+            self._supersede(self._WEIGHT_RE, _WEIGHT_FMT, epoch)
+        self._gc(self._WEIGHT_RE, _WEIGHT_FMT, protect=epoch)
         return path
 
     def latest_weights(self, like):
@@ -394,8 +424,7 @@ class Checkpointer:
         torn epoch file is quarantined and the next-older one tried; an
         architecture mismatch (``ValueError``) propagates."""
         for epoch in sorted(self._list(self._WEIGHT_RE), reverse=True):
-            path = os.path.join(self.directory,
-                                f"weights_epoch_{epoch:04d}.pt")
+            path = os.path.join(self.directory, _WEIGHT_FMT.format(epoch))
             try:
                 restored = load_weights(path, like)
             except CheckpointCorruptError as e:
@@ -449,8 +478,12 @@ class Checkpointer:
             self.wait_until_finished()
         return path
 
-    def _read(self, path: str) -> dict:
+    def _read(self, path: str, like) -> dict:
+        """The snapshot tree at ``path``: the port's ``state.pt``, or a
+        JAX (orbax) snapshot directory shaped as ``like``'s tree."""
         f = os.path.join(path, _SNAPSHOT_FILE)
+        if not os.path.isfile(f) and orbax_reader.is_orbax_snapshot(path):
+            return self._read_orbax(path, like)
         if not os.path.isfile(f):
             raise CheckpointCorruptError(path, None,
                                          f"no {_SNAPSHOT_FILE} inside")
@@ -459,6 +492,21 @@ class Checkpointer:
         except Exception as e:
             raise CheckpointCorruptError(
                 path, os.path.getsize(f), f"{type(e).__name__}: {e}") from e
+
+    @staticmethod
+    def _read_orbax(path: str, like) -> dict:
+        from dtdl_tpu_torch.train.state import TrainState, state_to_tree
+        if not isinstance(like, TrainState):
+            raise TypeError(f"{path} is a JAX (orbax) snapshot: it restores "
+                            f"into a TrainState, not a "
+                            f"{type(like).__name__}")
+        orbax_reader.require_tensorstore()   # NotImplementedError, named
+        try:
+            raw = orbax_reader.read_tree(path)
+        except Exception as e:
+            raise CheckpointCorruptError(
+                path, None, f"{type(e).__name__}: {e}") from e
+        return orbax_reader.state_tree(raw, state_to_tree(like))
 
     def _apply(self, like, tree: dict, origin: str):
         """Validate ``tree`` against ``like`` and return the restored
@@ -515,7 +563,7 @@ class Checkpointer:
             raise CheckpointCorruptError(
                 path, None, "no commit marker — the writing process died "
                 "before the snapshot was finalized (torn write)")
-        restored = self._apply(like, self._read(path), path)
+        restored = self._apply(like, self._read(path, like), path)
         self._restored_snapshot = True
         return restored, step
 
@@ -530,12 +578,12 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore_path(self, like, path: str):
-        """Restore from an explicit snapshot path (``--resume <path>``):
-        no commit-marker requirement, read failures as the named
-        :class:`CheckpointCorruptError`."""
+        """Restore from an explicit snapshot path (``--resume <path>``,
+        a port snapshot or a JAX one): no commit-marker requirement, read
+        failures as the named :class:`CheckpointCorruptError`."""
         self.wait_until_finished()
         abspath = os.path.abspath(path.rstrip("/"))
-        restored = self._apply(like, self._read(abspath), abspath)
+        restored = self._apply(like, self._read(abspath, like), abspath)
         # only a snapshot of THIS directory makes a later low save a
         # rollback of its timeline
         if (os.path.dirname(abspath) == os.path.abspath(self.directory)
@@ -546,7 +594,8 @@ class Checkpointer:
     # -- shape 1: final weights ----------------------------------------------
 
     def save_final(self, params) -> str:
-        return save_weights(os.path.join(self.directory, "final.pt"), params)
+        return save_weights(os.path.join(self.directory, "final.msgpack"),
+                            params, mesh=self._mesh)
 
     # -- housekeeping ---------------------------------------------------------
 

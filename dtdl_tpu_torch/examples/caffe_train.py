@@ -11,15 +11,18 @@ optimization schedule (:class:`~dtdl_tpu_torch.train.solver.Solver`).
         -m dtdl_tpu_torch.examples.caffe_train --solver ... --gpu all
 
 A port process drives one card, so ``--gpu N`` (or a list of N cards)
-needs a world of N processes and raises otherwise.  ``--platform cpu``
-runs on the CPU.
+trains data parallel over the first N processes of the world, as the JAX
+script trains over the first N chips: above the world's count it raises;
+below it the other processes sit the run out (they leave once the
+sub-mesh's groups are made, and the Solver's snapshots meet at barriers
+of the sub-mesh's processes only).  ``--platform cpu`` runs on the CPU.
 """
 
 from dtdl_tpu_torch.examples.common import (bootstrap, mnist_arrays,
                                             per_process_loader)
-from dtdl_tpu_torch.examples.data_parallel import check_device_count
+from dtdl_tpu_torch.examples.data_parallel import device_mesh
 from dtdl_tpu_torch.parallel import choose_strategy
-from dtdl_tpu_torch.runtime import process_count
+from dtdl_tpu_torch.runtime import process_count, process_index
 from dtdl_tpu_torch.train.solver import Solver
 from dtdl_tpu_torch.utils.config import (add_data_flags, add_topology_flags,
                                          flag, make_parser)
@@ -34,7 +37,8 @@ def main(argv=None):
          help="resume: 'latest' or a snapshot iteration number")
     flag(parser, "--gpu", default="",
          help="'' = single device; 'all' or a count = data parallel over "
-              "the world's processes, one card each (caffe's -gpu flag)")
+              "the world's processes, or its first N, one card each "
+              "(caffe's -gpu flag)")
     flag(parser, "--out", default="",
          help="override snapshot/output directory")
     flag(parser, "--max-iter", type=int, default=0,
@@ -47,29 +51,28 @@ def main(argv=None):
     device = bootstrap(args)
 
     seed_everything(0)   # the Solver seeds from the prototxt's random_seed
+    (x, y), (vx, vy) = mnist_arrays(args)
+    mesh = None
     if not args.gpu:
         strategy = choose_strategy("single")
     elif args.gpu == "all":
         strategy = choose_strategy("ddp")
     else:
-        # caffe's -gpu 0,1 / count form
+        # caffe's -gpu 0,1 / count form: the first n processes
         n = len(args.gpu.split(",")) if "," in args.gpu else int(args.gpu)
-        check_device_count(n, "caffe_train")
-        if 0 < n < process_count():
-            # the Solver's snapshots meet at barriers of the whole world,
-            # which ranks outside a sub-mesh would never reach
-            raise ValueError(
-                f"--gpu {args.gpu}: {n} of this world's {process_count()} "
-                f"processes; the Solver trains over the whole world, so "
-                f"launch {n}: python -m dtdl_tpu_torch.launch.local --nproc "
-                f"{n} -- -m dtdl_tpu_torch.examples.caffe_train --gpu all")
-        strategy = choose_strategy("ddp")
+        mesh = device_mesh(n, "caffe_train")
+        if mesh is None:
+            print(f"process {process_index()} sits out: --gpu {args.gpu} "
+                  f"trains over the first {n} of {process_count()}",
+                  flush=True)
+            return None
+        strategy = choose_strategy("ddp", mesh=mesh)
 
-    (x, y), (vx, vy) = mnist_arrays(args)
     train_loader = per_process_loader(x, y, args.batch_size, shuffle=True,
-                                      seed=0, device=device)
+                                      seed=0, device=device, mesh=mesh)
     test_loader = per_process_loader(vx, vy, args.batch_size, shuffle=False,
-                                     seed=0, drop_last=False, device=device)
+                                     seed=0, drop_last=False, device=device,
+                                     mesh=mesh)
 
     solver = Solver(args.solver, train_loader, test_loader,
                     strategy=strategy, out=args.out or None,

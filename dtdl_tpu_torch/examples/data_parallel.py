@@ -22,7 +22,7 @@ import argparse
 import torch
 
 from dtdl_tpu_torch.bridge import state_dict_to_flax
-from dtdl_tpu_torch.ckpt import Checkpointer
+from dtdl_tpu_torch.ckpt import save_weights
 from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
                                             cifar_loaders, sgd_steplr)
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
@@ -96,7 +96,6 @@ def main(argv=None):
               f"{process_count()}", flush=True)
         cifar_loaders(args, args.seed, device)
         if args.save_model:
-            Checkpointer(args.out)
             barrier("save_weights")
         return
     seed_everything(args.seed)
@@ -124,7 +123,8 @@ def main(argv=None):
         evaluate(eval_step, state, val_loader, strategy,
                  reporter=reporter, epoch=epoch)
     if args.save_model:
-        path = Checkpointer(args.out).save_final(state_dict_to_flax(model))
+        path = save_weights(f"{args.out}/pyramidnet_final.msgpack",
+                            state_dict_to_flax(model))
         print(f"saved weights to {path}", flush=True)
 
 

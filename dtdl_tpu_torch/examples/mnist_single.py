@@ -56,7 +56,7 @@ def run(args, strategy, device):
     print(f"Eval loss: {res['loss']}, Eval Accuracy: {res['accuracy']}",
           flush=True)
     if args.save_model:
-        model.save_weights(f"{args.train_dir}/final.pt")
+        model.save_weights(f"{args.train_dir}/final.msgpack")
 
 
 def main(argv=None):

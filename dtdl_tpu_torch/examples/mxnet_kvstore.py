@@ -162,7 +162,8 @@ def main(argv=None):
 
     if args.save_model:
         # leader-gated, with a barrier, inside save_weights
-        save_weights(f"{args.out}/mxnet_cnn.pt", state_dict_to_flax(symbol))
+        save_weights(f"{args.out}/mxnet_cnn.msgpack",
+                     state_dict_to_flax(symbol))
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ retries, hedging, rolling restarts and prefill/decode disaggregation.
     python -m dtdl_tpu_torch.examples.serve_fleet --model-size base \\
         --disagg --kill-replica-after 5
     # tenants: base + two LoRA adapters, token streams, JSON output
-    python -m dtdl_tpu_torch.examples.serve_fleet --lora a.pt,b.pt \\
+    python -m dtdl_tpu_torch.examples.serve_fleet --lora a.msgpack,b.msgpack \\
         --stream --json-schema schema.json --kill-replica-after 3
     # observability: a Perfetto trace, a JSONL series, a scrape endpoint
     # and SLO judging

@@ -1,14 +1,18 @@
 #!/usr/bin/env python
 """Continuous-batching LM serving, the twin of examples/serve_lm.py: a
-``transformer_lm`` with random weights from ``--seed`` behind the port's
-engine and scheduler, over the JAX script's synthetic traffic (mixed
-prompt lengths, an optional shared prefix, one sampling config).  With
+``transformer_lm`` with random weights from ``--seed`` (or the flax
+msgpack weights of ``--restore``) behind the port's engine and
+scheduler, over the JAX script's synthetic traffic (mixed prompt
+lengths, an optional shared prefix, one sampling config).  With
 ``--page-size`` the arena is block-paged and every paged attend is the
 paged-attention kernel on the card.
 
     python -m dtdl_tpu_torch.examples.serve_lm --n-requests 32 --n-slots 8
     python -m dtdl_tpu_torch.examples.serve_lm --model-size base \\
         --page-size 16 --shared-prefix 256 --dtype bfloat16
+    # serve trained weights, the train_lm twin's (or JAX's) file:
+    python -m dtdl_tpu_torch.examples.serve_lm --model-size base \\
+        --restore out/lm_final.msgpack --page-size 16
 
 ``--spill-host-mb`` (with ``--spill-dir``) puts the KV spill tiers behind
 the prefix cache of a paged arena.  Tenancy: ``--lora a,b`` round-robins
@@ -18,9 +22,10 @@ output to JSON of that schema, ``--stream`` attaches a token stream to
 each request.  ``--trace PATH`` writes a Perfetto-loadable Chrome trace
 of the scheduler's phases and request lifecycles (the twin's Observer, as
 the JAX script's; its sentinel counts captures once the port has them,
-queue A5).  ``--platform cpu`` runs on the CPU.  Not ported yet, and
-refused by name: ``--restore`` of flax msgpack weights, ROADMAP queue
-A8b's remainder.
+queue A5).  ``--restore`` reads a weights file as the JAX script does
+(``ckpt.load_weights``: the manifest's checksum, then every leaf's shape
+and dtype against the f32 params of ``--model-size``, a mismatch a
+``ValueError`` naming the leaves).  ``--platform cpu`` runs on the CPU.
 """
 
 import argparse
@@ -29,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from dtdl_tpu_torch.bridge import load_flax_params, state_dict_to_flax
+from dtdl_tpu_torch.ckpt import load_weights
 from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
                                             demo_adapters, json_report,
                                             json_schema_dfa)
@@ -39,17 +46,11 @@ from dtdl_tpu_torch.serve import (InferenceEngine, ModelDraft, Request,
 from dtdl_tpu_torch.utils.config import flag, make_parser
 from dtdl_tpu_torch.utils.random import seed_everything
 
-# flags whose modules are not ported yet -> the ROADMAP item that ports them
-REFUSED = {
-    "restore": "queue A8b's remainder (reading flax msgpack weights)",
-}
-
-
 def parser():
     p = make_parser("dtdl_tpu_torch: batched LM serving")
     flag(p, "--model-size", default="tiny", choices=["tiny", "small", "base"])
     flag(p, "--restore", default="",
-         help="msgpack weights to serve: ROADMAP queue A8b's remainder")
+         help="msgpack weights to serve (default: random init)")
     flag(p, "--n-slots", type=int, default=4,
          help="decode batch width (KV-arena rows)")
     flag(p, "--n-requests", type=int, default=12)
@@ -148,16 +149,16 @@ def traffic(model, args, rng, tenants=(None,), dfa=None, eos=None):
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    for name, item in REFUSED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is ROADMAP {item}")
     device = bootstrap(args)
     seed_everything(args.seed)
 
     model = transformer_lm(args.model_size, attn_impl="dense",
                            dtype=getattr(torch, args.dtype), device=device,
                            seed=args.seed)
+    if args.restore:
+        load_flax_params(model, load_weights(args.restore,
+                                             state_dict_to_flax(model)),
+                         device=device)
     hi = min(64, model.cfg.max_seq // 2)
     if not 0 <= args.shared_prefix <= model.cfg.max_seq - hi - 1:
         ap.error(f"--shared-prefix must be in [0, "

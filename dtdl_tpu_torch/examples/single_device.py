@@ -12,7 +12,7 @@ every ``--log-interval`` steps, an evaluate per epoch, the final weights.
 import torch
 
 from dtdl_tpu_torch.bridge import state_dict_to_flax
-from dtdl_tpu_torch.ckpt import Checkpointer
+from dtdl_tpu_torch.ckpt import save_weights
 from dtdl_tpu_torch.examples.common import (add_device_flags, bootstrap,
                                             cifar_loaders, sgd_steplr)
 from dtdl_tpu_torch.metrics.report import Reporter, StdoutSink
@@ -63,7 +63,8 @@ def main(argv=None):
         evaluate(eval_step, state, val_loader, strategy,
                  reporter=reporter, epoch=epoch)
     if args.save_model:
-        path = Checkpointer(args.out).save_final(state_dict_to_flax(model))
+        path = save_weights(f"{args.out}/pyramidnet_final.msgpack",
+                            state_dict_to_flax(model))
         print(f"saved weights to {path}", flush=True)
 
 

@@ -2,7 +2,10 @@
 """Causal language-model training (data-parallel), the twin of
 examples/train_lm.py: ``transformer_lm`` with the flash kernels (K1-K3
 on the card), next-token loss, single/DP/DDP through the strategy
-layer, goodput fields per log window, the final weights.
+layer, goodput fields per log window, the final weights as the JAX
+script writes them (``<out>/lm_final.msgpack``, flax msgpack, which
+``serve_lm --restore`` serves).  ``main(argv)`` returns the trained
+state.
 
     python -m dtdl_tpu_torch.examples.train_lm --batch-size 32 --seq-len 128
     python -m dtdl_tpu_torch.launch.local --nproc 2 -- \\
@@ -139,7 +142,7 @@ def main(argv=None):
     if args.trace and is_leader():
         print(f"trace written to {obs.save()}", flush=True)
     if args.save_model:
-        path = save_weights(f"{args.out}/lm_final.pt",
+        path = save_weights(f"{args.out}/lm_final.msgpack",
                             state_dict_to_flax(model))
         if is_leader():
             print(f"saved weights to {path}", flush=True)
@@ -152,6 +155,7 @@ def main(argv=None):
                        strategy=strategy)
         if is_leader():
             print("generated:", out.cpu().numpy()[0].tolist(), flush=True)
+    return state
 
 
 if __name__ == "__main__":

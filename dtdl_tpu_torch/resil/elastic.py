@@ -480,7 +480,7 @@ class ElasticWorker:
         previous marker intact and survivors just replay a bit more."""
         from dtdl_tpu_torch.ckpt.checkpoint import save_weights
         path = os.path.join(self.ckpt_dir,
-                            f"elastic_{self.step:06d}.pt")
+                            f"elastic_{self.step:06d}.msgpack")
         save_weights(path, self.state)
         self.store.set("ckpt/committed", {"step": self.step,
                                           "path": path})

@@ -176,9 +176,13 @@ class BarrierTimeoutError(RuntimeError):
 _DEFAULT_TIMEOUT = float(os.environ.get("DTDL_BARRIER_TIMEOUT_S", "0")) or None
 
 
-def barrier(name: str = "barrier", timeout_s: float | None = None) -> None:
+def barrier(name: str = "barrier", timeout_s: float | None = None,
+            mesh=None) -> None:
     """Cross-process sync point over the host group (no-op for a single
-    process).
+    process).  ``mesh``, a mesh over fewer processes than the world
+    (:func:`~dtdl_tpu_torch.runtime.mesh.sub_mesh`), makes it span that
+    mesh's processes only, over its host group: a run on a sub-mesh meets
+    its own barriers while the processes outside it have left.
 
     ``timeout_s`` (or the process-wide ``DTDL_BARRIER_TIMEOUT_S``
     default) bounds the wait: on expiry, or when a peer's connection
@@ -187,14 +191,22 @@ def barrier(name: str = "barrier", timeout_s: float | None = None) -> None:
     Treat it as fatal for this process: the world's collectives are out
     of step after it.
     """
-    if process_count() <= 1:
+    group = _host_group
+    if mesh is not None and mesh.size < process_count():
+        if mesh.size <= 1:
+            return
+        if mesh.host_group is None:
+            raise ValueError(f"barrier {name!r}: the mesh over {mesh.ranks} "
+                             f"has no host group (make it with sub_mesh)")
+        group = mesh.host_group
+    elif process_count() <= 1:
         return
     timeout_s = timeout_s if timeout_s is not None else _DEFAULT_TIMEOUT
     if timeout_s is None:
-        dist.barrier(group=_host_group)
+        dist.barrier(group=group)
         return
     try:
-        dist.monitored_barrier(group=_host_group,
+        dist.monitored_barrier(group=group,
                                timeout=timedelta(seconds=timeout_s))
     except RuntimeError as e:
         raise BarrierTimeoutError(

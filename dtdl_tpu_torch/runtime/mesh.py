@@ -51,12 +51,15 @@ class Mesh:
     ``dims`` is None); ``group`` is the process group of the whole mesh,
     ``None`` for a mesh of one process with no world.  ``groups`` maps a
     set of axes (those of size above 1) to this process's group over its
-    line, as :func:`build_mesh` made them."""
+    line, as :func:`build_mesh` made them.  ``host_group`` is a gloo group
+    over the processes of a :func:`sub_mesh`, for its barriers (the mesh's
+    own group where the world is gloo)."""
     ranks: tuple[int, ...]
     axis_names: tuple[str, ...] = (DATA_AXIS,)
     group: object = None
     dims: tuple[int, ...] | None = None
     groups: dict = field(default_factory=dict, compare=False, repr=False)
+    host_group: object = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         dims = (len(self.ranks),) if self.dims is None else self.dims
@@ -238,12 +241,21 @@ def sub_mesh(ranks, axis: str = DATA_AXIS) -> Mesh | None:
     """The one-axis mesh of the world ``ranks`` (a data-parallel mesh
     over fewer processes than the world): its group is made on every
     process (``dist.new_group`` is collective over the world), and the
-    mesh comes back on its members, ``None`` on the others."""
+    mesh comes back on its members, ``None`` on the others.  Beside an
+    NCCL world a gloo group over the same processes carries the mesh's
+    barriers (``bootstrap.barrier(mesh=)``), as the world's host group
+    does the world's."""
     ranks = tuple(int(r) for r in ranks)
-    group = dist.new_group(list(ranks)) if dist.is_initialized() else None
+    group = host = None
+    if dist.is_initialized():
+        group = host = dist.new_group(list(ranks))
+        if dist.get_backend() != "gloo":
+            host = dist.new_group(list(ranks), backend="gloo")
     if process_index() not in ranks:
         return None
-    return Mesh(ranks, (axis,), group if len(ranks) > 1 else None)
+    if len(ranks) == 1:
+        return Mesh(ranks, (axis,), None)
+    return Mesh(ranks, (axis,), group, host_group=host)
 
 
 class ShrinkMeshError(RuntimeError):

@@ -178,7 +178,9 @@ class Solver:
         # different prefixes in one directory never clobber each other
         prefix = str(sp.get_scalar("snapshot_prefix", "./result/caffe_model"))
         self.out = out or prefix
-        self.ckpt = Checkpointer(self.out)
+        # on a sub-mesh the snapshots' barriers span its processes only
+        self.ckpt = Checkpointer(self.out,
+                                 mesh=getattr(self.strategy, "mesh", None))
         self.reporter = Reporter([StdoutSink()])
         self.iteration = 0
 

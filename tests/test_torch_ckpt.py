@@ -157,7 +157,7 @@ def test_snapshot_matches_the_jax_checkpointer(name, tmp_path):
 
 def test_weights_roundtrip(tmp_path):
     state = mk_state()
-    p = str(tmp_path / "w.pt")
+    p = str(tmp_path / "w.msgpack")
     save_weights(p, params_tree(state.model))
     loaded = load_weights(p, params_tree(mk_state(seed=9).model))
     assert_trees_equal(params_tree(state.model), loaded)
@@ -240,7 +240,7 @@ def test_async_snapshot_visible_to_fresh_checkpointer(tmp_path):
 
 
 def test_mismatched_model_raises_value_error_naming_the_leaf(tmp_path):
-    p = str(tmp_path / "w.pt")
+    p = str(tmp_path / "w.msgpack")
     save_weights(p, {"q": {"kernel": np.zeros((256, 8, 32), np.float32)}})
     with pytest.raises(ValueError, match="(?s)does not match.*q/kernel"):
         load_weights(p, {"q": {"kernel": np.zeros((256, 2, 128),
@@ -357,7 +357,7 @@ def test_crash_between_tmp_write_and_rename_falls_back(tmp_path):
     with FaultPlan().at("ckpt.pre_rename", 0, "crash"):
         with pytest.raises(InjectedCrash):
             ck.save_weights_epoch(1, params_tree(mk_state(seed=1).model))
-    assert os.path.exists(str(tmp_path / "weights_epoch_0001.pt.tmp"))
+    assert os.path.exists(str(tmp_path / "weights_epoch_0001.msgpack.tmp"))
     restored, epoch = Checkpointer(str(tmp_path)).latest_weights(
         params_tree(mk_state(seed=9).model))
     assert epoch == 0
@@ -369,7 +369,7 @@ def test_latest_weights_quarantines_corrupt_epoch_and_falls_back(tmp_path):
     p0 = params_tree(mk_state(seed=0).model)
     ck.save_weights_epoch(0, p0)
     ck.save_weights_epoch(1, params_tree(mk_state(seed=1).model))
-    victim = str(tmp_path / "weights_epoch_0001.pt")
+    victim = str(tmp_path / "weights_epoch_0001.msgpack")
     blob = open(victim, "rb").read()
     with open(victim, "wb") as f:
         f.write(blob[:100])

@@ -146,7 +146,7 @@ def test_kill_one_of_four_shrinks_bitwise_exact(tmp_path):
             "elastic_snapshot"} <= names
 
     restored = marks(survivors[0], "restore")[0][1]["step"]
-    path = os.path.join(str(tmp_path), f"elastic_{restored:06d}.pt")
+    path = os.path.join(str(tmp_path), f"elastic_{restored:06d}.msgpack")
     assert os.path.exists(path) and 0 < restored < STEPS
     store_b = HostKVStore()
     store_b.set("ckpt/committed", {"step": restored, "path": path})
@@ -483,7 +483,7 @@ def test_launcher_store_and_twin_survive_a_sigkilled_worker(tmp_path,
     store = HostKVStore()
     store.set("ckpt/committed",
               {"step": restored,
-               "path": os.path.join(ck, f"elastic_{restored:06d}.pt")})
+               "path": os.path.join(ck, f"elastic_{restored:06d}.msgpack")})
     oracle = [ElasticWorker(RetryingStore(store), r, sampler=s,
                             total_steps=STEPS,
                             cfg=ElasticConfig(heartbeat_s=0,

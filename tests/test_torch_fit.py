@@ -171,9 +171,9 @@ def test_checkpoint_callback_load_latest_and_weights_io(tmp_path):
     model.fit(x, y, batch_size=BATCH, epochs=3, verbose=0,
               callbacks=[ModelCheckpoint(str(tmp_path / "ck"), keep=2)])
     names = sorted(p.name for p in (tmp_path / "ck").iterdir())
-    assert names == ["weights_epoch_0001.pt", "weights_epoch_0001.pt."
-                     "manifest.json", "weights_epoch_0002.pt",
-                     "weights_epoch_0002.pt.manifest.json"]
+    assert names == ["weights_epoch_0001.msgpack", "weights_epoch_0001."
+                     "msgpack.manifest.json", "weights_epoch_0002.msgpack",
+                     "weights_epoch_0002.msgpack.manifest.json"]
     trained = bridge.flatten(bridge.state_dict_to_flax(model.module))
     # restore-latest then evaluate, in a fresh model
     _, fresh = model_pair("mlp", "sgd")
@@ -185,12 +185,12 @@ def test_checkpoint_callback_load_latest_and_weights_io(tmp_path):
     assert fresh.evaluate(vx, vy, batch_size=16, verbose=0) == \
         model.evaluate(vx, vy, batch_size=16, verbose=0)
     assert not fresh.load_latest(str(tmp_path / "empty"))
-    model.save_weights(str(tmp_path / "final.pt"))
+    model.save_weights(str(tmp_path / "final.msgpack"))
     _, other = model_pair("mlp", "sgd")
     with pytest.raises(ValueError, match="before load_weights"):
-        other.load_weights(str(tmp_path / "final.pt"))
+        other.load_weights(str(tmp_path / "final.msgpack"))
     other._ensure_state()
-    other.load_weights(str(tmp_path / "final.pt"))
+    other.load_weights(str(tmp_path / "final.msgpack"))
     got = bridge.flatten(bridge.state_dict_to_flax(other.module))
     for path in trained:
         np.testing.assert_array_equal(got[path], trained[path])

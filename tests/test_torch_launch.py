@@ -338,7 +338,7 @@ def test_weights_round_trip_corruption_and_mismatch(tmp_path):
     tree = {"Dense_0": {"kernel": torch.arange(6.0).reshape(2, 3),
                         "bias": np.ones(3, np.float32)},
             "Dense_1": {"kernel": torch.ones(3, 1, dtype=torch.bfloat16)}}
-    path = str(tmp_path / "w" / "final.pt")
+    path = str(tmp_path / "w" / "final.msgpack")
     assert save_weights(path, tree) == path
     back = load_weights(path, tree)
     assert tree_digest(back) == tree_digest(
@@ -369,9 +369,10 @@ def test_weights_round_trip_corruption_and_mismatch(tmp_path):
         with pytest.raises(ValueError, match=match):
             load_weights(path, like)
     ck = Checkpointer(str(tmp_path / "ck"))
-    assert ck.save_final(tree).endswith("final.pt")
+    assert ck.save_final(tree).endswith("final.msgpack")
     # the snapshot half (per-epoch weights, state snapshots) works now
-    assert ck.save_weights_epoch(0, tree).endswith("weights_epoch_0000.pt")
+    assert ck.save_weights_epoch(0, tree).endswith(
+        "weights_epoch_0000.msgpack")
     back, epoch = ck.latest_weights(tree)
     assert epoch == 0 and tree_digest(back) == tree_digest(
         load_weights(path, tree))
@@ -461,14 +462,15 @@ def test_ddp_twin_two_ranks_leader_writes(twins):
     assert len({s["params_digest"] for s in summaries}) == 1
     assert len({s["batch_stats_digest"] for s in summaries}) == 1
     files = sorted(os.listdir(tmp / "ddp"))
-    assert files == ["final.pt", "final.pt.manifest.json", "log.jsonl"]
+    assert files == ["final.msgpack", "final.msgpack.manifest.json",
+                     "log.jsonl"]
     rows = [json.loads(x) for x in open(tmp / "ddp" / "log.jsonl")]
     assert [r.get("split") for r in rows][-2:] == ["train_epoch", "val"]
     assert "[rank 1]" not in "".join(x for x in out.splitlines()
                                      if "Epoch [" in x)
     assert out.count("leader saved weights") == 1
     like = bridge.state_dict_to_flax(pyramidnet(device="cpu", seed=None))
-    back = load_weights(str(tmp / "ddp" / "final.pt"), like)
+    back = load_weights(str(tmp / "ddp" / "final.msgpack"), like)
     assert tree_digest(back) == summaries[0]["params_digest"]
 
 
@@ -478,5 +480,5 @@ def test_lm_twin_two_ranks(twins):
     out = lm.stdout
     assert out.count("generated:") == 1 and "[rank 0] generated:" in out
     assert "tokens_per_sec" in out and "saved weights to" in out
-    assert sorted(os.listdir(tmp / "lm")) == ["lm_final.pt",
-                                              "lm_final.pt.manifest.json"]
+    assert sorted(os.listdir(tmp / "lm")) == [
+        "lm_final.msgpack", "lm_final.msgpack.manifest.json"]

@@ -116,8 +116,8 @@ def test_keras_twins_fit_checkpoint_and_evaluate_the_latest(runs):
         assert re.search(r"Eval loss: [\d.]+, Eval Accuracy: [\d.]+", text)
         assert "TensorBoardSink is a no-op" in text
         assert sorted(p for p in os.listdir(root / tdir)
-                      if p.endswith(".pt")) == ["weights_epoch_0000.pt",
-                                                "weights_epoch_0001.pt"]
+                      if p.endswith(".msgpack")) == [
+            "weights_epoch_0000.msgpack", "weights_epoch_0001.msgpack"]
     assert "Mirrored DP over 1 local device(s)" in _ok(
         runs, "mnist_mirror_strategy")
 
@@ -129,7 +129,8 @@ def test_multi_worker_keras_twin_on_two_gloo_ranks(runs):
                        r"Accuracy: ([\d.]+)", text)
     assert sorted(r for r, _, _ in evals) == ["0", "1"]
     assert evals[0][1:] == evals[1][1:]     # the synced eval on each rank
-    assert os.path.exists(runs[0] / "multiworker" / "weights_epoch_0001.pt")
+    assert os.path.exists(runs[0] / "multiworker" /
+                          "weights_epoch_0001.msgpack")
 
 
 def test_chainer_twins_report_snapshot_and_resume(runs):
@@ -198,7 +199,7 @@ def test_serve_lm_twin_serves_tenants(tmp_path, capsys):
     schema = tmp_path / "schema.json"
     schema.write_text('{"type": "object", "properties": '
                       '{"id": {"type": "integer"}, "ok": {"type": "boolean"}}}')
-    lora = f"{tmp_path / 'a.pt'},{tmp_path / 'b.pt'}"
+    lora = f"{tmp_path / 'a.msgpack'},{tmp_path / 'b.msgpack'}"
     reqs, s, _ = serve_lm.main(
         ["--platform", "cpu", "--n-requests", "6", "--n-slots", "3",
          "--max-new-tokens", "30", "--page-size", "16", "--lora", lora,
@@ -215,7 +216,7 @@ def test_serve_lm_twin_serves_tenants(tmp_path, capsys):
         ["base"] + lora.split(","))
     assert out.count("--lora: saved demo adapter") == 2
     assert re.search(r"multi-lora \(2 adapters, rank 4\): tokens by tenant: "
-                     r"a\.pt=\d+  b\.pt=\d+  base=\d+  bank loads 2", out)
+                     r"a\.msgpack=\d+  b\.msgpack=\d+  base=\d+  bank loads 2", out)
     assert re.search(r"--json-schema: \d+-state token DFA", out)
     assert re.search(r"constrained \(.*\): \d+/6 requests completed valid "
                      r"JSON", out)

@@ -134,7 +134,7 @@ def test_pyramidnet_twins_train_evaluate_and_save(runs):
                          text), text
         assert re.search(r"Epoch \[0\] \| val_loss: [\d.]+ \| val_accuracy",
                          text), text
-        assert os.path.exists(root / out / "final.pt")
+        assert os.path.exists(root / out / "pyramidnet_final.msgpack")
     assert "DataParallel over 1 local device(s); global batch 32 -> " \
         "32/replica" in _ok(runs, "data_parallel")
 
@@ -190,7 +190,7 @@ def test_mxnet_twin_fits_over_a_kvstore(runs):
                      r"\tloss=[\d.]+\taccuracy=[\d.]+", text), text
     assert re.search(r"Epoch\[0\] Train-accuracy=[\d.]+", text)
     assert re.search(r"Epoch\[0\] Validation-accuracy=[\d.]+", text), text
-    assert os.path.exists(root / "mx" / "mxnet_cnn.pt")
+    assert os.path.exists(root / "mx" / "mxnet_cnn.msgpack")
     text = _ok(runs, "mxnet_kvstore dist_sync")
     for r in (0, 1):
         assert (f"[rank {r}] kvstore: kind=dist_sync rank={r} num_workers=2 "
@@ -198,7 +198,7 @@ def test_mxnet_twin_fits_over_a_kvstore(runs):
     acc = re.findall(r"\[rank (\d)\] Epoch\[0\] Validation-accuracy="
                      r"([\d.]+)", text)
     assert sorted(r for r, _ in acc) == ["0", "1"] and acc[0][1] == acc[1][1]
-    assert os.path.exists(root / "mx2" / "mxnet_cnn.pt")
+    assert os.path.exists(root / "mx2" / "mxnet_cnn.msgpack")
 
 
 @pytest.mark.parametrize("twin", TWINS)
@@ -216,15 +216,24 @@ def test_twin_parses_help_with_the_jax_examples_flags(twin, monkeypatch):
                          f"--{w.replace('_', '-')}" in got for w in words)
 
 
-# the spill flags (flag0, flag1), the tenants' flags (flag2-flag4) and
-# --trace (flag5) are ported now, tested below and in test_torch_twins.py;
-# the other case keeps its id
+# every flag is ported now: the spill flags (flag0, flag1), the tenants'
+# flags (flag2-flag4) and --trace (flag5) are tested below and in
+# test_torch_twins.py, --restore (flag6) in test_torch_jax_weights.py; the
+# last case keeps its id and holds what --restore still refuses, weights of
+# another model than --model-size's (the JAX script's shape check)
 @pytest.mark.parametrize("flag,item", [
-    (["--restore", "w.msgpack"], "A8b's remainder"),
+    (["--restore", "w.msgpack"], "does not match the model architecture"),
 ], ids=["flag6-A8b's remainder"])
-def test_serve_lm_refuses_unported_flags_by_item(flag, item):
+def test_serve_lm_refuses_unported_flags_by_item(flag, item, tmp_path,
+                                                  monkeypatch):
     from dtdl_tpu_torch.examples import serve_lm
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+    from dtdl_tpu_torch.models import transformer_lm
+    from dtdl_tpu_torch.bridge import state_dict_to_flax
+    from dtdl_tpu_torch.ckpt import save_weights
+    monkeypatch.chdir(tmp_path)
+    save_weights(flag[1], state_dict_to_flax(transformer_lm(
+        "tiny", device="cpu", seed=0, vocab_size=128)))
+    with pytest.raises(ValueError, match=item):
         serve_lm.main(["--platform", "cpu", *flag])
 
 

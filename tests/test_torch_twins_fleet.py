@@ -63,14 +63,14 @@ def test_twin_serves_tenants_through_a_kill(tmp_path):
     schema = tmp_path / "schema.json"
     schema.write_text('{"type": "object", "properties": '
                       '{"id": {"type": "integer"}, "ok": {"type": "boolean"}}}')
-    lora = f"{tmp_path / 'a.pt'},{tmp_path / 'b.pt'}"
+    lora = f"{tmp_path / 'a.msgpack'},{tmp_path / 'b.msgpack'}"
     out = _run(["--n-requests", "9", "--max-new-tokens", "24",
                 "--lora", lora, "--lora-rank", "4", "--json-schema",
                 str(schema), "--stream", "--kill-replica-after", "3"])
     assert out.count("--lora: saved demo adapter") == 2
     assert "requests lost: 0" in out and "[OK]" in out
     mix = re.search(r"multi-lora \(2 adapters, rank 4\): tokens by tenant: "
-                    r"a\.pt=(\d+)  b\.pt=(\d+)  base=(\d+)", out)
+                    r"a\.msgpack=(\d+)  b\.msgpack=(\d+)  base=(\d+)", out)
     assert mix and all(int(n) > 0 for n in mix.groups()), out
     assert re.search(r"constrained \(.*schema\.json\): \d+/9 valid JSON",
                      out), out
