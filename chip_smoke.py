@@ -256,8 +256,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                of each run (equal, by site), span
                counts, the device track, the meter's MFU within 1% of the
                train line's, K1-K3 launches; (b) the serve cell through
-               Scheduler(observer=, exporter=), paired the same way:
-               tokens identical, tokens/s at most 2% below, TTFT p50/p99,
+               Scheduler(observer=, exporter=), one run observed and
+               one not, then 16 pairs of runs observing every other
+               step (even steps in one, odd in the other): tokens
+               identical, tokens/s at most 2% below (the median, over
+               every pair's adjacent even/odd steps, of half the
+               difference of their log step ratios), TTFT p50/p99,
                synchronizations equal, every rid admitted -> first token
                -> finished with its flow closed, JSONL points, K4; (c) the
                fleet's three replicas with a killed worker and hedging at
@@ -293,6 +297,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
                amnesiac restart refused by name; (e) meanwhile a
                StepWatchdog on a two-rank gloo world on the card with one
                rank stalled raises PeerLostError within its timeout;
+7o. audit    - the port's audit (dtdl_tpu_torch/analysis/): (a) the
+               train cell (base bf16, 8 x 4096, adamw(3e-4)) through
+               train_epoch(unroll=4) over 10 batches (bundles of 4, 4, 2)
+               against unroll=1 from the same weights: every per-step
+               metric and the final f32 weights bitwise equal, K1-K3 80
+               each and rope 320 a run, step ms of each; (b) the program
+               audit at full width, each program after one warm-up call,
+               under the TorchDispatchMode census and
+               set_sync_debug_mode("error"): the serve cell's base bf16
+               paged engine's decode, verify (k = 2) and LoRA decode
+               (nonzero adapter ids; K4 8 a call) and the train cell's
+               step (K1-K3 8 each): 0 host syncs, 0 copies to the host,
+               storages kept; then the contracts' four single-process
+               programs at their tiny geometry against baselines.json;
+               (c) the linter over dtdl_tpu_torch/ and this script: 0
+               unsuppressed findings;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
                paths' shapes (K4 also at the chunk window S = 257 and at
@@ -329,7 +349,7 @@ PHASES = ("build", "identity", "kernels", "serve", "crosscheck", "spec",
           "chunked", "quant", "contain", "dense", "moe_serve", "train",
           "traincheck", "moe_train", "moe_traincheck", "classify",
           "classifycheck", "ddp", "resume", "faces", "fourd", "gspmd",
-          "fleet", "timing", "tenant", "obs", "resil")
+          "fleet", "timing", "tenant", "obs", "resil", "audit")
 DEV = "cuda"   # every phase runs on the card
 
 # tolerances of the kernel-vs-plain checks, |got - want| <= atol + rtol·|want|
@@ -6004,11 +6024,14 @@ def phase_tenant(torch, seed, card):
 # serving and the fleet, on K1-K4
 # ---------------------------------------------------------------------------
 
-# (a), (b): pairs of an observed and an unobserved run, in turns (on
+# (a): pairs of an observed and an unobserved run, in turns (on
 # first in even pairs, off first in odd ones); the overhead is the median
 # of the pairs' ratios, against JAX's limit
 OBS_PAIRS = 5
 OBS_LIMIT = 0.02
+# (b): pairs of runs observing alternate steps; a serving step's time
+# spreads widely (obs_step_overhead), so the gate pools 16 pairs' steps
+OBS_SERVE_PAIRS = 16
 OBS_TRAIN_STEPS = (3, 10)         # warm-up, timed steps a run
 OBS_MFU_TOL = 0.01                # the meter's MFU against the train line
 OBS_WATCHDOG = 0.25               # the fleet twin's default
@@ -6090,21 +6113,18 @@ def obs_toggled(sched, reqs, phase: int, step_s: list) -> None:
     sched.drain()
 
 
-def obs_step_overhead(a, b) -> tuple:
+def obs_step_overhead(a, b) -> list:
     """The observer's share of a step from two toggled runs of the same
     steps, ``a`` observed at the even steps and ``b`` at the odd ones:
-    step i takes speed_a·w_i·(1+d) in ``a`` and speed_b·w_i in ``b`` when
-    even, the other way round when odd, so the even steps' a/b ratio over
-    the odd steps' is (1+d)^2 whatever the two runs' host speeds and the
-    steps' work.  Returns (d from the median step ratio of each parity,
-    d from each parity's summed seconds)."""
+    step i takes speed_a(i)·w_i·(1+d) in ``a`` and speed_b(i)·w_i in
+    ``b`` when even, the other way round when odd.  Half the difference
+    of an even step's log a/b ratio and the next odd step's is log(1+d)
+    whatever the steps' work and the runs' host speeds, so long as those
+    speeds drift slowly against one step.  Returns one such sample per
+    even step; the gate takes the median over every pair's samples."""
     import math
-    ev = [math.log(x / y) for x, y in zip(a[0::2], b[0::2])]
-    od = [math.log(x / y) for x, y in zip(a[1::2], b[1::2])]
-    by_median = math.exp((median(ev) - median(od)) / 2) - 1.0
-    by_time = math.sqrt((sum(a[0::2]) / sum(b[0::2]))
-                        / (sum(a[1::2]) / sum(b[1::2]))) - 1.0
-    return by_median, by_time
+    r = [math.log(x / y) for x, y in zip(a, b)]
+    return [(r[i] - r[i + 1]) / 2 for i in range(0, len(r) - 1, 2)]
 
 
 def obs_dir(*parts) -> str:
@@ -6388,10 +6408,12 @@ def obs_serve(torch, seed, card):
     run(False)                 # warm-up, not kept (as (a)'s first run)
     threads = sorted(t.name for t in __import__("threading").enumerate())
     runs = {True: [run(True)], False: [run(False)]}
-    toggled = [run(True, phase=i % 2) for i in range(2 * OBS_PAIRS)]
+    toggled = [run(True, phase=i % 2)
+               for i in range(2 * OBS_SERVE_PAIRS)]
     pairs = [obs_step_overhead(a["step_s"], b["step_s"])
              for a, b in zip(toggled[0::2], toggled[1::2])]
-    drop = 1.0 - 1.0 / (1.0 + median([x[0] for x in pairs]))
+    over = math.exp(median([x for p in pairs for x in p])) - 1.0
+    drop = 1.0 - 1.0 / (1.0 + over)
     tps = {on: [r["tokens"] / r["wall"] for r in runs[on]] for on in runs}
     want = [r.tokens for r in runs[False][0]["reqs"]]
     every = runs[True] + runs[False] + toggled
@@ -6413,14 +6435,14 @@ def obs_serve(torch, seed, card):
     log(f"obs (b) serve base bf16 page 16 (8 slots, the serve phase's 16 "
         f"requests) through Scheduler(observer=, exporter=): tokens/s of "
         f"one run observed {tps[True][0]:.2f} and one not "
-        f"{tps[False][0]:.2f}; {2 * OBS_PAIRS} runs observing every other "
-        f"step (even, odd in turns; {len(toggled[0]['step_s'])} steps a "
+        f"{tps[False][0]:.2f}; {2 * OBS_SERVE_PAIRS} runs observing every "
+        f"other step (even, odd in turns; {len(toggled[0]['step_s'])} steps a "
         f"run, step seconds a run {[round(sum(x['step_s']), 4) for x in toggled]}): "
         f"observed steps' time over the same steps' unobserved, by pair "
-        f"(step medians; time-weighted) "
-        f"{[(round(100 * a, 3), round(100 * b, 3)) for a, b in pairs]}%, "
-        f"tokens/s {100 * drop:+.3f}% below (the median of the pairs' step "
-        f"medians, limit {100 * OBS_LIMIT:.0f}%); "
+        f"(median over the pair's adjacent even/odd steps) "
+        f"{[round(100 * (math.exp(median(p)) - 1), 3) for p in pairs]}%, "
+        f"pooled over the pairs {100 * over:+.3f}%: tokens/s "
+        f"{100 * drop:+.3f}% below (limit {100 * OBS_LIMIT:.0f}%); "
         f"TTFT p50/p99 s on {runs[True][0]['ttft']} off "
         f"{runs[False][0]['ttft']}; greedy tokens identical in all "
         f"{len(every)} runs: {same}; synchronizations {syncs} (sites "
@@ -7219,6 +7241,261 @@ def phase_resil(torch, seed, card):
     return out["step"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7o: the port's audit
+# ---------------------------------------------------------------------------
+
+AUDIT_UNROLL = 4
+AUDIT_STEPS = 10                  # bundles of 4, 4 and 2
+AUDIT_VERIFY_K = 2
+AUDIT_POS = [100, 250, 400, 550, 700, 850, 1000, 1050]   # K4's decode rows
+AUDIT_LORA = dict(lora_rank=16, lora_adapters=4)
+
+
+class StepRecorder:
+    """Every drained per-step metric dict, in step order (a guard's
+    ``observe`` seat in train_epoch)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def observe(self, vals):
+        self.steps.append(dict(vals))
+
+
+def audit_unroll(torch, seed, card):
+    """(a) train_epoch(unroll=4) against unroll=1 on the train cell."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.data.loader import DataLoader
+    from dtdl_tpu_torch.data.synthetic import synthetic_lm
+    from dtdl_tpu_torch.train.loop import train_epoch
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    tokens, _ = synthetic_lm(n_train=TRAIN_BATCH * AUDIT_STEPS,
+                             n_test=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             vocab_size=32000, seed=seed)
+    model, fresh = resil_model(torch, seed)
+    step = make_lm_train_step()
+    runs = {}
+    # warm-up: cuBLAS handles, the allocator's blocks, the pinned staging
+    warm = DataLoader({"tokens": tokens[:2 * TRAIN_BATCH]}, TRAIN_BATCH,
+                      shuffle=False, device=DEV)
+    train_epoch(step, fresh(), warm)
+    sync(torch)
+    for k in (1, AUDIT_UNROLL):
+        state = fresh()
+        rec = StepRecorder()
+        loader = DataLoader({"tokens": tokens}, TRAIN_BATCH, shuffle=False,
+                            device=DEV)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, means = train_epoch(step, state, loader, guard=rec, unroll=k,
+                                   log_interval=AUDIT_STEPS)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        runs[k] = dict(steps=rec.steps, means=means,
+                       step_ms=1e3 * wall / AUDIT_STEPS,
+                       launches=dict(kernels.LAUNCHES),
+                       weights={n: v.detach().cpu().clone() for n, v in
+                                model.state_dict().items()})
+        del state
+    a, b = runs[1], runs[AUDIT_UNROLL]
+    same_metrics = a["steps"] == b["steps"] and a["means"] == b["means"]
+    same_weights = all(torch.equal(a["weights"][n], b["weights"][n])
+                       for n in a["weights"])
+    want = model.cfg.n_layers * AUDIT_STEPS
+    k123 = {r: {n: runs[r]["launches"][n] for n in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope_rows")}
+            for r in runs}
+    log(f"audit (a) train base bf16 (f32 weights) adamw(3e-4) {TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}, {AUDIT_STEPS} batches: train_epoch unroll=1 step_ms="
+        f"{a['step_ms']:.3f} unroll={AUDIT_UNROLL} (bundles 4, 4, 2) step_ms="
+        f"{b['step_ms']:.3f}; per-step metrics bitwise equal {same_metrics} "
+        f"({len(b['steps'])} steps, loss first {b['steps'][0]['loss']:.6f} "
+        f"last {b['steps'][-1]['loss']:.6f}), final f32 weights bitwise "
+        f"equal {same_weights}; launches {k123} | {card}")
+    if len(a["steps"]) != AUDIT_STEPS or not same_metrics:
+        raise AssertionError(f"audit (a): per-step metrics differ: "
+                             f"{a['steps']} vs {b['steps']}")
+    if not same_weights:
+        raise AssertionError("audit (a): final weights differ between "
+                             "unroll=1 and unroll=4")
+    for r in runs:
+        got = k123[r]
+        if any(got[n] != want for n in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")) \
+                or got["rope_rows"] != 4 * want:
+            raise AssertionError(f"audit (a): unroll={r} launches {got}, "
+                                 f"want {want} each and rope {4 * want}")
+    del runs, model
+    torch.cuda.empty_cache()
+    return {f"unroll={r}": k123[r] for r in k123}
+
+
+def audit_engine_call(torch, eng, method, **kw):
+    """``call`` and ``kept`` of ``eng.<method>`` over all 8 slots at K4's
+    decode rows (AUDIT_POS), each slot on its own live pages."""
+    import numpy as np
+    b = eng.n_slots
+    arena, last = eng.init_arena(), eng.init_last_tokens()
+    pos = torch.tensor(AUDIT_POS, dtype=torch.int32, device=DEV)
+    tables = (1 + np.arange(b * eng.n_ptab, dtype=np.int32)
+              .reshape(b, eng.n_ptab))
+    knobs = dict(active=np.ones(b, bool), temp=np.zeros(b, np.float32),
+                 top_k=np.zeros(b, np.int32), top_p=np.ones(b, np.float32),
+                 page_tables=tables)
+    holder = {"arena": arena, "last": last}
+
+    def call():
+        # the index stays at AUDIT_POS: every call attends the same rows
+        holder["arena"]["index"] = pos
+        out = getattr(eng, method)(holder["arena"], holder["last"], **kw,
+                                   **knobs)
+        holder["arena"], holder["last"] = out[0], out[1]
+
+    return call, lambda: [t for _, t in eng._pool_leaves(holder["arena"])]
+
+
+def audit_counted(torch, call, names):
+    """``call`` wrapped to record each call's launches of ``names``."""
+    from dtdl_tpu_torch import kernels
+    per_call = []
+
+    def run():
+        before = {n: kernels.LAUNCHES[n] for n in names}
+        call()
+        per_call.append({n: kernels.LAUNCHES[n] - before[n] for n in names})
+    return run, per_call
+
+
+def audit_programs_card(torch, seed, card):
+    """(b) the program audit at full width, then the contracts."""
+    import numpy as np
+    from dtdl_tpu_torch.analysis import contracts
+    from dtdl_tpu_torch.analysis.program_audit import audit_program
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.serve.engine import InferenceEngine
+    from dtdl_tpu_torch.train.step import make_lm_train_step
+    model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                           device=DEV)
+    eng = InferenceEngine(model, n_slots=8, page_size=16, device=DEV)
+    lora = InferenceEngine(model, n_slots=8, page_size=16, device=DEV,
+                           **AUDIT_LORA)
+    k = AUDIT_VERIFY_K
+    programs = {
+        "serve_decode": audit_engine_call(torch, eng, "decode"),
+        "serve_verify": audit_engine_call(
+            torch, eng, "verify", draft_tokens=np.ones((8, k), np.int32),
+            draft_len=np.full(8, k, np.int32)),
+        "serve_lora_decode": audit_engine_call(
+            torch, lora, "decode",
+            adapter_ids=np.arange(8, dtype=np.int64) % 3 + 1),
+    }
+    reports, launches = {}, {}
+    for name, (call, kept) in programs.items():
+        run, per_call = audit_counted(torch, call, ("paged_attention",))
+        rep = audit_program(run, name=name, kept=kept, warmup=1)
+        reports[name], launches[name] = rep, per_call[-1]
+    del programs, eng, lora, model
+    torch.cuda.empty_cache()
+    # the train cell's step, on its own batch
+    tmodel, fresh = resil_model(torch, seed)
+    holder = {"state": fresh()}
+    batch = resil_batches(torch, seed, 1)[0]
+    step = make_lm_train_step()
+
+    def train_call():
+        holder["state"], _ = step(holder["state"], batch)
+
+    def train_kept():
+        st = holder["state"]
+        out = list(st.model.parameters())
+        for v in st.optimizer.state.values():
+            out.extend(t for t in v.values()
+                       if isinstance(t, torch.Tensor) and t.dim() > 0)
+        return out
+
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope_rows")
+    run, per_call = audit_counted(torch, train_call, names)
+    reports["train_step (base)"] = audit_program(
+        run, name="train_step (base)", kept=train_kept, warmup=1)
+    launches["train_step (base)"] = per_call[-1]
+    n_layers = tmodel.cfg.n_layers
+    del holder, tmodel, fresh, batch
+    torch.cuda.empty_cache()
+    for name, rep in reports.items():
+        c = rep.census
+        log(f"audit (b) {name} at full width: collectives "
+            f"{c['collectives']} c10d {c['c10d_collectives']} host_syncs="
+            f"{c['host_syncs']} {c['host_sync_ops']} d2h_copies="
+            f"{c['d2h_copies']} h2d_uploads={c['h2d_uploads']} "
+            f"bf16_to_f32_casts={c['bf16_to_f32_casts']} storage_kept="
+            f"{c['storage_kept']} cuda_syncs={c['cuda_syncs']} launches "
+            f"{launches[name]} findings {[f.render() for f in rep.findings]}"
+            f" | {card}")
+    bad = {n: [f.render() for f in r.findings] for n, r in reports.items()
+           if r.findings or r.census["host_syncs"]
+           or r.census["d2h_copies"] or not r.census["storage_kept"]
+           or r.census["cuda_syncs"]}
+    if bad:
+        raise AssertionError(f"audit (b): findings {bad}")
+    for name in ("serve_decode", "serve_verify", "serve_lora_decode"):
+        if launches[name]["paged_attention"] != n_layers:
+            raise AssertionError(f"audit (b): {name} launched K4 "
+                                 f"{launches[name]} times, want {n_layers}")
+    got = launches["train_step (base)"]
+    if any(got[n] != n_layers for n in names[:3]) \
+            or got["rope_rows"] != 4 * n_layers:
+        raise AssertionError(f"audit (b): the train step launched {got}, "
+                             f"want {n_layers} each and rope "
+                             f"{4 * n_layers}")
+    # the contracts' single-process programs at their tiny geometry
+    runnable, skipped = contracts.runnable_programs()
+    tiny = contracts.audit_programs(runnable, device=DEV)
+    drift = contracts.compare_to_baseline(tiny, contracts.load_baseline())
+    found = [f.render() for r in tiny.values() for f in r["_findings"]]
+    log(f"audit (b) contracts at their tiny geometry on the card: "
+        + "; ".join(f"{n}: collectives {r['collectives']} host_syncs="
+                    f"{r['host_syncs']} d2h_copies={r['d2h_copies']} "
+                    f"storage_kept={r['storage_kept']} cuda_syncs="
+                    f"{r['cuda_syncs']}" for n, r in tiny.items())
+        + f"; skipped {skipped}; drift {[f.render() for f in drift]}")
+    if drift or found:
+        raise AssertionError(f"audit (b): contracts drift {drift} "
+                             f"findings {found}")
+    return launches
+
+
+def audit_lint(card):
+    """(c) the linter over the port and this script."""
+    from dtdl_tpu_torch.analysis import lint_paths, render_report
+    t0 = time.perf_counter()
+    found = lint_paths([os.path.join(ROOT, "dtdl_tpu_torch"),
+                        os.path.join(ROOT, "chip_smoke.py")], root=ROOT)
+    log(f"audit (c) lint dtdl_tpu_torch/ and chip_smoke.py: "
+        f"{len(found)} unsuppressed findings in "
+        f"{time.perf_counter() - t0:.2f}s")
+    if found:
+        raise AssertionError("audit (c):\n" + render_report(found))
+
+
+def phase_audit(torch, seed, card):
+    """(a)-(c) of the audit phase (module docstring); returns the kernels'
+    launches by program."""
+    t0 = time.perf_counter()
+    sub_s = {}
+    t1 = time.perf_counter()
+    unroll_launches = audit_unroll(torch, seed, card)
+    sub_s["unroll"] = round(time.perf_counter() - t1, 1)
+    t1 = time.perf_counter()
+    launches = audit_programs_card(torch, seed, card)
+    sub_s["programs"] = round(time.perf_counter() - t1, 1)
+    t1 = time.perf_counter()
+    audit_lint(card)
+    sub_s["lint"] = round(time.perf_counter() - t1, 1)
+    log(f"audit phase: {time.perf_counter() - t0:.1f}s, by part {sub_s}")
+    return {**unroll_launches, **launches}
+
+
 def phase_profile_fourd(torch, seed, steps: int = 2):
     """Where the fourd phase's 4D step's device time goes (torch.profiler):
     the dense base-width 1F1B step and the routed top-2 MoE one, each by
@@ -7468,6 +7745,14 @@ def fmt_timing(name, t):
 
 # ---------------------------------------------------------------------------
 
+def audit_kernel_launches(audit, name):
+    """{program: launches of kernel ``name`` in its audited call (the
+    unroll runs: a whole run)} of the audit phase, or None."""
+    if not audit:
+        return None
+    return {prog: got[name] for prog, got in audit.items() if name in got}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7629,6 +7914,10 @@ def main(argv=None) -> int:
     if "resil" in phases:
         resil_launches = phase_resil(torch, args.seed, card)
     ended("resil")
+    audit_launches = None
+    if "audit" in phases:
+        audit_launches = phase_audit(torch, args.seed, card)
+    ended("audit")
     if "profile" in phases:
         phase_profile(torch, args.seed)
         phase_profile_train(torch, args.seed)
@@ -7693,6 +7982,8 @@ def main(argv=None) -> int:
                  "flash_fwd"],
              "launches_resil": resil_launches and resil_launches[
                  "flash_fwd"],
+             "launches_audit": audit_kernel_launches(audit_launches,
+                                                     "flash_fwd"),
              "max_abs_err": errors.get(main_case),
              **{k: tr["K1"][k] for k in keys}},
             {"name": "flash_bwd_dq", "route": "cuda",
@@ -7703,6 +7994,8 @@ def main(argv=None) -> int:
                  "flash_bwd_dq"],
              "launches_resil": resil_launches and resil_launches[
                  "flash_bwd_dq"],
+             "launches_audit": audit_kernel_launches(audit_launches,
+                                                     "flash_bwd_dq"),
              "max_abs_err": bwd_errs and bwd_errs[0],
              **{k: tr["K2"][k] for k in keys}},
             {"name": "flash_bwd_dkv", "route": "cuda",
@@ -7713,6 +8006,8 @@ def main(argv=None) -> int:
                  "flash_bwd_dkv"],
              "launches_resil": resil_launches and resil_launches[
                  "flash_bwd_dkv"],
+             "launches_audit": audit_kernel_launches(audit_launches,
+                                                     "flash_bwd_dkv"),
              "max_abs_err": bwd_errs and max(bwd_errs[1:]),
              **{k: tr["K3"][k] for k in keys}},
             {"name": "rope_rows", "route": "cuda",
@@ -7723,6 +8018,8 @@ def main(argv=None) -> int:
                  "rope_rows"],
              "launches_resil": resil_launches and resil_launches[
                  "rope_rows"],
+             "launches_audit": audit_kernel_launches(audit_launches,
+                                                     "rope_rows"),
              "max_abs_err": errors.get("rope train 32x4096 hd128 bf16"),
              **{k: rope_t[k] for k in keys}},
             {"name": "paged_attention", "route": "cuda",
@@ -7734,6 +8031,8 @@ def main(argv=None) -> int:
              "launches_obs": obs_launches and {
                  "serve": obs_launches["serve"],
                  "fleet": obs_launches["fleet"]},
+             "launches_audit": audit_kernel_launches(audit_launches,
+                                                     "paged_attention"),
              "max_abs_err": errors.get("decode S=1 bf16"),
              **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},

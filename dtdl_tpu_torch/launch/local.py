@@ -10,12 +10,20 @@ CLI::
 
     python -m dtdl_tpu_torch.launch.local --nproc 2 [--port 12355] \\
         [--devices-per-proc K] [--max-restarts R] [--timeout S] \\
+        [--n-hosts H --host-index h --coordinator HOST:PORT] \\
         -- script.py --flags          (or: -- -m package.module --flags)
 
 Each child gets ``--coordinator 127.0.0.1:PORT --num-processes N
 --process-id i`` appended to its argv (the script hands them to
 :func:`dtdl_tpu_torch.runtime.initialize`, which binds process i to card
-``i % device_count``).  ``devices_per_proc=K`` gives rank i the cards
+``i % device_count``).
+
+One host's share of a multi-host world (what
+:mod:`dtdl_tpu_torch.launch.hosts` starts on every host):
+``--n-hosts H --host-index h --coordinator HOST:PORT`` makes the world
+``H·N`` processes, with this host's child i process ``h·N + i``, all
+meeting at host 0's ``HOST:PORT``.  Without them a run is one host's, as
+before.  ``devices_per_proc=K`` gives rank i the cards
 ``[i·K, (i+1)·K)`` through ``CUDA_VISIBLE_DEVICES``; a child that runs on
 the CPU (``--platform cpu``) uses no card, and the stripe changes
 nothing for it.  A child's ``OMP_NUM_THREADS`` defaults to this host's
@@ -51,7 +59,9 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
                  max_restarts: int = 0, store_port: int | None = None,
                  serve_store: bool = False,
                  store_wal_dir: str | None = None,
-                 elastic: bool = False) -> int:
+                 elastic: bool = False, n_hosts: int = 1,
+                 host_index: int = 0, coordinator: str | None = None
+                 ) -> int:
     """Spawn ``nproc`` processes of a script; non-zero if any rank failed.
 
     If any process dies — non-zero exit *or* a signal — the rest are
@@ -68,13 +78,26 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
     address is never advertised unless a store is meant to listen
     there.  ``elastic=True``: a rank killed by a signal does not stop the
     others (module docstring).
+
+    ``n_hosts``, ``host_index`` and ``coordinator`` (``HOST:PORT``, host
+    0's) start this host's ``nproc`` ranks of an ``n_hosts·nproc`` world
+    (module docstring); the store's address then names the coordinator's
+    host.
     """
     if store_wal_dir is not None and not serve_store:
         raise ValueError("store_wal_dir is the served store's WAL: pass "
                          "serve_store=True with it")
+    if not 0 <= host_index < n_hosts:
+        raise ValueError(f"host_index {host_index} is not one of the "
+                         f"{n_hosts} hosts")
+    if n_hosts > 1 and not coordinator:
+        raise ValueError("a multi-host world needs the coordinator's "
+                         "address (HOST:PORT of host 0)")
+    world = (n_hosts, host_index, coordinator or f"127.0.0.1:{port}")
     explicit = store_port is not None or serve_store
     store_port = store_port if store_port is not None else port + 1
-    store_addr = f"127.0.0.1:{store_port}" if explicit else None
+    store_host = world[2].rsplit(":", 1)[0]
+    store_addr = f"{store_host}:{store_port}" if explicit else None
     server = None
     if serve_store:
         from dtdl_tpu_torch.parallel.tcpstore import TCPStoreServer
@@ -86,8 +109,8 @@ def launch_local(script_args: list[str], nproc: int = 2, port: int = 12355,
     try:
         attempt = 0
         while True:
-            rc = _launch_once(script_args, nproc, port, env_extra, timeout,
-                              devices_per_proc, store_addr, elastic)
+            rc = _launch_once(script_args, nproc, world, env_extra,
+                              timeout, devices_per_proc, store_addr, elastic)
             if rc == 0 or attempt >= max_restarts:
                 return rc
             attempt += 1
@@ -112,13 +135,15 @@ def _stop(procs, grace: float = 10.0) -> None:
             p.kill()
 
 
-def _launch_once(script_args: list[str], nproc: int, port: int,
+def _launch_once(script_args: list[str], nproc: int, world: tuple,
                  env_extra: dict | None, timeout: float,
                  devices_per_proc: int | None,
                  store_addr: str | None = None,
                  elastic: bool = False) -> int:
+    """One attempt; ``world`` is ``(n_hosts, host_index, coordinator)``."""
     procs: list[subprocess.Popen] = []
-    coordinator = f"127.0.0.1:{port}"
+    n_hosts, host_index, coordinator = world
+    first = host_index * nproc          # this host's first global rank
     for i in range(nproc):
         env = dict(os.environ)
         if store_addr:
@@ -136,15 +161,15 @@ def _launch_once(script_args: list[str], nproc: int, port: int,
                                       (i + 1) * devices_per_proc))
         cmd = [sys.executable, *script_args,
                "--coordinator", coordinator,
-               "--num-processes", str(nproc),
-               "--process-id", str(i)]
+               "--num-processes", str(n_hosts * nproc),
+               "--process-id", str(first + i)]
         procs.append(subprocess.Popen(
             cmd, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, bufsize=1))
 
     def pump(i: int, p: subprocess.Popen):
         for line in p.stdout:  # blocking per-thread read; no buffer stalls
-            print(f"[rank {i}] {line}", end="", flush=True)
+            print(f"[rank {first + i}] {line}", end="", flush=True)
 
     threads = [threading.Thread(target=pump, args=(i, p), daemon=True)
                for i, p in enumerate(procs)]
@@ -169,13 +194,14 @@ def _launch_once(script_args: list[str], nproc: int, port: int,
                 if elastic and rc is not None and rc < 0:
                     if i not in lost:
                         lost.add(i)
-                        print(f"[launcher] rank {i} lost to signal {-rc}; "
-                              f"the others run on (elastic)", flush=True)
+                        print(f"[launcher] rank {first + i} lost to "
+                              f"signal {-rc}; the others run on (elastic)",
+                              flush=True)
                     continue
                 if rc is not None and rc != 0 and not first_failure:
                     first_failure = rc
-                    print(f"[launcher] rank {i} exited with {rc}; "
-                          "terminating remaining ranks", flush=True)
+                    print(f"[launcher] rank {first + i} exited with "
+                          f"{rc}; terminating remaining ranks", flush=True)
                     _stop(procs)
             time.sleep(0.1)
     finally:
@@ -194,6 +220,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     nproc, port, devices, restarts, timeout = 2, 12355, None, 0, 600.0
     store_port, serve_store, store_wal, elastic = None, False, None, False
+    n_hosts, host_index, coordinator = 1, 0, None
     while argv and argv[0] != "--":
         if argv[0] == "--nproc":
             nproc = int(argv[1]); argv = argv[2:]
@@ -213,6 +240,12 @@ def main(argv=None) -> int:
             store_wal = argv[1]; argv = argv[2:]
         elif argv[0] == "--elastic":
             elastic = True; argv = argv[1:]
+        elif argv[0] == "--n-hosts":
+            n_hosts = int(argv[1]); argv = argv[2:]
+        elif argv[0] == "--host-index":
+            host_index = int(argv[1]); argv = argv[2:]
+        elif argv[0] == "--coordinator":
+            coordinator = argv[1]; argv = argv[2:]
         else:
             raise SystemExit(f"unknown launcher flag {argv[0]} "
                              "(use: --nproc N --port P -- script.py ...)")
@@ -224,7 +257,9 @@ def main(argv=None) -> int:
     return launch_local(argv, nproc=nproc, port=port, timeout=timeout,
                         devices_per_proc=devices, max_restarts=restarts,
                         store_port=store_port, serve_store=serve_store,
-                        store_wal_dir=store_wal, elastic=elastic)
+                        store_wal_dir=store_wal, elastic=elastic,
+                        n_hosts=n_hosts, host_index=host_index,
+                        coordinator=coordinator)
 
 
 if __name__ == "__main__":

@@ -161,6 +161,7 @@ def all_reduce_mean(tree, mesh: Mesh | None = None):
 def _gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if x.is_cuda and dist.get_backend(mesh.group) == "gloo":
         # gloo gathers host tensors only: stage through the CPU
+        # audit: ok[host-sync-cpu] gloo all-gathers host tensors only: the stage is its transport
         return _gather(x.cpu(), mesh).to(x.device)
     parts = [torch.empty_like(x) for _ in mesh.ranks]
     dist.all_gather(parts, x.contiguous(), group=mesh.group)
@@ -202,6 +203,7 @@ def axis_size(mesh: Mesh, axes) -> int:
 def _host_staged(x: torch.Tensor, group, run) -> torch.Tensor:
     """``run(x)`` on the host when gloo must move a CUDA tensor."""
     if x.is_cuda and dist.get_backend(group) == "gloo":
+        # audit: ok[host-sync-cpu] gloo moves a card tensor only through the host
         return run(x.cpu()).to(x.device)
     return run(x)
 
@@ -437,7 +439,9 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0
 
 def _host_bytes(x) -> bytes:
     if isinstance(x, torch.Tensor):
+        # audit: ok[host-sync] a digest hashes host bytes (agreement checks, not step data)
         x = x.detach().cpu().contiguous()
+        # audit: ok[host-sync-numpy] the digest's bytes of the host copy just made
         return x.reshape(-1).view(torch.uint8).numpy().tobytes() \
             if x.numel() else b""
     if isinstance(x, np.ndarray):
@@ -498,6 +502,7 @@ def host_op(t: torch.Tensor, mesh: Mesh, run) -> None:
     else:
         d = t.cuda()
         run(d, mesh.group)
+        # audit: ok[host-sync-cpu] a host value's NCCL collective goes to the card and back
         t.copy_(d.cpu())
 
 

@@ -244,6 +244,7 @@ def place_params(mesh: Mesh, cfg: MegatronConfig, params: dict,
     dev = resolve_device(device)
 
     def place(a, spec):
+        # audit: ok[host-sync] placing a parameter tree is set-up, from host values by contract
         a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
             else np.asarray(a)
         # a copy: the step updates the shards in place
@@ -966,6 +967,7 @@ def to_flax_params(cfg: MegatronConfig, params: dict) -> dict:
         raise ValueError(f"virtual_stages={v} must divide "
                          f"layers_per_stage={Lc_total}")
     Lc = Lc_total // v
+    # audit: ok[host-sync] to_flax_params is the cold train->serve bridge, not a step path
     host = _tree_map(lambda a: a.detach().cpu().numpy()
                      if isinstance(a, torch.Tensor) else np.asarray(a),
                      params)

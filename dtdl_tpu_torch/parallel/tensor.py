@@ -615,5 +615,6 @@ def gather_params(params, grads: bool = False) -> dict:
             for d, a in enumerate(plan.specs[path]):
                 if a is not None:
                     x = all_gather(x, plan.mesh, a, d, invariant=True)
+            # audit: ok[host-sync] gather_params returns the host flax tree by contract
             out[path] = x.float().cpu().numpy()
     return out

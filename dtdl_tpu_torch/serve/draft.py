@@ -131,4 +131,5 @@ class ModelDraft:
         out = generate(self.model, ctx[None, ctx.size - s0:], kb)
         # the draft is host work by design (the scheduler meters it as
         # draft_s): this read waits for the draft model's own steps only
+        # audit: ok[host-sync-numpy] draft-model output read: drafting is host work (draft_s)
         return out[0, s0:s0 + min(k, kb)].to("cpu", torch.int32).numpy()

@@ -413,6 +413,7 @@ class InferenceEngine:
             return None
         if ids.min() < 0 or ids.max() >= self.lora_adapters:
             raise ValueError(f"adapter ids must be in [0, "
+                             # audit: ok[host-sync-tolist] host numpy ids
                              f"{self.lora_adapters}), got {ids.tolist()}")
         return self.adapter_bank.bank, upload(ids, self.device)
 
@@ -700,11 +701,13 @@ class InferenceEngine:
             # deliberate sync of a handoff (kv_handoff_s, spill_s)
             done = torch.cuda.Event()
             done.record()
+            # audit: ok[host-sync-synchronize] the ONE deliberate wait of a handoff
             done.synchronize()
         out = []
         for got in staged:
             tree: dict = {}
             for path, t, bits in got:
+                # audit: ok[host-sync-numpy] the pinned copy the wait settled
                 arr = t.numpy()
                 if bits is not None:
                     arr = arr.view(bits[1])

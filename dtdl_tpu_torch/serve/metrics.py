@@ -359,7 +359,7 @@ class ServeMetrics:
         "pages_restored", "spill_bytes", "restore_bytes", "spill_s",
         "restore_s", "spill_host_hits", "spill_disk_hits",
         "spill_quarantined", "directory_hits", "tokens_by_adapter",
-        "grammar_rejected_tokens", "stream_deliveries",
+        "grammar_rejected_tokens", "stream_deliveries", "prefix_hit_pages",
     })
 
     def window(self) -> dict:

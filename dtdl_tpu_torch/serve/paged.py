@@ -266,7 +266,6 @@ def _flat_leaves(tree) -> list[tuple[tuple, np.ndarray]]:
             for k in sorted(node):
                 walk(node[k], path + (k,))
         else:
-            # audit: ok[host-sync-asarray] spill payloads are already host memory (extract_pages output)
             out.append((path, np.asarray(node)))
 
     walk(tree, ())

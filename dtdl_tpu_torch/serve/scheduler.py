@@ -317,7 +317,9 @@ class _HostTokens:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
+            # audit: ok[host-sync] the lag harvest waits for its own copy only
             self._event.synchronize()
+        # audit: ok[host-sync-numpy] the pinned copy the event settled
         return self._host.numpy()
 
 
@@ -1485,7 +1487,9 @@ class Scheduler:
 
     def _harvest_one(self):
         window, counts, entries = self._pending.popleft()
+        # audit: ok[host-sync-numpy] the lag harvest, the sanctioned read
         arr = window.numpy()       # waits only for this (lagged) copy
+        # audit: ok[host-sync-numpy] the same harvest's accepted counts
         cnt = counts.numpy() if counts is not None else None
         now = time.perf_counter()
         for slot, rid, dl, kind in entries:

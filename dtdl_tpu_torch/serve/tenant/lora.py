@@ -302,6 +302,7 @@ class AdapterBank:
             for k in path:
                 src = src[k]
                 spec = spec[k] if spec is not None else None
+            # audit: ok[host-sync-numpy] an adapter's leaves are host tensors
             src = src.numpy() if isinstance(src, torch.Tensor) else src
             if spec is not None:
                 # the bank's spec has the adapter axis first; an adapter

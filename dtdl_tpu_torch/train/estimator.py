@@ -259,6 +259,7 @@ class Estimator:
             padded = _pad_and_mask(batch, loader.batch_size)
             padded.pop("mask")
             logits = predict_step(state, self.strategy.shard_batch(padded))
+            # audit: ok[host-sync] predict() yields host rows by contract
             for row in logits[:n].float().cpu().numpy():
                 yield {"logits": row, "class_ids": int(np.argmax(row)),
                        "probabilities": _softmax(row)}

@@ -275,6 +275,7 @@ class Model:
                 xb = np.concatenate([xb, xb[-1:].repeat(pad, axis=0)])
             batch = self.strategy.shard_batch(
                 {"image": xb, "label": np.zeros(len(xb), np.int32)})
+            # audit: ok[host-sync] predict() returns host arrays by contract
             probs = self._predict_step(self.state, batch).cpu().numpy()
             outs.append(probs[:per_proc - pad])
         local_out = np.concatenate(outs)

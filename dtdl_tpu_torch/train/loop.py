@@ -31,13 +31,19 @@ dict to ``guard.observe``, at the boundaries it already waits at, so the
 guard adds no wait.  The ``rollback`` policy needs a checkpointer and is
 a Trainer feature; from this loop its ``GuardRollback`` propagates.
 
-Not ported yet, and refused by name: ``unroll > 1`` (JAX runs k steps as
-one ``lax.scan`` program; in PyTorch that meaning comes with CUDA-graph
-capture, ROADMAP queue A5).
+``unroll=k`` takes the batches k at a time (:func:`bundle_batches`) and
+runs each bundle through :func:`unroll_steps`: JAX's interface and
+semantics (metrics stacked per bundle, drained once, the boundaries at a
+bundle's last step, a ragged tail bundle), with the bundle's k steps
+dispatched eagerly one after another, JAX's ``lax.scan`` written as a
+loop.  The results are bitwise those of ``unroll=1``.  The bundle is not
+yet one captured program (a CUDA graph is ROADMAP's speed note on
+capture), so it saves no dispatch time today.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 
 import numpy as np
@@ -63,6 +69,46 @@ def _prefetch(iterator, depth: int):
         yield buf.popleft()
 
 
+def unroll_steps(train_step, k: int):
+    """Bundle ``train_step`` into ``bundled(state, batches) -> (state,
+    stacked_metrics)``, the port of dtdl_tpu/train/loop.py:unroll_steps.
+
+    ``batches`` is a tuple of up to ``k`` batches (a ragged tail bundle
+    has fewer).  The steps run in order, each on the state the one before
+    it returned, and each metric comes back stacked over the bundle by
+    ``torch.stack`` on the device: ``lax.scan`` written as a loop, so the
+    math is the step's own and bitwise that of k single calls.
+
+    JAX caches the jitted bundle per ``(id(step), k)`` so that later
+    epochs reuse its executable and the recompile sentinel watches one
+    object.  Nothing here is compiled, and the port's sentinel returns
+    callables unwrapped, so no cache is kept: a new closure per epoch
+    costs nothing."""
+    if k < 1:
+        raise ValueError(f"unroll must be >= 1, got {k}")
+
+    def bundled(state, batches):
+        per = []
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+            per.append(metrics)
+        return state, {key: torch.stack([torch.as_tensor(m[key])
+                                         for m in per])
+                       for key in per[0]}
+
+    return bundled
+
+
+def bundle_batches(it, k: int):
+    """Group an iterator into tuples of ``k`` items (ragged final tuple)."""
+    it = iter(it)
+    while True:
+        bundle = tuple(itertools.islice(it, k))
+        if not bundle:
+            return
+        yield bundle
+
+
 def train_epoch(train_step, state, loader, strategy=None,
                 reporter: Reporter | None = None, epoch: int = 0,
                 log_interval: int = 20, timer: StepTimer | None = None,
@@ -77,26 +123,30 @@ def train_epoch(train_step, state, loader, strategy=None,
     ``sync_every_step=True`` blocks on every step.  Each boundary reports
     {epoch, step, steps_per_epoch, the metrics, batch_time} and the epoch
     end {epoch, split: "train_epoch", the means, epoch_time,
-    avg_batch_time}, the JAX payloads."""
+    avg_batch_time}, the JAX payloads.  ``unroll=k`` runs k steps a
+    bundle (:func:`unroll_steps`), the boundary reported at a bundle's
+    last step."""
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
+    if sync_every_step and unroll > 1:
+        raise ValueError("unroll > 1 dispatches one program per bundle; "
+                         "sync_every_step has no per-step value to block on")
     strategy = check_strategy(strategy)
-    if unroll > 1:
-        raise NotImplementedError(
-            "unroll > 1 (k steps as one program) is ROADMAP queue A5 "
-            "(CUDA-graph capture)")
     obs = observer or NULL_OBSERVER
     timer = timer or StepTimer(blocking=sync_every_step)
     timer.reset_epoch()
     acc = Accumulator()
     loader.set_epoch(epoch)
     steps_per_epoch = len(loader)
+    # a k-step bundle takes k batches at once: the prefetch window covers
+    # it, or assembling the bundle would itself wait on the uploads
+    prefetch = max(prefetch, unroll)
     it = _prefetch(map(strategy.shard_batch, loader), prefetch)
 
     with maybe_trace(profile_dir):
         state = _run_epoch(train_step, state, it, reporter, epoch,
                            log_interval, timer, sync_every_step, lag, acc,
-                           steps_per_epoch, obs, guard)
+                           steps_per_epoch, obs, guard, unroll)
     if reporter is not None:
         reporter.report({
             "epoch": epoch, "split": "train_epoch", **acc.means(),
@@ -107,10 +157,10 @@ def train_epoch(train_step, state, loader, strategy=None,
 
 
 def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
-               sync_every_step, lag, acc, steps_per_epoch, obs, guard):
+               sync_every_step, lag, acc, steps_per_epoch, obs, guard,
+               unroll=1):
     """The epoch's steps (the body of :func:`train_epoch`); returns the
     state."""
-    step_fn = obs.watch(train_step, "train_step")
 
     def absorb(vals):
         if guard is not None:
@@ -118,6 +168,7 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
         acc.add(vals)
 
     if sync_every_step:
+        step_fn = obs.watch(train_step, "train_step")
         for i, batch in enumerate(it):
             with step_annotation(i), obs.span("dispatch", step=i):
                 state, metrics = step_fn(state, batch)
@@ -134,6 +185,13 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
                 })
         return state
     queue = MetricsQueue(lag if lag is not None else max(log_interval, 1))
+    if unroll > 1:
+        # expected=2: the ragged tail bundle is the one other shape
+        step_fn = obs.watch(unroll_steps(train_step, unroll),
+                            "train_step_bundle", expected=2)
+        it = bundle_batches(it, unroll)
+    else:
+        step_fn = obs.watch(train_step, "train_step")
     latest: dict | None = None
     next_log = 0
     step0 = 0
@@ -147,8 +205,10 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
             break
         with step_annotation(step0), obs.span("dispatch", step=step0):
             state, metrics = step_fn(state, batch)
-        timer.step()
-        popped = queue.push(metrics)
+            n = len(batch) if unroll > 1 else 1
+        for _ in range(n):
+            timer.step()
+        popped = queue.push(metrics, count=n)
         for vals in popped:
             absorb(vals)
         if popped:
@@ -156,24 +216,24 @@ def _run_epoch(train_step, state, it, reporter, epoch, log_interval, timer,
         if reporter is not None and step0 >= next_log:
             # boundary: ONE drain converts the whole window (waits on
             # the step just dispatched), the window's only sync
-            with obs.span("drain", steps=step0 + 1 - window_start):
+            with obs.span("drain", steps=step0 + n - window_start):
                 drained = queue.drain()
             for vals in drained:
                 absorb(vals)
             if drained:
                 latest = drained[-1]
             timer.sync()
-            w = step0 + 1 - window_start
-            window_start = step0 + 1
+            w = step0 + n - window_start
+            window_start = step0 + n
             reporter.report({
-                "epoch": epoch, "step": step0,
+                "epoch": epoch, "step": step0 + n - 1,
                 "steps_per_epoch": steps_per_epoch, **(latest or {}),
                 "batch_time": timer.last_step_s,
                 # settled-window goodput, host floats only
                 **obs.window(w, timer.last_step_s * w),
             })
             next_log = (step0 // log_interval + 1) * log_interval
-        step0 += 1
+        step0 += n
     with obs.span("drain", steps=step0 - window_start):
         for vals in queue.drain():
             absorb(vals)
