@@ -200,6 +200,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
                PyramidNet-110 f32 at a global batch of 64 against the
                single-device step, DataParallel's difference beside it;
                (e) the train_lm_gspmd twin's main with --rules tp and ep;
+               (h) the Router over TP replicas on (a)'s engine, the serve
+               phase's 16 requests at 32 new tokens, prefix cache off:
+               (h1) two replicas sharing the TP engine against a
+               single-placement Router on rank 0 (near-tie rule), both
+               ranks' tokens identical, K4 launches by replica equal on
+               both ranks; (h2) the same under a loop-site and an
+               engine-site raise with auto_restart: 0 lost, tokens as
+               (h1)'s, every evicted replica refilled, seconds from fault
+               to HEALTHY; (h3) a TP prefill replica and a single-placement
+               decode replica on rank 0 against (h1) (near-tie rule), the
+               handoff's pages and seconds;
 7k. fleet    - the serving fleet (serve/fleet.py) on the serve phase's
                engine (base bf16, page 16, 8 slots; its 16 requests), all
                replicas one engine in this process: (a) three replicas
@@ -4717,6 +4728,8 @@ def gspmd_twin(seed, rank):
         with contextlib.redirect_stdout(buf):
             train_lm_gspmd.main(GSPMD_TWIN + extra + ["--seed", str(seed)])
         text = buf.getvalue()
+        # the phase may run before any other has made build/ddp
+        os.makedirs(os.path.join(ROOT, "build", "ddp"), exist_ok=True)
         with open(os.path.join(ROOT, "build", "ddp",
                                f"gspmd_twin_{label}_{rank}.log"), "w") as f:
             f.write(text)
@@ -4875,9 +4888,126 @@ def gspmd_handoff(torch, seed, rank, mesh):
     return out
 
 
+# (h) the Router over TP replicas: the serve cell's traffic (32 new tokens
+# a request), prefix cache off as the fleet phase's (a)-(c)
+GSPMD_FLEET_NEW_TOKENS = 32
+
+
+def gspmd_fleet_run(torch, engines, traffic, **router_kw):
+    """The traffic through a Router over ``engines`` that every rank builds
+    (rank 0's the front door, rank 1's replaying it): (requests, router,
+    summary, wall s, K4 launches by replica on this rank).  The counts
+    are reset before the Router starts its threads (rank 1's follower may
+    replay the first record at once); its warm-up runs on the calling
+    thread, which ``fleet_k4`` does not read."""
+    from dtdl_tpu_torch import kernels
+    from dtdl_tpu_torch.serve.fleet import Router
+    kernels.reset_launches()
+    router = Router(engines, device=DEV, sched_kwargs={
+        "harvest_lag": 4, "prefix_cache": False},
+        **{**FLEET_KNOBS, **router_kw})
+    with router:
+        sync(torch)
+        t0 = time.perf_counter()
+        reqs = router.run(fleet_requests(traffic), timeout_s=600)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    s = router.summary()
+    if not s["fleet_accounting_ok"] or router.pump_error is not None:
+        raise AssertionError(f"gspmd (h): accounting broken or pump failed: "
+                             f"{router.pump_error}")
+    return reqs, router, s, wall, fleet_k4(len(router.replicas))
+
+
+def gspmd_fleet(torch, seed, rank, mesh):
+    """(h) the Router over tensor-parallel replicas on the base engine
+    (bf16, page 16, 8 slots, rules tp over 'model'): (h1) two replicas
+    sharing the TP engine, (h2) the same under a loop-site and an
+    engine-site raise with auto_restart, (h3) a TP prefill replica and a
+    single-placement decode replica on rank 0.  Rank 0 also serves the
+    traffic through a single-placement Router and holds (h1) to it, and
+    (h3) to (h1), by the near-tie rule; (h2) is held to (h1) exactly."""
+    from dtdl_tpu_torch.models.transformer import transformer_lm
+    from dtdl_tpu_torch.parallel.collectives import tree_digest
+    from dtdl_tpu_torch.resil.faults import FaultPlan, replica_site
+    from dtdl_tpu_torch.serve import InferenceEngine
+    host = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                          device="cpu")
+    traffic = make_traffic(seed, host.cfg.vocab_size,
+                           new_tokens=GSPMD_FLEET_NEW_TOKENS)
+    n_tok = sum(m for _, m in traffic)
+    kw = dict(n_slots=8, page_size=16, device=DEV)
+    eng = InferenceEngine(host, mesh=mesh, rules="tp", **kw)
+    model = single = None
+    out, secs = {"n_layers": host.cfg.n_layers}, {}
+
+    def part(label, reqs, router, s, wall, k4, t0):
+        secs[label] = round(time.perf_counter() - t0, 1)
+        out[label] = {
+            "k4": k4, "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "digest": tree_digest([r.tokens for r in reqs]),
+            "lost": [i for i, r in enumerate(reqs)
+                     if not r.done or r.error],
+            "submitted": s["fleet_requests_submitted"],
+            "finished": s["fleet_requests_finished"],
+            "leader": router.is_leader}
+        if router.is_leader:
+            out[label].update(
+                served=sorted({e[1] for e in router.dispatch_log}),
+                evictions=s["fleet_evictions"], restarts=s["fleet_restarts"],
+                retries=s["fleet_retries"], health=s["replica_health"],
+                recovery_s=[fleet_recovery_s(router, i)
+                            for i in range(len(router.replicas))],
+                migrations=s["fleet_migrations"],
+                handoff_pages=s["fleet_kv_handoff_pages"],
+                handoff_s=[(r.get("kv_handoff_s_p50"),
+                            r.get("kv_handoff_s_max"))
+                           for r in s["replicas"]],
+                records=s.get("control_records"))
+        return reqs
+
+    t0 = time.perf_counter()
+    if rank == 0:
+        # the reference: a single-placement Router (two replicas)
+        model = transformer_lm("base", seed=seed, dtype=torch.bfloat16,
+                               device=DEV)
+        single = InferenceEngine(model, **kw)
+        ref, _, _, ref_wall, _ = gspmd_fleet_run(torch, single, traffic,
+                                                 n_replicas=2)
+        out["single_tokens_per_s"] = n_tok / ref_wall
+    secs["reference"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    h1 = part("h1", *gspmd_fleet_run(torch, eng, traffic, n_replicas=2),
+              t0)
+    t0 = time.perf_counter()
+    plan = (FaultPlan().at(replica_site(0, "loop"), 5)
+            .at(replica_site(1, "engine"), 20))
+    h2 = part("h2", *gspmd_fleet_run(torch, eng, traffic, n_replicas=2,
+                                     plan=plan), t0)
+    if rank == 0:
+        out["h2"]["fired"] = [site for site, _, _ in plan.log]
+    t0 = time.perf_counter()
+    h3 = part("h3", *gspmd_fleet_run(
+        torch, [eng, single], traffic, roles=["prefill", "decode"]), t0)
+    if rank == 0:
+        tau = fleet_tau(torch, model, traffic[0][0])
+        out.update(tau=tau,
+                   h1_partings=near_tie_divergences(torch, model, ref, h1,
+                                                    tau),
+                   h2_identical=sum(a.tokens == b.tokens
+                                    for a, b in zip(h1, h2)),
+                   h3_partings=near_tie_divergences(torch, model, h1, h3,
+                                                    tau))
+    out["seconds"] = secs
+    del eng, model, single
+    torch.cuda.empty_cache()
+    return out
+
+
 def gspmd_worker(torch, seed):
     """Each of two gloo ranks on the one card: (a) TP serving, (f) TP
-    LoRA, (g) the TP handoff, (b) the sharded LM steps, (c) ep on
+    LoRA, (g) the TP handoff, (h) the Router over TP replicas, (b) the
+    sharded LM steps, (c) ep on
     base-moe8, (d) AutoSharded, (e) the twin; rank 0 also runs the
     single-placement references and compares."""
     from dtdl_tpu_torch.data.synthetic import markov_tokens
@@ -4895,6 +5025,9 @@ def gspmd_worker(torch, seed):
     t0 = time.perf_counter()
     out["handoff"] = gspmd_handoff(torch, seed, rank, tp)
     secs["g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fleet"] = gspmd_fleet(torch, seed, rank, tp)
+    secs["h"] = time.perf_counter() - t0
     toks = list(markov_tokens(GSPMD_STEPS * TRAIN_BATCH, GSPMD_SEQ + 1,
                               32000, seed=seed + 3).reshape(
         GSPMD_STEPS, TRAIN_BATCH, GSPMD_SEQ + 1))
@@ -4944,7 +5077,9 @@ def phase_gspmd(torch, seed, card):
     tenant phase's LoRA bank on the TP engine against the
     single-placement LoRA engine; (g) the TP handoff (whole-heads
     payloads) through prefill_only and kv_inject Schedulers against the
-    TP engine undisaggregated."""
+    TP engine undisaggregated; (h) the Router over TP replicas (rank 0 its
+    front door, rank 1 replaying it).  Returns (h)'s K4 launches by part,
+    rank and replica."""
     t_phase = time.perf_counter()
     # rank 1 waits in its next collective while rank 0 runs the
     # references: the worker's gloo timeout is 600 s
@@ -5020,6 +5155,64 @@ def phase_gspmd(torch, seed, card):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fails.append("(g)")
+    a = [r0["fleet"], r1["fleet"]]
+    f0 = a[0]
+    nl = f0["n_layers"]
+    fleet_k4s = {}
+    for label in ("h1", "h2", "h3"):
+        x, y = a[0][label], a[1][label]
+        fleet_k4s[label] = [x["k4"], y["k4"]]
+        held = [n for r in (x, y) for n in r["k4"] if n]
+        ok = (not x["lost"] and not y["lost"] and x["digest"] == y["digest"]
+              and x["submitted"] == x["finished"] == 16
+              and y["submitted"] == y["finished"] == 16
+              and held and all(n % nl == 0 for n in held)
+              and x["leader"] and not y["leader"])
+        if label == "h1":
+            # the follower replays every engine call of both replicas
+            ok = ok and x["served"] == [0, 1] and x["k4"] == y["k4"] \
+                and min(x["k4"]) > 0
+            what = ("(h1) Router(tp_engine, n_replicas=2): tokens against "
+                    f"a single-placement Router on rank 0: "
+                    f"{16 - len(f0['h1_partings'])}/16 identical, near-tie "
+                    f"partings (position, top-two gap) "
+                    f"{f0['h1_partings']} (tau {f0['tau']:.4e}); "
+                    f"single tokens_per_s "
+                    f"{f0['single_tokens_per_s']:.2f}")
+        elif label == "h2":
+            ok = ok and f0["h2_identical"] == 16 and x["evictions"] >= 1 \
+                and x["restarts"] >= x["evictions"] \
+                and x["health"] == ["healthy", "healthy"] \
+                and len(x["fired"]) == 2
+            what = (f"(h2) the same under replica 0's worker killed at loop "
+                    f"iteration 5 and replica 1's engine raising at its "
+                    f"call 20 (fired {x['fired']}), auto_restart: lost "
+                    f"{[len(r['lost']) for r in (x, y)]}, tokens identical "
+                    f"to (h1) {f0['h2_identical']}/16, evictions "
+                    f"{x['evictions']} restarts {x['restarts']} retries "
+                    f"{x['retries']}, seconds from fault to HEALTHY by "
+                    f"replica {x['recovery_s']}, health {x['health']}")
+        else:
+            ok = ok and x["migrations"] == 16 and x["handoff_pages"] > 0 \
+                and y["k4"][1] == 0 and x["k4"][0] == y["k4"][0]
+            what = (f"(h3) a TP prefill replica and a single-placement "
+                    f"decode replica on rank 0: tokens against (h1) "
+                    f"{16 - len(f0['h3_partings'])}/16 identical, near-tie "
+                    f"partings {f0['h3_partings']}; migrations "
+                    f"{x['migrations']}, handoff pages {x['handoff_pages']}, "
+                    f"kv_handoff_s (p50, max) extract/inject "
+                    f"{x['handoff_s']}")
+        log(f"gspmd {what}; both ranks' tokens identical "
+            f"{x['digest'] == y['digest']}, each user request counted once "
+            f"(submitted/finished per rank "
+            f"{[(r['submitted'], r['finished']) for r in (x, y)]}); K4 "
+            f"launches by replica per rank {fleet_k4s[label]}; tokens_per_s "
+            f"per rank {[round(r['tokens_per_s'], 2) for r in (x, y)]} "
+            f"(gloo-staged); control records {x['records']}; seconds per "
+            f"rank {[r['seconds'].get(label) for r in a]} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"({label[0]}{label[1]})")
     single = r0["single"]
     for rules, _ in GSPMD_TRAIN + (("ep", None),):
         a = [r["train"][rules] if rules != "ep" else r["ep"]
@@ -5073,9 +5266,11 @@ def phase_gspmd(torch, seed, card):
         if not ok:
             fails.append(f"(e) {label}")
     log(f"gspmd phase {time.perf_counter() - t_phase:.1f}s (worker "
-        f"{worker_s:.1f}s, its parts on rank 0 {r0['seconds']}) on {card}")
+        f"{worker_s:.1f}s, its parts on rank 0 {r0['seconds']}, (h)'s "
+        f"{r0['fleet']['seconds']}) on {card}")
     if fails:
         raise AssertionError(f"gspmd: {fails} failed")
+    return fleet_k4s
 
 
 # ---------------------------------------------------------------------------
@@ -7894,8 +8089,9 @@ def main(argv=None) -> int:
     if "fourd" in phases:
         phase_fourd(torch, args.seed, card)
     ended("fourd")
+    gspmd_launches = None
     if "gspmd" in phases:
-        phase_gspmd(torch, args.seed, card)
+        gspmd_launches = phase_gspmd(torch, args.seed, card)
     ended("gspmd")
     fleet_launches = tenant_launches = None
     if "fleet" in phases:
@@ -8033,6 +8229,8 @@ def main(argv=None) -> int:
                  "fleet": obs_launches["fleet"]},
              "launches_audit": audit_kernel_launches(audit_launches,
                                                      "paged_attention"),
+             # (h): by part, [rank 0's, rank 1's] launches by replica
+             "launches_gspmd_fleet": gspmd_launches,
              "max_abs_err": errors.get("decode S=1 bf16"),
              **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},

@@ -19,7 +19,9 @@ eager autograd gives per-process gradients already, and the port's
 typing of scan carries) has no counterpart.
 
 Host-level helpers run over the world's gloo host group:
-``host_broadcast``, ``assert_same_across_hosts``, ``host_max``.
+``host_broadcast``, ``assert_same_across_hosts``, ``host_max``; the
+first two over another gloo group when given one (a tensor-parallel
+engine's control group, ``Mesh.host_group``).
 
 The axis collectives are what ``shard_map`` code writes inside the 4D
 step (:mod:`dtdl_tpu_torch.parallel.megatron`), named after the ``lax``
@@ -460,32 +462,44 @@ def tree_digest(tree) -> str:
     return h.hexdigest()
 
 
-def host_broadcast(tree, is_source: bool | None = None):
+def _host_members(group) -> int:
+    """The number of processes of ``group`` (``None``: the world's host
+    group)."""
+    return process_count() if group is None else dist.get_world_size(group)
+
+
+def host_broadcast(tree, is_source: bool | None = None, group=None):
     """A host tree (numpy arrays, Python values) from the source process
-    (process 0 unless ``is_source`` marks another) on every process.
-    No-op for a single process."""
-    if process_count() == 1:
+    (process 0 unless ``is_source`` marks another) on every process of
+    ``group`` (a gloo group; ``None``: the world's host group).  Exactly
+    one member must be the source.  No-op for a group of one process."""
+    if _host_members(group) == 1:
         return tree
     if is_source is None:
         is_source = process_index() == 0
-    flags = [None] * process_count()
-    dist.all_gather_object(flags, bool(is_source), group=host_group())
+    g = host_group() if group is None else group
+    flags = [None] * _host_members(group)
+    dist.all_gather_object(flags, bool(is_source), group=g)
     if sum(flags) != 1:
         raise ValueError(f"host_broadcast needs exactly one source, got "
                          f"{sum(flags)}")
+    src = flags.index(True)
+    if group is not None:
+        src = dist.get_process_group_ranks(group)[src]
     box = [tree]
-    dist.broadcast_object_list(box, src=flags.index(True),
-                               group=host_group())
+    dist.broadcast_object_list(box, src=src, group=g)
     return box[0]
 
 
-def assert_same_across_hosts(tree, name: str = "value") -> None:
-    """Raise when ``tree`` differs between processes (compared by
-    :func:`tree_digest`)."""
-    if process_count() == 1:
+def assert_same_across_hosts(tree, name: str = "value", group=None) -> None:
+    """Raise when ``tree`` differs between the processes of ``group`` (a
+    gloo group; ``None``: the world's host group), compared by
+    :func:`tree_digest`."""
+    if _host_members(group) == 1:
         return
-    digests = [None] * process_count()
-    dist.all_gather_object(digests, tree_digest(tree), group=host_group())
+    digests = [None] * _host_members(group)
+    dist.all_gather_object(digests, tree_digest(tree),
+                           group=host_group() if group is None else group)
     if len(set(digests)) != 1:
         raise AssertionError(f"{name} diverged across hosts: {digests}")
 

@@ -17,7 +17,7 @@ and its collectives are identities.
 reference's allreduce world); ``build_mesh(shape, axes)`` is a multi-axis
 mesh (the 4D engine's ``('data', 'seq', 'pipe', 'model')``);
 ``local_mesh()`` is this process's own device, one replica;
-``sub_mesh(ranks)`` a data axis over some of the world's processes;
+``sub_mesh(ranks)`` one axis over some of the world's processes;
 ``hybrid_mesh`` leads with a ``dcn`` axis over launcher hosts or
 synthetic slices; ``shrink_mesh`` keeps the survivors' positions along
 one axis after peers are lost, its groups made by the survivors alone.
@@ -52,8 +52,10 @@ class Mesh:
     ``None`` for a mesh of one process with no world.  ``groups`` maps a
     set of axes (those of size above 1) to this process's group over its
     line, as :func:`build_mesh` made them.  ``host_group`` is a gloo group
-    over the processes of a :func:`sub_mesh`, for its barriers (the mesh's
-    own group where the world is gloo)."""
+    over the processes of a :func:`sub_mesh`, for its barriers and a
+    tensor-parallel engine's control plane (the mesh's own group where
+    the world is gloo); a mesh of the whole world uses the world's host
+    group instead."""
     ranks: tuple[int, ...]
     axis_names: tuple[str, ...] = (DATA_AXIS,)
     group: object = None
@@ -243,8 +245,10 @@ def sub_mesh(ranks, axis: str = DATA_AXIS) -> Mesh | None:
     process (``dist.new_group`` is collective over the world), and the
     mesh comes back on its members, ``None`` on the others.  Beside an
     NCCL world a gloo group over the same processes carries the mesh's
-    barriers (``bootstrap.barrier(mesh=)``), as the world's host group
-    does the world's."""
+    barriers (``bootstrap.barrier(mesh=)``) and a tensor-parallel
+    engine's control plane, as the world's host group does the world's.
+    Every call makes new groups, so two sub-meshes over the same
+    processes (two tensor-parallel engines driven apart) share none."""
     ranks = tuple(int(r) for r in ranks)
     group = host = None
     if dist.is_initialized():

@@ -70,8 +70,19 @@ ranks must make the same calls in the same order: every call first
 compares a digest of its host inputs across the processes
 (``collectives.assert_same_across_hosts``), so a rank that parts fails
 by name instead of hanging in a collective, and a decision a scheduler
-takes from its clock (deadlines) is the leader's (:meth:`agree`).  The
-byte receipts of ``compile_stats()`` stay the whole engine's, as the
+takes from its clock (deadlines) is the leader's (:meth:`agree`).  Both
+run over the engine's control group, a gloo group over exactly the
+mesh's processes (``control_ranks``), whose first process is the
+leader: a :func:`~dtdl_tpu_torch.runtime.mesh.sub_mesh`'s own
+``host_group``, or the world's host group for a mesh of the whole
+world.  A mesh's data rows are one lockstep engine by
+design (rules that shard weights over ``data`` gather over it in every
+forward), so the group spans the whole mesh; two engines on two
+sub-meshes have two groups.  On disjoint processes they run apart; on
+the same processes their calls must reach every process in one order
+(the Router's shared record stream does that), since two threads that
+issue two NCCL communicators' collectives in different orders on two
+ranks deadlock.  The byte receipts of ``compile_stats()`` stay the whole engine's, as the
 JAX engine's count its sharded arrays whole.  An adapter bank holds each
 rank's heads' rows of the head leaves (``tenant.lora.bank_pspecs``); the
 out-projection's delta of a rank's heads is a partial sum added before
@@ -195,6 +206,24 @@ class InferenceEngine:
         model = model.compute_copy()
         self._param_bytes = tree_bytes(model.state_dict())
         self._calls = 0
+        # the control plane (module docstring): None on a single placement;
+        # a sub_mesh's host group, the world's for a mesh of the world
+        self.control_group = self.control_ranks = None
+        if mesh is not None and mesh.group is not None:
+            from dtdl_tpu_torch.runtime.bootstrap import (host_group,
+                                                          process_count)
+            group = mesh.host_group
+            if group is None and mesh.size == process_count():
+                group = host_group()
+            if group is None:
+                raise ValueError(
+                    f"a tensor-parallel engine on the processes "
+                    f"{list(mesh.ranks)} of a world of {process_count()} "
+                    f"needs the mesh's host group for its control plane: "
+                    f"make the mesh with sub_mesh")
+            self.control_group = group
+            # a group's ranks are in rank order: the leader is the lowest
+            self.control_ranks = tuple(sorted(mesh.ranks))
         if mesh is not None:
             from dtdl_tpu_torch.parallel.tensor import place_lm
             model = place_lm(model, mesh, rules, self.device)
@@ -341,25 +370,30 @@ class InferenceEngine:
             }}
 
     def agree(self, value):
-        """``value`` as the mesh's leader (its first process) has it, on
-        every process of a tensor-parallel engine; ``value`` elsewhere."""
-        if self.mesh is None or self.mesh.group is None:
+        """``value`` as the control group's leader (its first process)
+        has it, on every process of a tensor-parallel engine; ``value``
+        elsewhere."""
+        if self.control_group is None:
             return value
         from dtdl_tpu_torch.parallel.collectives import host_broadcast
         from dtdl_tpu_torch.runtime.bootstrap import process_index
-        return host_broadcast(value, process_index() == self.mesh.ranks[0])
+        return host_broadcast(value,
+                              process_index() == self.control_ranks[0],
+                              group=self.control_group)
 
     def _lockstep(self, *host) -> None:
-        """On a tensor-parallel engine: raise unless every process makes
-        this call (its kind and host inputs) as its n-th."""
+        """On a tensor-parallel engine: raise unless every process of its
+        control group makes this call (its kind and host inputs) as its
+        n-th."""
         self._calls += 1
-        if self.mesh is None or self.mesh.group is None:
+        if self.control_group is None:
             return
         from dtdl_tpu_torch.parallel.collectives import (
             assert_same_across_hosts)
         assert_same_across_hosts(
             (self._calls,) + host,
-            f"tensor-parallel engine call {self._calls} ({host[0]})")
+            f"tensor-parallel engine call {self._calls} ({host[0]})",
+            group=self.control_group)
 
     def _watch(self, name: str) -> None:
         """Hand the program ``name`` (JAX's: ``serve.prefill[T]``,

@@ -42,6 +42,34 @@ card's one-process fleet use, or bring one each.  Fault injection rides
 :func:`dtdl_tpu_torch.resil.faults.replica_site`: per-replica ``engine``,
 ``loop`` and ``probe`` sites.
 
+**Tensor-parallel replicas**: a replica's engine may be an
+``InferenceEngine(mesh=)``, one process a rank.  Every process of the
+world builds the same Router (the same arguments, ``None`` in place of a
+replica it holds no rank of), as every rank builds the same engine.  The
+Router's process is the first process of every tensor-parallel replica's
+control group (``engine.control_ranks``) and the only home of a
+single-placement replica: its Router is the front door (``submit``,
+``run``, ``wait``, health, hedging, restarts, metrics).  On the other
+ranks (``is_leader`` False) the Router runs no pump, probe or watchdog:
+one thread replays its leader's records (:class:`ControlStream`), and
+``run`` returns the same requests, each with the tokens of the
+follower's own replay of the winning attempt (the leader's, when it ran
+on a replica the follower holds no rank of).  The replicas on one set of
+processes, whether they share one tensor-parallel engine or bring one
+each, share one stream and take turns at their engines in the leader's
+order: their collectives reach every process in one order, which two
+NCCL communicators driven from two threads would not (two ranks that
+enqueue them in different orders deadlock).  So engines whose processes
+overlap in any but the Router's are refused.  A fleet of
+single-placement engines has no stream and no turn, so this costs it
+nothing.  A fault site fires on the leader and
+its outcome reaches the followers (``engine`` through ``engine.agree``,
+``loop`` as the record ``die``; ``probe`` is the leader's alone).  A
+replica whose processes do not include the Router's would need a
+transport between front end and replica, which the JAX package does not
+have: the Router refuses it by name (ROADMAP A12c).  A dead follower
+process is a failure of the world, as for any tensor-parallel engine.
+
 On the card, failover is held for faults raised on the host (the
 ``FaultPlan`` sites), as in the JAX package: a CUDA error raised by a
 kernel is sticky for the whole process, so the fleet does not catch device
@@ -91,6 +119,7 @@ from dtdl_tpu_torch.obs.observer import NULL_OBSERVER
 from dtdl_tpu_torch.obs.slo import SLO, SLOEvaluator
 from dtdl_tpu_torch.obs.trace import corr_rid
 from dtdl_tpu_torch.resil.faults import FaultPlan, InjectedFault, replica_site
+from dtdl_tpu_torch.runtime.bootstrap import process_index
 from dtdl_tpu_torch.serve.health import (DRAINING, EVICTED, HEALTHY, SUSPECT,
                                          ReplicaHealth)
 from dtdl_tpu_torch.serve.metrics import (UNAVAILABLE_KINDS, ServeMetrics,
@@ -98,20 +127,29 @@ from dtdl_tpu_torch.serve.metrics import (UNAVAILABLE_KINDS, ServeMetrics,
 from dtdl_tpu_torch.serve.paged import adapter_salt, page_chain_hashes
 from dtdl_tpu_torch.serve.scheduler import Request, Scheduler
 
-__all__ = ["DRAINING", "EVICTED", "HEALTHY", "SUSPECT", "FleetMetrics",
-           "PrefixDirectory", "Replica", "Router", "default_fleet_slos"]
+__all__ = ["ControlStream", "DRAINING", "EVICTED", "HEALTHY", "SUSPECT",
+           "FleetMetrics", "PrefixDirectory", "Replica", "Router",
+           "default_fleet_slos"]
 
 
 class _FaultableEngine:
     """Replica-scoped fault shim over an engine: fires the replica's
     ``engine`` fault site before every prefill, decode and verify, so a
     FaultPlan can raise on exactly the k-th engine call of replica i.
-    Everything else passes through to the wrapped engine."""
+    Everything else passes through to the wrapped engine.
 
-    def __init__(self, engine, plan: FaultPlan, site: str):
+    On a tensor-parallel engine the leader fires the site and every rank
+    of the control group takes its outcome (``engine.agree``: none, or
+    the :class:`InjectedFault` to raise) before the call, so a follower
+    (``fire=False``) raises the same error at the same call and
+    containment retires the same slots on every rank."""
+
+    def __init__(self, engine, plan: FaultPlan, site: str,
+                 fire: bool = True):
         object.__setattr__(self, "_engine", engine)
         object.__setattr__(self, "_plan", plan)
         object.__setattr__(self, "_site", site)
+        object.__setattr__(self, "_fire_here", fire)
 
     def __getattr__(self, name):
         return getattr(self._engine, name)
@@ -119,22 +157,161 @@ class _FaultableEngine:
     def __setattr__(self, name, value):
         setattr(self._engine, name, value)
 
+    def _fire(self) -> None:
+        err = None
+        if self._fire_here:
+            try:
+                self._plan.fire(self._site)
+            except InjectedFault as e:
+                err = e
+        said = self._engine.agree(None if err is None else str(err))
+        if err is None and said is not None:
+            err = InjectedFault(said)
+        if err is not None:
+            raise err
+
     def prefill(self, *a, **kw):
-        self._plan.fire(self._site)
+        self._fire()
         return self._engine.prefill(*a, **kw)
 
     def decode(self, *a, **kw):
-        self._plan.fire(self._site)
+        self._fire()
         return self._engine.decode(*a, **kw)
 
     def verify(self, *a, **kw):
-        self._plan.fire(self._site)
+        self._fire()
         return self._engine.verify(*a, **kw)
 
 
 def _sched_idle(sched: Scheduler) -> bool:
     return (not sched.queue and not sched._pending
             and all(x is None for x in sched.slots))
+
+
+# the fields of a replica-local attempt that a record carries to the
+# followers (its stream stays on the leader)
+_WIRE_FIELDS = ("prompt", "max_new_tokens", "sampling", "eos_id",
+                "speculate", "deadline_at", "origin_rid", "lineage",
+                "prefill_only", "kv_inject", "adapter", "grammar", "rid",
+                "tokens", "t_first")
+
+
+def _wire(req: Request) -> dict:
+    """An attempt as plain data, as the leader dispatched it."""
+    return {k: (list(v) if k in ("prompt", "tokens") else v)
+            for k, v in ((k, getattr(req, k)) for k in _WIRE_FIELDS)}
+
+
+class _Turn:
+    """A first-come first-served lock: the replicas that share one
+    tensor-parallel engine take turns at it in the order they asked."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._next = 0
+        self._serving = 0
+
+    def acquire(self, beat=None) -> None:
+        """Wait for this caller's turn; ``beat`` (a worker's heartbeat) is
+        called while it waits: a replica queued behind another's long
+        iteration is not wedged."""
+        with self._cv:
+            ticket = self._next
+            self._next += 1
+            while self._serving != ticket:
+                if beat is not None:
+                    beat()
+                self._cv.wait(timeout=0.01)
+
+    def release(self) -> None:
+        with self._cv:
+            self._serving += 1
+            self._cv.notify_all()
+
+    def __enter__(self) -> "_Turn":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def try_enter(self) -> bool:
+        """Take the turn only if nobody holds or waits for it."""
+        with self._cv:
+            if self._serving != self._next:
+                return False
+            self._next += 1
+            return True
+
+
+# a follower's longest wait between two records: well inside a process
+# group's timeout (gloo's default 30 min, 600 s in the card's worlds)
+_KEEPALIVE_S = 30.0
+
+
+class ControlStream:
+    """The records of the tensor-parallel replicas on one set of
+    processes (``engine.control_ranks``), in one order on every rank; it
+    sends them on the first such engine's control group.
+
+    The leader (the group's first process) sends one record a worker
+    iteration, under the engine's :attr:`turn`, after the worker took its
+    inbox and cancels and the ``loop`` site fired, and then runs the
+    iteration; a follower receives the records in order on one thread and
+    replays each on the replica it names: the same ``submit``, ``cancel``
+    and ``step`` or ``drain``, so every engine call inside, the
+    scheduler's own ``agree`` included, meets its leader's.  A record is
+    ``{"replica", "gen", "action", "subs", "cancels", "outcomes"}``;
+    actions: ``step``, ``drain``, ``none`` (an iteration), ``begin`` (a
+    restarted generation's first record), ``die`` (the ``loop`` site
+    killed the worker), ``stop`` (the Router's shutdown of the replica),
+    ``idle`` (the pump's keep-alive, sent when the turn is free and
+    :meth:`due`) and ``exit``.  The turn is every replica's on these
+    processes, whatever engine it runs.  ``outcomes`` carry the users' terminal
+    outcomes to the followers' :meth:`Router.run`.  ``log`` keeps
+    ``(n, replica, generation, action)`` of every record, the same on
+    every rank."""
+
+    def __init__(self, group, ranks):
+        self.group = group
+        self.ranks = tuple(ranks)
+        self.turn = _Turn()
+        self.outbox: deque = deque()
+        self.last_sent = time.perf_counter()
+        self.n = 0
+        # (replica, generation) of the record at the engine now
+        self.at: Optional[tuple[int, int]] = None
+        self.log: deque = deque(maxlen=65536)
+
+    def due(self) -> bool:
+        """Outcomes wait, or the followers have waited ``_KEEPALIVE_S``."""
+        return (bool(self.outbox)
+                or time.perf_counter() - self.last_sent > _KEEPALIVE_S)
+
+    def send(self, replica: int, gen: int, action: str, subs=(),
+             cancels=(), **extra) -> None:
+        """Send one record (the leader, holding the turn)."""
+        outcomes = []
+        while self.outbox:
+            outcomes.append(self.outbox.popleft())
+        self._exchange({"replica": replica, "gen": gen, "action": action,
+                        "subs": list(subs), "cancels": list(cancels),
+                        "outcomes": outcomes, **extra})
+        self.last_sent = time.perf_counter()
+
+    def recv(self) -> dict:
+        """The next record (a follower)."""
+        return self._exchange(None)
+
+    def _exchange(self, rec):
+        import torch.distributed as dist
+        box = [rec]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        rec = box[0]
+        self.n += 1
+        self.at = (rec["replica"], rec["gen"])
+        self.log.append((self.n, rec["replica"], rec["gen"], rec["action"]))
+        return rec
 
 
 class Replica:
@@ -149,14 +326,33 @@ class Replica:
     old worker by generation (a wedged thread is abandoned, a daemon that
     exits at its next fence check; its arena is freed when it does) and
     builds a fresh Scheduler on the same engine; the replica's cumulative
-    :class:`ServeMetrics` survives the swap."""
+    :class:`ServeMetrics` survives the swap.
+
+    A tensor-parallel replica has a :class:`ControlStream`.  On the
+    leader the worker runs each iteration inside the stream's turn,
+    sending its record first; the generation fence is checked again
+    inside the turn.  A restart does not wait for a wedged worker: the
+    turn orders the generations on the group instead.  A stale worker
+    that stalled outside the turn exits at the fence without a record; one
+    wedged inside it (a stalled engine call) finishes that iteration,
+    which its followers replay on the old scheduler, before the new
+    generation's ``begin`` record can be sent, and then exits at the
+    fence.  So no collective of a fenced generation follows the first of
+    the next.  The ``begin`` record drops the old scheduler on the
+    followers (and its adapter rows, when the leader released them), as
+    the leader dropped it.  A follower's replica (``follow=True``) has no
+    thread: the Router's follower loop calls :meth:`replay`."""
 
     def __init__(self, idx: int, engine, sched_kwargs: dict | None = None,
                  plan: Optional[FaultPlan] = None, device=None,
-                 idle_wait_s: float = 0.002, observer=None):
+                 idle_wait_s: float = 0.002, observer=None,
+                 stream: Optional[ControlStream] = None,
+                 follow: bool = False):
         self.idx = idx
         self.engine = engine
         self.plan = plan
+        self.stream = stream
+        self.follow = follow
         self.observer = observer or NULL_OBSERVER
         self.device = engine.device if device is None else device
         self.idle_wait_s = idle_wait_s
@@ -169,6 +365,9 @@ class Replica:
         self.completions: deque[Request] = deque()
         self._on_complete = None          # Router wake hook
         self._gen = 0                     # restart fence
+        # a restarted generation's begin record: (old scheduler, whether
+        # its adapter rows go back to the bank)
+        self._prev: Optional[tuple] = None
         self.dead_error: Optional[str] = None
         self.dead_at: Optional[float] = None
         self.last_beat = time.perf_counter()
@@ -177,13 +376,14 @@ class Replica:
         self.max_beat_gap_s = 0.0
         self.restarts = 0
         self.sched = self._make_sched()
-        self._thread = self._spawn()
+        self._thread = None if follow else self._spawn()
 
     def _make_sched(self) -> Scheduler:
         engine = self.engine
         if self.plan is not None:
             engine = _FaultableEngine(
-                engine, self.plan, replica_site(self.idx, "engine"))
+                engine, self.plan, replica_site(self.idx, "engine"),
+                fire=not self.follow)
         kw = dict(self._sched_kwargs)
         if "observer" not in kw and self.observer is not NULL_OBSERVER:
             # the Router's observer reaches every replica: all workers'
@@ -259,10 +459,16 @@ class Replica:
         with self._cv:
             self._inbox.clear()
             self._cancels.clear()
-        if not self._thread.is_alive():
-            # the abandoned generation's adapter rows go back to the
-            # engine's bank (a wedged worker still owns its own)
-            self.sched.release_adapters()
+        # the abandoned generation's adapter rows go back to the engine's
+        # bank (a wedged worker still owns its own); on a tensor-parallel
+        # replica in the new generation's begin record, in the engine's
+        # turn, so every rank's bank sees the same order
+        release = not self._thread.is_alive()
+        if self.stream is None:
+            if release:
+                self.sched.release_adapters()
+        else:
+            self._prev = (self.sched, release)
         self.sched = self._make_sched()
         self.dead_error = None
         self.dead_at = None
@@ -272,21 +478,34 @@ class Replica:
 
     def stop(self, drain: bool = True, join_timeout_s: float = 5.0) -> None:
         """Stop the worker, then wind the scheduler down on the calling
-        thread (the worker is fenced out first)."""
+        thread (the worker is fenced out first).  A tensor-parallel
+        replica sends the ``stop`` record in the engine's turn, and its
+        followers wind down (or abandon) the same scheduler."""
         with self._cv:
+            gen = self._gen
             self._gen += 1
             self._cv.notify_all()
         self._thread.join(timeout=join_timeout_s)
-        if self._thread.is_alive():
-            # a wedged worker outlived the join and still owns this
-            # scheduler: abandon the generation (its completions die
-            # with it, as a dead replica's)
+        if self.stream is None:
+            if self._thread.is_alive():
+                # a wedged worker outlived the join and still owns this
+                # scheduler: abandon the generation (its completions die
+                # with it, as a dead replica's)
+                return
+            self._wind_down(self.sched, drain)
             return
+        with self.stream.turn:
+            alive = self._thread.is_alive()
+            self.stream.send(self.idx, gen, "stop", drain=drain, alive=alive)
+            if not alive:
+                self._wind_down(self.sched, drain)
+
+    def _wind_down(self, sched: Scheduler, drain: bool) -> None:
         try:
-            self.sched.shutdown(drain=drain)
+            sched.shutdown(drain=drain)
         except Exception:      # a broken engine must not block shutdown
             pass
-        self._publish_from(self.sched)
+        self._publish_from(sched)
 
     # ---- the worker ---------------------------------------------------
 
@@ -301,6 +520,17 @@ class Replica:
         # a beat at each layer too: an eager prefill is many launches,
         # which other replicas' threads slow by holding the GIL
         set_block_beat(self._beat)
+        if self.stream is not None and gen:
+            self.stream.turn.acquire(self._beat)
+            try:
+                if gen != self._gen:
+                    return
+                prev, release = self._prev
+                self.stream.send(self.idx, gen, "begin", release=release)
+                if release:
+                    prev.release_adapters()
+            finally:
+                self.stream.turn.release()
         while True:
             with self._cv:
                 while (gen == self._gen and not self._inbox
@@ -322,18 +552,74 @@ class Replica:
                 except InjectedFault as e:
                     self.dead_error = f"{type(e).__name__}: {e}"
                     self.dead_at = time.perf_counter()
+                    if self.stream is not None:
+                        with self.stream.turn:
+                            if gen == self._gen:
+                                self.stream.send(self.idx, gen, "die")
                     return
                 if gen != self._gen:
                     return         # fenced out while it stalled
-            for r in subs:
-                sched.submit(r)
-            for rid, reason in cans:
-                sched.cancel(rid, reason)
-            if sched.queue or any(x is not None for x in sched.slots):
-                sched.step()
-            elif sched._pending:
-                sched.drain()
+            if self.stream is None:
+                self._iterate(sched, subs, cans)
+            else:
+                self.stream.turn.acquire(self._beat)
+                try:
+                    if gen != self._gen:
+                        return     # fenced out while it waited its turn
+                    self._iterate(sched, subs, cans, gen)
+                finally:
+                    self.stream.turn.release()
             self._publish_from(sched, gen)
+
+    def _iterate(self, sched: Scheduler, subs, cans,
+                 gen: Optional[int] = None) -> None:
+        """One iteration: the new attempts and cancels, then a step (work
+        queued or slotted) or a drain (only harvests left).  On a
+        tensor-parallel replica the record goes first (submit and cancel
+        are host-only)."""
+        wire = [_wire(r) for r in subs] if self.stream is not None else ()
+        for r in subs:
+            sched.submit(r)
+        for rid, reason in cans:
+            sched.cancel(rid, reason)
+        action = ("step" if sched.queue
+                  or any(x is not None for x in sched.slots)
+                  else "drain" if sched._pending else "none")
+        if self.stream is not None:
+            self.stream.send(self.idx, gen, action, wire, cans)
+        if action == "step":
+            sched.step()
+        elif action == "drain":
+            sched.drain()
+
+    def replay(self, rec: dict) -> None:
+        """A follower's turn at one of its leader's records (see
+        :class:`ControlStream`)."""
+        gen, action = rec["gen"], rec["action"]
+        if gen != self._gen:
+            # the leader began a new generation: drop the old scheduler
+            # (its arena goes with it) as the leader did
+            if action == "begin" and rec.get("release"):
+                self.sched.release_adapters()
+            self.sched = self._make_sched()
+            self._gen = gen
+            self.restarts += 1
+        sched = self.sched
+        # a begin needs nothing more; after a die the generation's
+        # scheduler waits for the next begin, as the leader's does
+        if action == "stop":
+            if not rec["alive"]:
+                self._wind_down(sched, rec["drain"])
+        elif action in ("step", "drain", "none"):
+            for d in rec["subs"]:
+                sched.submit(Request(**d))
+            for rid, reason in rec["cancels"]:
+                sched.cancel(rid, reason)
+            if action == "step":
+                sched.step()
+            elif action == "drain":
+                sched.drain()
+            self._publish_from(sched)
 
     def _publish_from(self, sched: Scheduler,
                       gen: Optional[int] = None) -> None:
@@ -656,6 +942,54 @@ def default_fleet_slos(ttft_p99_s: Optional[float] = None,
     return slos
 
 
+def _router_process(engines, me: int) -> int:
+    """The process whose Router is the front door: the first process of
+    every tensor-parallel replica's control group and the only home of a
+    single-placement replica (this one when there is no tensor-parallel
+    replica).  A replica that cannot be driven from it is refused by
+    name here, before any collective, as are tensor-parallel replicas
+    whose processes overlap in any but the Router's (module docstring)."""
+    tp = [e.control_ranks for e in engines
+          if e is not None and e.control_ranks is not None]
+    lead = tp[0][0] if tp else me
+    where = (f"the Router's process {lead} (the first process of every "
+             f"tensor-parallel replica's control group)")
+    for i, eng in enumerate(engines):
+        ranks = None if eng is None else eng.control_ranks
+        if eng is None and lead == me:
+            why = f"is not on {where}"
+        elif ranks is not None and lead not in ranks:
+            why = (f"runs on the processes {list(ranks)}, whose control "
+                   f"group does not hold {where}")
+        elif ranks is not None and ranks[0] != lead:
+            why = f"is led by process {ranks[0]}, not by {where}"
+        elif eng is not None and ranks is None and lead != me:
+            why = (f"is a single-placement engine on process {me}, not on "
+                   f"{where}")
+        else:
+            continue
+        raise NotImplementedError(
+            f"replica {i}'s engine {why}: the Router drives every replica "
+            f"from its own process, and a replica outside it needs a "
+            f"transport between front end and replica, which the JAX "
+            f"package does not have (ROADMAP A12c)")
+    sets = sorted(set(tp))
+    for k, a in enumerate(sets):
+        for b in sets[k + 1:]:
+            shared = sorted(set(a) & set(b) - {lead})
+            if shared:
+                raise NotImplementedError(
+                    f"tensor-parallel replicas on the processes {list(a)} "
+                    f"and {list(b)} share the processes {shared} besides "
+                    f"the Router's: their records would reach those "
+                    f"processes on two threads in no common order, and two "
+                    f"NCCL communicators' collectives issued in different "
+                    f"orders deadlock.  Build them over the same processes "
+                    f"(one record stream) or over processes that share only "
+                    f"the Router's (ROADMAP A12c)")
+    return lead
+
+
 @dataclasses.dataclass
 class _Flight:
     """Router-side record of one USER request: its attempts (replica-local
@@ -674,6 +1008,7 @@ class _Flight:
     hedge_rid: Optional[int] = None
     stage: str = "prefill"
     handoff: Optional[dict] = None
+    seq: int = 0                  # intake order: the followers' index
 
 
 class Router:
@@ -692,7 +1027,9 @@ class Router:
     and ``affinity_min_tokens`` steer warm prefixes.  ``device`` is where
     the replicas' schedulers run (the card unless ``"cpu"``); it must be
     the engines'.  ``observer``, ``exporter`` and ``slos``: see the module
-    docstring."""
+    docstring.  Tensor-parallel engines (module docstring): an entry is
+    ``None`` on a process that holds no rank of that replica, and every
+    process submits the same requests in the same order."""
 
     def __init__(self, engines, n_replicas: Optional[int] = None,
                  sched_kwargs: dict | None = None,
@@ -727,8 +1064,11 @@ class Router:
             engines = [engines] * n_eff
         if not engines:
             raise ValueError("need at least one engine")
+        me = process_index()
+        self.leader = _router_process(engines, me)
+        self.is_leader = self.leader == me
         for i, eng in enumerate(engines):
-            if eng.device != dev:
+            if eng is not None and eng.device != dev:
                 raise ValueError(f"replica {i}'s engine runs on "
                                  f"{eng.device}, the Router was asked for "
                                  f"{dev}")
@@ -765,7 +1105,8 @@ class Router:
                 # in a fleet with prefill-role replicas a mixed replica is
                 # decode-capable, so migrated flights can land on it too
                 needs_paged = r != "mixed" or has_prefill_role
-                if needs_paged and not engines[i].paged:
+                if needs_paged and engines[i] is not None \
+                        and not engines[i].paged:
                     raise ValueError(
                         f"replica {i} has role {r!r} in a fleet that "
                         f"migrates KV (page-granular handoff) but a "
@@ -783,13 +1124,24 @@ class Router:
         self.poll_s = poll_s
         if warmup:
             self._warm(engines, sched_kwargs)
-        self.replicas = [Replica(i, eng, sched_kwargs, plan, dev,
-                                 observer=self.observer)
-                         for i, eng in enumerate(engines)]
-        sizes = {eng.page_size for eng in engines}
+        # one record stream a set of processes, made before any worker runs
+        self._streams: dict[tuple, ControlStream] = {}
+        for eng in engines:
+            if eng is not None and eng.control_group is not None \
+                    and eng.control_ranks not in self._streams:
+                self._streams[eng.control_ranks] = ControlStream(
+                    eng.control_group, eng.control_ranks)
+        self.replicas = [
+            None if eng is None else Replica(
+                i, eng, sched_kwargs, plan, dev, observer=self.observer,
+                stream=self._streams.get(eng.control_ranks),
+                follow=not self.is_leader)
+            for i, eng in enumerate(engines)]
+        sizes = {eng.page_size for eng in engines if eng is not None}
         self.prefix_dir = (PrefixDirectory()
                            if prefix_directory and sizes != {0}
-                           and len(sizes) == 1 else None)
+                           and len(sizes) == 1 and self.is_leader
+                           else None)
         self._hash_pg = next(iter(sizes)) if len(sizes) == 1 else 0
         if affinity_min_tokens is None:
             affinity_min_tokens = self._hash_pg
@@ -797,7 +1149,7 @@ class Router:
         self.health = [
             ReplicaHealth(suspect_after, evict_after, recover_after,
                           listener=self._directory_listener(i))
-            for i in range(len(engines))]
+            for i in range(len(engines))] if self.is_leader else []
         self._cv = threading.Condition()
         self.queue: deque[_Flight] = deque()
         self._flights: dict[int, _Flight] = {}      # user rid -> flight
@@ -816,6 +1168,12 @@ class Router:
         self._closed = False
         self._stop = False
         self.pump_error: Optional[str] = None
+        self._n_intake = 0
+        # a follower's books: its unsettled users and the leader's outcomes
+        # by intake number, its replicas' finished attempts
+        self._users: dict[int, Request] = {}
+        self._outcomes: dict[int, tuple] = {}
+        self._attempts: dict[int, Request] = {}
         # continuous export and SLO judging: the pump samples the exporter
         # once a tick (self-throttled) with the fleet's window deltas; an
         # attached evaluator judges every point and its crossings land on
@@ -835,6 +1193,15 @@ class Router:
                 if slos.observer is None:
                     slos.observer = self.observer
                 exporter.attach_slo(slos)
+        if not self.is_leader:
+            self._pump = None
+            self._followers = [
+                threading.Thread(target=self._follow, args=(st,),
+                                 name=f"serve-follower{k}", daemon=True)
+                for k, st in enumerate(self._streams.values())]
+            for t in self._followers:
+                t.start()
+            return
         for rep in self.replicas:
             rep._on_complete = self._wake
         self._pump = threading.Thread(target=self._pump_loop,
@@ -852,7 +1219,7 @@ class Router:
         ct = wk.get("chunk_tokens")
         seen: set[int] = set()
         for eng in engines:
-            if id(eng) in seen:
+            if eng is None or id(eng) in seen:
                 continue
             seen.add(id(eng))
             if eng.paged_kernel and eng.device.type == "cuda":
@@ -902,18 +1269,26 @@ class Router:
             # absolute from router intake: queue time counts
             req.deadline_at = now + req.deadline_s
         with self._cv:
+            seq = self._n_intake
+            self._n_intake += 1
+            if not self.is_leader:
+                # the leader decides; its outcome settles this request
+                self._users[seq] = req
+                self.metrics.on_submit()
+                self._resolve_locked()
+                return req
             if self._closed:
                 return self._terminal_locked(
                     req, "rejected: router is shut down",
-                    self.metrics.on_reject)
+                    self.metrics.on_reject, seq)
             if (self.max_queue is not None
                     and len(self.queue) >= self.max_queue):
                 return self._terminal_locked(
                     req, f"rejected: router admission queue full "
                          f"({self.max_queue} waiting); retry later",
-                    self.metrics.on_reject)
+                    self.metrics.on_reject, seq)
             self.metrics.on_submit()
-            fl = _Flight(req, now)
+            fl = _Flight(req, now, seq=seq)
             self._flights[req.rid] = fl
             # the intake marker and the flow chain's anchor, under the
             # lock so they precede the dispatch's (the tracer's lock is a
@@ -927,8 +1302,9 @@ class Router:
         return req
 
     def _terminal_locked(self, req: Request, error: str,
-                         hook) -> Request:
+                         hook, seq: int) -> Request:
         """Finish a user request at intake; the caller holds the lock."""
+        self._announce(seq, error)
         req.error = error
         req.done = True
         req.t_done = time.perf_counter()
@@ -971,6 +1347,9 @@ class Router:
                 # an error closes it undelivered
                 user.stream.finish(user.tokens, user.error)
             self._flights.pop(user.rid, None)
+            self._announce(fl.seq, user.error, attempt, next(
+                (j for rid, j, _ in fl.attempts
+                 if attempt is not None and rid == attempt.rid), None))
             losers = list(fl.live.items())
             fl.live.clear()
             for rid, _ in losers:
@@ -1022,10 +1401,117 @@ class Router:
         self._expire_queued()
         self._dispatch()
         self._hedge()
+        self._keep_alive()
         if self.exporter is not None:
             # the tick is the router's drain boundary: completions are
             # collected above, so the sampled counters are consistent
             self.exporter.sample()
+
+    # ---- the tensor-parallel replicas' records ------------------------
+
+    def _announce(self, seq: int, error: Optional[str],
+                  attempt: Optional[Request] = None,
+                  replica: Optional[int] = None) -> None:
+        """Queue a user request's terminal outcome for the followers:
+        ``(intake number, replica, winning attempt's rid, tokens,
+        error)``, on every stream (a follower holds exactly one)."""
+        out = (seq, replica, None if attempt is None else attempt.rid,
+               [] if attempt is None else list(attempt.tokens), error)
+        for st in self._streams.values():
+            st.outbox.append(out)
+
+    def _keep_alive(self) -> None:
+        """Send an ``idle`` record on each stream that is :meth:`due
+        <ControlStream.due>` and whose turn is free (a busy stream's
+        records carry the outcomes anyway)."""
+        for st in self._streams.values():
+            if st.due() and st.turn.try_enter():
+                try:
+                    st.send(-1, 0, "idle")
+                finally:
+                    st.turn.release()
+
+    def _follow(self, st: ControlStream) -> None:
+        """A follower's loop over one stream: replay every record on the
+        replica it names, settle the users the outcomes decide, and end at
+        ``exit``."""
+        me = threading.current_thread()
+        name = me.name
+        try:
+            while True:
+                rec = st.recv()
+                with self._cv:
+                    for out in rec["outcomes"]:
+                        self._outcomes[out[0]] = out
+                if rec["action"] == "exit":
+                    return
+                if rec["action"] != "idle":
+                    # the replay runs under the leader's worker's name, so
+                    # launch counts and spans go to the replica as there
+                    me.name = f"serve-replica{rec['replica']}"
+                    try:
+                        self.replicas[rec["replica"]].replay(rec)
+                    finally:
+                        me.name = name
+                with self._cv:
+                    self._resolve_locked()
+        except Exception as e:     # the world is broken: fail by name
+            self.pump_error = f"{type(e).__name__}: {e}"
+            self.observer.event("router_pump_error", error=self.pump_error)
+        finally:
+            with self._cv:
+                self._resolve_locked()
+                self._cv.notify_all()
+
+    def _resolve_locked(self) -> None:
+        """Settle every submitted user whose outcome has come (a
+        follower; the caller holds the lock): a finished one takes the
+        tokens of this process's own replay of the winning attempt when
+        it ran on a replica held here, the leader's otherwise."""
+        for rep in self.replicas:
+            if rep is not None:
+                for att in rep.drain_completions():
+                    self._attempts[att.rid] = att
+                    if len(self._attempts) > 65536:   # losers never claimed
+                        del self._attempts[next(iter(self._attempts))]
+        for seq in sorted(self._outcomes):
+            if seq >= self._n_intake:
+                break              # its user is not submitted here yet
+            user = self._users.get(seq)
+            if user is None:       # settled already
+                del self._outcomes[seq]
+                continue
+            _, i, arid, tokens, error = self._outcomes[seq]
+            att = None
+            if error is None and i is not None \
+                    and self.replicas[i] is not None:
+                att = self._attempts.pop(arid, None)
+                if att is None:
+                    continue       # its replay has not finished it yet
+                tokens, error = att.tokens, att.error
+            del self._outcomes[seq]
+            del self._users[seq]
+            self._settle(user, tokens, error, att)
+        self._cv.notify_all()
+
+    def _settle(self, user: Request, tokens, error: Optional[str],
+                att: Optional[Request] = None) -> None:
+        if user.done:
+            return
+        user.tokens = list(tokens)
+        user.error = error
+        user.done = True
+        user.t_done = time.perf_counter()
+        if error is None:
+            self.metrics.on_finish(user, att if att is not None else user)
+        else:
+            {"rejected": self.metrics.on_reject_terminal,
+             "expired": self.metrics.on_expire,
+             "aborted": self.metrics.on_abort}.get(
+                error_kind(error), self.metrics.on_failed)()
+        if user.stream is not None:
+            user.stream.finish(user.tokens, user.error)
+        self.finished.append(user)
 
     # ---- prefix directory ---------------------------------------------
 
@@ -1493,7 +1979,10 @@ class Router:
         then restart it and return it to HEALTHY while the rest serve.  A
         drain that completes within ``timeout_s`` fails and aborts
         nothing; work still in flight at the timeout is failed over like
-        an eviction's."""
+        an eviction's.  A follower's is a no-op: it replays the
+        leader's."""
+        if not self.is_leader:
+            return
         with self._cv:
             self.health[i].start_drain("rolling restart")
         deadline = time.perf_counter() + timeout_s
@@ -1533,11 +2022,15 @@ class Router:
             while True:
                 if requests is not None:
                     pending = any(not r.done for r in requests)
-                else:
+                elif self.is_leader:
                     pending = bool(self.queue or self._flights)
+                else:
+                    pending = bool(self._users)
                 if not pending:
                     return True
-                if time.perf_counter() >= deadline:
+                if time.perf_counter() >= deadline or (
+                        not self.is_leader and not any(
+                            t.is_alive() for t in self._followers)):
                     return False
                 self._cv.wait(timeout=0.01)
 
@@ -1559,11 +2052,22 @@ class Router:
         """``drain=True``: stop intake, let every accepted request reach a
         terminal state, then stop the replicas.  ``drain=False``: abort
         queued and in-flight requests by name and tear down.  Idempotent;
-        a later ``submit`` is rejected."""
+        a later ``submit`` is rejected.  A follower waits for its
+        leader's ``exit`` records."""
         with self._cv:
             already = self._closed
             self._closed = True
         if already and self._stop:
+            return
+        if not self.is_leader:
+            # bounded by the process group's timeout if the leader is gone
+            for t in self._followers:
+                t.join()
+            with self._cv:
+                self._stop = True
+                for user in self._users.values():
+                    self._settle(user, [], "aborted: router shut down")
+                self._users.clear()
             return
         self.observer.event("router_shutdown", drain=int(drain))
         timed_out = False
@@ -1593,6 +2097,9 @@ class Router:
         for rep in self.replicas:
             rep.stop(drain=drain)
         self._collect()    # the pump is gone: settle the last completions
+        for st in self._streams.values():
+            with st.turn:  # the followers' run() and shutdown() return
+                st.send(-1, 0, "exit")
         if self.exporter is not None:
             # the final point carries the settled books, so the series
             # telescopes to the end-of-run summary
@@ -1615,12 +2122,15 @@ class Router:
         harvest-side numbers are settled); with an exporter the export
         volume and the SLO rollup ride along."""
         out = self.metrics.summary(
-            [rep.metrics.summary() for rep in self.replicas],
+            [rep.metrics.summary() for rep in self.replicas
+             if rep is not None],
             health=[h.state for h in self.health])
         if self.roles is not None:
             out["replica_roles"] = list(self.roles)
         if self.prefix_dir is not None:
             out["prefix_directory_entries"] = len(self.prefix_dir)
+        if self._streams:
+            out["control_records"] = [st.n for st in self._streams.values()]
         if self.exporter is not None:
             out["export_snapshots"] = self.exporter.n_snapshots
         if self.slo is not None:

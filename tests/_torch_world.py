@@ -134,6 +134,29 @@ def serve(run_case, axes) -> int:
     return 0
 
 
+def leave(code: int) -> None:
+    """End a world's rank without the gloo teardown (ROADMAP C10: its
+    sockets closing while a peer's gloo threads still read them aborted
+    a rank at interpreter exit, about one world in ten under load, every
+    result already on disk).  The ranks meet on the rendezvous store,
+    which no gloo socket serves: all arrive, the others leave, and
+    process 0, which hosts the store, leaves last."""
+    import torch.distributed as dist
+    store = dist.distributed_c10d._get_default_store()
+    n, me = dist.get_world_size(), dist.get_rank()
+    store.add("arrived", 1)
+    while int(store.add("arrived", 0)) < n:
+        time.sleep(0.01)
+    if me:
+        store.add("left", 1)
+    else:
+        while int(store.add("left", 0)) < n - 1:
+            time.sleep(0.01)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 def run_megatron_case(mesh, name, case):
     """One 4D case on this rank (``case``: ``cfg`` kwargs without the
     dtype, the global numpy ``params``, global host ``batches``, ``opt``
