@@ -15,9 +15,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
                shape, and the bf16 bodies at the edges of their tiles; K1's
                f32 body on rows that see no key), max abs error beside the
                tolerance; the rope pre-pass bitwise, K2 and K3 bitwise from
-               run to run; K4's split-KV decode called three times in a row,
-               bitwise equal each time, with splits of which many are empty
-               and with one split;
+               run to run; K4's split-KV decode and an S = 129 prefill
+               window called three times in a row, bitwise equal each time,
+               with splits of which many are empty and with one split; K4's
+               prefill body (TMA + wgmma) at its edges: S = 17, 64, 65,
+               pages of 8, 32 and 64 keys (and 12, the CUDA-core body), head
+               dims 16-128, int8/fp8/bf16 pools with NaN dead pages, one
+               active row among inactive ones;
 4. serve     - the serving path: transformer_lm("base") in bf16 with
                weights from --seed, a paged InferenceEngine (page 16, 8
                slots) and a Scheduler (harvest_lag 4) answering 16 greedy
@@ -326,9 +330,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
                unsuppressed findings;
 8. timing    - each kernel (and the rope pre-pass that K1 and K3 run
                first), its plain version and one library call at the main
-               paths' shapes (K4 also at the chunk window S = 257 and at
-               decode with int8 and fp8 pools), and the quantized
-               projections against the bf16 one, with CUDA events.
+               paths' shapes (K4 also at the chunk windows S = 257, with a
+               bf16 and an int8 pool, and S = 33, at the verify window
+               S = 17, and at decode with int8 and fp8 pools; the host
+               microseconds of a prefill call, tensor-map encodes included,
+               against a decode call's), and the quantized projections
+               against the bf16 one, with CUDA events.
 
 ``--phases profile`` (not in the default set) adds a serving run, two
 training steps of base and of base-moe8, one PyramidNet-110 batch-256
@@ -587,11 +594,12 @@ def check_paged(torch, results):
             inactive=(3,), d=dd)))
         cases.append((f"prefill S=40 bf16 head_dim={dd}", dict(
             b=2, s_new=40, dtype=torch.bfloat16, pos=[0, 90], d=dd)))
+    cases += prefill_edge_cases(torch)
     for name, kw in cases:
         kw = dict(kw)
         q, pk, pv, ks, vs, table, pos, active, clean = paged_case(
-            torch, gen, h=h, d=kw.pop("d", d), page=page, n_ptab=n_ptab,
-            **kw)
+            torch, gen, h=h, d=kw.pop("d", d), page=kw.pop("page", page),
+            n_ptab=kw.pop("n_ptab", n_ptab), **kw)
         scale = 1.0 / math.sqrt(q.shape[-1])
         got = paged_attention(q, pk, pv, table, pos, active, scale=scale,
                               key_scale=ks, value_scale=vs)
@@ -614,9 +622,54 @@ def check_paged(torch, results):
     check_paged_splits(torch, results)
 
 
+def prefill_edge_cases(torch):
+    """K4's bf16 prefill body (TMA page boxes into wgmma, 64 query rows and
+    64 keys a tile) at its edges: S = 17 (the narrowest window it takes),
+    64 (one whole tile) and 65 (a tile and one row); pages of 8, 32 and 64
+    keys (one, four and eight swizzle atoms a box) and of 12 (not a
+    multiple of 8: the CUDA-core body); head dims 64 and 128 and, for the
+    widened byte pools, 16 and 32 (the 32- and 64-byte swizzles); int8
+    and fp8 pools with NaN in every dead page; one active row among seven
+    inactive ones."""
+    bf = torch.bfloat16
+    pos2 = [37, 1000]
+    cases = [(f"prefill edge S={s} bf16", dict(b=2, s_new=s, dtype=bf,
+                                               pos=pos2))
+             for s in (17, 64, 65)]
+    for pg, n in ((8, 256), (32, 64), (64, 32), (12, 160)):
+        body = "CUDA-core body" if pg % 8 else "wgmma body"
+        cases.append((f"prefill S=65 page={pg} bf16 ({body})", dict(
+            b=2, s_new=65, dtype=bf, pos=[5, 1800], page=pg, n_ptab=n)))
+    cases += [
+        ("prefill S=65 head_dim=64 bf16", dict(b=2, s_new=65, dtype=bf,
+                                               pos=pos2, d=64)),
+        ("prefill S=65 head_dim=64 int8 pool", dict(
+            b=2, s_new=65, dtype=bf, pos=pos2, d=64, quant="int8")),
+        ("prefill S=40 head_dim=32 int8 pool", dict(
+            b=2, s_new=40, dtype=bf, pos=[0, 90], d=32, quant="int8")),
+        ("prefill S=40 head_dim=16 fp8 pool", dict(
+            b=2, s_new=40, dtype=bf, pos=[0, 90], d=16, quant="fp8")),
+        ("prefill S=65 int8 pool NaN dead pages", dict(
+            b=2, s_new=65, dtype=bf, pos=[100, 0], inactive=(1,),
+            quant="int8", nan_dead=True)),
+        ("prefill S=65 page=8 fp8 pool NaN dead pages", dict(
+            b=2, s_new=65, dtype=bf, pos=[100, 0], inactive=(1,),
+            quant="fp8", nan_dead=True, page=8, n_ptab=256)),
+        ("prefill S=65 page=32 bf16 NaN dead pages", dict(
+            b=2, s_new=65, dtype=bf, pos=[300, 0], inactive=(1,),
+            nan_dead=True, page=32, n_ptab=64)),
+        ("chunk S=65 B=8 one active row", dict(
+            b=8, s_new=65, dtype=bf, pos=[0, 16, 250, 700, 1000, 1500, 30,
+                                         1790],
+            inactive=(0, 1, 2, 3, 4, 6, 7))),
+    ]
+    return cases
+
+
 def check_paged_splits(torch, results):
-    """K4's bf16 decode with its split-KV merge inside the launch: a
-    geometry with n_splits > 1 called three times in a row (the arrival
+    """K4's bf16 bodies with their split-KV merge inside the launch: decode
+    and a prefill window (S = 129 at B = 8, three 64-row tiles a row and
+    head) with n_splits > 1, each called three times in a row (the arrival
     counters come back to zero: bitwise equal each time), one where most
     splits are empty (small positions, many splits), and one with
     n_splits == 1 (enough rows to fill the card), each held to the plain
@@ -636,6 +689,8 @@ def check_paged_splits(torch, results):
          [0, 1, 2, 30, 50, 80, 150, 160], "many"),
         ("split decode S=1 one split", 80, 64, 1, list(range(0, 1000, 12)),
          "one"),
+        ("split prefill S=129 B=8 repeated", 8, 128, 129,
+         [0, 16, 250, 700, 1000, 1500, 30, 1790], "many"),
     ]
     for name, b, n_ptab, s_new, pos, want_splits in cases:
         q, pk, pv, _, _, table, pos_t, active, _ = paged_case(
@@ -1450,8 +1505,10 @@ def phase_chunked(torch, seed):
         f"{delta_c_k4:.4e} (K4), ceiling {ceiling:.4e}, tau {tau:.4e}; "
         f"requests parting at a near-tie {len(ties)} of {len(chunk16)} "
         f"{ties}")
-    n257 = runs["chunked"][0]["by_k"].get(CHUNK_TOKENS, 0) * n_layers
-    return dict(k4=runs["chunked"][0]["k4"], launches_257=n257)
+    by_k = runs["chunked"][0]["by_k"]
+    return dict(k4=runs["chunked"][0]["k4"],
+                launches_257=by_k.get(CHUNK_TOKENS, 0) * n_layers,
+                launches_33=by_k.get(32, 0) * n_layers)
 
 
 def quant_prefill_logits(torch, eng, prompts):
@@ -7930,6 +7987,37 @@ def time_rope(torch):
                 library_ms=None, bytes=nbytes, ops=ops)
 
 
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host microseconds a call takes to enqueue (no synchronize inside the
+    timed loop): for K4 the wrapper's checks and allocations, the C entry
+    (with a prefill's tensor-map encodes) and the launch."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_paged_host(torch):
+    """Host µs a K4 call at the prefill body's chunk window (S = 257, three
+    tensor maps encoded a call) and at decode (S = 1, none), on the same
+    engine pools; their difference bounds what the encodes cost."""
+    from dtdl_tpu_torch.ops.paged_attention import paged_attention
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    out = {}
+    for name, s_new in (("prefill", CHUNK_TOKENS + 1), ("decode", 1)):
+        q, pk, pv, _, _, table, pos_t, active, _ = paged_case(
+            torch, gen, b=8, h=4, s_new=s_new, d=128, page=16, n_ptab=128,
+            dtype=torch.bfloat16, pos=CHUNK_POS)
+        out[name] = host_us(torch, lambda: paged_attention(
+            q, pk, pv, table, pos_t, active, scale=0.088))
+    return out
+
+
 def fmt_timing(name, t):
     return (f"{name}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} "
@@ -8136,6 +8224,22 @@ def main(argv=None) -> int:
         log(fmt_timing(f"time K4 chunk S={CHUNK_TOKENS + 1} B=8 bf16 "
                        f"(launches at that width in a chunked run: "
                        f"{chunked and chunked['launches_257']})", k4c))
+        # the prefill body's other main-path widths: the int8 pool's chunk
+        # window, the S = 33 window, and speculate=16's verify window
+        t = time_paged(torch, b=8, s_new=CHUNK_TOKENS + 1, pos=CHUNK_POS,
+                       quant="int8")
+        log(fmt_timing(f"time K4 chunk S={CHUNK_TOKENS + 1} B=8 int8 pool",
+                       t))
+        t = time_paged(torch, b=8, s_new=33, pos=CHUNK_POS)
+        log(fmt_timing(f"time K4 chunk S=33 B=8 bf16 (launches at that "
+                       f"width in a chunked run: "
+                       f"{chunked and chunked['launches_33']})", t))
+        t = time_paged(torch, b=8, s_new=17, pos=pos)
+        log(fmt_timing("time K4 verify S=17 B=8 bf16 (k = 16)", t))
+        hu = time_paged_host(torch)
+        log(f"time K4 host enqueue: prefill S={CHUNK_TOKENS + 1} B=8 "
+            f"(3 tensor maps encoded) {hu['prefill']:.2f} us a call, decode "
+            f"S=1 B=8 (none) {hu['decode']:.2f} us")
         for name in ("int8", "fp8"):
             t = time_paged(torch, b=8, s_new=1, pos=pos, quant=name)
             log(fmt_timing(f"time K4 decode S=1 B=8 {name} pool (launches in "
@@ -8232,8 +8336,18 @@ def main(argv=None) -> int:
              # (h): by part, [rank 0's, rank 1's] launches by replica
              "launches_gspmd_fleet": gspmd_launches,
              "max_abs_err": errors.get("decode S=1 bf16"),
-             **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}},
+             **{k: k4[k] for k in keys},
+             # the row's figures are the decode body's; the prefill body
+             # (S > 16) at chunked prefill's widest window beside them
+             "bodies": {"decode": "paged_decode_kernel (bulk-copy page "
+                                  "stream)",
+                        "prefill": "paged_prefill_wgmma_kernel (TMA page "
+                                   "boxes, warp-specialised wgmma)"},
+             "prefill": {"case": f"chunk S={CHUNK_TOKENS + 1} B=8 bf16",
+                         "launches": chunked and chunked["launches_257"],
+                         "max_abs_err": errors.get(
+                             f"chunk S={CHUNK_TOKENS + 1} B=8 bf16"),
+                         **{k: k4c[k] for k in keys}}},
         ]}
         log(json.dumps(line))
 

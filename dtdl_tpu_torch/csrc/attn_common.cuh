@@ -226,32 +226,17 @@ __device__ __forceinline__ void load8(const void* base, size_t e, int kind, floa
   }
 }
 
-// ---- tensor-core fragments (mma.sync m16n8k16, bf16 in, f32 out) ----------
-//
-// A is 16x16 row-major, B 16x8 column-major, C/D 16x8.  With g = lane / 4
-// and t = lane % 4, a thread holds A rows g and g + 8 at columns 2t, 2t + 1
-// (and + 8), B at k = 2t, 2t + 1 (and + 8) for column g, and C rows g and
-// g + 8 at columns 2t, 2t + 1: two adjacent C tiles of S are exactly the A
-// fragment of P for the next product.
-
-// D += A·B for one m16n8k16 tile: A 16x16 row-major, B 16x8 column-major,
-// bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x, one MUFU.EX2 (relative error 2^-22, subnormal results flushed to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// Two f32 values rounded to bf16 and packed in one register, lo first.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float load_scalar(const void* base, size_t e, int kind) {
@@ -294,17 +279,6 @@ __device__ __forceinline__ void unrotate_pair(float& g1, float& g2, float c1, fl
   const float b = __fsub_rn(__fmul_rn(g2, c2), __fmul_rn(g1, s2));
   g1 = a;
   g2 = b;
-}
-
-// B operand (k = row of the slab, n = 8 dimensions) of m16n8k16 from a
-// row-major bf16 slab in shared memory: a transposing matrix load.  `row`
-// is the shared address of the row this lane addresses (lanes 0-15 give
-// rows 0..15 of the 16-row k step), `byte_off` the column offset.
-__device__ __forceinline__ void ldmatrix_trans_x2(uint32_t& b0, uint32_t& b1, uint32_t row,
-                                                  uint32_t byte_off) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(row + byte_off));
 }
 
 }  // namespace dtdl

@@ -1,6 +1,7 @@
 // Hopper building blocks of the bf16 flash kernels (flash_fwd.cu K1,
-// flash_bwd.cu K2 and K3) and of the paged page stream (paged_attention.cu
-// K4): TMA tensor maps and loads, plain bulk copies, mbarriers, wgmma
+// flash_bwd.cu K2 and K3) and of the paged kernel (paged_attention.cu K4:
+// its page stream and its prefill body): TMA tensor maps (bf16 rows and
+// bytes) and loads, plain bulk copies, mbarriers, named barriers, wgmma
 // shared-memory descriptors and products, warpgroup register rebalancing.
 // Raw PTX for sm_90a, so the build stays one plain nvcc call per source.
 //
@@ -69,6 +70,33 @@ inline int encode_rows(CUtensorMap* map, const void* base, int BH, int S, int D,
   return r == CUDA_SUCCESS ? int(cudaSuccess) : int(cudaErrorInvalidValue);
 }
 
+// A map of the rows of a [BH, S, D] tensor of bytes (int8, fp8 e4m3) as the
+// 3D tensor (D, S, BH), boxes of `box_rows` whole rows of one b·h,
+// unswizzled: a box lands as box_rows x D contiguous bytes.  Returns a
+// cudaError_t.
+inline int encode_bytes(CUtensorMap* map, const void* base, int BH, int S, int D, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return int(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(BH)};
+  const cuuint64_t strides[2] = {cuuint64_t(D), cuuint64_t(S) * D};   // bytes
+  const cuuint32_t box[3] = {cuuint32_t(D), cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? int(cudaSuccess) : int(cudaErrorInvalidValue);
+}
+
+// Byte offset of element column c (even) of row k in a tile that TMA wrote
+// with the swizzle of a `row_bytes` row (128, 64 or 32): the 16-byte chunk
+// index XORed with the row's place in its swizzle atom, as the hardware
+// does from the shared address (the tile starts on an atom boundary).
+__host__ __device__ constexpr uint32_t swizzled(int k, int c, int row_bytes) {
+  const uint32_t byte = uint32_t(k) * row_bytes + uint32_t(c) * 2;
+  return byte ^ (((byte >> 7) & uint32_t(row_bytes / 16 - 1)) << 4);
+}
+
 // ---- device: mbarriers and TMA ---------------------------------------------
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -130,10 +158,17 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// Order this thread's earlier generic accesses to shared memory before its
-// later bulk copies into it (a stage read by the threads is refilled).
+// Order this thread's generic accesses to shared memory with the async
+// proxy's: before bulk copies refill a stage the threads read, and before
+// wgmma reads a tile the threads wrote.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `count` threads, a
+// whole number of warps.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- device: wgmma ------------------------------------------------------------

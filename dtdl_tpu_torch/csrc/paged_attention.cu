@@ -28,7 +28,7 @@
 //    of the tile's highest visible column, so pages past a row's high-water
 //    mark are never read (no gathered copy of the table exists at any
 //    point);
-//  * the page stream (bf16 queries): one (physical page, head) slab of a
+//  * the page stream (bf16 decode and verify): one (physical page, head) slab of a
 //    pool is contiguous, page·D elements, 4 KB at page 16, D 128 in bf16.
 //    Each slab of K and of V (or a run of whole keys of it, at most 8 KB)
 //    is one cp.async.bulk global-to-shared copy that completes on an
@@ -50,13 +50,20 @@
 //    wrapper's scratch; the last block to arrive merges the splits, writes
 //    the output and resets the counter to 0, so the next call finds it
 //    clean.  Empty splits arrive too;
-//  * prefill (bf16 q, S > 16, pages that tile 64 keys): both products on the
-//    tensor cores (mma.sync m16n8k16), 64 query rows per block; the page
-//    stream fills a two-stage ring of raw 64-key chunks, widened to padded
-//    bf16 tiles in shared memory, so the next chunk's pages load while this
-//    chunk's products run.  wgmma tiles for it are later work;
-//  * f32 queries (the crosscheck engine): the CUDA cores in f32, 1 or 16
-//    query rows per block, loads synchronous (attn_common.cuh Tile).
+//  * prefill and chunk windows (bf16 q, S > 16, a page of a multiple of 8
+//    keys that divides 64): warp-specialised, 64 query rows per block.  A
+//    producer warpgroup loads Q and each 64-key tile by TMA, one box per
+//    (physical page, head) from the block's page-table row, straight into
+//    the swizzled layout wgmma reads (a quantized pool's byte boxes are
+//    widened there by the producer warpgroup), through a two-stage
+//    mbarrier ring; the consumer warpgroup runs both products as wgmma
+//    (Q·Kᵀ from shared memory, P·V with P from registers) around the f32
+//    online softmax.  Slots past the range are zeros, never stale; the
+//    split rule counts this body's 64-row tiles (ops/paged_attention.py
+//    kv_splits).  Other page sizes take the CUDA-core body below;
+//  * f32 queries (the crosscheck engine), and bf16 prefill over other page
+//    sizes: the CUDA cores in f32, 1 or 16 query rows per block, loads
+//    synchronous (attn_common.cuh Tile).
 #include <type_traits>
 
 #include "attn_common.cuh"
@@ -87,7 +94,7 @@ struct PagedArgs {
   float* part_acc;        // [B, H, S, n_splits, D] f32 when n_splits > 1
   float* part_ml;         // [B, H, S, n_splits, 2] f32 (m, l)
   int* counters;          // [B, H, S] arrivals, all 0 between calls
-  int B, H, S, n_ptab, page, kc, kv_kind, scale_kind, n_splits;
+  int B, H, S, n_pages, n_ptab, page, kc, kv_kind, scale_kind, n_splits;
   int unit;               // keys per streamed unit (a divisor of page)
   int stages;             // decode body: ring stages per warp
   float scale;
@@ -514,261 +521,376 @@ int launch_decode_kind(const PagedArgs& a, cudaStream_t stream) {
   }
 }
 
-// ---- bf16 prefill on the tensor cores ---------------------------------------
+// ---- bf16 prefill: TMA page boxes into warp-specialised wgmma ---------------
 //
-// A bf16 query of more than 16 rows, pages that tile a 64-key chunk: both
-// products on the tensor cores (mma.sync m16n8k16), 64 query rows per block,
-// 16 per warp.  The first thread streams each chunk's pages (one bulk copy
-// per slab of K and of V) into a two-stage ring of raw chunks, two chunks
-// ahead; the threads widen a chunk (any pool type) to bf16 tiles of padded
-// rows, exact for bf16, int8 and e4m3, and run the products on them while
-// the next chunk lands.  The key scale multiplies the f32 scores and the
-// value scale the weights before their bf16 rounding, as above.
+// A bf16 query of more than 16 rows over pages of a multiple of 8 keys that
+// divides the 64-key tile.  One block per (split, 64 query rows, head, row):
+// warpgroup 0 consumes, warpgroup 1 produces.  The producer's first warp
+// reads each tile's physical pages from the block's own page-table row a
+// tile ahead (a table load issued behind a copy would wait out its round
+// trip), and its first thread loads the Q tile, then each key tile of
+// kPreKeys keys as kPreKeys / page boxes of one (physical page, head)
+// each, landing where one 64-row box would have (a page is a whole number
+// of 8-row swizzle atoms), through a ring of kPreStages stages (full
+// barrier: the tile is in; empty barrier: the 4 consumer warps are done
+// with it).  A slot past the block's range gets a box wholly out of
+// bounds, which TMA fills with zeros, so no stale or NaN value meets P·V.
+// The consumer warpgroup runs S = Q·Kᵀ as wgmma from shared memory, the key
+// scale, `scale` and the mask as a select (on tiles that cross a row's
+// column or the range's end), the f32 online softmax in the log2 domain,
+// the weights times the value scale rounded to bf16, and O += P·V as wgmma
+// with P from registers and V read MN-major (flash_fwd.cu's layouts).
+// A quantized pool (int8, fp8) lands by byte boxes and bulk-copied scale
+// rows in a raw ring of kRawStages; the producer warpgroup widens each raw
+// tile to the swizzled bf16 tile (exact: int8 and e4m3 values are bf16
+// values) and its scales to f32, zeros past the range, off the consumers'
+// path.  Registers are not rebalanced: a bf16 pool's block (80 KB at D 128)
+// runs two to an SM within 128 registers a thread, a quantized one (114 KB)
+// one to an SM.
 
-constexpr int kMmaRows = 64;
-constexpr int kMmaKeys = 64;
-constexpr int kPad = 8;
+constexpr int kPreRows = 64;     // query rows a block (one consumer warpgroup)
+constexpr int kPreKeys = 64;     // keys a tile
+constexpr int kPreStages = 2;    // bf16 K/V ring depth
+constexpr int kRawStages = 2;    // quantized pools: raw byte ring depth
+constexpr int kWG = 128;         // threads of a warpgroup
+constexpr int kPreThreads = 2 * kWG;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct PrefillSmem {   // byte offsets from a 128-byte aligned base
-  static constexpr int LD = D + kPad;
-  static constexpr int kRawPool = kMmaKeys * D * 2;   // one pool's chunk at 2 bytes an element
-  static constexpr int kRaw = 0;                      // [stage]{K, V}
-  static constexpr int kQs = 2 * 2 * kRawPool;        // [64][LD] bf16
-  static constexpr int kKs = kQs + kMmaRows * LD * 2;
-  static constexpr int kVs = kKs + kMmaKeys * LD * 2;
-  static constexpr int kScales = kVs + kMmaKeys * LD * 2;   // KSc[64], VSc[64] f32
-  static constexpr int kBars = kScales + 2 * kMmaKeys * 4;
-  static constexpr int kBytes = kBars + 2 * 8 + 128;  // + alignment slack
+template <int D, bool QUANT>
+struct WgSmem {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kQBytes = kPreRows * D * 2, kTileBytes = kPreKeys * D * 2;
+  static constexpr int kRawBytes = kPreKeys * D;                 // one pool's raw tile
+  static constexpr int kScBytes = QUANT ? 2 * kPreKeys * 4 : 0;  // {KSc, VSc}[64] f32 or raw
+  static constexpr int kQ = 0, kK = kQBytes, kV = kK + kPreStages * kTileBytes;
+  static constexpr int kSc = kV + kPreStages * kTileBytes;       // [stage] widened scales
+  static constexpr int kRaw = kSc + kPreStages * kScBytes;       // [raw stage]{K, V}
+  static constexpr int kRawSc = kRaw + (QUANT ? kRawStages * 2 * kRawBytes : 0);
+  static constexpr int kBars = kRawSc + (QUANT ? kRawStages * kScBytes : 0);
+  // q_full, full[s], empty[s], raw_full[r]
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kPreStages + kRawStages) + 1024;
 };
 
-// keys [c0, c0 + 64) of a raw chunk (any pool type) into a padded bf16
-// tile; keys at or past k_end are zeros
-template <int D>
-__device__ void widen_chunk(bf16* dst, const unsigned char* raw, int kind, int c0, int k_end) {
+// Raw tile r (any pool type) into stage tile `dst` as swizzled bf16, its
+// scales into f32; keys at or past k_end (slots no page filled) are zeros.
+// The 128 threads of the producer warpgroup take part.
+template <int D, int KIND>
+__device__ void widen_tile(unsigned char* dst_k, unsigned char* dst_v, float* ksc, float* vsc,
+                           const unsigned char* raw_k, const unsigned char* raw_v,
+                           const unsigned char* raw_ks, const unsigned char* raw_vs,
+                           int scale_kind, int c0, int k_end, int pt) {
+  using C = hopper::Cols<D>;
   constexpr int G = D / 8;
-  for (int e = threadIdx.x; e < kMmaKeys * G; e += kThreads) {
+  for (int e = pt; e < kPreKeys * G; e += kWG) {
     const int k = e / G, d = (e - k * G) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
+    const uint32_t off = (d / C::kBox) * kPreKeys * C::kRowBytes +
+                         hopper::swizzled(k, d % C::kBox, C::kRowBytes);
+    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
     if (c0 + k < k_end) {
       float f[8];
-      dtdl::load8(raw, size_t(k) * D + d, kind, f);
-      v.x = dtdl::pack_bf16(f[0], f[1]);
-      v.y = dtdl::pack_bf16(f[2], f[3]);
-      v.z = dtdl::pack_bf16(f[4], f[5]);
-      v.w = dtdl::pack_bf16(f[6], f[7]);
+      dtdl::load8(raw_k, size_t(k) * D + d, KIND, f);
+      kv = make_uint4(dtdl::pack_bf16(f[0], f[1]), dtdl::pack_bf16(f[2], f[3]),
+                      dtdl::pack_bf16(f[4], f[5]), dtdl::pack_bf16(f[6], f[7]));
+      dtdl::load8(raw_v, size_t(k) * D + d, KIND, f);
+      vv = make_uint4(dtdl::pack_bf16(f[0], f[1]), dtdl::pack_bf16(f[2], f[3]),
+                      dtdl::pack_bf16(f[4], f[5]), dtdl::pack_bf16(f[6], f[7]));
     }
-    *reinterpret_cast<uint4*>(dst + k * (D + kPad) + d) = v;
+    *reinterpret_cast<uint4*>(dst_k + off) = kv;
+    *reinterpret_cast<uint4*>(dst_v + off) = vv;
+  }
+  for (int k = pt; k < kPreKeys; k += kWG) {
+    const bool live = c0 + k < k_end;
+    ksc[k] = live ? dtdl::load_scalar(raw_ks, k, scale_kind) : 0.f;
+    vsc[k] = live ? dtdl::load_scalar(raw_vs, k, scale_kind) : 0.f;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const PagedArgs a) {
-  using L = PrefillSmem<D>;
-  constexpr int LD = L::LD, KS = D / 16, ND = D / 8, NT = kMmaKeys / 8;
-  extern __shared__ __align__(128) unsigned char pre_smem[];
-  unsigned char* sm = pre_smem + ((128 - hopper::saddr(pre_smem) % 128) % 128);
-  const uint32_t sbase = hopper::saddr(sm);
-  bf16* Qs = reinterpret_cast<bf16*>(sm + L::kQs);
-  bf16* Ks = reinterpret_cast<bf16*>(sm + L::kKs);
-  bf16* Vs = reinterpret_cast<bf16*>(sm + L::kVs);
-  float* KSc = reinterpret_cast<float*>(sm + L::kScales);
-  float* VSc = KSc + kMmaKeys;
-  const uint32_t bars = sbase + L::kBars;
+template <int D, int KIND>
+__global__ void __launch_bounds__(kPreThreads, KIND == dtdl::kBF16 ? 2 : 1)
+paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const PagedArgs a) {
+  constexpr bool QUANT = KIND != dtdl::kBF16;
+  constexpr int KT = kPreKeys;
+  using C = hopper::Cols<D>;
+  using L = WgSmem<D, QUANT>;
+  constexpr int RB = C::kRowBytes;
+  extern __shared__ unsigned char pre_smem[];
+  const uint32_t base = (hopper::saddr(pre_smem) + 1023) & ~1023u;
+  unsigned char* sm = pre_smem + (base - hopper::saddr(pre_smem));
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kPreStages;
+  const uint32_t raw0 = empty0 + 8 * kPreStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
   const int split = blockIdx.x % a.n_splits;
-  const int b = blockIdx.z, h = blockIdx.y, r0 = (blockIdx.x / a.n_splits) * kMmaRows;
-  const int rows = min(kMmaRows, a.S - r0);
+  const int b = blockIdx.z, h = blockIdx.y, r0 = (blockIdx.x / a.n_splits) * kPreRows;
+  const int rows = min(kPreRows, a.S - r0);
   const int pos = a.pos[b];
   const int last = min(max((pos + r0 + rows - 1) / a.page, 0), a.n_ptab - 1);
   int p0, p1;
-  split_range(a, b, last, kMmaKeys / a.page, split, p0, p1);
+  split_range(a, b, last, KT / a.page, split, p0, p1);
   const int k_begin = p0 * a.page, k_end = p1 * a.page;
-  const int n_chunks = (k_end - k_begin + kMmaKeys - 1) / kMmaKeys;
+  const int n_tiles = (k_end - k_begin + KT - 1) / KT;
   const int32_t* trow = a.table + size_t(b) * a.n_ptab;
-  const bool quant = a.key_scale != nullptr;
-  const int el = a.kv_kind == dtdl::kBF16 ? 2 : 1;
-  const uint32_t slab = uint32_t(a.page) * D * el;   // one page of one pool
+  const int qbh = b * a.H + h;
+  const size_t row0 = size_t(qbh) * a.S + r0;
 
-  // chunk t's live pages into raw stage t % 2: one bulk copy per slab
-  auto issue = [&](int t) {
-    const int c0 = k_begin + t * kMmaKeys, s = t % 2;
-    const int np = (min(k_end, c0 + kMmaKeys) - c0) / a.page;
-    const uint32_t rk = sbase + L::kRaw + s * 2 * L::kRawPool, rv = rk + L::kRawPool;
-    hopper::mbar_expect_tx(bars + 8 * s, 2 * np * slab);
-    for (int j = 0; j < np; ++j) {
-      const size_t src = (size_t(trow[c0 / a.page + j]) * a.H + h) * slab;
-      hopper::bulk_load(rk + j * slab, static_cast<const unsigned char*>(a.pages_k) + src, slab,
-                        bars + 8 * s);
-      hopper::bulk_load(rv + j * slab, static_cast<const unsigned char*>(a.pages_v) + src, slab,
-                        bars + 8 * s);
-    }
-  };
   if (threadIdx.x == 0) {
-    hopper::mbar_init(bars, 1);
-    hopper::mbar_init(bars + 8, 1);
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kPreStages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, 4);   // one arrival per consumer warp
+    }
+    for (int r = 0; r < kRawStages; ++r) hopper::mbar_init(raw0 + 8 * r, 1);
     hopper::mbar_fence_init();
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    for (int t = 0; t < min(2, n_chunks); ++t) issue(t);
 
-  const bf16* q = static_cast<const bf16*>(a.q) + ((size_t(b) * a.H + h) * a.S + r0) * D;
-  for (int e = threadIdx.x; e < kMmaRows * (D / 8); e += kThreads) {
-    const int r = e / (D / 8), d = (e - r * (D / 8)) * 8;
-    const uint4 v = r < rows ? *reinterpret_cast<const uint4*>(q + r * D + d)
-                             : make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(Qs + r * LD + d) = v;
-  }
-  __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* q0 = Qs + (wr + g) * LD + ks * 16 + tig * 2;
-    qf[ks][0] = dtdl::ld32(q0);
-    qf[ks][1] = dtdl::ld32(q0 + 8 * LD);
-    qf[ks][2] = dtdl::ld32(q0 + 8);
-    qf[ks][3] = dtdl::ld32(q0 + 8 * LD + 8);
-  }
-  float o[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m_r[2] = {kMaskFill, kMaskFill};
-  float l_r[2] = {0.f, 0.f};
-  const int qrow = r0 + wr + g;   // query rows qrow and qrow + 8 of this thread
-
-  for (int t = 0; t < n_chunks; ++t) {
-    const int c0 = k_begin + t * kMmaKeys, s = t % 2;
-    const unsigned char* raw = sm + L::kRaw + s * 2 * L::kRawPool;
-    __syncthreads();   // the previous chunk's fragment loads are done
-    hopper::mbar_wait(bars + 8 * s, (t / 2) & 1);
-    widen_chunk<D>(Ks, raw, a.kv_kind, c0, k_end);
-    widen_chunk<D>(Vs, raw + L::kRawPool, a.kv_kind, c0, k_end);
-    for (int k = threadIdx.x; k < kMmaKeys; k += kThreads) {
-      float ks = 0.f, vs = 0.f;
-      const int key = c0 + k;
-      if (quant && key < k_end) {
-        const int phys = trow[key / a.page];
-        const size_t el_s = (size_t(phys) * a.H + h) * a.page + key % a.page;
-        ks = dtdl::load_scalar(a.key_scale, el_s, a.scale_kind);
-        vs = dtdl::load_scalar(a.value_scale, el_s, a.scale_kind);
+  if (threadIdx.x >= kWG) {
+    // ---- producer warpgroup ----
+    const int pt = threadIdx.x - kWG;
+    if (pt == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(q_full, L::kQBytes);
+      for (int cb = 0; cb < C::kBlocks; ++cb)
+        hopper::tma_load(base + L::kQ + cb * kPreRows * RB, &tq, q_full, cb * C::kBox, r0, qbh);
+    }
+    // lane j of the first producer warp: the physical page of tile t's
+    // page j, or -1 past the range (loaded a tile ahead, so the table's
+    // round trip overlaps the ring's waits instead of each copy's issue)
+    const int ppt = KT / a.page;   // pages a tile
+    auto tile_pages = [&](int t) {
+      const int key = k_begin + t * KT + pt * a.page;
+      return t < n_tiles && pt < ppt && key < k_end ? trow[key / a.page] : -1;
+    };
+    if constexpr (!QUANT) {
+      // one warp: each tile's page boxes straight into the swizzled stage
+      if (pt < 32) {
+        int next = tile_pages(0);
+        for (int t = 0; t < n_tiles; ++t) {
+          const int s = t % kPreStages, cur = next;
+          next = tile_pages(t + 1);
+          hopper::mbar_wait(empty0 + 8 * s, ((t / kPreStages) & 1) ^ 1);
+          if (pt == 0) hopper::mbar_expect_tx(full0 + 8 * s, 2 * L::kTileBytes);
+          const uint32_t kt = base + L::kK + s * L::kTileBytes;
+          const uint32_t vt = base + L::kV + s * L::kTileBytes;
+          for (int j = 0; j < ppt; ++j) {
+            const int phys = __shfl_sync(0xffffffffu, cur, j);
+            // a slot past the range gets a box wholly past its page: zeros
+            const int bh = phys < 0 ? 0 : phys * a.H + h;
+            const int row = phys < 0 ? a.page : 0;
+            if (pt == 0)
+              for (int cb = 0; cb < C::kBlocks; ++cb) {
+                const uint32_t off = cb * KT * RB + j * a.page * RB;
+                hopper::tma_load(kt + off, &tk, full0 + 8 * s, cb * C::kBox, row, bh);
+                hopper::tma_load(vt + off, &tv, full0 + 8 * s, cb * C::kBox, row, bh);
+              }
+          }
+        }
       }
-      KSc[k] = ks;
-      VSc[k] = vs;
+    } else {
+      // tile t's live pages (byte boxes) and their scale rows into raw
+      // stage t % kRawStages; the first warp calls it, its first thread copies
+      const int el_s = a.scale_kind == dtdl::kBF16 ? 2 : 4;
+      const uint32_t sbytes = uint32_t(a.page) * el_s;
+      auto issue = [&](int t, int pages) {
+        const int r = t % kRawStages, c0 = k_begin + t * KT;
+        const int np = (min(k_end, c0 + KT) - c0) / a.page;
+        const uint32_t rk = base + L::kRaw + r * 2 * L::kRawBytes, rv = rk + L::kRawBytes;
+        const uint32_t rks = base + L::kRawSc + r * L::kScBytes, rvs = rks + KT * 4;
+        if (pt == 0) hopper::mbar_expect_tx(raw0 + 8 * r, np * (2 * a.page * D + 2 * sbytes));
+        for (int j = 0; j < np; ++j) {
+          const int bh = __shfl_sync(0xffffffffu, pages, j) * a.H + h;
+          if (pt != 0) continue;
+          hopper::tma_load(rk + j * a.page * D, &tk, raw0 + 8 * r, 0, 0, bh);
+          hopper::tma_load(rv + j * a.page * D, &tv, raw0 + 8 * r, 0, 0, bh);
+          const size_t so = size_t(bh) * sbytes;
+          hopper::bulk_load(rks + j * sbytes, static_cast<const unsigned char*>(a.key_scale) + so,
+                            sbytes, raw0 + 8 * r);
+          hopper::bulk_load(rvs + j * sbytes,
+                            static_cast<const unsigned char*>(a.value_scale) + so, sbytes,
+                            raw0 + 8 * r);
+        }
+      };
+      if (pt < 32)
+        for (int t = 0; t < min(kRawStages, n_tiles); ++t) issue(t, tile_pages(t));
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kPreStages, r = t % kRawStages;
+        const int ahead = pt < 32 ? tile_pages(t + kRawStages) : -1;
+        const unsigned char* rk = sm + L::kRaw + r * 2 * L::kRawBytes;
+        const unsigned char* rks = sm + L::kRawSc + r * L::kScBytes;
+        float* sc = reinterpret_cast<float*>(sm + L::kSc + s * L::kScBytes);
+        hopper::mbar_wait(raw0 + 8 * r, (t / kRawStages) & 1);
+        hopper::mbar_wait(empty0 + 8 * s, ((t / kPreStages) & 1) ^ 1);
+        widen_tile<D, KIND>(sm + L::kK + s * L::kTileBytes, sm + L::kV + s * L::kTileBytes, sc,
+                            sc + KT, rk, rk + L::kRawBytes, rks, rks + KT * 4, a.scale_kind,
+                            k_begin + t * KT, k_end, pt);
+        hopper::fence_proxy_async();   // the widened tile is visible to wgmma
+        hopper::named_sync(1, kWG);    // every producer thread is done with raw stage r
+        if (pt == 0) hopper::mbar_arrive(full0 + 8 * s);
+        if (pt < 32 && t + kRawStages < n_tiles) issue(t + kRawStages, ahead);
+      }
     }
-    __syncthreads();
-    // the raw stage is free: refill it with the chunk after next
-    if (threadIdx.x == 0 && t + 2 < n_chunks) {
-      hopper::fence_proxy_async();
-      issue(t + 2);
+  } else {
+    // ---- consumer warpgroup: 64 query rows ----
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, tig = lane % 4;
+    const int row_a = warp * 16 + g;   // tile rows of regs 4j, 4j+1; +8 for 4j+2, 4j+3
+    float o[D / 2], sc[KT / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;
+    float m_r[2] = {kMaskFill, kMaskFill};   // row maxima, log2 domain
+    float l_r[2] = {0.f, 0.f};   // this thread's share of the row sums
+    const float sl2 = a.scale * kLog2e;
+    const uint32_t qa = base + L::kQ;
+    if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kPreStages, c0 = k_begin + t * KT;
+      const uint32_t kt = base + L::kK + s * L::kTileBytes;
+      const uint32_t vt = base + L::kV + s * L::kTileBytes;
+      hopper::mbar_wait(full0 + 8 * s, (t / kPreStages) & 1);
+
+      // S = Q·Kᵀ over D in k steps of 16: column block ks / kSteps, 32 bytes a step
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int cb = ks / C::kSteps, kin = (ks % C::kSteps) * 32;
+        const uint64_t da = hopper::make_desc(qa + cb * kPreRows * RB + kin, 16, 8 * RB, RB);
+        const uint64_t db = hopper::make_desc(kt + cb * KT * RB + kin, 16, 8 * RB, RB);
+        hopper::wgmma_ss<KT>(sc, da, db, ks > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // the key scale multiplies the f32 score before `scale`, taken with
+      // log2(e): the softmax runs in the log2 domain (one ex2 a weight).
+      // The mask, a select, only on a tile that crosses its first row's
+      // column or the range's end
+      const float* ksc = reinterpret_cast<const float*>(sm + L::kSc + s * L::kScBytes);
+      const bool edge = c0 + KT > k_end || c0 + KT - 1 > pos + r0;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = j * 8 + tig * 2 + (i & 1), col = c0 + k;
+          const float x = (QUANT ? sc[4 * j + i] * ksc[k] : sc[4 * j + i]) * sl2;
+          const bool visible = !edge || (col <= pos + r0 + row_a + (i >> 1) * 8 && col < k_end);
+          sc[4 * j + i] = visible ? x : kMaskFill;
+        }
+      // online softmax: two rows per thread, each spread over 4 lanes; the
+      // weights enter l unscaled, then times the value scale for P·V.  A
+      // masked key weighs 2^(-1e30 - m) = 0, or 1 while its row has seen
+      // no key (m is the fill), as the plain softmax weights them
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[r];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = dtdl::ex2(m_r[r] - mx);
+        m_r[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = dtdl::ex2(sc[4 * j + 2 * r + e] - mx);
+            sum += p;
+            sc[4 * j + 2 * r + e] = QUANT ? p * ksc[KT + j * 8 + tig * 2 + e] : p;
+          }
+        l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j + 2 * r] *= alpha;
+          o[4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+      // O += P·V: the S accumulator of keys 16kk..16kk+15 is the A fragment
+      uint32_t pa[KT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          pa[kk][f] = dtdl::pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        const uint64_t db = hopper::make_desc(vt + kk * 16 * RB, KT * RB, 8 * RB, RB);
+        hopper::wgmma_rs<D>(o, pa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(empty0 + 8 * s);
     }
 
-    float sc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      const bf16* k0 = Ks + (nt * 8 + g) * LD + tig * 2;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        dtdl::mma_16816(sc[nt], qf[ks], dtdl::ld32(k0 + ks * 16), dtdl::ld32(k0 + ks * 16 + 8));
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = nt * 8 + tig * 2 + (j & 1);
-        const int col = c0 + k;
-        const float s = quant ? sc[nt][j] * KSc[k] : sc[nt][j];
-        const bool visible = col <= pos + qrow + (j >> 1) * 8 && col < k_end;
-        sc[nt][j] = visible ? s * a.scale : kMaskFill;
-      }
+    // the row sums over the row's 4 lanes; o / l, or this split's partial
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = kMaskFill;
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int i = row_a + 8 * r;
+      if (i >= rows) continue;
+      const size_t row = row0 + i;
+      if (a.n_splits == 1) {
+        const float l_safe = l == 0.f ? 1.f : l;
+        bf16* orow = static_cast<bf16*>(a.out) + row * D;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float alpha = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-      float sum = 0.f;
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tig * 2) =
+              __floats2bfloat162_rn(o[4 * j + 2 * r] / l_safe, o[4 * j + 2 * r + 1] / l_safe);
+      } else {
+        const size_t slot = row * a.n_splits + split;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float p = expf(sc[nt][2 * r + j] - m_new);
-          sum += p;
-          sc[nt][2 * r + j] = quant ? p * VSc[nt * 8 + tig * 2 + j] : p;
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(a.part_acc + slot * D + j * 8 + tig * 2) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if (tig == 0) {   // the merge takes m in the natural log's units
+          a.part_ml[slot * 2] = m_r[r] == kMaskFill ? kMaskFill : m_r[r] * kLn2;
+          a.part_ml[slot * 2 + 1] = l;
         }
-      l_r[r] = l_r[r] * alpha + sum;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        o[nd][2 * r] *= alpha;
-        o[nd][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      const uint32_t pa[4] = {dtdl::pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              dtdl::pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              dtdl::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              dtdl::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const uint32_t vrow = hopper::saddr(Vs + (kk * 16 + lane % 16) * LD);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        dtdl::ldmatrix_trans_x2(b0, b1, vrow, nd * 8 * 2);
-        dtdl::mma_16816(o[nd], pa, b0, b1);
       }
     }
   }
-  const size_t row0 = (size_t(b) * a.H + h) * a.S + r0;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int i = qrow + 8 * r;
-    if (i >= a.S) continue;
-    const size_t row = (size_t(b) * a.H + h) * a.S + i;
-    if (a.n_splits == 1) {
-      const float l_safe = l == 0.f ? 1.f : l;
-      bf16* orow = static_cast<bf16*>(a.out) + row * D;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + tig * 2) =
-            __floats2bfloat162_rn(o[nd][2 * r] / l_safe, o[nd][2 * r + 1] / l_safe);
-    } else {   // this split's unnormalized partial for the merge
-      const size_t slot = row * a.n_splits + split;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        a.part_acc[slot * D + nd * 8 + tig * 2] = o[nd][2 * r];
-        a.part_acc[slot * D + nd * 8 + tig * 2 + 1] = o[nd][2 * r + 1];
-      }
-      if (tig == 0) {
-        a.part_ml[slot * 2] = m_r[r];
-        a.part_ml[slot * 2 + 1] = l;
-      }
-    }
-  }
+  // both warpgroups: the split merge's weights reuse the Q tile's bytes
   if (a.n_splits > 1) merge_splits<bf16, D>(a, row0, rows, reinterpret_cast<float*>(sm));
 }
 
-template <int D>
+template <int D, int KIND>
 int launch_prefill(const PagedArgs& a, cudaStream_t stream) {
-  const int smem = PrefillSmem<D>::kBytes;
-  auto kernel = paged_prefill_kernel<D>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.S + kMmaRows - 1) / kMmaRows * a.n_splits, a.H, a.B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  using C = hopper::Cols<D>;
+  CUtensorMap tq, tk, tv;   // encoded per call, passed by value as grid constants
+  int err = hopper::encode_rows(&tq, a.q, a.B * a.H, a.S, D, kPreRows, C::kBox);
+  const int bh = a.n_pages * a.H;   // the pools seen as [n_pages·H, page, D]
+  if constexpr (KIND == dtdl::kBF16) {
+    if (err == 0) err = hopper::encode_rows(&tk, a.pages_k, bh, a.page, D, a.page, C::kBox);
+    if (err == 0) err = hopper::encode_rows(&tv, a.pages_v, bh, a.page, D, a.page, C::kBox);
+  } else {
+    if (err == 0) err = hopper::encode_bytes(&tk, a.pages_k, bh, a.page, D, a.page);
+    if (err == 0) err = hopper::encode_bytes(&tv, a.pages_v, bh, a.page, D, a.page);
+  }
+  if (err != 0) return err;
+  constexpr int smem = WgSmem<D, KIND != dtdl::kBF16>::kBytes;
+  auto kernel = paged_prefill_wgmma_kernel<D, KIND>;
+  if (const int attr = opt_in(kernel, smem)) return attr;
+  const dim3 grid((a.S + kPreRows - 1) / kPreRows * a.n_splits, a.H, a.B);
+  kernel<<<grid, kPreThreads, smem, stream>>>(tq, tk, tv, a);
   return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_prefill_kind(const PagedArgs& a, cudaStream_t stream) {
+  switch (a.kv_kind) {
+    case dtdl::kBF16: return launch_prefill<D, dtdl::kBF16>(a, stream);
+    case dtdl::kInt8: return launch_prefill<D, dtdl::kInt8>(a, stream);
+    case dtdl::kFp8E4M3: return launch_prefill<D, dtdl::kFp8E4M3>(a, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, int D, int QT>
@@ -782,15 +904,15 @@ int launch(const PagedArgs& a, cudaStream_t stream) {
 }
 
 // bf16 queries: decode and verify windows of up to 16 rows stream their
-// pages; a longer prefill runs on the tensor cores when a key chunk is 64
-// keys of whole pages, else 16 rows per block on the CUDA cores.  f32
-// queries: one query row per block for decode, 16 otherwise.
+// pages; a longer prefill runs the wgmma body when a page is a multiple of
+// 8 keys that divides the 64-key tile, else 16 rows per block on the CUDA
+// cores.  f32 queries: one query row per block for decode, 16 otherwise.
 template <typename T, int D>
 int launch_rows(const PagedArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (a.S == 1) return launch_decode_kind<D, 1>(a, stream);
     if (a.S <= 16) return launch_decode_kind<D, kVerifyRows>(a, stream);
-    if (a.kc == kMmaKeys) return launch_prefill<D>(a, stream);
+    if (a.page % 8 == 0 && kPreKeys % a.page == 0) return launch_prefill_kind<D>(a, stream);
     return launch<T, D, 16>(a, stream);
   }
   return a.S == 1 ? launch<T, D, 1>(a, stream) : launch<T, D, 16>(a, stream);
@@ -810,8 +932,8 @@ int launch_dim(const PagedArgs& a, int D, cudaStream_t stream) {
 }  // namespace
 
 // q_kind: 0 f32, 1 bf16.  kv_kind: 0 f32, 1 bf16, 2 int8, 3 fp8 e4m3 (bytes);
-// a bf16 query takes a bf16, int8 or fp8 pool, whose base is 16-byte
-// aligned (the bulk copies).  scale_kind: 0 f32, 1 bf16 (ignored without
+// a bf16 query takes a bf16, int8 or fp8 pool of n_pages pages, whose base
+// and scales' bases are 16-byte aligned (the bulk copies and tensor maps).  scale_kind: 0 f32, 1 bf16 (ignored without
 // scales).  n_splits (1..32) > 1 splits each row's live pages into that many ranges,
 // with the partials in the caller's scratch part_acc [B·H·S·n_splits·D] and
 // part_ml [B·H·S·n_splits·2] (f32) and the arrival counters [B·H·S] (int32,
@@ -821,10 +943,11 @@ extern "C" int dtdl_paged_attention(const void* q, const void* pages_k, const vo
                                     const void* key_scale, const void* value_scale,
                                     const void* table, const void* pos, const void* active,
                                     void* out, void* part_acc, void* part_ml, void* counters,
-                                    int B, int H, int S, int D, int n_ptab, int page, int q_kind,
-                                    int kv_kind, int scale_kind, int n_splits, float scale,
-                                    void* stream) {
-  if (B < 1 || H < 1 || S < 1 || n_ptab < 1 || page < 1 || page > 256 || n_splits < 1 ||
+                                    int B, int H, int S, int D, int n_pages, int n_ptab, int page,
+                                    int q_kind, int kv_kind, int scale_kind, int n_splits,
+                                    float scale, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || n_pages < 1 || n_ptab < 1 || page < 1 || page > 256 ||
+      n_splits < 1 ||
       n_splits > kMaxSplits ||
       (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
@@ -832,7 +955,9 @@ extern "C" int dtdl_paged_attention(const void* q, const void* pages_k, const vo
   if (q_kind == dtdl::kBF16 &&
       (el == 4 || (size_t(page) * D * el) % 16 != 0 ||
        reinterpret_cast<uintptr_t>(pages_k) % 16 != 0 ||
-       reinterpret_cast<uintptr_t>(pages_v) % 16 != 0))
+       reinterpret_cast<uintptr_t>(pages_v) % 16 != 0 ||
+       reinterpret_cast<uintptr_t>(key_scale) % 16 != 0 ||
+       reinterpret_cast<uintptr_t>(value_scale) % 16 != 0))
     return int(cudaErrorInvalidValue);   // the bulk copies' size and alignment rules
   PagedArgs a;
   a.q = q;
@@ -851,6 +976,7 @@ extern "C" int dtdl_paged_attention(const void* q, const void* pages_k, const vo
   a.B = B;
   a.H = H;
   a.S = S;
+  a.n_pages = n_pages;
   a.n_ptab = n_ptab;
   a.page = page;
   a.kc = page >= 64 ? page : page * (64 / page);  // whole pages per key chunk

@@ -168,7 +168,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             handle.dtdl_paged_attention.argtypes = (
-                [_P] * 12 + [_I] * 10 + [_F, _P])
+                [_P] * 12 + [_I] * 11 + [_F, _P])
             handle.dtdl_paged_attention.restype = _I
             handle.dtdl_flash_fwd.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
             handle.dtdl_flash_fwd.restype = _I

@@ -9,8 +9,9 @@ int8/float8_e4m3fn with ``key_scale``/``value_scale`` [n_pages, H, page]),
 On a CUDA tensor it launches the hand-written kernel
 ``csrc/paged_attention.cu`` (kernel K4, the port of ``_kernel``) once per
 call, which walks each row's page table and reads only pages 0..last
-(a bf16 query streams them by bulk copies) and merges its split-KV
-partials in the same launch.  On a CPU tensor it
+(a bf16 decode or verify window streams them by bulk copies; a longer
+bf16 window takes them by TMA into wgmma tiles of 64 query rows) and
+merges its split-KV partials in the same launch.  On a CPU tensor it
 runs :func:`paged_attention_reference`, the engine's gather path
 (dtdl_tpu/models/transformer.py, the ``paged_kernel=False`` attend) with
 inactive rows zeroed.
@@ -65,6 +66,10 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# query rows a block of K4's prefill body (csrc/paged_attention.cu kPreRows)
+PREFILL_ROWS = 64
+
+
 def kv_splits(b: int, h: int, s_new: int, n_ptab: int, sms: int) -> int:
     """How many ranges to split each row's live pages into; the kernel
     sizes the ranges from each row's position and the last block of each
@@ -73,20 +78,29 @@ def kv_splits(b: int, h: int, s_new: int, n_ptab: int, sms: int) -> int:
     with every page of a block in flight, so a block's time is a few
     memory round trips whatever its range: the split aims at about four
     blocks per SM (at most 32 ranges) unless the (row, head, tile) blocks
-    already fill twice the SMs.  A prefill (16-row tiles counted) splits
-    only while its blocks do not fill the card, into enough ranges for
-    twice the SMs, at most 16.  Never more ranges than the table has
-    pages.  Shapes only, no look at the data (a device read would stall
-    the host)."""
+    already fill twice the SMs.  A longer window runs tiles of
+    ``PREFILL_ROWS`` query rows, two blocks an SM, the tail tile of a
+    k_prog + 1 window (33, 257) counted: a tile walks its row's pages up
+    to its own last column, a one-row tail as far as its neighbours, and
+    the rows' walks differ by up to the table's width.  Unless the tiles
+    alone fill the card twice over, each row's walk is split into enough
+    ranges that the (tile, split) blocks cover every SM, and into at
+    least 2, which halves the longest walks while the blocks still run in
+    about one wave: max(2, ceil(sms / tiles)) ranges, at most 16.  Each
+    range adds a partial to write and merge; on an H100 the rule's count
+    came within a quarter of the best forced count at every window and
+    prefill timed (``scripts/k4_prefill_ab.py --sweep``).  Never more
+    ranges than the table has pages.  Shapes only, no look at the data (a
+    device read would stall the host)."""
     if s_new <= 16:
         blocks = b * h * -(-s_new // 4)
         if blocks >= 2 * sms:
             return 1
         return min(32, -(-4 * sms // blocks), n_ptab)
-    blocks = b * h * -(-s_new // 16)
-    if blocks >= sms:
+    blocks = b * h * -(-s_new // PREFILL_ROWS)
+    if blocks >= 2 * sms:
         return 1
-    return min(16, -(-2 * sms // blocks), n_ptab)
+    return min(16, max(2, -(-sms // blocks)), n_ptab)
 
 
 # Arrival counters of the split merge, per (device, stream): zeroed once when
@@ -169,7 +183,10 @@ def paged_attention(q, pages_k, pages_v, page_table, pos, active, *,
         raise ValueError("page_table must be [B, n_ptab], pos and active [B]")
     q = q.contiguous()
     pages_k, pages_v = pages_k.contiguous(), pages_v.contiguous()
-    for t in (q, pages_k, pages_v):
+    # a bf16 query's kernel copies the scale rows in bulk, too
+    scales = (key_scale, value_scale) if quant and q.dtype == torch.bfloat16 \
+        else ()
+    for t in (q, pages_k, pages_v) + scales:
         if t.device != q.device or t.data_ptr() % 16:
             raise ValueError("paged_attention tensors must be 16-byte "
                              "aligned and on one device")
@@ -199,7 +216,7 @@ def paged_attention(q, pages_k, pages_v, page_table, pos, active, *,
         table.data_ptr(), pos.data_ptr(), active.data_ptr(), out.data_ptr(),
         *(None if t is None else t.data_ptr()
           for t in (part_acc, part_ml, counters)),
-        b, h, s_new, d, n_ptab, page,
+        b, h, s_new, d, n_pages, n_ptab, page,
         kernels.BF16 if q.dtype == torch.bfloat16 else kernels.F32,
         kind, scale_kind, n_splits, float(scale), stream)
     kernels.check("paged_attention", code)

@@ -152,12 +152,15 @@ def test_kv_splits_bounds(s_new, sms):
     """Shapes only, at decode and verify windows and prefills, for batches
     of one slot up to ones that fill the card and tables of 1-128 pages:
     at least 1, never more ranges than the table's pages, at most 32
-    (decode/verify) or 16 (prefill), 1 once the blocks fill the card
-    (twice over for decode), and never more ranges for more rows."""
-    cap, rows, fill = (32, 4, 2) if s_new <= 16 else (16, 16, 1)
+    (decode/verify) or 16 (prefill, 64-row tiles), 1 once the blocks fill
+    the card twice over (a prefill at least 2 before that), and never
+    more ranges for more rows."""
+    cap, rows, fill = (32, 4, 2) if s_new <= 16 else (16, 64, 2)
     for b, h, n in itertools.product((1, 2, 8, 64), (1, 4, 8), (1, 3, 128)):
         got = kv_splits(b, h, s_new, n, sms)
         assert 1 <= got <= min(n, cap), (b, h, n)
         if b * h * -(-s_new // rows) >= fill * sms:
             assert got == 1, (b, h, n)
+        elif s_new > 16:
+            assert got >= min(2, n), (b, h, n)   # the longest walks halved
         assert kv_splits(2 * b, h, s_new, n, sms) <= got, (b, h, n)

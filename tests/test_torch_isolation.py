@@ -221,9 +221,34 @@ def test_build_digest_tracks_the_sources(monkeypatch, tmp_path):
 
 def test_kv_split_rule():
     """Decode on few (row, head) pairs splits the page walk so the blocks
-    fill the card about four times over; a prefill with enough query tiles
-    does not split; never more splits than pages."""
+    fill the card about four times over; a prefill's 64-row tiles (16 at
+    S = 1024 for 4 heads, 64 blocks) split until they cover every SM,
+    into at least 2: max(2, ceil(132 / 64)) = 3; never more splits than
+    pages."""
     assert kv_splits(8, 4, 1, 128, 132) == 17
-    assert kv_splits(1, 4, 1024, 128, 132) == 1
+    assert kv_splits(1, 4, 1024, 128, 132) == 3
     assert kv_splits(1, 1, 1, 3, 132) == 3
     assert kv_splits(64, 8, 1, 128, 132) == 1
+
+
+# (b, s_new, n_ptab, splits): chunked prefill's windows at the engine batch
+# (S = k_prog + 1: 33, 257; the one-row tail tile counted) and the S = 512
+# prefill, 4 heads
+PREFILL_SPLIT_CASES = [("chunk-S33-B8", 8, 33, 128, 5),
+                       ("chunk-S257-B8", 8, 257, 128, 2),
+                       ("prefill-S512-B1", 1, 512, 128, 5)]
+
+
+@pytest.mark.parametrize("name,b,s_new,n_ptab,want", PREFILL_SPLIT_CASES,
+                         ids=[c[0] for c in PREFILL_SPLIT_CASES])
+def test_kv_split_rule_prefill_windows(name, b, s_new, n_ptab, want):
+    """The prefill body's blocks: b·4 heads·ceil(S / 64) tiles (32, 160,
+    32), split into max(2, ceil(132 / tiles)) ranges (5, 2, 5), so the
+    (tile, split) blocks cover at least one wave of 132 SMs, with no
+    range more than that or the floor of 2 needs."""
+    h, sms = 4, 132
+    got = kv_splits(b, h, s_new, n_ptab, sms)
+    assert got == want
+    tiles = b * h * -(-s_new // 64)
+    assert tiles * got >= sms
+    assert got == 2 or tiles * (got - 1) < sms

@@ -60,11 +60,16 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s_new", [1, 5, 40])
-def test_paged_kernel_matches_plain(cuda, dtype, s_new):
+@pytest.mark.parametrize("s_new", [1, 5, 17, 40, 65, 257])
+def test_paged_kernel_matches_plain(cuda, dtype, s_new, page):
+    """Every body: decode (S = 1), verify (5), and bf16 S > 16 through the
+    prefill body at the edges of its 64-row tiles (17, 40, 65, 257) over
+    pages of one to eight swizzle atoms; f32 on the CUDA cores."""
     gen = torch.Generator(device=cuda).manual_seed(s_new)
-    b, h, d, page, n_ptab = 3, 2, 64, 8, 8
+    b, h, d = 3, 2, 64
+    n_ptab = -(-(20 + s_new) // page) + 1
     pk = torch.randn(b * n_ptab + 1, h, page, d, generator=gen,
                      device=cuda).to(dtype)
     pv = torch.randn(pk.shape, generator=gen, device=cuda).to(dtype)
@@ -397,26 +402,37 @@ def test_engine_spec_tokens_kernel_vs_plain(cuda):
     assert out[True, 4] == out[False, 4] == out[True, 0]
 
 
-# chunked prefill's windows (S = k_prog + 1 up to 257 at chunk_tokens=256)
-# at the engine batch B = 8, per-row positions, two rows inactive; with
-# int8 and fp8 pools (quantized by the port's kv_quantize), one of them
-# with NaN in the scales of every page no active row can see
-CHUNK_CASES = [("S33-bf16", 33, None, False), ("S257-bf16", 257, None, False),
-               ("S257-int8", 257, "int8", False),
-               ("S33-fp8-nan-dead", 33, "fp8", True)]
+# chunked prefill's windows (S = k_prog + 1 up to 257 at chunk_tokens=256,
+# and speculate=16's S = 17) at the engine batch B = 8, per-row positions,
+# two rows inactive, pages of 8-64 keys; with int8 and fp8 pools
+# (quantized by the port's kv_quantize) and bf16 ones, some with NaN in
+# every page no active row can see (the scales of a quantized pool)
+CHUNK_CASES = [("S33-bf16", 33, None, False, 16),
+               ("S257-bf16", 257, None, False, 16),
+               ("S257-int8", 257, "int8", False, 16),
+               ("S33-fp8-nan-dead", 33, "fp8", True, 16),
+               ("S17-bf16", 17, None, False, 16),
+               ("S65-bf16-page8", 65, None, False, 8),
+               ("S257-bf16-page32", 257, None, False, 32),
+               ("S257-bf16-page64", 257, None, False, 64),
+               ("S65-int8-nan-dead-page8", 65, "int8", True, 8),
+               ("S257-fp8-nan-dead-page64", 257, "fp8", True, 64),
+               ("S65-bf16-nan-dead-page32", 65, None, True, 32)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,s_new,kv,nan_dead", CHUNK_CASES,
+@pytest.mark.parametrize("name,s_new,kv,nan_dead,page", CHUNK_CASES,
                          ids=[c[0] for c in CHUNK_CASES])
-def test_paged_chunk_windows_b8(cuda, name, s_new, kv, nan_dead):
-    """K4 through its prefill body at chunk geometries: within tolerance
-    of the plain version (on clean pools), inactive rows zero and finite,
-    the split counters back to zero."""
+def test_paged_chunk_windows_b8(cuda, name, s_new, kv, nan_dead, page):
+    """K4 through its prefill body at chunk geometries, every case split
+    (n_splits > 1): within tolerance of the plain version (on clean
+    pools), inactive rows zero and finite, one launch a call, three calls
+    bitwise equal and the split counters back to zero."""
     from dtdl_tpu_torch.ops import paged_attention as pa
     from dtdl_tpu_torch.quant import kv_quantize
     gen = torch.Generator(device=cuda).manual_seed(s_new)
-    b, h, d, page, n_ptab = 8, 4, 128, 16, 128
+    b, h, d = 8, 4, 128
+    n_ptab = 2048 // page
     kf = torch.randn(b * n_ptab + 1, h, page, d, generator=gen, device=cuda)
     vf = torch.randn(kf.shape, generator=gen, device=cuda)
     table = (1 + torch.randperm(b * n_ptab, generator=gen, device=cuda)
@@ -443,18 +459,30 @@ def test_paged_chunk_windows_b8(cuda, name, s_new, kv, nan_dead):
                 live.update(table[i, :(pos_l[i] + s_new - 1) // page + 1]
                             .tolist())
         dead = [p for p in range(kf.shape[0]) if p not in live]
-        ks, vs = ks.clone(), vs.clone()
-        ks[dead] = float("nan")
-        vs[dead] = float("nan")
+        if kv is None:
+            pk, pv = pk.clone(), pv.clone()
+            pk[dead] = float("nan")
+            pv[dead] = float("nan")
+        else:
+            ks, vs = ks.clone(), vs.clone()
+            ks[dead] = float("nan")
+            vs[dead] = float("nan")
+    assert pa.kv_splits(b, h, s_new, n_ptab, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
     kernels.reset_launches()
-    got = paged_attention(q, pk, pv, table, pos, active, scale=0.088,
-                          key_scale=ks, value_scale=vs)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["paged_attention"] == 1
-    assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
+    outs = []
+    for n in range(1, 4):
+        outs.append(paged_attention(q, pk, pv, table, pos, active,
+                                    scale=0.088, key_scale=ks,
+                                    value_scale=vs))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["paged_attention"] == n
+        assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
+    got = outs[0]
     assert bool(torch.isfinite(got).all())
     assert bool((got[~active] == 0).all())
     torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+    assert all(torch.equal(got, o) for o in outs[1:])
 
 
 @pytest.mark.cuda
